@@ -1,0 +1,519 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+  build     compile the three kernels of the dense serving path from
+            src/repro_torch/kernels/csrc (one nvcc per source, in
+            parallel) and print the card's name and power limit
+  kernels   each kernel against its plain PyTorch version on the card,
+            at the serving path's shapes: the int8 GEMM (both modes) and
+            the requant exactly; the paged attention at T = 512 and
+            T = 4096 within the stated tolerance of its probability
+            image (see `check_paged_attention`); times beside bounds
+  parity    full-width granite_3_2b cut to 2 layers, the card against
+            the CPU (plain versions): one prefill_chunk must give equal
+            int32 logits and K/V pools byte for byte, and the engine
+            equal greedy tokens on the same ragged requests; torch.exp
+            of the two devices is compared over [-104, 0] first
+  main      full granite_3_2b (40 layers, random seeded weights deployed
+            layer by layer without calibration): 8 ragged requests
+            (prompts 17-300, 16 new tokens) through `ServingEngine`,
+            every launch count > 0, a second run with equal tokens
+
+Then a `kernels` JSON line, the card line, and as the last line
+{"ok": true, "device": {...}}.  Without a CUDA device, or outside a
+checkout (no src/repro_torch beside it), it exits non-zero at once.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 and dense int8
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+INT32_OPS_S = 33.5e12  # non-tensor int32 / f32 lanes (67 TFLOP/s FMA)
+REPLACES = {
+    "int8_matmul": "src/repro/kernels/int8_matmul.py:72",
+    "requant": "src/repro/kernels/requant_kernel.py:47",
+    "paged_attention": "src/repro/kernels/paged_attention.py:238",
+}
+SOURCES = {
+    "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+    "requant": "src/repro_torch/kernels/csrc/requant.cu",
+    "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+}
+# main-path engine settings
+N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
+    t_mem = n_bytes / HBM_BYTES_S
+    t_ops = n_ops / ops_rate
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+class Timer:
+    """Median device time of one call.  Before each launch the L2 is
+    flushed (the serving path reads each layer's weights once per
+    step) and the stream is held busy by a sleep kernel, so the host's
+    enqueue work lands inside the sleep and not inside the timed span."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(128 << 20, dtype=torch.int8, device="cuda")
+
+    def __call__(self, fn, iters: int = 10, sleep_cycles: int = 4_000_000
+                 ) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            torch.cuda._sleep(sleep_cycles)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        times.sort()
+        return times[len(times) // 2]
+
+
+def rand_rqt(torch, np, rng, N, per_channel, *, int32_out):
+    """A requant tree from the port's own scheduler (make_rqt)."""
+    from repro_torch.core.requant import make_rqt
+
+    eps_in = (rng.uniform(1e-5, 4e-5, size=N) if per_channel
+              else float(rng.uniform(1e-5, 4e-5)))
+    kw = dict(qmin=-(1 << 24), qmax=1 << 24) if int32_out else {}
+    t = make_rqt(eps_in, 0.05, acc_bound=float(1 << 24), **kw)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in t.items()}
+
+
+def check_int8_matmul(torch, np, timer, rng, report):
+    from repro_torch.kernels import int8_matmul, int8_matmul_plain
+
+    worst = 0
+    for M in (N_SLOTS, N_SLOTS * CHUNK):
+        for K, N, mode in ((2048, 2048, "int8"), (2048, 512, "int8"),
+                           (2048, 8192, "int8"), (2048, 2048, "int32"),
+                           (8192, 2048, "int32"), (2048, 49408, "int32")):
+            x = torch.randint(-128, 128, (M, K), dtype=torch.int8,
+                              device="cuda")
+            w = torch.randint(-128, 128, (N, K), dtype=torch.int8,
+                              device="cuda").t()
+            bias = torch.randint(-(1 << 20), 1 << 20, (N,),
+                                 dtype=torch.int32, device="cuda")
+            rqt = (rand_rqt(torch, np, rng, N, True, int32_out=False)
+                   if mode == "int8" else None)
+            got = int8_matmul(x, w, bias, rqt)
+            want = int8_matmul_plain(x, w, bias, rqt)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64))
+                      .abs().max())
+            if got.dtype != want.dtype or err != 0:
+                raise AssertionError(
+                    f"int8_matmul {mode} M={M} K={K} N={N}: max err {err}")
+            worst = max(worst, err)
+            ms = timer(lambda: int8_matmul(x, w, bias, rqt))
+            plain = timer(lambda: int8_matmul_plain(x, w, bias, rqt), 3)
+            lib = None
+            if mode == "int32" and M > 16:
+                lib = timer(lambda: torch._int_mm(x, w))
+            out_b = M * N * (1 if mode == "int8" else 4)
+            n_bytes = M * K + K * N + 4 * N * (5 if mode == "int8" else 1)
+            bms, by = bound_ms(n_bytes + out_b, 2.0 * M * N * K, INT8_OPS_S)
+            row = dict(shape=f"M={M} K={K} N={N} {mode}-out", ms=ms,
+                       plain_ms=plain, bound_ms=bms, bound_by=by,
+                       library_ms=lib, max_abs_err=err)
+            report.setdefault("int8_matmul", []).append(row)
+            print(f"  int8_matmul {row['shape']}: kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
+                  f"library {lib if lib is None else round(lib, 4)} ms, "
+                  f"exact")
+    return worst
+
+
+def check_requant(torch, np, timer, rng, report):
+    from repro_torch.core.requant import apply_rqt
+    from repro_torch.kernels import requant
+
+    worst = 0
+    B, S, H, hd, d, ff = N_SLOTS, CHUNK, 32, 64, 2048, 8192
+    cases = [
+        ("ctx_rqt", (B, H, S, hd), False, False, 1 << 14),
+        ("h_rqt", (B * S, ff), False, False, 1 << 15),
+        ("add rq_a", (B, S, d), False, True, 1 << 7),
+        ("add rq_b", (B, S, d), True, True, 1 << 26),
+        ("ctx_rqt decode", (B, H, 1, hd), False, False, 1 << 14),
+    ]
+    for name, shape, per_ch, i32, amp in cases:
+        q = torch.randint(-amp, amp, shape, dtype=torch.int32,
+                          device="cuda")
+        rqt = rand_rqt(torch, np, rng, shape[-1], per_ch, int32_out=i32)
+        kw = (dict(qmin=-(1 << 24), qmax=1 << 24, out_dtype=torch.int32)
+              if i32 else {})
+        got = requant(q, rqt, **kw)
+        want = apply_rqt(q, rqt, **kw)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if got.dtype != want.dtype or err != 0:
+            raise AssertionError(f"requant {name}: max err {err}")
+        worst = max(worst, err)
+        ms = timer(lambda: requant(q, rqt, **kw))
+        plain = timer(lambda: apply_rqt(q, rqt, **kw), 3)
+        n = q.numel()
+        bms, by = bound_ms(n * (4 + (4 if i32 else 1)), 8.0 * n, INT32_OPS_S)
+        row = dict(shape=f"{name} {tuple(shape)}", ms=ms, plain_ms=plain,
+                   bound_ms=bms, bound_by=by, library_ms=None,
+                   max_abs_err=err)
+        report.setdefault("requant", []).append(row)
+        print(f"  requant {row['shape']}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), exact")
+    return worst
+
+
+def check_paged_attention(torch, np, timer, rng, report):
+    """Kernel vs plain version.  Tolerance (`check_image`): the
+    kernel's int8 probability image may differ from the plain one by
+    one quantum at no more than max(8, 1e-5 of) its entries, and none by
+    more; the plain version sums each row in the kernel's order, so a
+    sound kernel moves none.  The int32 output must equal the plain
+    P.V over the kernel's own image exactly, and the plain output
+    itself wherever the two images agree."""
+    from repro_torch.kernels import paged_attention, paged_attention_plain
+    from repro_torch.kernels.paged_attention import check_image, gathered_view
+    from repro_torch.layers.attention import INACTIVE_POS
+
+    worst = 0
+    B, H, K, hd = N_SLOTS, 32, 8, 64
+    group = H // K
+    for S, T in ((CHUNK, MAX_LEN), (1, MAX_LEN), (CHUNK, 4096), (1, 4096)):
+        pps = T // PAGE
+        n_pool = B * pps + 1
+        q = torch.randint(-40, 41, (B, H, S, hd), dtype=torch.int8,
+                          device="cuda")
+        kp = torch.randint(-40, 41, (n_pool, K, PAGE, hd), dtype=torch.int8,
+                           device="cuda")
+        vp = torch.randint(-128, 128, (n_pool, K, PAGE, hd),
+                           dtype=torch.int8, device="cuda")
+        perm = rng.permutation(np.arange(1, n_pool)).reshape(B, pps)
+        table = torch.from_numpy(perm.astype(np.int32)).cuda()
+        pos_np = rng.integers(0, T - S, size=B).astype(np.int32)
+        pos_np[-1] = INACTIVE_POS  # one parked row
+        pos = torch.from_numpy(pos_np).cuda()
+        scale = torch.tensor(1.0 / 2048.0, dtype=torch.float32,
+                             device="cuda")
+        qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
+        got = paged_attention(q, kp, vp, table, pos, scale, group=group,
+                              qp_out=qp)
+        want, want_qp = paged_attention_plain(q, kp, vp, table, pos, scale,
+                                              group=group, return_qp=True)
+        torch.cuda.synchronize()
+        moved = check_image(qp, want_qp, f"paged_attention S={S} T={T}")
+        kv = gathered_view(vp, table, group)
+        pv = torch.matmul(qp.to(torch.float64), kv.to(torch.float64))
+        if not torch.equal(got, pv.to(torch.int32)):
+            raise AssertionError(f"paged_attention S={S} T={T}: P.V "
+                                 "differs from the plain product")
+        if moved == 0 and not torch.equal(got, want):
+            raise AssertionError(f"paged_attention S={S} T={T}: equal "
+                                 "images but unequal outputs")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        ms = timer(lambda: paged_attention(q, kp, vp, table, pos, scale,
+                                           group=group))
+        plain = timer(lambda: paged_attention_plain(
+            q, kp, vp, table, pos, scale, group=group), 3)
+        # SDPA on the gathered dense view: the library yardstick
+        qf = q.to(torch.float16)
+        kf = gathered_view(kp, table, group).to(torch.float16)
+        vf = kv.to(torch.float16)
+        lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qf, kf, vf))
+        # what these inputs need: query row i of slot b sees keys
+        # [0, min(T, pos[b] + i + 1)); a slot's K/V rows past its last
+        # row's horizon are never needed
+        seen = np.minimum(T, pos_np.astype(np.int64)[:, None]
+                          + np.arange(1, S + 1))             # (B, S)
+        n_bytes = q.numel() + 2 * int(seen[:, -1].sum()) * K * hd \
+            + 4 * B * pps + 4 * B + 4 * B * H * S * hd
+        n_ops = 2.0 * 2 * H * hd * float(seen.sum())
+        bms, by = bound_ms(n_bytes, n_ops, INT8_OPS_S)
+        row = dict(shape=f"S={S} T={T} B={B} H={H} K={K} hd={hd}", ms=ms,
+                   plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=lib, max_abs_err=err, quanta_moved=moved)
+        report.setdefault("paged_attention", []).append(row)
+        print(f"  paged_attention {row['shape']}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), SDPA "
+              f"{lib:.4f} ms, quanta moved {moved} of {qp.numel()}, "
+              f"max |acc diff| {err}")
+    return worst
+
+
+def serve(lm, tables, requests, device):
+    import copy
+
+    from repro_torch.serving import (
+        SchedulerConfig, ServingConfig, ServingEngine,
+    )
+
+    eng = ServingEngine(lm, tables, ServingConfig(
+        n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE, n_pages=N_PAGES,
+        device=device, scheduler=SchedulerConfig(prefill_chunk=CHUNK)))
+    for r in requests:
+        eng.submit(copy.deepcopy(r))
+    done = eng.run_until_drained()
+    return {c.req_id: list(c.tokens) for c in done}, eng.stats()
+
+
+def exp_agreement(torch):
+    """torch.exp on the card against torch.exp on the host CPU over
+    every float32 in [-104, 0] (the softmax's exponents; below -104 both
+    give 0).  The attention's only float work is the softmax, so these
+    two are what card-vs-CPU parity rests on.  -> (differing, total)."""
+    lo = -(1 << 31)                                     # bits of -0.0
+    hi = lo + (0xC2D00000 - 0x80000000) + 1             # bits of -104.0
+    step = 1 << 26
+    bad = 0
+    for a in range(lo, hi, step):
+        bits = torch.arange(a, min(a + step, hi), dtype=torch.int64,
+                            device="cuda").to(torch.int32)
+        x = bits.view(torch.float32)
+        on_card = torch.exp(x).view(torch.int32).cpu()
+        on_cpu = torch.exp(x.cpu()).view(torch.int32)
+        bad += int((on_card != on_cpu).sum())
+    return bad, hi - lo
+
+
+def prefill_parity(torch, np, lm, t_np):
+    """One unified prefill_chunk (8 rows x 32 tokens over stale random
+    pools: chunks inside a page, across and on page boundaries, late in
+    the arena, over PAGE_NULL holes, and a parked row) on the card and
+    on the CPU: int32 logits and both K/V pools equal byte for byte."""
+    from repro_torch.layers.attention import INACTIVE_POS
+    from repro_torch.models.lm import tables_from_numpy
+
+    cfg = lm.cfg
+    rng = np.random.default_rng(SEED + 3)
+    pps = MAX_LEN // PAGE
+    shape = (cfg.n_layers, N_PAGES + 1, cfg.n_kv_heads, PAGE, cfg.hd)
+    k = rng.integers(-128, 128, size=shape).astype(np.int8)
+    v = rng.integers(-128, 128, size=shape).astype(np.int8)
+    table = rng.permutation(np.arange(1, N_PAGES + 1)).reshape(
+        N_SLOTS, pps).astype(np.int32)
+    table[6, 10:] = 0          # PAGE_NULL holes past the row's pages
+    table[7] = 0
+    pos = np.array([0, 5, 14, 16, 100, 250, 120, INACTIVE_POS], np.int32)
+    toks = rng.integers(0, cfg.vocab, size=(N_SLOTS, CHUNK)).astype(np.int32)
+    last = rng.integers(0, CHUNK, size=N_SLOTS).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        caches = {"k": torch.from_numpy(k.copy()).to(dev),
+                  "v": torch.from_numpy(v.copy()).to(dev),
+                  "table": torch.from_numpy(table).to(dev)}
+        logits = lm.prefill_chunk(
+            tables_from_numpy(t_np, dev), torch.from_numpy(toks).to(dev),
+            caches, torch.from_numpy(pos).to(dev),
+            torch.from_numpy(last).to(dev))
+        out[dev] = (logits.cpu(), caches["k"].cpu(), caches["v"].cpu())
+    for name, a, b in zip(("logits", "K pool", "V pool"), out["cuda"],
+                          out["cpu"]):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"prefill_chunk {name}: card != CPU")
+    print(f"  prefill_chunk (8 x 32, 2 layers): int32 logits "
+          f"{tuple(out['cpu'][0].shape)} and K/V pools equal byte for byte")
+
+
+def phase_parity(torch, np):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.models.lm import DecoderLM, tables_from_numpy
+
+    t0 = time.perf_counter()
+    bad, total = exp_agreement(torch)
+    print(f"  exp on the card vs the CPU: {bad} of {total} float32 inputs "
+          f"in [-104, 0] differ ({time.perf_counter() - t0:.1f} s)")
+    cfg = dataclasses.replace(get_config("granite_3_2b"), n_layers=2)
+    lm = DecoderLM(cfg, max_seq=MAX_LEN)
+    t0 = time.perf_counter()
+    t_np = lm.deploy(lm.init_np(SEED))
+    prefill_parity(torch, np, lm, t_np)
+    reqs = ragged_requests(4, cfg.vocab, np.random.default_rng(SEED + 1),
+                           prompt_lo=17, prompt_hi=80, gen=6)
+    gpu_tok, _ = serve(lm, tables_from_numpy(t_np, "cuda"), reqs, "cuda")
+    cpu_tok, _ = serve(lm, tables_from_numpy(t_np, "cpu"), reqs, "cpu")
+    print(f"  2-layer full-width parity: {len(reqs)} requests, "
+          f"{sum(len(v) for v in gpu_tok.values())} tokens in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if gpu_tok != cpu_tok:
+        raise AssertionError(f"card tokens {gpu_tok} != CPU {cpu_tok}")
+    for v in gpu_tok.values():
+        if not all(0 <= t < cfg.vocab for t in v):
+            raise AssertionError(f"token outside the vocab: {v}")
+    print(f"  card == CPU plain versions, token for token: {gpu_tok}")
+
+
+def phase_main(torch, np, kernels):
+    from repro_torch.launch.serve import deploy_model, ragged_requests
+
+    t0 = time.perf_counter()
+    lm, tables = deploy_model("granite_3_2b", reduced=False,
+                              max_seq=MAX_LEN, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    print(f"  deployed granite_3_2b ({lm.cfg.n_layers} layers, d "
+          f"{lm.cfg.d_model}, vocab {lm.cfg.vocab_padded}) layer by layer "
+          f"in {deploy_s:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    reqs = ragged_requests(8, lm.cfg.vocab, np.random.default_rng(SEED + 2),
+                           prompt_lo=17, prompt_hi=300, gen=16)
+    kernels.reset_launch_counts()
+    tok1, s1 = serve(lm, tables, reqs, "cuda")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if len(tok1) != len(reqs) or any(len(v) != 16 for v in tok1.values()):
+        raise AssertionError(f"not every request finished 16 tokens: {tok1}")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    tok2, s2 = serve(lm, tables, reqs, "cuda")
+    if tok1 != tok2:
+        raise AssertionError("a second run gave other tokens")
+    print(f"  main path: prompts {[r.prompt_len for r in reqs]}, "
+          f"{s1['steps']} steps, launches {launches}")
+    for i, s in enumerate((s1, s2), 1):
+        print(f"  run {i}: {s['n_generated']} tokens in {s['wall_s']:.3f} s"
+              f" = {s['throughput_tok_s']:.2f} tok/s, p50 TTFT "
+              f"{s['p50_ttft_s'] * 1e3:.1f} ms, p50 ITL "
+              f"{s['p50_itl_s'] * 1e3:.1f} ms")
+    print(f"  run 2 tokens equal run 1: {tok1}")
+    profile_run(torch, lm, tables, reqs, s2["wall_s"])
+    return launches, dict(deploy_s=deploy_s, run1=s1, run2=s2)
+
+
+def profile_run(torch, lm, tables, reqs, wall_unprofiled):
+    """A third run of the main path under torch.profiler: device time by
+    kernel (device events only; the host ops' rows would count their
+    kernels twice), split into the port's kernels and torch's glue, and
+    the device's idle share of the unprofiled run 2's wall time (the
+    profiler slows the host, so its own wall time overstates idleness)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        _, stats = serve(lm, tables, reqs, "cuda")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        raise AssertionError("the profiler recorded no device time")
+    busy_us = sum(e.self_device_time_total for e in rows)
+    owner = {"mma_kernel": "int8_matmul", "gemv_kernel": "int8_matmul",
+             "requant_kernel": "requant",
+             "paged_attn_kernel": "paged_attention"}
+    split = {}
+    for e in rows:
+        who = next((v for k, v in owner.items() if k in e.key), "torch ops")
+        split[who] = split.get(who, 0.0) + e.self_device_time_total / 1e3
+    print(f"  profile (run 3): device busy {busy_us / 1e3:.1f} ms; wall "
+          f"{wall * 1e3:.1f} ms under the profiler, "
+          f"{wall_unprofiled * 1e3:.1f} ms unprofiled (run 2): idle share "
+          f"{1 - busy_us / 1e6 / wall_unprofiled:.3f} of run 2")
+    n_kernels = sum(e.count for e in rows)
+    print(f"  {n_kernels} device kernels and copies in {stats['steps']} "
+          f"steps: {n_kernels / stats['steps']:.0f} per step")
+    print("  device ms by owner: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(split.items(), key=lambda x: -x[1])))
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:8]:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
+              f"{e.count:6d} calls  {e.key[:90]}")
+
+
+def main() -> int:
+    argparse.ArgumentParser(description="smoke run on one GPU").parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repo",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+
+    card = card_line()
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    print(f"[build] three kernels in {time.perf_counter() - t0:.1f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+    rng = np.random.default_rng(SEED)
+    report, errs = {}, {}
+    timer = Timer(torch)
+    print("[kernels] each kernel vs its plain version on the card")
+    errs["int8_matmul"] = check_int8_matmul(torch, np, timer, rng, report)
+    errs["requant"] = check_requant(torch, np, timer, rng, report)
+    errs["paged_attention"] = check_paged_attention(
+        torch, np, timer, rng, report)
+    print("[parity] 2-layer full width, card vs CPU")
+    phase_parity(torch, np)
+    print("[main] full granite_3_2b on the card")
+    launches, _ = phase_main(torch, np, kernels)
+    rep_shape = {"int8_matmul": 8, "requant": 3, "paged_attention": 0}
+    rows = []
+    for name in kernels.KERNELS:
+        r = report[name][rep_shape[name]]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"],
+        })
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

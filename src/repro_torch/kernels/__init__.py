@@ -1,0 +1,31 @@
+"""Hand-written Hopper kernels of the dense serving path, each with its
+plain PyTorch version beside it (see build.py for how they are built).
+
+  int8_matmul      csrc/int8_matmul.cu      every QLinear (int8/int32 out)
+  requant          csrc/requant.cu          standalone apply_rqt sites
+  paged_attention  csrc/paged_attention.cu  unified paged ID attention
+
+A wrapper runs its plain version only for CPU tensors; for a CUDA
+tensor it launches its kernel or raises.  Each wrapper counts its
+launches in a plain integer attribute (`int8_matmul.launches`, ...).
+"""
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+from repro_torch.kernels.paged_attention import (
+    paged_attention, paged_attention_plain,
+)
+from repro_torch.kernels.requant_kernel import requant
+
+KERNELS = {
+    "int8_matmul": int8_matmul,
+    "requant": requant,
+    "paged_attention": paged_attention,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}

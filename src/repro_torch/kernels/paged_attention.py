@@ -1,0 +1,185 @@
+"""Unified (S, T) int8 paged attention (port of
+`repro.kernels.paged_attention`, int8 pool mode; CUDA source
+csrc/paged_attention.cu).
+
+Contract (the reference's `paged_attention_pallas`): q (B, H, S, hd)
+int8, query row s of slot b at logical position pos[b] + s; K/V pools
+(n_pages + 1, K, ps, hd) int8 with page 0 the PAGE_NULL trash page;
+table (B, pps) int32 physical page ids; pos (B,) int32; score_scale a
+0-d float32 tensor; GQA by kv head h // group.  Returns the (B, H, S,
+hd) int32 P.V accumulator (the caller applies ctx_rqt).
+
+`paged_attention_plain` is the torch port of
+`repro.kernels.ref.paged_attention_ref`: gather the logical (B, K, T,
+hd) view through the table, integer scores, -1e9 additive causal mask,
+one global f32 softmax per row, round(127 p) to the int8 image, integer
+P.V.  The integer products run in float64, exact at these ranges
+(|terms| <= 2^14, T*hd far below 2^39).  The row sum of the softmax is
+taken in the kernel's order (`_lane_sum`), so on the card the plain
+image equals the kernel's bit for bit; the reference leaves that order
+to XLA.
+
+`check_image` is the stated tolerance of the kernel's probability
+image (``qp_out``) against the plain one.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e9
+_SMEM_LIMIT = 220 * 1024  # of the 227 KB a block may opt into
+_TT = 32  # V tile positions (kTT in the CUDA source)
+_LANES = 32  # one warp per query row in the kernel's softmax
+# check_image: share of the image's entries that may move by one quantum
+MOVED_SHARE = 1e-5
+
+
+def _lane_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sums over the last axis in the kernel's float order: lane l of 32
+    adds t = l, l + 32, ... in turn from 0, then a xor butterfly over
+    the 32 partials (every lane ends with the same value)."""
+    T = p.shape[-1]
+    p = torch.nn.functional.pad(p, (0, (-T) % _LANES))
+    cols = p.reshape(*p.shape[:-1], -1, _LANES)
+    part = torch.zeros_like(cols[..., 0, :])
+    for j in range(cols.shape[-2]):
+        part = part + cols[..., j, :]
+    lane = torch.arange(_LANES, device=p.device)
+    for o in (16, 8, 4, 2, 1):
+        part = part + part[..., lane ^ o]
+    return part[..., :1]
+
+
+def gathered_view(pool, table, group: int):
+    """The logical (B, H, T, hd) view of a pool through the table."""
+    B, pps = table.shape
+    _, K, ps, hd = pool.shape
+    x = pool[table.to(torch.int64)]                      # (B, pps, K, ps, hd)
+    x = x.permute(0, 2, 1, 3, 4).reshape(B, K, pps * ps, hd)
+    return x.repeat_interleave(group, dim=1)
+
+
+def attention_probs(q, k_pool, table, pos, score_scale, *, group: int = 1):
+    """The float32 softmax (B, H, S, T) of the plain version, before the
+    int8 image."""
+    S = q.shape[2]
+    kh = gathered_view(k_pool, table, group)
+    T = kh.shape[2]
+    scores = torch.matmul(q.to(torch.float64),
+                          kh.to(torch.float64).transpose(-1, -2))
+    lg = scores.to(torch.int32).to(torch.float32) * score_scale.to(
+        torch.float32)
+    q_pos = pos.to(torch.int64)[:, None] + torch.arange(S, device=q.device)
+    k_pos = torch.arange(T, device=q.device)
+    keep = k_pos[None, None, :] <= q_pos[:, :, None]     # (B, S, T)
+    lg = lg + torch.where(keep, 0.0, NEG_INF)[:, None]
+    m = lg.amax(dim=-1, keepdim=True)
+    p = torch.exp(lg - m)
+    return p / _lane_sum(p)
+
+
+def check_image(qp: torch.Tensor, want_qp: torch.Tensor, what: str = ""
+                ) -> int:
+    """Tolerance of a probability image against the plain version's:
+    no entry may move by more than one quantum, and at most max(8,
+    MOVED_SHARE of the entries) may move at all.  On the card the plain
+    version rounds exactly like the kernel, so a sound kernel moves
+    none; a kernel that rounds down or uses a coarser exp or division
+    moves many entries by one.  Raises AssertionError; returns the
+    number of entries moved."""
+    dq = (qp.to(torch.int32) - want_qp.to(torch.int32)).abs()
+    moved = int((dq != 0).sum())
+    worst = int(dq.max()) if dq.numel() else 0
+    cap = max(8, int(MOVED_SHARE * dq.numel()))
+    if worst > 1 or moved > cap:
+        raise AssertionError(
+            f"{what}: {moved} of {dq.numel()} probability quanta moved "
+            f"(at most {cap} may), the largest move {worst} (at most 1)")
+    return moved
+
+
+def paged_attention_plain(q, k_pool, v_pool, table, pos, score_scale, *,
+                          group: int = 1, return_qp: bool = False):
+    probs = attention_probs(q, k_pool, table, pos, score_scale, group=group)
+    qp = torch.round(probs * 127.0)
+    vh = gathered_view(v_pool, table, group)
+    acc = torch.matmul(qp.to(torch.float64), vh.to(torch.float64))
+    acc = acc.to(torch.int32)
+    if return_qp:
+        return acc, qp.to(torch.int8)
+    return acc
+
+
+def paged_attention(q, k_pool, v_pool, table, pos, score_scale, *,
+                    group: int = 1, qp_out: Optional[torch.Tensor] = None):
+    """Kernel wrapper; runs the plain version only for CPU tensors.
+
+    ``qp_out`` (CUDA only, optional): a (B, H, S, T) int8 tensor the
+    kernel fills with its probability image, for `check_image`."""
+    B, H, S, hd = q.shape
+    n_pool, K, ps, hd_p = k_pool.shape
+    pps = table.shape[1]
+    if hd_p != hd or v_pool.shape != k_pool.shape:
+        raise ValueError("pools must be (n_pages + 1, K, ps, hd) int8")
+    if H != K * group:
+        raise ValueError(f"H={H} != K={K} * group={group}")
+    if (q.dtype != torch.int8 or k_pool.dtype != torch.int8
+            or v_pool.dtype != torch.int8):
+        raise ValueError("q and pools must be int8")
+    if table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError("table and pos must be int32")
+    if table.shape[0] != B or pos.shape != (B,):
+        raise ValueError("table (B, pps) and pos (B,) must match q")
+    if score_scale.dtype != torch.float32 or score_scale.numel() != 1:
+        raise ValueError("score_scale must be a float32 scalar tensor")
+    if q.device.type == "cpu":
+        if qp_out is not None:
+            raise ValueError("qp_out is a CUDA-kernel diagnostic")
+        return paged_attention_plain(q, k_pool, v_pool, table, pos,
+                                     score_scale, group=group)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    dev = q.device
+    for t in (q, k_pool, v_pool, table, pos, score_scale):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("all operands must be contiguous on one device")
+    if hd not in (32, 64, 128):
+        raise ValueError(f"head_dim {hd} not in (32, 64, 128)")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16 or q.data_ptr() % 4:
+        raise ValueError("pools must be 16-byte aligned, q 4-byte aligned")
+    T = pps * ps
+    if qp_out is not None and (
+            qp_out.shape != (B, H, S, T) or qp_out.dtype != torch.int8
+            or qp_out.device != dev or not qp_out.is_contiguous()):
+        raise ValueError("qp_out must be a contiguous (B, H, S, T) int8")
+    # shared layout of csrc/paged_attention.cu: q | table | V tile |
+    # int8 image | f32 logits (the last in global scratch when too big)
+    base = S * hd + 16 * ((pps + 3) // 4) + _TT * hd + 16 * ((S * T + 15)
+                                                            // 16)
+    if base > _SMEM_LIMIT:
+        raise ValueError(
+            f"S*T = {S * T} too large: the probability image must fit "
+            "shared memory")
+    out = torch.empty((B, H, S, hd), dtype=torch.int32, device=dev)
+    if base + 4 * S * T <= _SMEM_LIMIT:
+        scratch, smem = None, base + 4 * S * T
+    else:
+        scratch = torch.empty((B, H, S, T), dtype=torch.float32, device=dev)
+        smem = base
+    err = build.launcher("paged_attention")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+        pos.data_ptr(), score_scale.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        None if qp_out is None else qp_out.data_ptr(),
+        B, H, S, hd, K, ps, pps, group, n_pool, smem,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

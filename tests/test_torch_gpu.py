@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests carry the `gpu` marker and skip without a CUDA device (the
+kernels have no CPU mode).  The file imports no JAX, so it also runs on
+a GPU machine that has only torch:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+It covers both paths of the int8 GEMM (small-M and tensor-core, with
+ragged M and N) and its refusal of K not a multiple of 16, the requant
+kernel and the paged attention on a recycled table with GQA group 4
+and a parked row.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.requant import apply_rqt, make_rqt
+from repro_torch.kernels import (
+    int8_matmul, int8_matmul_plain, paged_attention, paged_attention_plain,
+    requant,
+)
+from repro_torch.kernels.paged_attention import check_image, gathered_view
+from repro_torch.layers.attention import INACTIVE_POS
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _rq(tree):
+    return {k: torch.from_numpy(np.array(v)).cuda() for k, v in tree.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 512), (16, 64, 40),
+                                   (256, 2048, 2048), (200, 96, 136),
+                                   (37, 160, 66), (5, 48, 7)])
+def test_int8_matmul_on_card(M, K, N):
+    _need_card()
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(
+        rng.integers(-128, 128, size=(M, K)).astype(np.int8)).cuda()
+    w = torch.from_numpy(
+        rng.integers(-128, 128, size=(N, K)).astype(np.int8)).cuda().t()
+    b = torch.from_numpy(
+        rng.integers(-(1 << 20), 1 << 20, size=N).astype(np.int32)).cuda()
+    rq = _rq(make_rqt(rng.uniform(1e-5, 4e-5, size=N), 0.05,
+                      acc_bound=float(K * 127 * 127)))
+    for r in (None, rq):
+        got = int8_matmul(x, w, b, r)
+        assert torch.equal(got, int8_matmul_plain(x, w, b, r)), r is None
+
+
+@pytest.mark.gpu
+def test_int8_matmul_refuses_unaligned_k_on_card():
+    _need_card()
+    x = torch.zeros((4, 30), dtype=torch.int8, device="cuda")
+    w = torch.zeros((7, 30), dtype=torch.int8, device="cuda").t()
+    b = torch.zeros(7, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_matmul(x, w, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_requant_on_card(per_channel):
+    _need_card()
+    rng = np.random.default_rng(per_channel)
+    q = torch.randint(-(1 << 20), 1 << 20, (64, 96), dtype=torch.int32,
+                      device="cuda")
+    eps = rng.uniform(1e-6, 1e-5, size=96) if per_channel else 3e-6
+    rq = _rq(make_rqt(eps, 0.05, zp_out=3))
+    assert torch.equal(requant(q, rq), apply_rqt(q, rq))
+    rq32 = _rq(make_rqt(eps, 0.05, qmin=-(1 << 24), qmax=1 << 24))
+    kw = dict(qmin=-(1 << 24), qmax=1 << 24, out_dtype=torch.int32)
+    assert torch.equal(requant(q, rq32, **kw), apply_rqt(q, rq32, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 4])
+def test_paged_attention_on_card(S):
+    _need_card()
+    rng = np.random.default_rng(S)
+    B, K, group, hd, ps, pps, n_pages = 4, 2, 4, 32, 4, 4, 12
+    H = K * group
+    q = torch.from_numpy(rng.integers(
+        -40, 41, size=(B, H, S, hd)).astype(np.int8)).cuda()
+    kp = torch.from_numpy(rng.integers(
+        -40, 41, size=(n_pages + 1, K, ps, hd)).astype(np.int8)).cuda()
+    vp = torch.from_numpy(rng.integers(
+        -128, 128, size=(n_pages + 1, K, ps, hd)).astype(np.int8)).cuda()
+    table = torch.tensor([[11, 12, 3, 9], [5, 6, 10, 2], [8, 4, 7, 1],
+                          [0, 0, 0, 0]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([1, 6, 0, INACTIVE_POS], dtype=torch.int32,
+                       device="cuda")
+    scale = torch.tensor(1.0 / 256.0, device="cuda")
+    qp = torch.empty((B, H, S, pps * ps), dtype=torch.int8, device="cuda")
+    got = paged_attention(q, kp, vp, table, pos, scale, group=group,
+                          qp_out=qp)
+    want, want_qp = paged_attention_plain(q, kp, vp, table, pos, scale,
+                                          group=group, return_qp=True)
+    check_image(qp, want_qp, f"S={S}")
+    # the integer P.V over the kernel's own image, exactly
+    pv = torch.matmul(qp.double(), gathered_view(vp, table, group).double())
+    assert torch.equal(got, pv.to(torch.int32))
+    if torch.equal(qp, want_qp):
+        assert torch.equal(got, want)

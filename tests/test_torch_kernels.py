@@ -1,0 +1,279 @@
+"""The port's kernel wrappers against the JAX reference kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; these tests
+hold that version against the reference's jnp mirrors
+(`kernels/ref.py`) and the Pallas kernels that run here in interpret
+mode, at tolerance 0 on every int32/int8 output.  The paged-attention
+cases cover S = 1 and S = C, chunks inside a page, across a page and
+on a page boundary, recycled tables with stale pages, parked
+(INACTIVE_POS) rows and GQA group 4.  The tolerance that the card's
+check applies to the kernel's probability image (`check_image`) is
+shown here to reject images a wrong kernel would make.
+
+The CUDA kernels themselves run only on the card; their tests are in
+tests/test_torch_gpu.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.requant import apply_rqt as j_apply_rqt, make_rqt
+from repro.kernels import ref
+from repro.kernels.int8_matmul import int8_matmul_requant_pallas
+from repro.kernels.requant_kernel import requant_pallas
+from repro.layers.linear import QLinear as JQLinear
+from repro_torch.kernels import (
+    int8_matmul, int8_matmul_plain, paged_attention, requant,
+)
+from repro_torch.kernels.paged_attention import (
+    _lane_sum, attention_probs, check_image,
+)
+from repro_torch.layers.attention import INACTIVE_POS
+
+I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def _tt(tree):
+    return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+def _gemm_operands(rng, M, K, N):
+    x = rng.integers(-128, 128, size=(M, K)).astype(np.int8)
+    w = rng.integers(-128, 128, size=(K, N)).astype(np.int8)
+    b = rng.integers(-(1 << 20), 1 << 20, size=N).astype(np.int32)
+    return x, w, b
+
+
+def _w_kernel_layout(w):
+    """(K, N) values stored (N, K) contiguous, as tables_from_numpy does."""
+    return torch.from_numpy(np.ascontiguousarray(w.T)).t()
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (256, 256, 384)])
+def test_int8_matmul_requant_matches_pallas_and_ref(M, K, N):
+    rng = np.random.default_rng(M + N)
+    x, w, b = _gemm_operands(rng, M, K, N)
+    rq = make_rqt(rng.uniform(1e-5, 4e-5, size=N), 0.05,
+                  acc_bound=float(K * 127 * 127))
+    d, zp = int(rq["d"]), int(rq["zp"])
+    kargs = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+             jnp.asarray(rq["m"]), jnp.asarray(rq["s0"]))
+    want_ref = np.asarray(ref.int8_matmul_requant_ref(*kargs, d=d, zp=zp))
+    want_pl = np.asarray(int8_matmul_requant_pallas(*kargs, d=d, zp=zp))
+    # the reference kernels skip the pre-clip: open it to compare
+    open_rq = dict(rq, lo=np.full(N, I32_MIN, np.int32),
+                   hi=np.full(N, I32_MAX, np.int32))
+    got = int8_matmul(torch.from_numpy(x), _w_kernel_layout(w),
+                      torch.from_numpy(b), _tt(open_rq)).numpy()
+    np.testing.assert_array_equal(got, want_ref)
+    np.testing.assert_array_equal(got, want_pl)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 128, 256), (1, 2, 3), (37, 130, 66)])
+def test_int8_matmul_both_modes_match_model_linear(M, K, N):
+    """int32 mode == QLinear.apply_id; int8 mode == apply_rqt of it
+    with the full pre-clip (ragged shapes: the kernel masks edges)."""
+    rng = np.random.default_rng(M * K + N)
+    x, w, b = _gemm_operands(rng, M, K, N)
+    acc = np.asarray(JQLinear(K, N).apply_id(
+        {"w_q": jnp.asarray(w), "b_q": jnp.asarray(b)}, jnp.asarray(x)))
+    got = int8_matmul(torch.from_numpy(x), _w_kernel_layout(w),
+                      torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), acc)
+    rq = make_rqt(rng.uniform(1e-4, 1e-3, size=N), 0.5, zp_out=-20,
+                  acc_bound=float(K * 127 * 127))
+    want = np.asarray(j_apply_rqt(jnp.asarray(acc), rq))
+    got8 = int8_matmul(torch.from_numpy(x), _w_kernel_layout(w),
+                       torch.from_numpy(b), _tt(rq))
+    assert got8.dtype == torch.int8
+    np.testing.assert_array_equal(got8.numpy(), want)
+
+
+def test_int8_matmul_plain_wraps_int32():
+    """A bias that overflows the accumulator wraps like XLA int32."""
+    x = np.full((2, 4), 127, np.int8)
+    w = np.full((4, 3), 127, np.int8)
+    b = np.full(3, I32_MAX - 10, np.int32)
+    want = np.asarray(JQLinear(4, 3).apply_id(
+        {"w_q": jnp.asarray(w), "b_q": jnp.asarray(b)}, jnp.asarray(x)))
+    got = int8_matmul_plain(torch.from_numpy(x), torch.from_numpy(w),
+                            torch.from_numpy(b))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want < 0).all()
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_requant_matches_pallas_and_ref(per_channel):
+    rng = np.random.default_rng(per_channel)
+    M, N = 256, 96
+    q = rng.integers(-(1 << 26), 1 << 26, size=(M, N)).astype(np.int32)
+    eps = rng.uniform(1e-6, 1e-5, size=N) if per_channel else 3e-6
+    rq = make_rqt(eps, 0.05, zp_out=7)
+    vec = {k: np.broadcast_to(rq[k], (N,)).astype(np.int32)
+           for k in ("m", "s0", "lo", "hi")}
+    args = [jnp.asarray(vec[k]) for k in ("m", "s0", "lo", "hi")]
+    kw = dict(d=int(rq["d"]), zp=int(rq["zp"]))
+    want_ref = np.asarray(ref.requant_ref(jnp.asarray(q), *args, **kw))
+    want_pl = np.asarray(requant_pallas(jnp.asarray(q), *args, **kw))
+    got = requant(torch.from_numpy(q), _tt(rq)).numpy()
+    np.testing.assert_array_equal(got, want_ref)
+    np.testing.assert_array_equal(got, want_pl)
+
+
+def test_requant_int32_out_matches_apply_rqt():
+    """The QAdd branch form: int32 out clipped to +-2^24."""
+    rng = np.random.default_rng(4)
+    q = rng.integers(-(1 << 14), 1 << 14, size=(3, 5, 64)).astype(np.int32)
+    rq = make_rqt(rng.uniform(0.01, 0.05, size=64), 0.06, qmin=-(1 << 24),
+                  qmax=1 << 24, acc_bound=float(1 << 16))
+    kw = dict(qmin=-(1 << 24), qmax=1 << 24)
+    want = np.asarray(j_apply_rqt(jnp.asarray(q), rq, out_dtype=jnp.int32,
+                                  **kw))
+    got = requant(torch.from_numpy(q), _tt(rq), out_dtype=torch.int32, **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _paged_case(rng, *, B, K, group, S, ps, pps, n_pages, pos, tables,
+                hd=32, qmax=40):
+    H = K * group
+    q = rng.integers(-qmax, qmax + 1, size=(B, H, S, hd)).astype(np.int8)
+    kp = rng.integers(-qmax, qmax + 1,
+                      size=(n_pages + 1, K, ps, hd)).astype(np.int8)
+    vp = rng.integers(-128, 128, size=(n_pages + 1, K, ps, hd)).astype(
+        np.int8)
+    table = np.asarray(tables, np.int32).reshape(B, pps)
+    return q, kp, vp, table, np.asarray(pos, np.int32)
+
+
+PAGED_CASES = {
+    # name: (S, pos per row, table rows) with ps=4, pps=4, 12 pages
+    "decode": (1, [0, 5, 15, INACTIVE_POS],
+               [[1, 0, 0, 0], [2, 3, 0, 0], [4, 5, 6, 7], [0, 0, 0, 0]]),
+    "chunk_in_page": (2, [0, 1, 8, INACTIVE_POS],
+                      [[1, 0, 0, 0], [2, 0, 0, 0], [3, 4, 5, 0],
+                       [0, 0, 0, 0]]),
+    "chunk_across_pages": (6, [2, 3, 7, 0],
+                           [[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 8, 0],
+                            [9, 10, 0, 0]]),
+    "chunk_on_boundary": (4, [0, 4, 8, 12],
+                          [[1, 0, 0, 0], [2, 3, 0, 0], [4, 5, 6, 0],
+                           [7, 8, 9, 10]]),
+    # recycled: stale pages of earlier tenants sit past each row's
+    # position and in unallocated table slots
+    "recycled_tables": (4, [1, 6, 0, INACTIVE_POS],
+                        [[11, 12, 3, 9], [5, 6, 10, 2], [8, 4, 7, 1],
+                         [0, 0, 0, 0]]),
+}
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_attention_plain_matches_ref(case, group):
+    S, pos, tables = PAGED_CASES[case]
+    rng = np.random.default_rng(len(case) * 10 + group)
+    K = 2
+    q, kp, vp, table, pos = _paged_case(
+        rng, B=4, K=K, group=group, S=S, ps=4, pps=4, n_pages=12,
+        pos=pos, tables=tables)
+    scale = np.float32(1.0 / 256.0)
+    want = np.asarray(ref.paged_attention_ref(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(table), jnp.asarray(pos), score_scale=scale,
+        group=group))
+    got = paged_attention(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(table), torch.from_numpy(pos),
+        torch.tensor(scale), group=group)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("int8_matmul", None), ("requant", None), ("paged_attention", None)])
+def test_wrappers_raise_off_cpu_instead_of_falling_back(fn, args):
+    """A tensor that is neither on the CPU nor on a CUDA device (the
+    meta device here) reaches no plain version: the wrapper raises."""
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        if fn == "int8_matmul":
+            int8_matmul(torch.empty((4, 8), dtype=torch.int8, **meta),
+                        torch.empty((8, 2), dtype=torch.int8, **meta),
+                        torch.empty((2,), dtype=torch.int32, **meta))
+        elif fn == "requant":
+            requant(torch.empty((4, 8), dtype=torch.int32, **meta), {})
+        else:
+            paged_attention(
+                torch.empty((1, 2, 1, 32), dtype=torch.int8, **meta),
+                torch.empty((3, 1, 4, 32), dtype=torch.int8, **meta),
+                torch.empty((3, 1, 4, 32), dtype=torch.int8, **meta),
+                torch.empty((1, 2), dtype=torch.int32, **meta),
+                torch.empty((1,), dtype=torch.int32, **meta),
+                torch.empty((), dtype=torch.float32, **meta), group=2)
+
+
+def test_lane_sum_follows_the_kernels_order():
+    """Lane l of 32 adds t = l, l + 32, ... from 0 in float32, then a
+    xor butterfly; emulated here one float32 add at a time."""
+    rng = np.random.default_rng(3)
+    p = rng.random((3, 100), dtype=np.float32) * np.float32(1e-3)
+    p[:, ::7] = rng.random((3, 15), dtype=np.float32)
+    want = np.empty((3, 1), np.float32)
+    for r in range(3):
+        part = [np.float32(0.0)] * 32
+        for t in range(100):
+            part[t % 32] = np.float32(part[t % 32] + p[r, t])
+        for o in (16, 8, 4, 2, 1):
+            part = [np.float32(part[l] + part[l ^ o]) for l in range(32)]
+        assert len(set(part)) == 1
+        want[r, 0] = part[0]
+    got = _lane_sum(torch.from_numpy(p))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _image_inputs():
+    # 4 x 8 x 8 x 128 = 32768 entries, so check_image allows 8 moves
+    rng = np.random.default_rng(11)
+    q, kp, vp, table, pos = _paged_case(
+        rng, B=4, K=2, group=4, S=8, ps=16, pps=8, n_pages=32,
+        pos=[0, 40, 100, 120], tables=rng.permutation(
+            np.arange(1, 33)).reshape(4, 8))
+    return (torch.from_numpy(q), torch.from_numpy(kp),
+            torch.from_numpy(table), torch.from_numpy(pos),
+            torch.tensor(np.float32(1.0 / 2048.0)))
+
+
+@pytest.mark.parametrize("wrong", ["round_down", "inexact_division",
+                                   "one_entry_by_two"])
+def test_image_check_rejects_a_wrong_kernels_image(wrong):
+    q, kp, table, pos, scale = _image_inputs()
+    probs = attention_probs(q, kp, table, pos, scale, group=4)
+    good = torch.round(probs * 127.0).to(torch.int8)
+    if wrong == "round_down":
+        bad = torch.floor(probs * 127.0).to(torch.int8)
+    elif wrong == "inexact_division":
+        # probabilities off by 2^-9 of themselves, as a fast exp or
+        # reciprocal could leave them
+        bad = torch.round(probs * (1 + 2.0 ** -9) * 127.0).to(torch.int8)
+    else:
+        bad = good.clone()
+        bad.view(-1)[int(torch.argmax(good))] -= 2
+    with pytest.raises(AssertionError, match="probability quanta moved"):
+        check_image(bad, good, wrong)
+
+
+def test_image_check_passes_a_few_single_moves():
+    q, kp, table, pos, scale = _image_inputs()
+    good = torch.round(attention_probs(q, kp, table, pos, scale, group=4)
+                       * 127.0).to(torch.int8)
+    assert check_image(good, good) == 0
+    moved = good.clone()
+    flat = moved.view(-1)
+    live = torch.nonzero(flat > 0).flatten()[:8]
+    flat[live] -= 1
+    assert check_image(moved, good) == 8
+    flat[torch.nonzero(flat > 0).flatten()[8]] += 1
+    with pytest.raises(AssertionError):
+        check_image(moved, good)
