@@ -5,23 +5,33 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
 
-  build     compile the three kernels of the dense serving path from
-            src/repro_torch/kernels/csrc (one nvcc per source, in
-            parallel) and print the card's name and power limit
+  build     compile the kernels from src/repro_torch/kernels/csrc (one
+            nvcc per source, in parallel) and print the card's name and
+            power limit
   kernels   each kernel against its plain PyTorch version on the card,
-            at the serving path's shapes: the int8 GEMM (both modes) and
-            the requant exactly; the paged attention at T = 512 and
-            T = 4096 within the stated tolerance of its probability
-            image (see `check_paged_attention`); times beside bounds
+            at its path's shapes: the int8 GEMM (both modes) and the
+            requant exactly; the paged attention in both pool modes
+            (int8, and int4-packed with per-head unpack operands) at
+            T = 512 and T = 4096 within the stated tolerance of its
+            probability image (`check_kernel`); the quantized flash
+            attention at full granite geometry (S 8192 x 8192, and 128
+            queries at offset 8064 over 8192 keys) and at hd 128 / 192,
+            within the same form of tolerance on its int8 output; times
+            beside bounds
+  entry     `quant_flash_attention` driven through its entry point (no
+            serving path calls it), counts read around it
   parity    full-width granite_3_2b cut to 2 layers, the card against
-            the CPU (plain versions): one prefill_chunk must give equal
-            int32 logits and K/V pools byte for byte, and the engine
-            equal greedy tokens on the same ragged requests; torch.exp
-            of the two devices is compared over [-104, 0] first
+            the CPU (plain versions), at kv_bits 8 and 4: one
+            prefill_chunk must give equal int32 logits and K/V pools
+            (packed at 4) byte for byte, and the engine equal greedy
+            tokens on the same ragged requests; torch.exp of the two
+            devices is compared over [-104, 0] first
   main      full granite_3_2b (40 layers, random seeded weights deployed
             layer by layer without calibration): 8 ragged requests
             (prompts 17-300, 16 new tokens) through `ServingEngine`,
-            every launch count > 0, a second run with equal tokens
+            every kernel of the path launched, a second run with equal
+            tokens, a profiled third run; then the same three runs over
+            int4-packed pools (kv_bits 4) on the same tables
 
 Then a `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -47,14 +57,27 @@ REPLACES = {
     "int8_matmul": "src/repro/kernels/int8_matmul.py:72",
     "requant": "src/repro/kernels/requant_kernel.py:47",
     "paged_attention": "src/repro/kernels/paged_attention.py:238",
+    "paged_attention_kv4": "src/repro/kernels/paged_attention.py:238",
+    "quant_flash_attention": "src/repro/kernels/quant_attention.py:101",
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu",
     "requant": "src/repro_torch/kernels/csrc/requant.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_attention_kv4": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "quant_flash_attention":
+        "src/repro_torch/kernels/csrc/quant_attention.cu",
 }
+# the kernels each serving path launches
+PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
+                4: ("int8_matmul", "requant", "paged_attention_kv4")}
 # main-path engine settings
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
+# quantized flash attention at full granite geometry (B 1, H 32, K 8):
+# (S_q, S_kv, hd, causal, q_offset); the first two are its entry phase
+QFA_SHAPES = ((8192, 8192, 64, True, 0), (128, 8192, 64, True, 8064),
+              (128, 256, 128, True, 0), (128, 128, 192, False, 0))
+QFA_SCALE, QFA_EPS = 1.0 / 2048.0, 0.02
 
 
 def card_line() -> str:
@@ -197,29 +220,40 @@ def check_requant(torch, np, timer, rng, report):
     return worst
 
 
-def check_paged_attention(torch, np, timer, rng, report):
-    """Kernel vs plain version.  Tolerance (`check_image`): the
-    kernel's int8 probability image may differ from the plain one by
-    one quantum at no more than max(8, 1e-5 of) its entries, and none by
-    more; the plain version sums each row in the kernel's order, so a
-    sound kernel moves none.  The int32 output must equal the plain
-    P.V over the kernel's own image exactly, and the plain output
-    itself wherever the two images agree."""
+def check_paged_attention(torch, np, timer, rng, report, packed=False):
+    """Kernel vs plain version, int8 pools or int4-packed ones (per-head
+    unpack operands from `staged_unpack_rq`).  Tolerance
+    (`check_kernel`): the kernel's int8 probability image may differ
+    from the plain one by one quantum at no more than max(8, 1e-5 of)
+    its entries, and none by more; the plain version sums each row in
+    the kernel's order, so a sound kernel moves none.  The int32
+    output must equal the plain P.V over the kernel's own image and
+    the (unpacked) V view exactly, and the plain output itself
+    wherever the two images agree."""
     from repro_torch.kernels import paged_attention, paged_attention_plain
-    from repro_torch.kernels.paged_attention import check_image, gathered_view
+    from repro_torch.kernels.paged_attention import (
+        check_kernel, gathered_view, kv4_unpack, staged_unpack_rq,
+    )
     from repro_torch.layers.attention import INACTIVE_POS
 
+    name = "paged_attention_kv4" if packed else "paged_attention"
     worst = 0
     B, H, K, hd = N_SLOTS, 32, 8, 64
     group = H // K
+    hd_store = hd // 2 if packed else hd
+    kw = {}
+    if packed:
+        kw = dict(k_rq=staged_unpack_rq(K).cuda())
+        kw["v_rq"] = torch.roll(kw["k_rq"], 3, dims=1)
     for S, T in ((CHUNK, MAX_LEN), (1, MAX_LEN), (CHUNK, 4096), (1, 4096)):
         pps = T // PAGE
         n_pool = B * pps + 1
         q = torch.randint(-40, 41, (B, H, S, hd), dtype=torch.int8,
                           device="cuda")
-        kp = torch.randint(-40, 41, (n_pool, K, PAGE, hd), dtype=torch.int8,
-                           device="cuda")
-        vp = torch.randint(-128, 128, (n_pool, K, PAGE, hd),
+        lo, hi = (-128, 128) if packed else (-40, 41)  # any packed byte
+        kp = torch.randint(lo, hi, (n_pool, K, PAGE, hd_store),
+                           dtype=torch.int8, device="cuda")
+        vp = torch.randint(-128, 128, (n_pool, K, PAGE, hd_store),
                            dtype=torch.int8, device="cuda")
         perm = rng.permutation(np.arange(1, n_pool)).reshape(B, pps)
         table = torch.from_numpy(perm.astype(np.int32)).cuda()
@@ -228,31 +262,23 @@ def check_paged_attention(torch, np, timer, rng, report):
         pos = torch.from_numpy(pos_np).cuda()
         scale = torch.tensor(1.0 / 2048.0, dtype=torch.float32,
                              device="cuda")
+        args = (q, kp, vp, table, pos, scale)
         qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
-        got = paged_attention(q, kp, vp, table, pos, scale, group=group,
-                              qp_out=qp)
-        want, want_qp = paged_attention_plain(q, kp, vp, table, pos, scale,
-                                              group=group, return_qp=True)
+        got = paged_attention(*args, group=group, qp_out=qp, **kw)
         torch.cuda.synchronize()
-        moved = check_image(qp, want_qp, f"paged_attention S={S} T={T}")
-        kv = gathered_view(vp, table, group)
-        pv = torch.matmul(qp.to(torch.float64), kv.to(torch.float64))
-        if not torch.equal(got, pv.to(torch.int32)):
-            raise AssertionError(f"paged_attention S={S} T={T}: P.V "
-                                 "differs from the plain product")
-        if moved == 0 and not torch.equal(got, want):
-            raise AssertionError(f"paged_attention S={S} T={T}: equal "
-                                 "images but unequal outputs")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        what = f"{name} S={S} T={T}"
+        moved, err = check_kernel(got, qp, *args, group=group, what=what,
+                                  **kw)
         worst = max(worst, err)
-        ms = timer(lambda: paged_attention(q, kp, vp, table, pos, scale,
-                                           group=group))
-        plain = timer(lambda: paged_attention_plain(
-            q, kp, vp, table, pos, scale, group=group), 3)
-        # SDPA on the gathered dense view: the library yardstick
+        ms = timer(lambda: paged_attention(*args, group=group, **kw))
+        plain = timer(lambda: paged_attention_plain(*args, group=group,
+                                                    **kw), 3)
+        # SDPA on the gathered dense (unpacked) view: the yardstick
+        k8, v8 = ((kv4_unpack(kp, kw["k_rq"]), kv4_unpack(vp, kw["v_rq"]))
+                  if packed else (kp, vp))
         qf = q.to(torch.float16)
-        kf = gathered_view(kp, table, group).to(torch.float16)
-        vf = kv.to(torch.float16)
+        kf = gathered_view(k8, table, group).to(torch.float16)
+        vf = gathered_view(v8, table, group).to(torch.float16)
         lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
             qf, kf, vf))
         # what these inputs need: query row i of slot b sees keys
@@ -260,22 +286,112 @@ def check_paged_attention(torch, np, timer, rng, report):
         # row's horizon are never needed
         seen = np.minimum(T, pos_np.astype(np.int64)[:, None]
                           + np.arange(1, S + 1))             # (B, S)
-        n_bytes = q.numel() + 2 * int(seen[:, -1].sum()) * K * hd \
-            + 4 * B * pps + 4 * B + 4 * B * H * S * hd
+        n_bytes = q.numel() + 2 * int(seen[:, -1].sum()) * K * hd_store \
+            + 4 * B * pps + 4 * B + 4 * B * H * S * hd + (48 * K if packed
+                                                          else 0)
         n_ops = 2.0 * 2 * H * hd * float(seen.sum())
         bms, by = bound_ms(n_bytes, n_ops, INT8_OPS_S)
         row = dict(shape=f"S={S} T={T} B={B} H={H} K={K} hd={hd}", ms=ms,
                    plain_ms=plain, bound_ms=bms, bound_by=by,
                    library_ms=lib, max_abs_err=err, quanta_moved=moved)
-        report.setdefault("paged_attention", []).append(row)
-        print(f"  paged_attention {row['shape']}: kernel {ms:.4f} ms, "
+        report.setdefault(name, []).append(row)
+        print(f"  {name} {row['shape']}: kernel {ms:.4f} ms, "
               f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), SDPA "
               f"{lib:.4f} ms, quanta moved {moved} of {qp.numel()}, "
               f"max |acc diff| {err}")
     return worst
 
 
-def serve(lm, tables, requests, device):
+def qfa_inputs(torch, shape, seed):
+    S_q, S_kv, hd, causal, q_offset = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, K = 1, 32, 8
+    q, k, v = (torch.randint(-127, 128, (B, h, s, hd), dtype=torch.int8,
+                             device="cuda", generator=g)
+               for h, s in ((H, S_q), (K, S_kv), (K, S_kv)))
+    kw = dict(score_scale=QFA_SCALE, eps_ctx=QFA_EPS, causal=causal,
+              q_offset=q_offset, n_rep=H // K)
+    return q, k, v, kw
+
+
+def check_quant_flash_attention(torch, np, timer, report):
+    """Kernel vs plain version at full granite geometry.  Tolerance: the
+    form of `check_image` on the int8 ctx output — at most max(8, 1e-5
+    of) its entries may move, each by one quantum; both round every
+    float step once in the same order, so a sound kernel moves none."""
+    from repro_torch.kernels import (
+        quant_flash_attention, quant_flash_attention_plain,
+    )
+    from repro_torch.kernels.paged_attention import check_image
+
+    worst = 0
+    for i, shape in enumerate(QFA_SHAPES):
+        S_q, S_kv, hd, causal, q_offset = shape
+        q, k, v, kw = qfa_inputs(torch, shape, SEED + 10 + i)
+        got = quant_flash_attention(q, k, v, **kw)
+        want = quant_flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        what = (f"quant_flash_attention S_q={S_q} S_kv={S_kv} hd={hd} "
+                f"causal={causal} q_offset={q_offset}")
+        moved = check_image(got, want, what, unit="ctx")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        ms = timer(lambda: quant_flash_attention(q, k, v, **kw))
+        plain = timer(lambda: quant_flash_attention_plain(q, k, v, **kw), 3)
+        H, K = q.shape[1], k.shape[1]
+        qf = q.to(torch.float16)
+        kf = k.repeat_interleave(H // K, dim=1).to(torch.float16)
+        vf = v.repeat_interleave(H // K, dim=1).to(torch.float16)
+        rows = q_offset + torch.arange(S_q, device="cuda")[:, None]
+        mask = torch.arange(S_kv, device="cuda")[None, :] <= rows
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if not causal:
+            lib = timer(lambda: sdpa(qf, kf, vf))
+        elif q_offset == 0 and S_q == S_kv:
+            lib = timer(lambda: sdpa(qf, kf, vf, is_causal=True))
+        else:
+            lib = timer(lambda: sdpa(qf, kf, vf, attn_mask=mask))
+        # keys each row needs: min(S_kv, q_offset + i + 1) under causal
+        r = np.arange(S_q, dtype=np.int64)
+        seen = (np.minimum(S_kv, q_offset + r + 1).sum() if causal
+                else S_q * S_kv)
+        n_bytes = 2 * q.numel() + k.numel() + v.numel()
+        n_ops = 2.0 * 2 * H * hd * float(seen)
+        bms, by = bound_ms(n_bytes, n_ops, INT8_OPS_S)
+        row = dict(shape=f"S_q={S_q} S_kv={S_kv} B=1 H={H} K={K} hd={hd} "
+                   f"causal={causal} q_offset={q_offset}", ms=ms,
+                   plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=lib, max_abs_err=err, quanta_moved=moved)
+        report.setdefault("quant_flash_attention", []).append(row)
+        print(f"  quant_flash_attention {row['shape']}: kernel {ms:.4f} ms,"
+              f" plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), SDPA "
+              f"{lib:.4f} ms, ctx quanta moved {moved} of {got.numel()}, "
+              f"max |diff| {err}")
+    return worst
+
+
+def phase_entry(torch, kernels):
+    """`quant_flash_attention` through its entry point at the two full
+    geometry shapes (no serving path calls it): counts set to 0 just
+    before, read just after; outputs int8 of the query shape."""
+    from repro_torch.kernels import quant_flash_attention
+
+    inputs = [qfa_inputs(torch, shape, SEED + 10 + i)
+              for i, shape in enumerate(QFA_SHAPES[:2])]
+    kernels.reset_launch_counts()
+    outs = [quant_flash_attention(q, k, v, **kw) for q, k, v, kw in inputs]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for (q, _, _, _), out in zip(inputs, outs):
+        if out.shape != q.shape or out.dtype != torch.int8:
+            raise AssertionError(f"ctx {tuple(out.shape)} {out.dtype}")
+    if launches["quant_flash_attention"] != len(inputs):
+        raise AssertionError(f"entry point launches: {launches}")
+    print(f"  {len(inputs)} calls, launches {launches}")
+    return launches
+
+
+def serve(lm, tables, requests, device, kv_bits=8):
     import copy
 
     from repro_torch.serving import (
@@ -284,7 +400,8 @@ def serve(lm, tables, requests, device):
 
     eng = ServingEngine(lm, tables, ServingConfig(
         n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE, n_pages=N_PAGES,
-        device=device, scheduler=SchedulerConfig(prefill_chunk=CHUNK)))
+        device=device, kv_bits=kv_bits,
+        scheduler=SchedulerConfig(prefill_chunk=CHUNK)))
     for r in requests:
         eng.submit(copy.deepcopy(r))
     done = eng.run_until_drained()
@@ -310,18 +427,20 @@ def exp_agreement(torch):
     return bad, hi - lo
 
 
-def prefill_parity(torch, np, lm, t_np):
+def prefill_parity(torch, np, lm, t_np, kv_bits):
     """One unified prefill_chunk (8 rows x 32 tokens over stale random
     pools: chunks inside a page, across and on page boundaries, late in
     the arena, over PAGE_NULL holes, and a parked row) on the card and
-    on the CPU: int32 logits and both K/V pools equal byte for byte."""
+    on the CPU: int32 logits and both K/V pools (int4-packed at kv_bits
+    4) equal byte for byte."""
     from repro_torch.layers.attention import INACTIVE_POS
     from repro_torch.models.lm import tables_from_numpy
 
     cfg = lm.cfg
-    rng = np.random.default_rng(SEED + 3)
+    rng = np.random.default_rng(SEED + 3 + kv_bits)
     pps = MAX_LEN // PAGE
-    shape = (cfg.n_layers, N_PAGES + 1, cfg.n_kv_heads, PAGE, cfg.hd)
+    hd = cfg.hd // 2 if kv_bits == 4 else cfg.hd
+    shape = (cfg.n_layers, N_PAGES + 1, cfg.n_kv_heads, PAGE, hd)
     k = rng.integers(-128, 128, size=shape).astype(np.int8)
     v = rng.integers(-128, 128, size=shape).astype(np.int8)
     table = rng.permutation(np.arange(1, N_PAGES + 1)).reshape(
@@ -344,9 +463,12 @@ def prefill_parity(torch, np, lm, t_np):
     for name, a, b in zip(("logits", "K pool", "V pool"), out["cuda"],
                           out["cpu"]):
         if a.dtype != b.dtype or not torch.equal(a, b):
-            raise AssertionError(f"prefill_chunk {name}: card != CPU")
-    print(f"  prefill_chunk (8 x 32, 2 layers): int32 logits "
-          f"{tuple(out['cpu'][0].shape)} and K/V pools equal byte for byte")
+            raise AssertionError(
+                f"prefill_chunk kv_bits {kv_bits} {name}: card != CPU")
+    print(f"  prefill_chunk kv_bits {kv_bits} ({N_SLOTS} x {CHUNK}, "
+          "2 layers): int32 "
+          f"logits {tuple(out['cpu'][0].shape)} and K/V pools "
+          f"{tuple(out['cpu'][1].shape)} equal byte for byte")
 
 
 def phase_parity(torch, np):
@@ -360,22 +482,26 @@ def phase_parity(torch, np):
           f"in [-104, 0] differ ({time.perf_counter() - t0:.1f} s)")
     cfg = dataclasses.replace(get_config("granite_3_2b"), n_layers=2)
     lm = DecoderLM(cfg, max_seq=MAX_LEN)
-    t0 = time.perf_counter()
     t_np = lm.deploy(lm.init_np(SEED))
-    prefill_parity(torch, np, lm, t_np)
     reqs = ragged_requests(4, cfg.vocab, np.random.default_rng(SEED + 1),
                            prompt_lo=17, prompt_hi=80, gen=6)
-    gpu_tok, _ = serve(lm, tables_from_numpy(t_np, "cuda"), reqs, "cuda")
-    cpu_tok, _ = serve(lm, tables_from_numpy(t_np, "cpu"), reqs, "cpu")
-    print(f"  2-layer full-width parity: {len(reqs)} requests, "
-          f"{sum(len(v) for v in gpu_tok.values())} tokens in "
-          f"{time.perf_counter() - t0:.1f} s")
-    if gpu_tok != cpu_tok:
-        raise AssertionError(f"card tokens {gpu_tok} != CPU {cpu_tok}")
-    for v in gpu_tok.values():
-        if not all(0 <= t < cfg.vocab for t in v):
-            raise AssertionError(f"token outside the vocab: {v}")
-    print(f"  card == CPU plain versions, token for token: {gpu_tok}")
+    tables = {dev: tables_from_numpy(t_np, dev) for dev in ("cuda", "cpu")}
+    for kv_bits in (8, 4):
+        t0 = time.perf_counter()
+        prefill_parity(torch, np, lm, t_np, kv_bits)
+        gpu_tok, _ = serve(lm, tables["cuda"], reqs, "cuda", kv_bits)
+        cpu_tok, _ = serve(lm, tables["cpu"], reqs, "cpu", kv_bits)
+        print(f"  2-layer full-width parity, kv_bits {kv_bits}: "
+              f"{len(reqs)} requests, "
+              f"{sum(len(v) for v in gpu_tok.values())} tokens in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if gpu_tok != cpu_tok:
+            raise AssertionError(f"kv_bits {kv_bits}: card tokens "
+                                 f"{gpu_tok} != CPU {cpu_tok}")
+        for v in gpu_tok.values():
+            if not all(0 <= t < cfg.vocab for t in v):
+                raise AssertionError(f"token outside the vocab: {v}")
+        print(f"  card == CPU plain versions, token for token: {gpu_tok}")
 
 
 def phase_main(torch, np, kernels):
@@ -392,42 +518,69 @@ def phase_main(torch, np, kernels):
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     reqs = ragged_requests(8, lm.cfg.vocab, np.random.default_rng(SEED + 2),
                            prompt_lo=17, prompt_hi=300, gen=16)
+    launches, tok8, s2 = serve_twice(torch, kernels, lm, tables, reqs, 8)
+    profile_run(torch, lm, tables, reqs, s2["wall_s"])
+    print("  the same requests and tables over int4-packed pools "
+          "(kv_bits 4):")
+    launches4, tok4, s2 = serve_twice(torch, kernels, lm, tables, reqs, 4)
+    profile_run(torch, lm, tables, reqs, s2["wall_s"], kv_bits=4)
+    launches["paged_attention_kv4"] = launches4["paged_attention_kv4"]
+    same = sum(a == b for r in tok8 for a, b in zip(tok8[r], tok4[r]))
+    total = sum(len(v) for v in tok8.values())
+    print(f"  kv_bits 4 tokens equal to the int8 run's at {same} of {total}"
+          f" positions ({same / total:.3f}; lossy by design, uncalibrated "
+          "tables)")
+    return launches
+
+
+def serve_twice(torch, kernels, lm, tables, reqs, kv_bits):
+    """Two runs of the main path at `kv_bits`: the counts are set to 0
+    just before run 1 and read just after; every kernel of the path
+    must have launched and no kernel of the other pool mode; run 2's
+    tokens must equal run 1's.  -> (launches, tokens, run 2 stats)."""
     kernels.reset_launch_counts()
-    tok1, s1 = serve(lm, tables, reqs, "cuda")
+    tok1, s1 = serve(lm, tables, reqs, "cuda", kv_bits)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     if len(tok1) != len(reqs) or any(len(v) != 16 for v in tok1.values()):
         raise AssertionError(f"not every request finished 16 tokens: {tok1}")
-    if any(n == 0 for n in launches.values()):
-        raise AssertionError(f"a kernel never launched: {launches}")
-    tok2, s2 = serve(lm, tables, reqs, "cuda")
+    path = PATH_KERNELS[kv_bits]
+    if any(launches[n] == 0 for n in path):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    off_path = [n for n, c in launches.items() if c and n not in path]
+    if off_path:
+        raise AssertionError(f"kernels off the path launched: {launches}")
+    tok2, s2 = serve(lm, tables, reqs, "cuda", kv_bits)
     if tok1 != tok2:
-        raise AssertionError("a second run gave other tokens")
-    print(f"  main path: prompts {[r.prompt_len for r in reqs]}, "
-          f"{s1['steps']} steps, launches {launches}")
+        raise AssertionError(f"kv_bits {kv_bits}: a second run gave other "
+                             "tokens")
+    print(f"  kv_bits {kv_bits}: prompts {[r.prompt_len for r in reqs]}, "
+          f"{s1['steps']} steps, launches {launches}, pool bytes "
+          f"{s1['pool_bytes']}")
     for i, s in enumerate((s1, s2), 1):
-        print(f"  run {i}: {s['n_generated']} tokens in {s['wall_s']:.3f} s"
-              f" = {s['throughput_tok_s']:.2f} tok/s, p50 TTFT "
-              f"{s['p50_ttft_s'] * 1e3:.1f} ms, p50 ITL "
+        print(f"  kv_bits {kv_bits} run {i}: {s['n_generated']} tokens in "
+              f"{s['wall_s']:.3f} s = {s['throughput_tok_s']:.2f} tok/s, "
+              f"p50 TTFT {s['p50_ttft_s'] * 1e3:.1f} ms, p50 ITL "
               f"{s['p50_itl_s'] * 1e3:.1f} ms")
-    print(f"  run 2 tokens equal run 1: {tok1}")
-    profile_run(torch, lm, tables, reqs, s2["wall_s"])
-    return launches, dict(deploy_s=deploy_s, run1=s1, run2=s2)
+    print(f"  kv_bits {kv_bits} run 2 tokens equal run 1: {tok1}")
+    return launches, tok1, s2
 
 
-def profile_run(torch, lm, tables, reqs, wall_unprofiled):
+def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
     """A third run of the main path under torch.profiler: device time by
-    kernel (device events only; the host ops' rows would count their
-    kernels twice), split into the port's kernels and torch's glue, and
-    the device's idle share of the unprofiled run 2's wall time (the
-    profiler slows the host, so its own wall time overstates idleness)."""
+    kernel, split into the port's kernels and torch's glue, and the
+    device's idle share of the unprofiled run 2's wall time (the
+    profiler slows the host, so its own wall time overstates idleness).
+    Only device activity is recorded: host ops' rows would count their
+    kernels twice, and recording them makes the profiled run and the
+    event post-processing several times slower."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     t0 = time.perf_counter()
-    with profile(activities=acts) as prof:
-        _, stats = serve(lm, tables, reqs, "cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, stats = serve(lm, tables, reqs, "cuda", kv_bits)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages()
@@ -438,12 +591,14 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled):
     busy_us = sum(e.self_device_time_total for e in rows)
     owner = {"mma_kernel": "int8_matmul", "gemv_kernel": "int8_matmul",
              "requant_kernel": "requant",
-             "paged_attn_kernel": "paged_attention"}
+             "paged_attn_kernel<64, false>": "paged_attention",
+             "paged_attn_kernel<64, true>": "paged_attention_kv4"}
     split = {}
     for e in rows:
         who = next((v for k, v in owner.items() if k in e.key), "torch ops")
         split[who] = split.get(who, 0.0) + e.self_device_time_total / 1e3
-    print(f"  profile (run 3): device busy {busy_us / 1e3:.1f} ms; wall "
+    print(f"  profile (kv_bits {kv_bits} run 3): device busy "
+          f"{busy_us / 1e3:.1f} ms; wall "
           f"{wall * 1e3:.1f} ms under the profiler, "
           f"{wall_unprofiled * 1e3:.1f} ms unprofiled (run 2): idle share "
           f"{1 - busy_us / 1e6 / wall_unprofiled:.3f} of run 2")
@@ -456,6 +611,12 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled):
     for e in rows[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
               f"{e.count:6d} calls  {e.key[:90]}")
+
+
+def phase_done(name: str, t0: float) -> float:
+    t = time.perf_counter()
+    print(f"  ({name}: {t - t0:.1f} s)")
+    return t
 
 
 def main() -> int:
@@ -478,7 +639,8 @@ def main() -> int:
     print(f"card: {card}")
     t0 = time.perf_counter()
     reports = build.build_all()
-    print(f"[build] three kernels in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {len(reports)} sources in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -486,16 +648,28 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     report, errs = {}, {}
     timer = Timer(torch)
+    t0 = time.perf_counter()
     print("[kernels] each kernel vs its plain version on the card")
     errs["int8_matmul"] = check_int8_matmul(torch, np, timer, rng, report)
     errs["requant"] = check_requant(torch, np, timer, rng, report)
     errs["paged_attention"] = check_paged_attention(
         torch, np, timer, rng, report)
+    errs["paged_attention_kv4"] = check_paged_attention(
+        torch, np, timer, rng, report, packed=True)
+    errs["quant_flash_attention"] = check_quant_flash_attention(
+        torch, np, timer, report)
+    t0 = phase_done("kernels", t0)
+    print("[entry] quant_flash_attention through its entry point")
+    entry = phase_entry(torch, kernels)
     print("[parity] 2-layer full width, card vs CPU")
     phase_parity(torch, np)
+    t0 = phase_done("entry and parity", t0)
     print("[main] full granite_3_2b on the card")
-    launches, _ = phase_main(torch, np, kernels)
-    rep_shape = {"int8_matmul": 8, "requant": 3, "paged_attention": 0}
+    launches = phase_main(torch, np, kernels)
+    phase_done("main", t0)
+    launches["quant_flash_attention"] = entry["quant_flash_attention"]
+    rep_shape = {"int8_matmul": 8, "requant": 3, "paged_attention": 0,
+                 "paged_attention_kv4": 0, "quant_flash_attention": 0}
     rows = []
     for name in kernels.KERNELS:
         r = report[name][rep_shape[name]]

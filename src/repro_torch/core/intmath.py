@@ -1,5 +1,6 @@
 """Integer-only math primitives for the ID path (port of
-`repro.core.intmath`: `int_isqrt`, `build_lut`, `apply_lut`).
+`repro.core.intmath`: `int_isqrt`, `build_lut`, `apply_lut`,
+`pack_int4`, `unpack_int4`).
 
 torch has no count-leading-zeros, so the bit length that seeds the
 isqrt Newton iteration (and the integer norm's reciprocal) is read off
@@ -63,3 +64,30 @@ def apply_lut(stored: torch.Tensor, table: torch.Tensor, *,
     """y_stored = table[x_stored - qmin] (integer gather)."""
     idx = stored.to(torch.int64) - qmin
     return table[idx]
+
+
+def pack_int4(x: torch.Tensor) -> torch.Tensor:
+    """Pack int4 values (stored in int8, range [-8, 7]) two per int8
+    cell along the LAST axis: element 2i -> low nibble, 2i+1 -> high
+    nibble of output cell i.  The last axis must be even.  Works in
+    int32 and keeps the low byte, the bits the reference's int8 shifts
+    give for every int8 input."""
+    if x.shape[-1] % 2:
+        raise ValueError(f"last axis must be even, got {x.shape[-1]}")
+    lo = x[..., 0::2].to(torch.int32)
+    hi = x[..., 1::2].to(torch.int32)
+    return (torch.bitwise_left_shift(hi, 4)
+            | torch.bitwise_and(lo, 0x0F)).to(torch.int8)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pack_int4`: int8 cells -> int4 values in [-8, 7]
+    (stored as int8), last axis doubled.  Each nibble is sign-extended
+    in int32 (shift left to the top, then arithmetic shift right):
+    torch's int8 shifts promote and would not wrap like the
+    reference's."""
+    c = p.to(torch.int32)
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(c, 28), 28)
+    hi = torch.bitwise_right_shift(c, 4)
+    out = torch.stack([lo, hi], dim=-1).to(torch.int8)
+    return out.reshape(*p.shape[:-1], 2 * p.shape[-1])

@@ -1,17 +1,28 @@
-"""Hand-written Hopper kernels of the dense serving path, each with its
-plain PyTorch version beside it (see build.py for how they are built).
+"""Hand-written Hopper kernels, each with its plain PyTorch version
+beside it (see build.py for how they are built).
 
-  int8_matmul      csrc/int8_matmul.cu      every QLinear (int8/int32 out)
-  requant          csrc/requant.cu          standalone apply_rqt sites
-  paged_attention  csrc/paged_attention.cu  unified paged ID attention
+  int8_matmul          csrc/int8_matmul.cu      every QLinear (int8/int32 out)
+  requant              csrc/requant.cu          standalone apply_rqt sites
+  paged_attention      csrc/paged_attention.cu  unified paged ID attention,
+                                                int8 pools
+  paged_attention_kv4  csrc/paged_attention.cu  the same, int4-packed pools
+                                                (kv_bits 4)
+  quant_flash_attention  csrc/quant_attention.cu  blockwise quantized flash
+                                                attention (its own entry
+                                                point; no serving path)
 
 A wrapper runs its plain version only for CPU tensors; for a CUDA
 tensor it launches its kernel or raises.  Each wrapper counts its
-launches in a plain integer attribute (`int8_matmul.launches`, ...).
+launches in a plain integer attribute (`int8_matmul.launches`, ...);
+`paged_attention` counts a launch over packed pools on the counter
+`paged_attention_kv4.launches` instead.
 """
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
 from repro_torch.kernels.paged_attention import (
-    paged_attention, paged_attention_plain,
+    paged_attention, paged_attention_kv4, paged_attention_plain,
+)
+from repro_torch.kernels.quant_attention import (
+    quant_flash_attention, quant_flash_attention_plain,
 )
 from repro_torch.kernels.requant_kernel import requant
 
@@ -19,6 +30,8 @@ KERNELS = {
     "int8_matmul": int8_matmul,
     "requant": requant,
     "paged_attention": paged_attention,
+    "paged_attention_kv4": paged_attention_kv4,
+    "quant_flash_attention": quant_flash_attention,
 }
 
 

@@ -9,9 +9,9 @@ is built at import: the first wrapper call builds its own library, and
 `build_all()` starts one `nvcc` per source at once.
 
 The sources are compiled without `--use_fast_math` and with
-`--fmad=false`: the paged-attention float island must round exactly
-like its plain PyTorch version (no contracted multiply-adds, IEEE
-`expf` and division).
+`--fmad=false`: the float islands of both attention kernels must round
+exactly like their plain PyTorch versions (no contracted multiply-adds,
+IEEE `expf` and division).
 """
 from __future__ import annotations
 
@@ -26,19 +26,21 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("int8_matmul", "requant", "paged_attention")
+SOURCES = ("int8_matmul", "requant", "paged_attention", "quant_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # argument types of each source's C entry point `<name>_launch`, which
 # returns a cudaError_t
 SIGNATURES = {
     "int8_matmul": [_P] * 9 + [_I] * 3 + [_P] + [_I] * 4 + [_LL, _P],
     "requant": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 2 + [_P, _I, _LL, _I, _P],
-    "paged_attention": [_P] * 9 + [_I] * 9 + [_LL, _P],
+    "paged_attention": [_P] * 11 + [_I] * 9 + [_LL, _P],
+    "quant_attention": [_P] * 4 + [_F] * 3 + [_I] * 11 + [_LL, _P],
 }
 
 _LOCK = threading.Lock()

@@ -2,7 +2,7 @@
 // Hopper.
 //
 // Replaces the Pallas kernel repro/kernels/paged_attention.py
-// (`_kernel` / `paged_attention_pallas`, int8 pool mode).  One block
+// (`_kernel` / `paged_attention_pallas`), both pool modes.  One block
 // per (slot b, head h):
 //
 //   scores   s[i, t] = q[b, h, i, :] . k[page(t), h // group, t % ps, :]
@@ -34,6 +34,16 @@
 // and P.V streams V through a shared tile of kTT positions, so its
 // inner loop reads shared memory only.
 //
+// Int4-packed pools (PACKED, kv_bits 4): a pool row holds hd/2 bytes,
+// two int4 nibbles each (element 2i in the low nibble).  Every page
+// load is unpacked in registers into the int8 image with the kv head's
+// requant column of k_rq / v_rq ((6, K) int32: m, s0, lo, hi, d, zp):
+// clip to [lo, hi], >> s0, * m, >> (d - s0), + zp, clip to [-128, 127]
+// (the reference's `page_kv`); the K row is unpacked where it is loaded
+// into registers, the V tile where it is staged into shared memory.
+// Everything after the unpack is the int8 mode: the same float island,
+// the same row-sum order, the same P.V.  Half the pool bytes are read.
+//
 // What bounds it on the H100: at the serving shapes it is small
 // integer work per (b, h) block (S*T*hd/4 dp4a for the scores,
 // S*T*hd multiply-adds for P.V) plus one read of the slot's K and V
@@ -53,7 +63,41 @@ constexpr int kThreads = 128;
 constexpr int kRS = 4;   // query rows per thread in the P.V pass
 constexpr int kTT = 32;  // key positions per V tile staged in shared memory
 
-template <int HD>
+// arithmetic shift right; shifts of 31 and more (and negative ones) give
+// the sign, as in the requant kernel
+__device__ __forceinline__ int sra(int x, int s) {
+  return (unsigned)s >= 31u ? (x >> 31) : (x >> s);
+}
+
+// one kv head's unpack requant column (rows of the (6, K) operand)
+struct Unpack {
+  int m = 0, s0 = 0, lo = 0, hi = 0, d = 0, zp = 0;
+  __device__ Unpack() {}
+  __device__ Unpack(const int32_t* rq, int K, int kh)
+      : m(rq[kh]), s0(rq[K + kh]), lo(rq[2 * K + kh]), hi(rq[3 * K + kh]),
+        d(rq[4 * K + kh]), zp(rq[5 * K + kh]) {}
+  // one sign-extended int4 value -> its int8 image value (wrapping
+  // int32 multiply and add, like the reference)
+  __device__ __forceinline__ int one(int x) const {
+    x = min(max(x, lo), hi);
+    const int staged = (int)((unsigned)sra(x, s0) * (unsigned)m);
+    const int y = (int)((unsigned)sra(staged, d - s0) + (unsigned)zp);
+    return min(max(y, -128), 127);
+  }
+  // 16 packed bits (4 nibbles, element j in bits 4j..4j+3) -> a word
+  // of 4 int8 image values, element j in byte j
+  __device__ __forceinline__ int word(unsigned bits) const {
+    unsigned w = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int nib = (int)((bits >> (4 * j)) & 0xfu);
+      w |= ((unsigned)one((nib ^ 8) - 8) & 0xffu) << (8 * j);
+    }
+    return (int)w;
+  }
+};
+
+template <int HD, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const int8_t* __restrict__ q,
                   const int8_t* __restrict__ k_pool,
@@ -62,9 +106,12 @@ paged_attn_kernel(const int8_t* __restrict__ q,
                   const int32_t* __restrict__ pos,
                   const float* __restrict__ score_scale,
                   int32_t* __restrict__ out, float* __restrict__ scratch,
-                  int8_t* __restrict__ qp_out, int H, int S, int K, int ps,
-                  int pps, int group, int n_pool) {
+                  int8_t* __restrict__ qp_out,
+                  const int32_t* __restrict__ k_rq,
+                  const int32_t* __restrict__ v_rq, int H, int S, int K,
+                  int ps, int pps, int group, int n_pool) {
   constexpr int HDW = HD / 4;
+  constexpr int ROW = PACKED ? HD / 2 : HD;  // bytes of one pool row
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x, h = blockIdx.y;
   const int kh = h / group;
@@ -94,20 +141,34 @@ paged_attn_kernel(const int8_t* __restrict__ q,
 
   const float scale = *score_scale;
   const int pos_b = pos[b];
+  Unpack kun, vun;
+  if (PACKED) {
+    kun = Unpack(k_rq, K, kh);
+    vun = Unpack(v_rq, K, kh);
+  }
 
   // ---- scores: one key row per thread, dotted with every query row ----
   for (int t = tid; t < T; t += kThreads) {
     const long long row =
-        (((long long)tab_s[t / ps] * K + kh) * ps + (t % ps)) * HD;
+        (((long long)tab_s[t / ps] * K + kh) * ps + (t % ps)) * ROW;
     const int4* kr = reinterpret_cast<const int4*>(k_pool + row);
     int kw[HDW];
 #pragma unroll
-    for (int c = 0; c < HDW / 4; ++c) {
+    for (int c = 0; c < ROW / 16; ++c) {
       const int4 v = kr[c];
-      kw[4 * c] = v.x;
-      kw[4 * c + 1] = v.y;
-      kw[4 * c + 2] = v.z;
-      kw[4 * c + 3] = v.w;
+      if (PACKED) {  // 16 packed bytes -> 8 words of the int8 image
+        const int u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          kw[8 * c + 2 * e] = kun.word((unsigned)u[e] & 0xffffu);
+          kw[8 * c + 2 * e + 1] = kun.word((unsigned)u[e] >> 16);
+        }
+      } else {
+        kw[4 * c] = v.x;
+        kw[4 * c + 1] = v.y;
+        kw[4 * c + 2] = v.z;
+        kw[4 * c + 3] = v.w;
+      }
     }
     for (int i = 0; i < S; ++i) {
       int acc = 0;
@@ -163,9 +224,13 @@ paged_attn_kernel(const int8_t* __restrict__ q,
         int word = 0;
         if (t < T) {
           const long long row =
-              (((long long)tab_s[t / ps] * K + kh) * ps + (t % ps)) * HD;
-          word = *reinterpret_cast<const int*>(v_pool + row +
-                                               4 * (idx % HDW));
+              (((long long)tab_s[t / ps] * K + kh) * ps + (t % ps)) * ROW;
+          if (PACKED)
+            word = vun.word(*reinterpret_cast<const unsigned short*>(
+                v_pool + row + 2 * (idx % HDW)));
+          else
+            word = *reinterpret_cast<const int*>(v_pool + row +
+                                                 4 * (idx % HDW));
         }
         vt_s[idx] = word;
       }
@@ -200,50 +265,70 @@ paged_attn_kernel(const int8_t* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HD, bool PACKED>
 int launch(const int8_t* q, const int8_t* k_pool, const int8_t* v_pool,
            const int32_t* table, const int32_t* pos, const float* scale,
-           int32_t* out, float* scratch, int8_t* qp_out, int B, int H, int S,
-           int K, int ps, int pps, int group, int n_pool, size_t smem,
-           cudaStream_t stream) {
+           int32_t* out, float* scratch, int8_t* qp_out, const int32_t* k_rq,
+           const int32_t* v_rq, int B, int H, int S, int K, int ps, int pps,
+           int group, int n_pool, size_t smem, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        227 * 1024);
+        paged_attn_kernel<HD, PACKED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  paged_attn_kernel<HD><<<dim3(B, H), kThreads, smem, stream>>>(
-      q, k_pool, v_pool, table, pos, scale, out, scratch, qp_out, H, S, K,
-      ps, pps, group, n_pool);
+  paged_attn_kernel<HD, PACKED><<<dim3(B, H), kThreads, smem, stream>>>(
+      q, k_pool, v_pool, table, pos, scale, out, scratch, qp_out, k_rq, v_rq,
+      H, S, K, ps, pps, group, n_pool);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_mode(const int8_t* q, const int8_t* k_pool, const int8_t* v_pool,
+                const int32_t* table, const int32_t* pos, const float* scale,
+                int32_t* out, float* scratch, int8_t* qp_out,
+                const int32_t* k_rq, const int32_t* v_rq, int B, int H, int S,
+                int K, int ps, int pps, int group, int n_pool, size_t smem,
+                cudaStream_t stream) {
+  if (k_rq != nullptr)
+    return launch<HD, true>(q, k_pool, v_pool, table, pos, scale, out,
+                            scratch, qp_out, k_rq, v_rq, B, H, S, K, ps, pps,
+                            group, n_pool, smem, stream);
+  return launch<HD, false>(q, k_pool, v_pool, table, pos, scale, out,
+                           scratch, qp_out, k_rq, v_rq, B, H, S, K, ps, pps,
+                           group, n_pool, smem, stream);
 }
 
 }  // namespace
 
 // smem: dynamic shared bytes the caller computed for the layout above
-// (logits included when scratch is null).  Returns a cudaError_t.
+// (logits included when scratch is null).  k_rq / v_rq: the (6, K)
+// unpack operands of int4-packed pools, or null for int8 pools.
+// Returns a cudaError_t.
 extern "C" int paged_attention_launch(
     const int8_t* q, const int8_t* k_pool, const int8_t* v_pool,
     const int32_t* table, const int32_t* pos, const float* score_scale,
-    int32_t* out, float* scratch, int8_t* qp_out, int B, int H, int S,
-    int hd, int K, int ps, int pps, int group, int n_pool, long long smem,
-    cudaStream_t stream) {
+    int32_t* out, float* scratch, int8_t* qp_out, const int32_t* k_rq,
+    const int32_t* v_rq, int B, int H, int S, int hd, int K, int ps,
+    int pps, int group, int n_pool, long long smem, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
+  if ((k_rq == nullptr) != (v_rq == nullptr))
+    return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      return launch<32>(q, k_pool, v_pool, table, pos, score_scale, out,
-                        scratch, qp_out, B, H, S, K, ps, pps, group, n_pool,
-                        (size_t)smem, stream);
+      return launch_mode<32>(q, k_pool, v_pool, table, pos, score_scale, out,
+                             scratch, qp_out, k_rq, v_rq, B, H, S, K, ps,
+                             pps, group, n_pool, (size_t)smem, stream);
     case 64:
-      return launch<64>(q, k_pool, v_pool, table, pos, score_scale, out,
-                        scratch, qp_out, B, H, S, K, ps, pps, group, n_pool,
-                        (size_t)smem, stream);
+      return launch_mode<64>(q, k_pool, v_pool, table, pos, score_scale, out,
+                             scratch, qp_out, k_rq, v_rq, B, H, S, K, ps,
+                             pps, group, n_pool, (size_t)smem, stream);
     case 128:
-      return launch<128>(q, k_pool, v_pool, table, pos, score_scale, out,
-                         scratch, qp_out, B, H, S, K, ps, pps, group, n_pool,
-                         (size_t)smem, stream);
+      return launch_mode<128>(q, k_pool, v_pool, table, pos, score_scale,
+                              out, scratch, qp_out, k_rq, v_rq, B, H, S, K,
+                              ps, pps, group, n_pool, (size_t)smem, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -19,15 +19,28 @@ taken in the kernel's order (`_lane_sum`), so on the card the plain
 image equals the kernel's bit for bit; the reference leaves that order
 to XLA.
 
+Int4-packed pool mode (the reference's `packed` kernel mode, kv_bits
+4): pools (n_pages + 1, K, ps, hd/2) int8, two int4 nibbles per cell
+(element 2i in the low nibble), with `k_rq`/`v_rq` (6, K) int32 unpack
+operands (rows m, s0, lo, hi, d, zp per kv head).  Every page load is
+unpacked back into the int8 image space by the requant formula
+(`kv4_unpack`): clip to [lo, hi], >> s0, * m, >> (d - s0), + zp, clip
+to [-128, 127]; everything after that is the int8 mode.  Its launches
+count apart, on `paged_attention_kv4.launches`.
+
 `check_image` is the stated tolerance of the kernel's probability
-image (``qp_out``) against the plain one.
+image (``qp_out``) against the plain one, `check_kernel` that of the
+kernel's whole result; `staged_unpack_rq` gives per-head operands that
+make a wrong unpack show in those checks.
 """
 from __future__ import annotations
 
-from typing import Optional
+from types import SimpleNamespace
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.intmath import unpack_int4
 from repro_torch.kernels import build
 
 NEG_INF = -1e9
@@ -52,6 +65,20 @@ def _lane_sum(p: torch.Tensor) -> torch.Tensor:
     for o in (16, 8, 4, 2, 1):
         part = part + part[..., lane ^ o]
     return part[..., :1]
+
+
+def kv4_unpack(pool: torch.Tensor, rq: torch.Tensor) -> torch.Tensor:
+    """An int4-packed pool (.., K, ps, hd/2) -> its int8 image (.., K,
+    ps, hd) through the per-kv-head unpack operand rq (6, K): the
+    plain version of the kernel's page-load unpack (the reference's
+    `kv4_unpack_page_ref`, applied to every page at once)."""
+    m, s0, lo, hi, d, zp = (r.to(torch.int32).reshape(-1, 1, 1)
+                            for r in rq)
+    x = unpack_int4(pool).to(torch.int32)
+    x = torch.minimum(torch.maximum(x, lo), hi)
+    staged = torch.bitwise_right_shift(x, s0) * m
+    out = torch.bitwise_right_shift(staged, d - s0) + zp
+    return out.clamp(-128, 127).to(torch.int8)
 
 
 def gathered_view(pool, table, group: int):
@@ -82,28 +109,70 @@ def attention_probs(q, k_pool, table, pos, score_scale, *, group: int = 1):
     return p / _lane_sum(p)
 
 
-def check_image(qp: torch.Tensor, want_qp: torch.Tensor, what: str = ""
-                ) -> int:
+def check_image(qp: torch.Tensor, want_qp: torch.Tensor, what: str = "",
+                unit: str = "probability") -> int:
     """Tolerance of a probability image against the plain version's:
     no entry may move by more than one quantum, and at most max(8,
     MOVED_SHARE of the entries) may move at all.  On the card the plain
     version rounds exactly like the kernel, so a sound kernel moves
     none; a kernel that rounds down or uses a coarser exp or division
     moves many entries by one.  Raises AssertionError; returns the
-    number of entries moved."""
+    number of entries moved.  (The quantized flash attention holds its
+    int8 ctx output to the same form, with ``unit="ctx"``.)"""
     dq = (qp.to(torch.int32) - want_qp.to(torch.int32)).abs()
     moved = int((dq != 0).sum())
     worst = int(dq.max()) if dq.numel() else 0
     cap = max(8, int(MOVED_SHARE * dq.numel()))
     if worst > 1 or moved > cap:
         raise AssertionError(
-            f"{what}: {moved} of {dq.numel()} probability quanta moved "
+            f"{what}: {moved} of {dq.numel()} {unit} quanta moved "
             f"(at most {cap} may), the largest move {worst} (at most 1)")
     return moved
 
 
+def check_kernel(got, qp, q, k_pool, v_pool, table, pos, score_scale, *,
+                 group: int = 1, k_rq=None, v_rq=None, what: str = ""
+                 ) -> Tuple[int, int]:
+    """The stated tolerance of a kernel output ``got`` and its
+    probability image ``qp`` against the plain version on the same
+    inputs (either pool mode): the image within `check_image`, ``got``
+    equal to the plain integer P.V over the kernel's own image and the
+    (unpacked) V view exactly, and equal to the plain output wherever
+    the images agree.  Raises AssertionError; returns (quanta moved,
+    max |got - plain output|)."""
+    want, want_qp = paged_attention_plain(
+        q, k_pool, v_pool, table, pos, score_scale, group=group,
+        k_rq=k_rq, v_rq=v_rq, return_qp=True)
+    moved = check_image(qp, want_qp, what)
+    v_img = v_pool if v_rq is None else kv4_unpack(v_pool, v_rq)
+    pv = torch.matmul(qp.to(torch.float64),
+                      gathered_view(v_img, table, group).to(torch.float64))
+    if not torch.equal(got, pv.to(torch.int32)):
+        raise AssertionError(f"{what}: P.V differs from the plain product "
+                             "over the kernel's own image")
+    if moved == 0 and not torch.equal(got, want):
+        raise AssertionError(f"{what}: equal images but unequal outputs")
+    return moved, int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                      .max())
+
+
+def staged_unpack_rq(n_kv_heads: int) -> torch.Tensor:
+    """(6, K) int32 unpack operands (CPU) for checking the packed mode:
+    m, s0, d and zp differ from kv head to kv head, with s0 > 0 on most
+    heads, so a wrong head index or a wrong shift order changes the
+    unpacked image."""
+    cols = []
+    for h in range(n_kv_heads):
+        s0, d = h % 3, 6 + h % 2
+        cols.append(((9 + 4 * h) * (1 << (d - s0)) + 3, s0, -8, 7, d, h % 2))
+    return torch.tensor(cols, dtype=torch.int32).t().contiguous()
+
+
 def paged_attention_plain(q, k_pool, v_pool, table, pos, score_scale, *,
-                          group: int = 1, return_qp: bool = False):
+                          group: int = 1, k_rq=None, v_rq=None,
+                          return_qp: bool = False):
+    if k_rq is not None:
+        k_pool, v_pool = kv4_unpack(k_pool, k_rq), kv4_unpack(v_pool, v_rq)
     probs = attention_probs(q, k_pool, table, pos, score_scale, group=group)
     qp = torch.round(probs * 127.0)
     vh = gathered_view(v_pool, table, group)
@@ -115,16 +184,33 @@ def paged_attention_plain(q, k_pool, v_pool, table, pos, score_scale, *,
 
 
 def paged_attention(q, k_pool, v_pool, table, pos, score_scale, *,
-                    group: int = 1, qp_out: Optional[torch.Tensor] = None):
+                    group: int = 1, k_rq: Optional[torch.Tensor] = None,
+                    v_rq: Optional[torch.Tensor] = None,
+                    qp_out: Optional[torch.Tensor] = None):
     """Kernel wrapper; runs the plain version only for CPU tensors.
 
-    ``qp_out`` (CUDA only, optional): a (B, H, S, T) int8 tensor the
-    kernel fills with its probability image, for `check_image`."""
+    Pools with a trailing axis hd/2 are int4-packed and need the
+    (6, K) int32 unpack operands ``k_rq``/``v_rq``; int8 pools take
+    none.  ``qp_out`` (CUDA only, optional): a (B, H, S, T) int8
+    tensor the kernel fills with its probability image, for
+    `check_image`."""
     B, H, S, hd = q.shape
-    n_pool, K, ps, hd_p = k_pool.shape
+    n_pool, K, ps, hd_store = k_pool.shape
     pps = table.shape[1]
-    if hd_p != hd or v_pool.shape != k_pool.shape:
-        raise ValueError("pools must be (n_pages + 1, K, ps, hd) int8")
+    if v_pool.shape != k_pool.shape:
+        raise ValueError("K and V pools must have one shape")
+    packed = hd_store != hd
+    if packed:
+        if 2 * hd_store != hd or k_rq is None or v_rq is None:
+            raise ValueError(
+                f"pool head_dim {hd_store} != query head_dim {hd}: "
+                "int4-packed pools need hd/2 cells plus k_rq/v_rq (6, K) "
+                "requant operands")
+        for rq in (k_rq, v_rq):
+            if rq.shape != (6, K) or rq.dtype != torch.int32:
+                raise ValueError("k_rq/v_rq must be (6, K) int32")
+    elif k_rq is not None or v_rq is not None:
+        raise ValueError("k_rq/v_rq given but the pools are not packed")
     if H != K * group:
         raise ValueError(f"H={H} != K={K} * group={group}")
     if (q.dtype != torch.int8 or k_pool.dtype != torch.int8
@@ -140,17 +226,23 @@ def paged_attention(q, k_pool, v_pool, table, pos, score_scale, *,
         if qp_out is not None:
             raise ValueError("qp_out is a CUDA-kernel diagnostic")
         return paged_attention_plain(q, k_pool, v_pool, table, pos,
-                                     score_scale, group=group)
+                                     score_scale, group=group, k_rq=k_rq,
+                                     v_rq=v_rq)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     dev = q.device
-    for t in (q, k_pool, v_pool, table, pos, score_scale):
+    rqs = (k_rq, v_rq) if packed else ()
+    for t in (q, k_pool, v_pool, table, pos, score_scale, *rqs):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("all operands must be contiguous on one device")
     if hd not in (32, 64, 128):
         raise ValueError(f"head_dim {hd} not in (32, 64, 128)")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16 or q.data_ptr() % 4:
-        raise ValueError("pools must be 16-byte aligned, q 4-byte aligned")
+    # pool rows are hd_store bytes, read as 16-byte vectors
+    if hd_store % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("pool rows must be 16-byte multiples, 16-byte "
+                         "aligned")
+    if q.data_ptr() % 4:
+        raise ValueError("q must be 4-byte aligned")
     T = pps * ps
     if qp_out is not None and (
             qp_out.shape != (B, H, S, T) or qp_out.dtype != torch.int8
@@ -175,11 +267,15 @@ def paged_attention(q, k_pool, v_pool, table, pos, score_scale, *,
         pos.data_ptr(), score_scale.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         None if qp_out is None else qp_out.data_ptr(),
+        k_rq.data_ptr() if packed else None,
+        v_rq.data_ptr() if packed else None,
         B, H, S, hd, K, ps, pps, group, n_pool, smem,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "paged_attention")
-    paged_attention.launches += 1
+    (paged_attention_kv4 if packed else paged_attention).launches += 1
     return out
 
 
 paged_attention.launches = 0
+# launches over int4-packed pools count here, as a kernel row of their own
+paged_attention_kv4 = SimpleNamespace(launches=0)

@@ -11,7 +11,8 @@ the host never holds all the model's float weights at once (about
 runs in a thread while the current one deploys, so the host holds at
 most two layers' floats.
 
-Example (on the card; add --reduced --device cpu for a CPU smoke run):
+Example (on the card; add --reduced --device cpu for a CPU smoke run,
+--kv-bits 4 for int4-packed KV pools):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --requests 8 --slots 8 --prompt-len 300 --gen 16 --max-len 512 \\
       --ragged
@@ -26,7 +27,7 @@ import numpy as np
 
 from repro_torch.configs.base import get_config
 from repro_torch.layers.common import DeployCtx
-from repro_torch.models.lm import DecoderLM, tree_to_torch
+from repro_torch.models.lm import DecoderLM, load_layer, tree_to_torch
 from repro_torch.serving import (
     Request, SchedulerConfig, ServingConfig, ServingEngine,
 )
@@ -60,7 +61,7 @@ def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
                 ahead = pool.submit(lm.init_layer_np, seed, i + 1)
             t_i, eps_x = lm.deploy_layer(ctx, i, p_i, eps_x)
             del p_i
-            tables["layers"].append(tree_to_torch(t_i, device))
+            tables["layers"].append(load_layer(tree_to_torch(t_i, device)))
     p_norm, p_head = lm.init_head_np(seed)
     tn, th, eps_logits = lm.deploy_head(ctx, p_norm, p_head, eps_x)
     tables["norm_f"] = tree_to_torch(tn, device)
@@ -99,6 +100,10 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=0,
                     help="page pool size (0: slots*max_len/page_size)")
+    ap.add_argument("--kv-bits", type=int, default=8, choices=(8, 4),
+                    help="KV storage width: 8 = int8 KV images; 4 = two "
+                    "int4 nibbles per pool cell (half the pool bytes, "
+                    "lossy against int8 KV)")
     args = ap.parse_args(argv)
 
     max_len = args.max_len or (args.prompt_len + args.gen)
@@ -111,6 +116,7 @@ def main(argv=None):
     engine = ServingEngine(lm, tables, ServingConfig(
         n_slots=args.slots, max_len=max_len, page_size=args.page_size,
         n_pages=args.pages or None, device=args.device,
+        kv_bits=args.kv_bits,
         scheduler=SchedulerConfig(prefill_chunk=args.prefill_chunk)))
     rng = np.random.default_rng(args.seed)
     lo = max(1, args.prompt_len // 16) if args.ragged else args.prompt_len
@@ -123,7 +129,8 @@ def main(argv=None):
     print(f"drained {s['n_completed']} requests / {s['n_generated']} tokens "
           f"in {s['wall_s']:.2f} s ({s['throughput_tok_s']:.1f} tok/s, "
           f"p50 TTFT {s['p50_ttft_s'] * 1e3:.0f} ms, "
-          f"peak {s['max_pages_in_use']}/{s['n_pages']} pages)")
+          f"peak {s['max_pages_in_use']}/{s['n_pages']} pages, "
+          f"kv_bits {s['kv_bits']}, {s['pool_bytes']} pool bytes)")
     for c in completions[:4]:
         print(f"  req {c.req_id}: P={c.prompt_len} -> {c.n_generated} toks "
               f"[{c.finish_reason}] {np.asarray(c.tokens)[:8]}")

@@ -3,7 +3,7 @@
 
 Lifecycle: numpy init (`init_np`, the reference's shapes and scales)
 -> host-side deploy (`deploy`, the reference's integer tables leaf for
-leaf, minus the `sm_tabs`/`kv4` tables no ported path reads) -> torch
+leaf, minus the `sm_tabs` tables no ported path reads) -> torch
 state (`tables_from_numpy`) -> ID apply (`prefill_chunk`, a Python
 loop over the layers where the reference runs `lax.scan`).
 
@@ -20,7 +20,11 @@ K) contiguous, the layout the int8 GEMM kernel reads.
 
 KV pools: {"k", "v": (n_layers, n_pages + 1, K, page_size, hd) int8,
 "table": (n_slots, pages_per_slot) int32}; the layer loop hands layer
-i the views ["k"][i] / ["v"][i] and the shared table.
+i the views ["k"][i] / ["v"][i] and the shared table.  At kv_bits 4
+the pools' trailing axis is hd/2 (two int4 nibbles per cell) and each
+layer's `kv4` tables (int32, like every requant table) carry the
+per-kv-head pack and unpack images, plus what `load_layer` derives from
+them once (the kernel's (6, K) operands and the pack rounding term).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.layers.attention import kv4_load
 from repro_torch.layers.common import ActKind, DeployCtx, stack_trees
 from repro_torch.layers.embedding import QEmbed
 from repro_torch.layers.linear import QLinear
@@ -65,11 +70,31 @@ def _index(tree, i: int):
     return tree[i]
 
 
+KV_BITS = (8, 4)  # KV storage widths: int8 images or int4-packed pairs
+
+
+def check_kv_bits(kv_bits: int) -> int:
+    """The one check of a KV storage width (`init_pools`, and
+    `serving.config.ServingConfig` at construction)."""
+    if kv_bits not in KV_BITS:
+        raise ValueError(f"kv_bits must be 8 or 4, got {kv_bits}")
+    return kv_bits
+
+
+def load_layer(t: dict) -> dict:
+    """One layer's torch tables -> its serving state: the attention's
+    `kv4` tables gain what every step would otherwise rebuild
+    (`layers.attention.kv4_load`)."""
+    return {**t, "attn": {**t["attn"], "kv4": kv4_load(t["attn"]["kv4"])}}
+
+
 def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
     """A reference-deployed table tree (plain numpy, e.g. after
     `jax.tree.map(np.asarray, tables)`) -> the port's state on
-    `device`.  int32 stays int32, int8 stays int8 and the f32
-    score_scale stays f32; `segments[0]` becomes the per-layer list."""
+    `device`.  int32 stays int32 (every requant table, the per-head
+    `kv4` pack/unpack tables included), int8 stays int8 and the f32
+    score_scale stays f32; `segments[0]` becomes the per-layer list,
+    each layer through `load_layer`."""
     if len(tables_np["segments"]) != 1:
         raise ValueError("the dense family has exactly one segment")
     stacked = tree_to_torch(tables_np["segments"][0], device)
@@ -78,7 +103,7 @@ def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
         "meta": {k: float(np.asarray(v)) for k, v in
                  tables_np.get("meta", {}).items()},
         "embed": tree_to_torch(tables_np["embed"], device),
-        "layers": [_index(stacked, i) for i in range(n)],
+        "layers": [load_layer(_index(stacked, i)) for i in range(n)],
         "norm_f": tree_to_torch(tables_np["norm_f"], device),
         "head": tree_to_torch(tables_np["head"], device),
     }
@@ -183,10 +208,17 @@ class DecoderLM:
         return t
 
     # -- integer serving path (torch) --------------------------------------
-    def init_pools(self, n_pages: int, page_size: int, device="cuda") -> dict:
-        """Zeroed paged KV pools (page 0 is the PAGE_NULL trash page)."""
+    def init_pools(self, n_pages: int, page_size: int, device="cuda",
+                   kv_bits: int = 8) -> dict:
+        """Zeroed paged KV pools (page 0 is the PAGE_NULL trash page);
+        at kv_bits 4 the trailing head_dim axis is halved (packed)."""
         c = self.cfg
-        shape = (c.n_layers, n_pages + 1, c.n_kv_heads, page_size, c.hd)
+        hd = c.hd
+        if check_kv_bits(kv_bits) == 4:
+            if hd % 2:
+                raise ValueError(f"kv_bits=4 needs an even head_dim, got {hd}")
+            hd //= 2
+        shape = (c.n_layers, n_pages + 1, c.n_kv_heads, page_size, hd)
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),

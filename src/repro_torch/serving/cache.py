@@ -1,5 +1,9 @@
 """Paged KV arena (port of `repro.serving.cache.PagedArena`, without the
-prefix cache, warm pages, copy-on-write, sharding and int4 pools).
+prefix cache, warm pages, copy-on-write and sharding).
+
+At kv_bits 4 the pools are int4-packed: each K/V leaf's trailing
+head_dim axis is halved (two nibbles per int8 cell, both of one
+position), so the page and table arithmetic is the int8 arena's.
 
 A pool of `n_pages` pages of `page_size` positions, plus page 0, the
 PAGE_NULL trash page.  Admission leases a slot (decode row) and
@@ -26,7 +30,7 @@ from repro_torch.layers.attention import PAGE_NULL
 
 class PagedArena:
     def __init__(self, lm, n_slots: int, max_len: int, page_size: int = 16,
-                 n_pages: int = 64, *, device="cuda"):
+                 n_pages: int = 64, *, device="cuda", kv_bits: int = 8):
         if max_len > lm.max_seq:
             raise ValueError(
                 f"max_len {max_len} exceeds model max_seq {lm.max_seq}")
@@ -39,8 +43,10 @@ class PagedArena:
         self.page_size = page_size
         self.n_pages = n_pages
         self.pages_per_slot = -(-max_len // page_size)
+        self.kv_bits = kv_bits
         self.device = torch.device(device)
-        self.caches = lm.init_pools(n_pages, page_size, device=self.device)
+        self.caches = lm.init_pools(n_pages, page_size, device=self.device,
+                                    kv_bits=kv_bits)
 
         # host bookkeeping; pop() -> lowest first
         self._free_slots = list(range(n_slots - 1, -1, -1))
@@ -161,7 +167,8 @@ class PagedArena:
     def decode_view(self) -> dict:
         """The pools plus the current page table on the device — the
         paged-attention kernel's layout contract (int8 pools (L,
-        n_pages + 1, K, page_size, hd), page 0 the trash page, an int32
+        n_pages + 1, K, page_size, hd), hd/2 when int4-packed, page 0
+        the trash page, an int32
         (n_slots, pages_per_slot) table with PAGE_NULL for unallocated
         blocks)."""
         table = torch.from_numpy(self.page_table.copy()).to(self.device)
@@ -173,6 +180,9 @@ class PagedArena:
             "arena_positions": self.n_pages * self.page_size,
             "page_size": self.page_size,
             "n_pages": self.n_pages,
+            "kv_bits": self.kv_bits,
+            "pool_bytes": sum(t.numel() * t.element_size()
+                              for t in self.caches.values()),
             "pages_in_use": self.pages_in_use,
             "committed_pages": self.committed_pages,
             "max_pages_in_use": self.max_pages_in_use,

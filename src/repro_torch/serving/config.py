@@ -1,6 +1,13 @@
 """`ServingConfig`: the engine's validated construction record (port of
 `repro.serving.config`, cut to this slice's path: the paged arena, FCFS,
-synchronous chunked dispatch, int8 KV).
+synchronous chunked dispatch, int8 or int4-packed KV).
+
+`kv_bits` is the KV storage width: 8 keeps the int8 KV images, 4 packs
+two int4 nibbles per pool cell (half the pool bytes, per-kv-head
+requant tables, lossy against int8 KV).  The reference also requires
+the paged arena and the chunked prefill path for 4; the port's engine
+has only those, so the one check left is the value
+(`models.lm.check_kv_bits`, which `init_pools` applies too).
 
 `device` places the KV pools and every dispatch; it defaults to
 ``"cuda"``.  Tables handed to the engine must already live there
@@ -11,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import TYPE_CHECKING, Optional
 
+from repro_torch.models.lm import check_kv_bits
 from repro_torch.serving.scheduler import SchedulerConfig
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
@@ -26,6 +34,7 @@ class ServingConfig:
     scheduler: Optional[SchedulerConfig] = None
     policy: Optional["SchedulingPolicy"] = None  # None -> FCFSPolicy()
     device: str = "cuda"
+    kv_bits: int = 8
 
     def __post_init__(self):
         if self.n_slots < 1:
@@ -34,6 +43,7 @@ class ServingConfig:
             raise ValueError(f"max_len must be >= 1, got {self.max_len}")
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        check_kv_bits(self.kv_bits)
         if self.n_pages is None:
             self.n_pages = -(-(self.n_slots * self.max_len) // self.page_size)
         if self.n_pages < 1:

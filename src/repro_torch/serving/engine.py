@@ -1,6 +1,7 @@
 """`ServingEngine`: continuous batching over the integer-only model
 (port of `repro.serving.engine.ServingEngine`, the default path:
-FCFS policy, synchronous steps, paged arena, chunked prefill, int8 KV).
+FCFS policy, synchronous steps, paged arena, chunked prefill, int8 or
+int4-packed KV (`ServingConfig.kv_bits`)).
 
 Each `step()`:
 
@@ -22,7 +23,7 @@ Each `step()`:
 Left out of this slice (later slices port them): the prefix trie and
 copy-on-write, warm pages, preemption and `PrioritySLOPolicy`,
 telemetry, the async depth-1 dispatch queue, mesh and kv-head
-sharding, `SlotArena`, the whole-prompt prefill modes and kv_bits 4.
+sharding, `SlotArena` and the whole-prompt prefill modes.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ class ServingEngine:
         self.policy = cfg.policy if cfg.policy is not None else FCFSPolicy()
         self.arena = PagedArena(
             lm, cfg.n_slots, cfg.max_len, cfg.page_size, cfg.n_pages,
-            device=self.device)
+            device=self.device, kv_bits=cfg.kv_bits)
         self.sched = Scheduler(cfg.scheduler, cfg.max_len)
         self.on_token = on_token
         self.active: Dict[int, RequestState] = {}  # slot -> decode state

@@ -2,11 +2,12 @@
 
 From the same float params and the same calibrator state, the port's
 `DecoderLM.deploy` must equal `repro`'s leaf for leaf (dtype, shape and
-value), apart from the `sm_tabs`/`kv4` tables only paths outside this
-slice read.  `tables_from_numpy` must keep every dtype (int32 stays
-int32 — torch would promote int32 x int64 to int64 and hide the wraps —
-int8 stays int8, the f32 score_scale stays f32), and the layer-by-layer
-`deploy_model` must equal the whole-tree deploy.
+value), the per-kv-head `kv4` tables included, apart from the `sm_tabs`
+tables only the integer-softmax variant reads.  `tables_from_numpy`
+must keep every dtype (int32 stays int32 — torch would promote int32 x
+int64 to int64 and hide the wraps — int8 stays int8, the f32
+score_scale stays f32), and the layer-by-layer `deploy_model` must
+equal the whole-tree deploy.
 """
 import jax
 import jax.numpy as jnp
@@ -22,7 +23,7 @@ from repro_torch.core.calibrate import Calibrator
 from repro_torch.launch.serve import deploy_model
 from repro_torch.models.lm import DecoderLM, tables_from_numpy
 
-OMITTED = ("sm_tabs", "kv4")
+OMITTED = ("sm_tabs",)
 
 
 @pytest.fixture(scope="module")

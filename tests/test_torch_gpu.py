@@ -8,19 +8,26 @@ a GPU machine that has only torch:
 
 It covers both paths of the int8 GEMM (small-M and tensor-core, with
 ragged M and N) and its refusal of K not a multiple of 16, the requant
-kernel and the paged attention on a recycled table with GQA group 4
-and a parked row.
+kernel, the paged attention on a recycled table with GQA group 4 and a
+parked row in both pool modes (int8, and int4-packed with per-head
+unpack operands whose m, s0 and d differ from head to head), a planted
+wrong unpack that the packed check rejects, and the quantized flash
+attention at the reference tests' shapes and under GQA.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.intmath import unpack_int4
 from repro_torch.core.requant import apply_rqt, make_rqt
 from repro_torch.kernels import (
-    int8_matmul, int8_matmul_plain, paged_attention, paged_attention_plain,
+    int8_matmul, int8_matmul_plain, paged_attention, paged_attention_kv4,
+    paged_attention_plain, quant_flash_attention, quant_flash_attention_plain,
     requant,
 )
-from repro_torch.kernels.paged_attention import check_image, gathered_view
+from repro_torch.kernels.paged_attention import (
+    check_image, check_kernel, gathered_view, kv4_unpack, staged_unpack_rq,
+)
 from repro_torch.layers.attention import INACTIVE_POS
 
 
@@ -107,3 +114,89 @@ def test_paged_attention_on_card(S):
     assert torch.equal(got, pv.to(torch.int32))
     if torch.equal(qp, want_qp):
         assert torch.equal(got, want)
+
+
+def _packed_inputs(rng, S, device):
+    B, K, group, hd, ps, pps, n_pages = 4, 2, 4, 32, 4, 4, 12
+    H = K * group
+    q = rng.integers(-40, 41, size=(B, H, S, hd)).astype(np.int8)
+    kp = rng.integers(-128, 128, size=(n_pages + 1, K, ps, hd // 2))
+    vp = rng.integers(-128, 128, size=(n_pages + 1, K, ps, hd // 2))
+    table = np.array([[11, 12, 3, 9], [5, 6, 10, 2], [8, 4, 7, 1],
+                      [0, 0, 0, 0]], np.int32)
+    pos = np.array([1, 6, 0, INACTIVE_POS], np.int32)
+    args = [torch.from_numpy(a).to(device) for a in (
+        q, kp.astype(np.int8), vp.astype(np.int8), table, pos)]
+    scale = torch.tensor(1.0 / 64.0, device=device)
+    rq = staged_unpack_rq(K).to(device)
+    return args, scale, rq, torch.roll(rq, 1, dims=1), group
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 4])
+def test_paged_attention_kv4_on_card(S):
+    _need_card()
+    args, scale, k_rq, v_rq, group = _packed_inputs(
+        np.random.default_rng(S), S, "cuda")
+    B, H = args[0].shape[:2]
+    T = args[3].shape[1] * args[1].shape[2]
+    qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
+    n = paged_attention_kv4.launches
+    got = paged_attention(*args, scale, group=group, k_rq=k_rq, v_rq=v_rq,
+                          qp_out=qp)
+    assert paged_attention_kv4.launches == n + 1
+    check_kernel(got, qp, *args, scale, group=group, k_rq=k_rq, v_rq=v_rq,
+                 what=f"kv4 S={S}")
+
+
+def floor_unpack(pool, rq):
+    """A wrong unpack: one floor of x * m / 2^d instead of the formula's
+    (x >> s0) * m >> (d - s0)."""
+    m, s0, lo, hi, d, zp = (r.to(torch.int64).reshape(-1, 1, 1) for r in rq)
+    x = torch.minimum(torch.maximum(unpack_int4(pool).to(torch.int64), lo),
+                      hi)
+    return (torch.div(x * m, 2 ** d, rounding_mode="floor") + zp).clamp(
+        -128, 127).to(torch.int8)
+
+
+@pytest.mark.gpu
+def test_packed_check_rejects_a_planted_wrong_unpack_on_card():
+    _need_card()
+    args, scale, k_rq, v_rq, group = _packed_inputs(
+        np.random.default_rng(9), 4, "cuda")
+    q, kp, vp, table, pos = args
+    bad, bad_qp = paged_attention_plain(
+        q, floor_unpack(kp, k_rq), floor_unpack(vp, v_rq), table, pos,
+        scale, group=group, return_qp=True)
+    with pytest.raises(AssertionError):
+        check_kernel(bad, bad_qp, *args, scale, group=group, k_rq=k_rq,
+                     v_rq=v_rq, what="planted")
+    good, good_qp = paged_attention_plain(
+        *args, scale, group=group, k_rq=k_rq, v_rq=v_rq, return_qp=True)
+    assert check_kernel(good, good_qp, *args, scale, group=group,
+                        k_rq=k_rq, v_rq=v_rq) == (0, 0)
+    assert not torch.equal(floor_unpack(kp, k_rq), kv4_unpack(kp, k_rq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,S_q,S_kv,causal,n_rep,q_offset", [
+    (64, 128, 128, True, 1, 0), (128, 128, 256, True, 1, 0),
+    (192, 128, 128, False, 1, 0), (64, 256, 384, True, 1, 0),
+    (64, 100, 256, True, 4, 156)])
+def test_quant_flash_attention_on_card(hd, S_q, S_kv, causal, n_rep,
+                                       q_offset):
+    _need_card()
+    rng = np.random.default_rng(hd + S_q)
+    B, K = 2, 2
+    H = K * n_rep
+    q, k, v = (torch.from_numpy(rng.integers(
+        -127, 128, size=(B, h, s, hd)).astype(np.int8)).cuda()
+        for h, s in ((H, S_q), (K, S_kv), (K, S_kv)))
+    kw = dict(score_scale=1e-4, eps_ctx=0.01, causal=causal,
+              q_offset=q_offset, n_rep=n_rep)
+    n = quant_flash_attention.launches
+    got = quant_flash_attention(q, k, v, **kw)
+    assert quant_flash_attention.launches == n + 1
+    want = quant_flash_attention_plain(q, k, v, **kw)
+    assert got.shape == (B, H, S_q, hd) and got.dtype == torch.int8
+    check_image(got, want, f"quant_flash_attention hd={hd}", unit="ctx")

@@ -1,9 +1,10 @@
 """The port stands alone, defaults to the card, and its smoke script
 refuses to run without one.
 
-* No file of `src/repro_torch/` and not `chip_smoke.py` imports `jax`
-  or anything of the reference package `repro` (checked on the AST, so
-  lazy imports inside functions count too).
+* No file of `src/repro_torch/`, not `chip_smoke.py` and not the card
+  tests (`tests/test_torch_gpu.py`, run where no JAX is installed)
+  import `jax` or anything of the reference package `repro` (checked
+  on the AST, so lazy imports inside functions count too).
 * Every public entry point that places data takes `device` and
   defaults it to "cuda".
 * `chip_smoke.py` exits non-zero, printing no result, without a CUDA
@@ -23,7 +24,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
     assert len(files) > 25
     return files
 
