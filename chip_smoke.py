@@ -42,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +69,9 @@ SOURCES = {
     "quant_flash_attention":
         "src/repro_torch/kernels/csrc/quant_attention.cu",
 }
+# the __global__ functions of csrc/*.cu
+KERNEL_NAMES = ("gemm_gemv_kernel", "gemm_wgmma_kernel", "requant_kernel",
+                "paged_attn_kernel", "quant_attn_kernel")
 # the kernels each serving path launches
 PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                 4: ("int8_matmul", "requant", "paged_attention_kv4")}
@@ -139,6 +143,7 @@ def rand_rqt(torch, np, rng, N, per_channel, *, int32_out):
 
 def check_int8_matmul(torch, np, timer, rng, report):
     from repro_torch.kernels import int8_matmul, int8_matmul_plain
+    from repro_torch.kernels.int8_matmul import gemm_plan
 
     worst = 0
     for M in (N_SLOTS, N_SLOTS * CHUNK):
@@ -174,11 +179,45 @@ def check_int8_matmul(torch, np, timer, rng, report):
                        plain_ms=plain, bound_ms=bms, bound_by=by,
                        library_ms=lib, max_abs_err=err)
             report.setdefault("int8_matmul", []).append(row)
+            p = gemm_plan(M, N, K)
             print(f"  int8_matmul {row['shape']}: kernel {ms:.4f} ms, "
                   f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
                   f"library {lib if lib is None else round(lib, 4)} ms, "
-                  f"exact")
+                  f"exact; {p.path} {p.bm}x{p.bn}, {p.splits} split(s), "
+                  f"{p.blocks} blocks, "
+                  f"{(n_bytes + out_b) / ms / 1e6:.0f} GB/s")
+    host_us_per_call(torch, np, rng, report)
     return worst
+
+
+def host_us_per_call(torch, np, rng, report, calls=1000):
+    """Host time of one int8_matmul call at K 2048, N 2048 (the wq and
+    wo sites), M 8 (decode GEMV) and M 256 (chunk wgmma, which encodes
+    two tensor maps): `calls` launches without synchronising, divided,
+    beside the kernel's device time from the table above."""
+    from repro_torch.kernels import int8_matmul
+
+    K, N = 2048, 2048
+    w = torch.randint(-128, 128, (N, K), dtype=torch.int8,
+                      device="cuda").t()
+    bias = torch.zeros(N, dtype=torch.int32, device="cuda")
+    rq = rand_rqt(torch, np, rng, N, True, int32_out=False)
+    for M, mode, rqt in ((N_SLOTS, "int8", rq), (N_SLOTS, "int32", None),
+                         (N_SLOTS * CHUNK, "int32", None)):
+        x = torch.randint(-128, 128, (M, K), dtype=torch.int8,
+                          device="cuda")
+        int8_matmul(x, w, bias, rqt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            int8_matmul(x, w, bias, rqt)
+        host_us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        shape = f"M={M} K={K} N={N} {mode}-out"
+        dev = next(r["ms"] for r in report["int8_matmul"]
+                   if r["shape"] == shape)
+        print(f"  int8_matmul {shape}: host {host_us:.1f} us per call "
+              f"({calls} calls, no synchronise), device {dev * 1e3:.1f} us")
 
 
 def check_requant(torch, np, timer, rng, report):
@@ -533,6 +572,41 @@ def phase_main(torch, np, kernels):
     return launches
 
 
+def gemm_sites(cfg) -> dict:
+    """(K, N, output type) of each QLinear site of the serving path ->
+    its name (wk and wv, gate and up share a shape)."""
+    d, hd = cfg.d_model, cfg.hd
+    return {(d, cfg.n_heads * hd, "int8"): "wq",
+            (d, cfg.n_kv_heads * hd, "int8"): "wk+wv",
+            (cfg.n_heads * hd, d, "int32"): "wo",
+            (d, cfg.d_ff, "int8"): "gate+up",
+            (cfg.d_ff, d, "int32"): "down",
+            (d, cfg.vocab_padded, "int32"): "head"}
+
+
+def gemm_site_launches(kernels, cfg, steps: int, total: int) -> None:
+    """Print the main run's GEMM launches by site and path (M <= 16:
+    decode GEMV; larger M: chunk wgmma) from `int8_matmul.by_shape`;
+    they must add up to the GEMM's count, 7 per layer and 1 for the
+    head in every step."""
+    sites = gemm_sites(cfg)
+    by = kernels.int8_matmul.by_shape
+    parts = []
+    for (M, K, N, mode), n in sorted(by.items()):
+        path = "decode" if M <= 16 else "chunk"
+        parts.append(f"{sites.get((K, N, mode), f'K{K} N{N} {mode}')} "
+                     f"M{M} ({path}) {n}")
+    per_step = 7 * cfg.n_layers + 1
+    print(f"  int8_matmul launches by site and path: {', '.join(parts)}; "
+          f"sum {sum(by.values())} = {sum(by.values()) / steps:.0f} per "
+          f"step")
+    if sum(by.values()) != total or total != per_step * steps:
+        raise AssertionError(f"GEMM launches {by} do not add up to {total} "
+                             f"= {per_step} x {steps} steps")
+    if any((K, N, mode) not in sites for (_, K, N, mode) in by):
+        raise AssertionError(f"a GEMM launch off the serving sites: {by}")
+
+
 def serve_twice(torch, kernels, lm, tables, reqs, kv_bits):
     """Two runs of the main path at `kv_bits`: the counts are set to 0
     just before run 1 and read just after; every kernel of the path
@@ -551,6 +625,8 @@ def serve_twice(torch, kernels, lm, tables, reqs, kv_bits):
     off_path = [n for n, c in launches.items() if c and n not in path]
     if off_path:
         raise AssertionError(f"kernels off the path launched: {launches}")
+    gemm_site_launches(kernels, lm.cfg, s1["steps"],
+                       launches["int8_matmul"])
     tok2, s2 = serve(lm, tables, reqs, "cuda", kv_bits)
     if tok1 != tok2:
         raise AssertionError(f"kv_bits {kv_bits}: a second run gave other "
@@ -589,14 +665,22 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     busy_us = sum(e.self_device_time_total for e in rows)
-    owner = {"mma_kernel": "int8_matmul", "gemv_kernel": "int8_matmul",
+    owner = {"gemm_wgmma_kernel": "int8_matmul",
+             "gemm_gemv_kernel": "int8_matmul",
              "requant_kernel": "requant",
              "paged_attn_kernel<64, false>": "paged_attention",
              "paged_attn_kernel<64, true>": "paged_attention_kv4"}
-    split = {}
+    gemm_path = {"gemm_wgmma_kernel": "chunk (wgmma)",
+                 "gemm_gemv_kernel": "decode (GEMV)"}
+    split, by_path = {}, {}
     for e in rows:
         who = next((v for k, v in owner.items() if k in e.key), "torch ops")
         split[who] = split.get(who, 0.0) + e.self_device_time_total / 1e3
+        for k, v in gemm_path.items():
+            if k in e.key:
+                ms, n = by_path.get(v, (0.0, 0))
+                by_path[v] = (ms + e.self_device_time_total / 1e3,
+                              n + e.count)
     print(f"  profile (kv_bits {kv_bits} run 3): device busy "
           f"{busy_us / 1e3:.1f} ms; wall "
           f"{wall * 1e3:.1f} ms under the profiler, "
@@ -607,6 +691,9 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
           f"steps: {n_kernels / stats['steps']:.0f} per step")
     print("  device ms by owner: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(split.items(), key=lambda x: -x[1])))
+    print("  int8_matmul device ms by path: " + ", ".join(
+        f"{k} {ms:.1f} in {n} launches ({ms / n * 1e3:.1f} us each)"
+        for k, (ms, n) in sorted(by_path.items())))
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
@@ -642,9 +729,20 @@ def main() -> int:
     print(f"[build] {len(reports)} sources in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
+        fn = ""
         for line in rep.splitlines():
+            if "Compiling entry function" in line:
+                # the kernel's name and integer template arguments,
+                # from its mangled name
+                mangled = line.split("'")[1]
+                at = [mangled.find(k) for k in KERNEL_NAMES if k in mangled]
+                m = re.match(r"([a-z_]+_kernel)((?:ILi\d+E|Li\d+E|Lb[01]E)*)",
+                             mangled[at[0]:] if at else "")
+                fn = (m.group(1) + "<" + ", ".join(
+                    re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
+                      if m else mangled[:40])
             if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name} {fn}: {line.strip()}")
     rng = np.random.default_rng(SEED)
     report, errs = {}, {}
     timer = Timer(torch)

@@ -15,7 +15,8 @@ A wrapper runs its plain version only for CPU tensors; for a CUDA
 tensor it launches its kernel or raises.  Each wrapper counts its
 launches in a plain integer attribute (`int8_matmul.launches`, ...);
 `paged_attention` counts a launch over packed pools on the counter
-`paged_attention_kv4.launches` instead.
+`paged_attention_kv4.launches` instead, and `int8_matmul.by_shape`
+splits the GEMM's count by (M, K, N, output type).
 """
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
 from repro_torch.kernels.paged_attention import (
@@ -38,6 +39,7 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    int8_matmul.by_shape = {}
 
 
 def launch_counts() -> dict:

@@ -12,10 +12,19 @@ row-major.  The port stores every QLinear weight that way from the
 moment its tables are loaded (`models.lm.tables_from_numpy`), as a
 (K, N) tensor with strides (1, K), so the logical shape, dtype and
 values stay those of the reference's `w_q`.
+
+Launch plan: `gemm_plan(M, N, K)` picks the kernel's path (the GEMV for
+M <= 16, the wgmma pipeline above), its tile and how many blocks split
+K, so that every shape of the serving path fills the card.  Split K
+keeps each block's partial tile in a workspace slot, which the tile's
+last block sums; the wrapper allocates the workspace and the tile
+counters once per device and stream, and the kernel leaves the
+counters zeroed.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,6 +57,95 @@ def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if rqt is None:
         return acc
     return apply_rqt(acc, rqt, qmin=qmin, qmax=qmax, out_dtype=torch.int8)
+
+
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+GEMV_BK = 512              # GEMV K step: one 16-byte vector per lane
+WGMMA_BK = 128             # wgmma K step: one 128-byte swizzle atom
+# bytes of K one wgmma block covers at most: past it, splitting K over
+# more blocks was the faster plan on an H100 (PERF.md)
+WGMMA_K_MAX = 4096
+GEMV_ROWS = (1, 2, 4, 8, 16)
+GEMV_COLS = (32, 16, 8, 4)  # 4 columns per warp, 8 .. 1 warps
+WGMMA_TILES = ((128, 64), (64, 32))
+
+
+class GemmPlan(NamedTuple):
+    path: str      # "gemv" (M <= 16) or "wgmma"
+    bm: int        # rows: the GEMV's compiled rows, or the tile's
+    bn: int        # output columns per block
+    bk: int        # bytes of K per step
+    splits: int    # blocks along K
+    k_split: int   # bytes of K per split, a whole number of steps
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split_k(tiles: int, ksteps: int, cap: int) -> Tuple[int, int]:
+    """-> (splits, steps per split): the fewest splits that give at
+    least SMS blocks, each at most `cap` steps; all steps when even
+    that falls short."""
+    need = _cdiv(SMS, tiles)
+    for s in range(need, ksteps + 1):
+        sps = min(cap, _cdiv(ksteps, s))
+        if _cdiv(ksteps, sps) >= need:
+            return _cdiv(ksteps, sps), sps
+    return ksteps, 1
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_plan(M: int, N: int, K: int) -> GemmPlan:
+    """Path, tile and split of K for an (M, K) @ (K, N) product.
+
+    M <= 16 takes the GEMV, compiled for 1, 2, 4, 8 or 16 rows of x.
+    Larger M takes the wgmma pipeline over one of WGMMA_TILES (128 rows
+    only for M > 64), each block over at most WGMMA_K_MAX bytes of K.
+    Of the plans that put at least SMS blocks on the card, the one with
+    the fewest splits wins, then the widest GEMV block or the first
+    wgmma tile; where none reaches SMS blocks, the one with the most."""
+    if M <= 16:
+        path, bk = "gemv", GEMV_BK
+        rows = next(t for t in GEMV_ROWS if t >= M)
+        cap = _cdiv(K, bk)
+        tiles = [(rows, bn, _cdiv(N, bn)) for bn in GEMV_COLS]
+    else:
+        path, bk = "wgmma", WGMMA_BK
+        cap = WGMMA_K_MAX // bk
+        tiles = [(bm, bn, _cdiv(M, bm) * _cdiv(N, bn))
+                 for bm, bn in WGMMA_TILES if bm == 64 or M > 64]
+    ksteps = _cdiv(K, bk)
+    plans = []
+    for bm, bn, n in tiles:
+        splits, sps = _split_k(n, ksteps, cap)
+        plans.append(GemmPlan(path, bm, bn, bk, splits, sps * bk,
+                              n * splits))
+    full = [p for p in plans if p.blocks >= SMS]
+    if not full:
+        return max(plans, key=lambda p: p.blocks)
+    return min(full, key=lambda p: p.splits)
+
+
+# split-K workspace (a slot per tile and split) and tile counters, per
+# (device, stream); the counters are zeroed when allocated and left
+# zeroed by every launch
+_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device, stream: int, plan: GemmPlan):
+    tiles = plan.blocks // plan.splits
+    n_ws = plan.blocks * plan.bm * plan.bn
+    key = (device.index, stream)
+    ws, count = _WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < n_ws or count.numel() < tiles:
+        n_ws = max(n_ws, 0 if ws is None else ws.numel())
+        tiles = max(tiles, 0 if count is None else count.numel())
+        ws = torch.empty(n_ws, dtype=torch.int32, device=device)
+        count = torch.zeros(tiles, dtype=torch.int32, device=device)
+        _WORKSPACE[key] = (ws, count)
+    return ws.data_ptr(), count.data_ptr()
 
 
 def _rq_operands(rqt: dict, N: int, device):
@@ -109,13 +207,23 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         tabs, stride = _rq_operands(rqt, N, x.device)
         ptrs = [t.data_ptr() for t in tabs] + [
             rqt["d"].data_ptr(), rqt["zp"].data_ptr()]
+    plan = gemm_plan(M, N, K)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = count = None
+    if plan.splits > 1:
+        ws, count = _workspace(x.device, stream, plan)
     err = build.launcher("int8_matmul")(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), *ptrs, stride, qmin,
         qmax, out.data_ptr(), int(rqt is not None), M, N, K, x.stride(0),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(plan.path == "wgmma"), plan.bm, plan.bn, plan.splits,
+        plan.k_split, ws, count, stream)
     build.check(err, "int8_matmul")
     int8_matmul.launches += 1
+    key = (M, K, N, "int32" if rqt is None else "int8")
+    int8_matmul.by_shape[key] = int8_matmul.by_shape.get(key, 0) + 1
     return out
 
 
 int8_matmul.launches = 0
+# launches by (M, K, N, output type), counted beside `launches`
+int8_matmul.by_shape = {}

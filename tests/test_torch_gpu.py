@@ -6,14 +6,19 @@ a GPU machine that has only torch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-It covers both paths of the int8 GEMM (small-M and tensor-core, with
-ragged M and N) and its refusal of K not a multiple of 16, the requant
-kernel, the paged attention on a recycled table with GQA group 4 and a
-parked row in both pool modes (int8, and int4-packed with per-head
-unpack operands whose m, s0 and d differ from head to head), a planted
-wrong unpack that the packed check rejects, and the quantized flash
-attention at the reference tests' shapes and under GQA.
+It covers both paths of the int8 GEMM (the GEMV and the wgmma
+pipeline, split K or not) at every serving shape and ragged ones, a
+planted layout, split K with int8 out looped 50 times, the shared
+workspace across shapes, and the refusal of K not a multiple of 16;
+the requant kernel, the paged attention on a recycled table with GQA
+group 4 and a parked row in both pool modes (int8, and int4-packed
+with per-head unpack operands whose m, s0 and d differ from head to
+head), a planted wrong unpack that the packed check rejects, and the
+quantized flash attention at the reference tests' shapes and under
+GQA.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -25,10 +30,16 @@ from repro_torch.kernels import (
     paged_attention_plain, quant_flash_attention, quant_flash_attention_plain,
     requant,
 )
+from repro_torch.kernels.int8_matmul import (
+    _WORKSPACE, GEMV_COLS, WGMMA_TILES, GemmPlan, gemm_plan,
+)
 from repro_torch.kernels.paged_attention import (
     check_image, check_kernel, gathered_view, kv4_unpack, staged_unpack_rq,
 )
 from repro_torch.layers.attention import INACTIVE_POS
+
+# the module (the package exports its function under the same name)
+_gemm_module = sys.modules["repro_torch.kernels.int8_matmul"]
 
 
 def _need_card():
@@ -40,24 +51,170 @@ def _rq(tree):
     return {k: torch.from_numpy(np.array(v)).cuda() for k, v in tree.items()}
 
 
+# (K, N) of every GEMM site of granite_3_2b's serving path: wq and wo,
+# wk and wv, gate and up, down, the head
+MAIN_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048),
+           (2048, 49408)]
+GEMM_CASES = (
+    [(M, K, N) for M in (1, 8, 16, 17, 64, 256, 300) for K, N in MAIN_KN]
+    + [(M, K, N) for M in (1, 8, 17, 300)
+       for K, N in ((48, 520), (96, 136), (160, 520))]
+    + [(8, 2048, 512), (16, 64, 40), (256, 2048, 2048), (200, 96, 136),
+       (37, 160, 66), (5, 48, 7)])
+
+
+def _gemm_operands(rng, M, K, N, ld_pad=0):
+    """x (M, K) as a row slice of an (M, K + ld_pad) buffer, w stored
+    (N, K) (both drawn on the card from a seed of `rng`), and a bias
+    whose columns 0, 3, ... sit at 2^31 - 1 and 1, 4, ... at -2^31, so
+    that most of those columns wrap."""
+    g = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    xb = torch.randint(-128, 128, (M, K + ld_pad), dtype=torch.int8,
+                       device="cuda", generator=g)
+    w = torch.randint(-128, 128, (N, K), dtype=torch.int8, device="cuda",
+                      generator=g).t()
+    b = rng.integers(-(1 << 20), 1 << 20, size=N).astype(np.int64)
+    b[0::3] = 2 ** 31 - 1
+    b[1::3] = -2 ** 31
+    return xb[:, :K], w, torch.from_numpy(b.astype(np.int32)).cuda()
+
+
+def _gemm_tables(rng, K, N):
+    """int32 out, and int8 out through scalar and per-column tables."""
+    bound = float(K * 127 * 127)
+    return [None,
+            _rq(make_rqt(float(rng.uniform(1e-5, 4e-5)), 0.05,
+                         acc_bound=bound)),
+            _rq(make_rqt(rng.uniform(1e-5, 4e-5, size=N), 0.05,
+                         acc_bound=bound))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [(8, 2048, 512), (16, 64, 40),
-                                   (256, 2048, 2048), (200, 96, 136),
-                                   (37, 160, 66), (5, 48, 7)])
+@pytest.mark.parametrize("M,K,N", GEMM_CASES)
 def test_int8_matmul_on_card(M, K, N):
+    """Both paths at every serving (K, N) and ragged ones, both modes,
+    scalar and per-column tables, contiguous and row-sliced x (ldx > K),
+    wrapping biases: equal to the plain version."""
     _need_card()
     rng = np.random.default_rng(M + K + N)
+    for pad in (0, 48):
+        x, w, b = _gemm_operands(rng, M, K, N, pad)
+        assert x.stride(0) == K + pad
+        for r in _gemm_tables(rng, K, N):
+            got = int8_matmul(x, w, b, r)
+            want = int8_matmul_plain(x, w, b, r)
+            assert got.dtype == want.dtype
+            assert torch.equal(got, want), (pad, r is None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 512), (256, 2048, 2048),
+                                   (300, 160, 136), (256, 8192, 2048),
+                                   (256, 2048, 8192)])
+def test_int8_matmul_planted_layout_on_card(M, K, N):
+    """Known products that show a layout fault as a pattern: a single
+    non-zero K column of x (inside and across 128-byte swizzle atoms),
+    and identity-block weights (out[r, n] = x[r, n % K]); int32 out
+    against the product itself, and int8 out through per-column tables
+    whose columns all differ, against the plain version."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    b = torch.from_numpy(
+        rng.integers(-1000, 1000, size=N).astype(np.int32)).cuda()
+    col = torch.from_numpy(
+        (np.arange(N) % 251 - 125).astype(np.int8)).cuda()
+    rows = torch.from_numpy(
+        (np.arange(M) % 255 - 127).astype(np.int8)).cuda()
+    eps = np.linspace(1e-5, 4e-5, N)
+    rq = _rq(make_rqt(eps, 0.05, acc_bound=float(K * 127 * 127)))
+    # at least 136 distinct (m, s0) column tables, all N up to 136
+    assert len(set(zip(*(rq[k].cpu().tolist()
+                         for k in ("m", "s0"))))) >= min(N, 136)
+    for k in sorted({0, 17, 127, 128, K // 2 + 33, K - 1}):
+        x = torch.zeros((M, K), dtype=torch.int8, device="cuda")
+        x[:, k] = rows
+        wt = torch.zeros((N, K), dtype=torch.int8, device="cuda")
+        wt[:, k] = col
+        want = rows.int()[:, None] * col.int()[None, :] + b
+        assert torch.equal(int8_matmul(x, wt.t(), b), want), k
+        assert torch.equal(int8_matmul(x, wt.t(), b, rq),
+                           int8_matmul_plain(x, wt.t(), b, rq)), k
     x = torch.from_numpy(
         rng.integers(-128, 128, size=(M, K)).astype(np.int8)).cuda()
-    w = torch.from_numpy(
-        rng.integers(-128, 128, size=(N, K)).astype(np.int8)).cuda().t()
-    b = torch.from_numpy(
-        rng.integers(-(1 << 20), 1 << 20, size=N).astype(np.int32)).cuda()
-    rq = _rq(make_rqt(rng.uniform(1e-5, 4e-5, size=N), 0.05,
-                      acc_bound=float(K * 127 * 127)))
-    for r in (None, rq):
-        got = int8_matmul(x, w, b, r)
-        assert torch.equal(got, int8_matmul_plain(x, w, b, r)), r is None
+    wt = torch.zeros((N, K), dtype=torch.int8, device="cuda")
+    n = torch.arange(N, device="cuda")
+    wt[n, n % K] = 1
+    assert torch.equal(int8_matmul(x, wt.t(), b), x.int()[:, n % K] + b)
+    assert torch.equal(int8_matmul(x, wt.t(), b, rq),
+                       int8_matmul_plain(x, wt.t(), b, rq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(256, 2048, 512), (8, 2048, 512),
+                                   (100, 2048, 136)])
+def test_int8_matmul_split_k_int8_out_50_loops_on_card(M, K, N):
+    """Split K with int8 out: the epilogue must wait for every partial.
+    50 launches on the same inputs, each equal to the plain version."""
+    _need_card()
+    assert gemm_plan(M, N, K).splits > 1
+    rng = np.random.default_rng(50)
+    x, w, b = _gemm_operands(rng, M, K, N)
+    rq = _gemm_tables(rng, K, N)[2]
+    want = int8_matmul_plain(x, w, b, rq)
+    outs = [int8_matmul(x, w, b, rq) for _ in range(50)]
+    for i, got in enumerate(outs):
+        assert torch.equal(got, want), i
+
+
+# every tile and GEMV width the plan can pick, with and without split K
+FORCED_PLANS = ([("wgmma", bm, bn, splits) for bm, bn in WGMMA_TILES
+                 for splits in (1, 3)]
+                + [("gemv", 8, bn, splits) for bn in GEMV_COLS
+                   for splits in (1, 2)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path,bm,bn,splits", FORCED_PLANS)
+def test_int8_matmul_every_plan_on_card(path, bm, bn, splits, monkeypatch):
+    """Each launch plan the kernel takes, forced on a ragged shape (N
+    520, M 200 or 5, K 2048), both modes: equal to the plain version."""
+    _need_card()
+    M, K, N = (200 if path == "wgmma" else 5), 2048, 520
+    bk = 128 if path == "wgmma" else 512
+    k_split = -(-K // (splits * bk)) * bk
+    tiles = (-(-M // bm) if path == "wgmma" else 1) * -(-N // bn)
+    plan = GemmPlan(path, bm, bn, bk, splits, k_split, tiles * splits)
+    monkeypatch.setattr(_gemm_module, "gemm_plan", lambda *a: plan)
+    rng = np.random.default_rng(11)
+    x, w, b = _gemm_operands(rng, M, K, N)
+    for r in _gemm_tables(rng, K, N):
+        assert torch.equal(int8_matmul(x, w, b, r),
+                           int8_matmul_plain(x, w, b, r)), r is None
+
+
+@pytest.mark.gpu
+def test_int8_matmul_shared_workspace_back_to_back_on_card():
+    """Split-K launches of different shapes back to back on one stream
+    share the workspace; each stays exact and the tile counters are
+    zero again after them."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    shapes = [(256, 2048, 512), (8, 2048, 512), (17, 2048, 2048),
+              (256, 8192, 2048), (100, 2048, 136), (16, 2048, 512),
+              (1, 8192, 512)]
+    cases = []
+    for M, K, N in shapes:
+        assert gemm_plan(M, N, K).splits > 1
+        x, w, b = _gemm_operands(rng, M, K, N)
+        for r in _gemm_tables(rng, K, N)[::2]:
+            cases.append((x, w, b, r))
+    outs = [int8_matmul(*c) for c in cases + cases[::-1]]
+    for c, got in zip(cases + cases[::-1], outs):
+        assert torch.equal(got, int8_matmul_plain(*c))
+    torch.cuda.synchronize()
+    assert _WORKSPACE
+    for _, count in _WORKSPACE.values():
+        assert not count.any()
 
 
 @pytest.mark.gpu

@@ -26,6 +26,9 @@ from repro.layers.linear import QLinear as JQLinear
 from repro_torch.kernels import (
     int8_matmul, int8_matmul_plain, paged_attention, requant,
 )
+from repro_torch.kernels.int8_matmul import (
+    SMS, WGMMA_K_MAX, WGMMA_TILES, gemm_plan,
+)
 from repro_torch.kernels.paged_attention import (
     _lane_sum, attention_probs, check_image,
 )
@@ -102,6 +105,51 @@ def test_int8_matmul_plain_wraps_int32():
                             torch.from_numpy(b))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want < 0).all()
+
+
+# (K, N) of each GEMM site of granite_3_2b's serving path (wk and wv,
+# gate and up share theirs)
+GEMM_SITES = {"wq": (2048, 2048), "wk/wv": (2048, 512), "wo": (2048, 2048),
+              "gate/up": (2048, 8192), "down": (8192, 2048),
+              "head": (2048, 49408)}
+
+
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("site", list(GEMM_SITES))
+def test_gemm_plan_fills_the_card_at_serving_shapes(site, M):
+    """Decode (M 8) and chunked prefill (M 8 x 32): at least one block
+    per SM, every split a whole number of K steps with none empty, and
+    the GEMV exactly for M <= 16."""
+    K, N = GEMM_SITES[site]
+    p = gemm_plan(M, N, K)
+    assert p.blocks >= SMS
+    assert (p.path == "gemv") == (M <= 16)
+    assert p.k_split % p.bk == 0
+    assert (p.splits - 1) * p.k_split < K <= p.splits * p.k_split
+    row_tiles = -(-M // p.bm) if p.path == "wgmma" else 1
+    assert p.blocks == row_tiles * -(-N // p.bn) * p.splits
+    if p.path == "gemv":
+        assert p.bm >= M
+
+
+@pytest.mark.parametrize("M", [1, 3, 16, 17, 64, 65, 300])
+@pytest.mark.parametrize("K,N", [(16, 7), (48, 520), (160, 136),
+                                 (65536, 64), (2048, 40)])
+def test_gemm_plan_is_a_valid_launch_at_any_shape(M, K, N):
+    """Ragged and odd shapes: a plan the kernel takes (the C entry
+    point checks the same), a wgmma block over at most WGMMA_K_MAX
+    of K."""
+    p = gemm_plan(M, N, K)
+    assert (p.path == "gemv") == (M <= 16)
+    assert p.splits >= 1 and p.k_split % p.bk == 0
+    assert (p.splits - 1) * p.k_split < K <= p.splits * p.k_split
+    if p.path == "gemv":
+        assert p.bm in (1, 2, 4, 8, 16) and p.bm >= M
+        assert p.bn in (4, 8, 16, 32)
+    else:
+        assert (p.bm, p.bn) in WGMMA_TILES
+        assert p.bm == 64 or M > 64
+        assert p.k_split <= WGMMA_K_MAX
 
 
 @pytest.mark.parametrize("per_channel", [False, True])
