@@ -14,10 +14,13 @@ Phases (any failure raises and the script exits non-zero):
             (int8, and int4-packed with per-head unpack operands) at
             T = 512 and T = 4096 within the stated tolerance of its
             probability image (`check_kernel`); the quantized flash
-            attention at full granite geometry (S 8192 x 8192, and 128
-            queries at offset 8064 over 8192 keys) and at hd 128 / 192,
-            within the same form of tolerance on its int8 output; times
-            beside bounds
+            attention at full granite geometry (S 8192 x 8192 with bkv
+            128 and 64 on the tensor-core kernel and bkv 256 on the
+            CUDA-core one, and 128 queries at offset 8064 over 8192
+            keys) and at hd 128 / 192, equal to its plain version (0
+            quanta moved), with the kernel path `qfa_plan` took and its
+            registers and spills; times beside bounds and the island
+            floor
   entry     `quant_flash_attention` driven through its entry point (no
             serving path calls it), counts read around it
   parity    full-width granite_3_2b cut to 2 layers, the card against
@@ -71,16 +74,24 @@ SOURCES = {
 }
 # the __global__ functions of csrc/*.cu
 KERNEL_NAMES = ("gemm_gemv_kernel", "gemm_wgmma_kernel", "requant_kernel",
-                "paged_attn_kernel", "quant_attn_kernel")
+                "paged_attn_kernel", "quant_attn_mma_kernel",
+                "quant_attn_kernel")
 # the kernels each serving path launches
 PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                 4: ("int8_matmul", "requant", "paged_attention_kv4")}
 # main-path engine settings
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
 # quantized flash attention at full granite geometry (B 1, H 32, K 8):
-# (S_q, S_kv, hd, causal, q_offset); the first two are its entry phase
-QFA_SHAPES = ((8192, 8192, 64, True, 0), (128, 8192, 64, True, 8064),
-              (128, 256, 128, True, 0), (128, 128, 192, False, 0))
+# (S_q, S_kv, hd, causal, q_offset, bkv); the first two are its entry
+# phase; bkv 256, the last, takes the CUDA-core kernel (`qfa_plan`)
+QFA_SHAPES = ((8192, 8192, 64, True, 0, 128),
+              (128, 8192, 64, True, 8064, 128),
+              (128, 256, 128, True, 0, 128), (128, 128, 192, False, 0, 128),
+              (8192, 8192, 64, True, 0, 64), (8192, 8192, 64, True, 0, 256))
+# lane-instructions of the exact float island per visible score: one
+# accurate expf (~10) and ~10 more f32 / int steps (an estimate from the
+# source, not a count of the compiled code)
+ISLAND_INSTR = 20
 QFA_SCALE, QFA_EPS = 1.0 / 2048.0, 0.02
 
 
@@ -97,6 +108,27 @@ def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
     t_ops = n_ops / ops_rate
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
+
+
+def ptxas_summary(report: str) -> dict:
+    """{kernel<template args>: "registers ... / spill ..."} from nvcc's
+    -Xptxas -v report of one source."""
+    out, fn = {}, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            # the kernel's name and integer template arguments, from
+            # its mangled name
+            mangled = line.split("'")[1]
+            at = [mangled.find(k) for k in KERNEL_NAMES if k in mangled]
+            m = re.match(r"([a-z_]+_kernel)((?:ILi\d+E|Li\d+E|Lb[01]E)*)",
+                         mangled[min(at):] if at else "")
+            fn = (m.group(1) + "<" + ", ".join(
+                re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
+                  if m else mangled[:40])
+        if "registers" in line or "spill" in line:
+            out[fn] = (out[fn] + "; " if fn in out else "") + line.split(
+                ":", 1)[-1].strip()
+    return out
 
 
 class Timer:
@@ -342,31 +374,39 @@ def check_paged_attention(torch, np, timer, rng, report, packed=False):
 
 
 def qfa_inputs(torch, shape, seed):
-    S_q, S_kv, hd, causal, q_offset = shape
+    S_q, S_kv, hd, causal, q_offset, bkv = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     B, H, K = 1, 32, 8
     q, k, v = (torch.randint(-127, 128, (B, h, s, hd), dtype=torch.int8,
                              device="cuda", generator=g)
                for h, s in ((H, S_q), (K, S_kv), (K, S_kv)))
     kw = dict(score_scale=QFA_SCALE, eps_ctx=QFA_EPS, causal=causal,
-              q_offset=q_offset, n_rep=H // K)
+              q_offset=q_offset, n_rep=H // K, bkv=bkv)
     return q, k, v, kw
 
 
-def check_quant_flash_attention(torch, np, timer, report):
-    """Kernel vs plain version at full granite geometry.  Tolerance: the
-    form of `check_image` on the int8 ctx output — at most max(8, 1e-5
-    of) its entries may move, each by one quantum; both round every
-    float step once in the same order, so a sound kernel moves none."""
+def check_quant_flash_attention(torch, np, timer, report, ptxas):
+    """Kernel vs plain version at full granite geometry.  Both round
+    every float step once in the same order, so the int8 ctx outputs
+    must be equal: `check_image`'s form on them, and then 0 quanta
+    moved and max |diff| 0 required.  Prints the path `qfa_plan` took and its kernel's registers and
+    spills (`ptxas`: the build's report of quant_attention.cu)."""
     from repro_torch.kernels import (
         quant_flash_attention, quant_flash_attention_plain,
     )
     from repro_torch.kernels.paged_attention import check_image
+    from repro_torch.kernels.quant_attention import qfa_plan
 
     worst = 0
     for i, shape in enumerate(QFA_SHAPES):
-        S_q, S_kv, hd, causal, q_offset = shape
+        S_q, S_kv, hd, causal, q_offset, bkv = shape
         q, k, v, kw = qfa_inputs(torch, shape, SEED + 10 + i)
+        plan = qfa_plan(kw["n_rep"], hd, 128, bkv, causal, QFA_SCALE)
+        fn = (f"quant_attn_mma_kernel<{hd}, {bkv}>" if plan.path == "mma"
+              else f"quant_attn_kernel<{hd}>")
+        print(f"  path {plan.path}: {fn}, {plan.heads} heads x {plan.rows} "
+              f"rows a block, {plan.smem} B shared, "
+              f"ptxas: {ptxas.get(fn, 'not in the report')}")
         got = quant_flash_attention(q, k, v, **kw)
         want = quant_flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -374,6 +414,9 @@ def check_quant_flash_attention(torch, np, timer, report):
                 f"causal={causal} q_offset={q_offset}")
         moved = check_image(got, want, what, unit="ctx")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if moved or err:
+            raise AssertionError(f"{what}: {moved} ctx quanta moved, max "
+                                 f"|diff| {err} (0 required)")
         worst = max(worst, err)
         ms = timer(lambda: quant_flash_attention(q, k, v, **kw))
         plain = timer(lambda: quant_flash_attention_plain(q, k, v, **kw), 3)
@@ -397,15 +440,18 @@ def check_quant_flash_attention(torch, np, timer, report):
         n_bytes = 2 * q.numel() + k.numel() + v.numel()
         n_ops = 2.0 * 2 * H * hd * float(seen)
         bms, by = bound_ms(n_bytes, n_ops, INT8_OPS_S)
+        # the exact island's floor: every visible score's instructions
+        # on the CUDA cores' lanes (not a bound of the tensor cores)
+        island = H * float(seen) * ISLAND_INSTR / INT32_OPS_S * 1e3
         row = dict(shape=f"S_q={S_q} S_kv={S_kv} B=1 H={H} K={K} hd={hd} "
-                   f"causal={causal} q_offset={q_offset}", ms=ms,
+                   f"causal={causal} q_offset={q_offset} bkv={bkv}", ms=ms,
                    plain_ms=plain, bound_ms=bms, bound_by=by,
                    library_ms=lib, max_abs_err=err, quanta_moved=moved)
         report.setdefault("quant_flash_attention", []).append(row)
         print(f"  quant_flash_attention {row['shape']}: kernel {ms:.4f} ms,"
-              f" plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), SDPA "
-              f"{lib:.4f} ms, ctx quanta moved {moved} of {got.numel()}, "
-              f"max |diff| {err}")
+              f" plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), island "
+              f"floor {island:.4f} ms, SDPA {lib:.4f} ms, ctx quanta moved "
+              f"{moved} of {got.numel()}, max |diff| {err}")
     return worst
 
 
@@ -728,21 +774,11 @@ def main() -> int:
     reports = build.build_all()
     print(f"[build] {len(reports)} sources in "
           f"{time.perf_counter() - t0:.1f} s")
+    ptxas = {}
     for name, rep in reports.items():
-        fn = ""
-        for line in rep.splitlines():
-            if "Compiling entry function" in line:
-                # the kernel's name and integer template arguments,
-                # from its mangled name
-                mangled = line.split("'")[1]
-                at = [mangled.find(k) for k in KERNEL_NAMES if k in mangled]
-                m = re.match(r"([a-z_]+_kernel)((?:ILi\d+E|Li\d+E|Lb[01]E)*)",
-                             mangled[at[0]:] if at else "")
-                fn = (m.group(1) + "<" + ", ".join(
-                    re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
-                      if m else mangled[:40])
-            if "registers" in line or "spill" in line:
-                print(f"  {name} {fn}: {line.strip()}")
+        ptxas[name] = ptxas_summary(rep)
+        for fn, info in ptxas[name].items():
+            print(f"  {name} {fn}: {info}")
     rng = np.random.default_rng(SEED)
     report, errs = {}, {}
     timer = Timer(torch)
@@ -755,7 +791,7 @@ def main() -> int:
     errs["paged_attention_kv4"] = check_paged_attention(
         torch, np, timer, rng, report, packed=True)
     errs["quant_flash_attention"] = check_quant_flash_attention(
-        torch, np, timer, report)
+        torch, np, timer, report, ptxas["quant_attention"])
     t0 = phase_done("kernels", t0)
     print("[entry] quant_flash_attention through its entry point")
     entry = phase_entry(torch, kernels)

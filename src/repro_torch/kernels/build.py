@@ -41,7 +41,7 @@ SIGNATURES = {
     + [_I] * 5 + [_P] * 3,
     "requant": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 2 + [_P, _I, _LL, _I, _P],
     "paged_attention": [_P] * 11 + [_I] * 9 + [_LL, _P],
-    "quant_attention": [_P] * 4 + [_F] * 3 + [_I] * 11 + [_LL, _P],
+    "quant_attention": [_P] * 4 + [_F] * 3 + [_I] * 14 + [_LL, _P],
 }
 
 _LOCK = threading.Lock()

@@ -35,8 +35,16 @@ row's horizon.
 `repro.kernels.ref.quant_flash_attention_ref` with the kernel's float
 order, batched over (B, H, query block) with a Python loop over the KV
 blocks; integer products run in float64, exact at these ranges.
+
+On the card the wrapper launches one of two kernels of
+csrc/quant_attention.cu, chosen by `qfa_plan` from the shape alone:
+the tensor-core kernel (int8 `mma.sync` for both products, 4 warps of
+16 query rows, up to 4 query heads of one kv head per block) for bkv
+in `MMA_BKV`, and the first, CUDA-core kernel for every other bkv.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,7 +53,9 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e9
 _SMEM_LIMIT = 220 * 1024  # of the 227 KB a block may opt into
-HEAD_DIMS = (32, 64, 128, 192)  # the kernel's compiled head widths
+HEAD_DIMS = (32, 64, 128, 192)  # the kernels' compiled head widths
+MMA_BKV = (32, 64, 128)  # the tensor-core kernel's compiled KV blocks
+MMA_WARPS = 4  # warps of 16 query rows in one tensor-core block
 
 
 def _f32(x: float) -> float:
@@ -99,11 +109,48 @@ def quant_flash_attention_plain(q, k, v, *, score_scale: float,
     return out.reshape(B, H, S_q, hd)[:, :, :S_out]
 
 
+class QfaPlan(NamedTuple):
+    """How the wrapper launches the kernel for one shape."""
+    path: str               # "mma" (tensor cores) or "simt" (CUDA cores)
+    heads: int              # query heads of one kv head in a block
+    rows: int               # query rows of each head in a block
+    skip: bool              # the kernel may skip causal blocks past
+                            # a tile
+    smem: int               # dynamic shared bytes of a block
+
+
+def qfa_plan(n_rep: int, hd: int, bq: int, bkv: int, causal: bool,
+             score_scale: float) -> QfaPlan:
+    """The launch for one shape.  bkv in MMA_BKV takes the tensor-core
+    kernel: the largest of 4, 2, 1 query heads that divides n_rep share
+    a block's K/V loads, and the block's 4 warps cover 64 / heads query
+    rows; shared memory is the double-buffered K and V ring, bkv rows
+    of hd + 16 bytes each, and V^T, hd rows of bkv + 16 bytes.  Any
+    other bkv takes the CUDA-core kernel, a block per (bq rows, query
+    head), S_q padded to bq.  Skipping causal blocks is exact while key
+    0's logit stays above -1e9 (csrc note 3): |s| < 128 * 128 * hd."""
+    skip = bool(causal) and abs(_f32(score_scale)) * 128 * 128 * hd < 1e9
+    if bkv in MMA_BKV:
+        heads = next(w for w in (4, 2, 1) if n_rep % w == 0)
+        rows = 16 * (MMA_WARPS // heads)
+        smem = 4 * bkv * (hd + 16) + hd * (bkv + 16)
+        return QfaPlan("mma", heads, rows, skip, smem)
+    # CUDA-core layout: q | int8 image | f32 logits, later the V block |
+    # f32 acc | m, l, corr
+    smem = (bq * hd + 16 * ((bq * bkv + 15) // 16)
+            + 16 * ((max(4 * bq * bkv, bkv * hd) + 15) // 16)
+            + 4 * bq * hd + 12 * bq)
+    return QfaPlan("simt", 1, bq, skip, smem)
+
+
 def quant_flash_attention(q, k, v, *, score_scale: float, eps_ctx: float,
                           causal: bool = True, q_offset: int = 0,
                           n_rep: int = 1, bq: int = 128, bkv: int = 128):
     """Kernel wrapper (the GQA entry point); runs the plain version only
-    for CPU tensors, launches the kernel or raises for CUDA ones."""
+    for CPU tensors, launches a kernel or raises for CUDA ones.  Which
+    kernel, and its tile, is `qfa_plan`'s choice from the shape alone:
+    the tensor-core kernel for bkv in MMA_BKV, the CUDA-core kernel for
+    any other bkv — never because a launch failed."""
     B, H, S_q, hd = q.shape
     Bk, K, S_kv, hd_k = k.shape
     if v.shape != k.shape or Bk != B or hd_k != hd:
@@ -124,7 +171,8 @@ def quant_flash_attention(q, k, v, *, score_scale: float, eps_ctx: float,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     dev = q.device
-    pad = (-S_q) % bq
+    plan = qfa_plan(n_rep, hd, bq, bkv, causal, score_scale)
+    pad = (-S_q) % bq if plan.path == "simt" else 0
     q = (torch.nn.functional.pad(q, (0, 0, 0, pad)) if pad else q
          ).contiguous()
     for t in (k, v):
@@ -132,23 +180,20 @@ def quant_flash_attention(q, k, v, *, score_scale: float, eps_ctx: float,
             raise ValueError("all operands must be contiguous on one device")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    if k.data_ptr() % 16 or v.data_ptr() % 4 or q.data_ptr() % 4:
-        raise ValueError("k must be 16-byte aligned, q and v 4-byte aligned")
-    # shared layout of csrc/quant_attention.cu: q | int8 image | f32
-    # logits, later the V block | f32 acc | m, l, corr
-    smem = (bq * hd + 16 * ((bq * bkv + 15) // 16)
-            + 16 * ((max(4 * bq * bkv, bkv * hd) + 15) // 16)
-            + 4 * bq * hd + 12 * bq)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"bq={bq} bkv={bkv} hd={hd} need {smem} bytes "
-                         "of shared memory")
+    if k.data_ptr() % 16 or v.data_ptr() % 16 or q.data_ptr() % 4:
+        raise ValueError("k and v must be 16-byte aligned, q 4-byte "
+                         "aligned")
+    if plan.smem > _SMEM_LIMIT:
+        raise ValueError(f"bq={bq} bkv={bkv} hd={hd} need {plan.smem} "
+                         "bytes of shared memory")
     S_qp = S_q + pad
     out = torch.empty((B, H, S_qp, hd), dtype=torch.int8, device=dev)
     err = build.launcher("quant_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _f32(score_scale), _f32(1.0 / 127.0), _f32(1.0 / eps_ctx),
         B, H, K, n_rep, S_qp, S_kv, hd, bq, bkv, q_offset, int(causal),
-        smem, torch.cuda.current_stream(dev).cuda_stream)
+        int(plan.path == "mma"), plan.heads, int(plan.skip), plan.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "quant_attention")
     quant_flash_attention.launches += 1
     return out[:, :, :S_q]

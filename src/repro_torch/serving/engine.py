@@ -81,10 +81,12 @@ class ServingEngine:
                else Request(prompt, max_new_tokens, stop_token))
         self.arena.check_request(
             req.prompt_len, req.prompt_len + req.max_new_tokens)
-        self.sched.submit(req)
+        # the id is spent before the scheduler may refuse the request,
+        # as in the reference engine
         req.req_id = self._next_id
         self._next_id += 1
         req.arrival_time = time.perf_counter()
+        self.sched.submit(req)
         return req.req_id
 
     # -- one engine step ------------------------------------------------

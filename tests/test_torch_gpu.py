@@ -14,8 +14,12 @@ the requant kernel, the paged attention on a recycled table with GQA
 group 4 and a parked row in both pool modes (int8, and int4-packed
 with per-head unpack operands whose m, s0 and d differ from head to
 head), a planted wrong unpack that the packed check rejects, and the
-quantized flash attention at the reference tests' shapes and under
-GQA.
+quantized flash attention on both of its kernels (every head width,
+bkv 128, 64, 32 and 48, GQA, ragged S_q and q_offset, not causal) with
+0 quanta moved, a planted case whose output differs between two KV
+partitions, held at each, and a planted score scale under which
+skipping the causal blocks past a tile would change the output, on both
+kernels.
 """
 import sys
 
@@ -36,6 +40,7 @@ from repro_torch.kernels.int8_matmul import (
 from repro_torch.kernels.paged_attention import (
     check_image, check_kernel, gathered_view, kv4_unpack, staged_unpack_rq,
 )
+from repro_torch.kernels.quant_attention import qfa_plan
 from repro_torch.layers.attention import INACTIVE_POS
 
 # the module (the package exports its function under the same name)
@@ -335,25 +340,89 @@ def test_packed_check_rejects_a_planted_wrong_unpack_on_card():
     assert not torch.equal(floor_unpack(kp, k_rq), kv4_unpack(kp, k_rq))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("hd,S_q,S_kv,causal,n_rep,q_offset", [
-    (64, 128, 128, True, 1, 0), (128, 128, 256, True, 1, 0),
-    (192, 128, 128, False, 1, 0), (64, 256, 384, True, 1, 0),
-    (64, 100, 256, True, 4, 156)])
-def test_quant_flash_attention_on_card(hd, S_q, S_kv, causal, n_rep,
-                                       q_offset):
-    _need_card()
-    rng = np.random.default_rng(hd + S_q)
-    B, K = 2, 2
+def _qfa_inputs(seed, hd, S_q, S_kv, n_rep, B=2, K=2):
+    rng = np.random.default_rng(seed)
     H = K * n_rep
-    q, k, v = (torch.from_numpy(rng.integers(
+    return (torch.from_numpy(rng.integers(
         -127, 128, size=(B, h, s, hd)).astype(np.int8)).cuda()
         for h, s in ((H, S_q), (K, S_kv), (K, S_kv)))
+
+
+# (hd, S_q, S_kv, causal, n_rep, q_offset, bkv): every head width; bkv
+# 128, 64 and 32 on the tensor-core kernel and 48 on the CUDA-core one
+# (qfa_plan); n_rep 1, 2, 4, 8; q_offsets that are no multiple of the
+# 16-row tile; S_q no multiple of 16; not causal
+QFA_CARD_CASES = [
+    (64, 128, 128, True, 1, 0, 128), (128, 128, 256, True, 1, 0, 128),
+    (192, 128, 128, False, 1, 0, 128), (64, 256, 384, True, 1, 0, 128),
+    (64, 100, 256, True, 4, 156, 128), (32, 128, 256, True, 1, 0, 128),
+    (32, 77, 384, False, 4, 0, 64), (64, 256, 384, True, 4, 37, 64),
+    (128, 90, 256, True, 2, 21, 64), (192, 100, 256, True, 4, 9, 64),
+    (64, 100, 384, True, 4, 37, 48), (128, 64, 384, False, 2, 0, 48),
+    (192, 50, 256, True, 8, 3, 32), (64, 300, 512, True, 8, 5, 128),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,S_q,S_kv,causal,n_rep,q_offset,bkv",
+                         QFA_CARD_CASES)
+def test_quant_flash_attention_on_card(hd, S_q, S_kv, causal, n_rep,
+                                       q_offset, bkv):
+    _need_card()
+    B, K = 2, 2
+    H = K * n_rep
+    q, k, v = _qfa_inputs(hd + S_q + bkv, hd, S_q, S_kv, n_rep, B, K)
     kw = dict(score_scale=1e-4, eps_ctx=0.01, causal=causal,
-              q_offset=q_offset, n_rep=n_rep)
+              q_offset=q_offset, n_rep=n_rep, bkv=bkv)
     n = quant_flash_attention.launches
     got = quant_flash_attention(q, k, v, **kw)
     assert quant_flash_attention.launches == n + 1
     want = quant_flash_attention_plain(q, k, v, **kw)
     assert got.shape == (B, H, S_q, hd) and got.dtype == torch.int8
-    check_image(got, want, f"quant_flash_attention hd={hd}", unit="ctx")
+    assert check_image(got, want, f"quant_flash_attention hd={hd}",
+                       unit="ctx") == 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_quant_flash_attention_honours_the_kv_partition():
+    """Planted: inputs whose plain output differs between bkv 64 and bkv
+    128 (the per-block image depends on each block's running max); the
+    kernel matches the plain version at each, so it neither merges nor
+    splits the KV blocks it is given."""
+    _need_card()
+    q, k, v = _qfa_inputs(5, 64, 64, 256, 2, B=1)
+    kw = dict(score_scale=1e-4, eps_ctx=0.01, causal=True, q_offset=192,
+              n_rep=2)
+    want = {bkv: quant_flash_attention_plain(q, k, v, bkv=bkv, **kw)
+            for bkv in (64, 128)}
+    assert int((want[64] != want[128]).sum()) > 0
+    for bkv in (64, 128):
+        got = quant_flash_attention(q, k, v, bkv=bkv, **kw)
+        assert torch.equal(got, want[bkv]), bkv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bkv", [128, 48])
+def test_quant_flash_attention_computes_masked_blocks_when_it_must(bkv):
+    """Planted: at score_scale 1e5 a row's visible logits can all lie
+    below -1e9, so its running max stays -1e9 and the masked entries
+    past its last key give qp = 127; skipping those blocks would change
+    the output (asserted on the plain version over the first keys
+    only).  `qfa_plan` turns skipping off, and both kernels (bkv 128
+    on the tensor cores, 48 on the CUDA cores) match the plain version
+    over every block."""
+    _need_card()
+    hd, S_q, S_kv, n_rep = 64, 64, 384, 2
+    q, k, v = _qfa_inputs(7, hd, S_q, S_kv, n_rep, B=1)
+    kw = dict(score_scale=1e5, eps_ctx=0.01, causal=True, q_offset=0,
+              n_rep=n_rep, bkv=bkv)
+    plan = qfa_plan(n_rep, hd, 128, bkv, True, 1e5)
+    assert not plan.skip and plan.path == ("mma" if bkv == 128 else "simt")
+    want = quant_flash_attention_plain(q, k, v, **kw)
+    seen = -(-S_q // bkv) * bkv  # keys of the blocks a row can see
+    skipped = quant_flash_attention_plain(
+        q, k[:, :, :seen].contiguous(), v[:, :, :seen].contiguous(), **kw)
+    assert int((want != skipped).sum()) > 0
+    got = quant_flash_attention(q, k, v, **kw)
+    assert torch.equal(got, want)

@@ -25,7 +25,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+        ROOT / "tools" / "gemm_ab.py", ROOT / "tools" / "attn_ab.py"]
     assert len(files) > 25
     return files
 

@@ -33,7 +33,9 @@ from jax.experimental import pallas as pl
 from repro.kernels import ref
 from repro.kernels.quant_attention import quant_flash_attention_pallas
 from repro_torch.kernels import quant_flash_attention
-from repro_torch.kernels.quant_attention import quant_flash_attention_plain
+from repro_torch.kernels.quant_attention import (
+    HEAD_DIMS, MMA_BKV, qfa_plan, quant_flash_attention_plain,
+)
 
 
 def _i8(rng, *shape):
@@ -231,3 +233,92 @@ def test_entry_point_validation():
     with pytest.raises(ValueError, match="unsupported device"):
         quant_flash_attention(z.to("meta"), kv.to("meta"), kv.to("meta"),
                               n_rep=2, **kw)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("bkv", [32, 48, 64, 128, 256])
+def test_plan_path_and_tile(hd, bkv):
+    """`qfa_plan` picks the kernel from the shape alone: the tensor-core
+    kernel for bkv 32, 64, 128, the CUDA-core kernel otherwise; GQA
+    packs the largest of 4, 2, 1 query heads dividing n_rep into a
+    block of 64 / heads rows; shared memory is the K/V ring plus V^T
+    and fits a block; causal blocks are skipped unless score_scale
+    could push key 0's logit to -1e9."""
+    for n_rep in (1, 2, 3, 4, 8):
+        for causal in (True, False):
+            p = qfa_plan(n_rep, hd, 128, bkv, causal, 1 / 2048)
+            assert p.skip == causal
+            if bkv not in MMA_BKV:
+                assert p.path == "simt" and (p.heads, p.rows) == (1, 128)
+                assert p.smem == (128 * hd + 128 * bkv
+                                  + max(4 * 128 * bkv, bkv * hd)
+                                  + 4 * 128 * hd + 12 * 128)
+                continue
+            heads = {1: 1, 2: 2, 3: 1, 4: 4, 8: 4}[n_rep]
+            assert p.path == "mma" and p.heads == heads
+            assert p.rows == 64 // heads and p.rows % 16 == 0
+            assert p.smem == 2 * 2 * bkv * (hd + 16) + hd * (bkv + 16)
+            assert p.smem <= 227 * 1024
+    assert not qfa_plan(1, hd, 64, bkv, True, 1e5).skip
+
+
+def _key_order() -> np.ndarray:
+    """sigma of csrc/quant_attention.cu: A column p of a 32-key P.V step
+    holds key sigma[p], 4t + i -> 2t + i (i < 2) or 8 + 2t + i - 2, and
+    16 more for the upper half."""
+    return np.array([16 * h + 8 * (i // 2) + 2 * t + i % 2
+                     for h in range(2) for t in range(4) for i in range(4)])
+
+
+def test_permuted_pv_equals_unpermuted():
+    """The image leaves the score C fragment in the order sigma: lane
+    t of a quad holds keys 8n + 2t + {0, 1} of each 8-key tile n, and
+    the m16n8k32 A fragment takes columns 4t..4t+3 (tiles 0, 1) and
+    16 + 4t.. (tiles 2, 3) from the same lane.  sigma is a permutation
+    of each 32-key chunk, and P.V over permuted P columns and V rows is
+    the integer P.V exactly."""
+    sigma = _key_order()
+    assert sorted(sigma.tolist()) == list(range(32))
+    for t in range(4):
+        held = [8 * n + 2 * t + e for n in range(4) for e in range(2)]
+        assert sorted(sigma[4 * t:4 * t + 4].tolist()
+                      + sigma[16 + 4 * t:20 + 4 * t].tolist()) == held
+    rng = np.random.default_rng(17)
+    p = torch.from_numpy(rng.integers(0, 128, size=(16, 128)))
+    v = torch.from_numpy(rng.integers(-128, 128, size=(128, 64)))
+    perm = torch.from_numpy(np.concatenate(
+        [32 * c + sigma for c in range(4)]))
+    assert torch.equal(p[:, perm] @ v[perm], p @ v)
+    assert not torch.equal(p @ v[perm], p @ v)
+
+
+def test_magic_conversions_are_exact():
+    """The tensor-core kernel converts int32 to float as the bits of
+    1.5 * 2^23 plus s, less 1.5 * 2^23, for |s| < 2^22, and rounds 127 p
+    to its byte as the low bits of 127 p + 1.5 * 2^23: equal to
+    float32(s) and to rint (half to even) at every such input."""
+    magic = np.float32(12582912.0)
+    s = np.arange(-(1 << 22) + 1, 1 << 22, dtype=np.int32)
+    f = (s + np.int32(0x4B400000)).view(np.float32) - magic
+    assert np.array_equal(f, s.astype(np.float32))
+    y = np.concatenate([np.arange(0, 128, 0.5, dtype=np.float32),
+                        np.random.default_rng(0).uniform(
+                            0, 127, 1 << 20).astype(np.float32)])
+    low = ((y + magic).view(np.int32) & 0xFF)
+    assert np.array_equal(low, np.rint(y).astype(np.int32))
+
+
+def test_rows_are_independent_of_the_query_block():
+    """The tensor-core kernel tiles queries by 16 rows, not by bq, and
+    takes S_q unpadded: the plain version gives every row the same
+    output whatever bq pads S_q to."""
+    rng = np.random.default_rng(23)
+    q, k, v = (torch.from_numpy(_i8(rng, 1, 4, s, 64))
+               for s in (100, 256, 256))
+    kw = dict(score_scale=3e-4, eps_ctx=0.02, causal=True, q_offset=37,
+              n_rep=2, bkv=64)
+    k, v = k[:, :2], v[:, :2]
+    want = quant_flash_attention_plain(q, k, v, bq=128, **kw)
+    for bq in (4, 16, 50):
+        assert torch.equal(quant_flash_attention_plain(q, k, v, bq=bq, **kw),
+                           want)

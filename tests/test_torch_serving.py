@@ -103,3 +103,29 @@ def test_page_exhaustion_backpressure_matches(models):
     assert ts["admit_rejects"] == js["admit_rejects"] > 0
     assert ts["max_committed_pages"] <= 7
     assert ts["mean_occupancy"] == pytest.approx(js["mean_occupancy"])
+
+
+def test_req_ids_after_a_rejected_submit_match(models):
+    """A request that needs more positions than max_len passes the
+    arena's page check (n_pages 64) but is refused by the scheduler in
+    both engines; the id it was given is spent in both, so the next
+    request's req_id and tokens agree."""
+    jlm, jt, tlm, tt = models
+    j_eng = JServingEngine(jlm, jt, JServingConfig(
+        n_slots=2, max_len=MAX_LEN, paged=True, page_size=8, n_pages=64,
+        paged_kernel=False, scheduler=JSchedulerConfig(prefill_chunk=16)))
+    t_eng = ServingEngine(tlm, tt, ServingConfig(
+        n_slots=2, max_len=MAX_LEN, page_size=8, n_pages=64, device="cpu",
+        scheduler=SchedulerConfig(prefill_chunk=16)))
+    rng = np.random.default_rng(4)
+    long_prompt = rng.integers(0, 256, size=(60,))
+    prompt = rng.integers(0, 256, size=(5,))
+    results = []
+    for eng in (j_eng, t_eng):
+        with pytest.raises(ValueError, match="positions"):
+            eng.submit(long_prompt, 10)
+        rid = eng.submit(prompt, 6)
+        done = eng.run_until_drained()
+        results.append((rid, [(c.req_id, list(c.tokens)) for c in done]))
+    assert results[0] == results[1]
+    assert results[1][0] == 1 and len(results[1][1][0][1]) == 6
