@@ -11,8 +11,11 @@ Phases (any failure raises and the script exits non-zero):
   kernels   each kernel against its plain PyTorch version on the card,
             at its path's shapes: the int8 GEMM (both modes) and the
             requant exactly; the paged attention in both pool modes
-            (int8, and int4-packed with per-head unpack operands) at
-            T = 512 and T = 4096 within the stated tolerance of its
+            at S 32 and 1, T 512 and 4096: the int8 mode (the
+            tensor-core kernel, with the launch `paged_plan` took and
+            its registers and spills) equal to its plain version, 0
+            quanta moved and max |diff| 0; the int4-packed mode (per-head
+            unpack operands) within the stated tolerance of its
             probability image (`check_kernel`); the quantized flash
             attention at full granite geometry (S 8192 x 8192 with bkv
             128 and 64 on the tensor-core kernel and bkv 256 on the
@@ -74,13 +77,17 @@ SOURCES = {
 }
 # the __global__ functions of csrc/*.cu
 KERNEL_NAMES = ("gemm_gemv_kernel", "gemm_wgmma_kernel", "requant_kernel",
-                "paged_attn_kernel", "quant_attn_mma_kernel",
-                "quant_attn_kernel")
+                "paged_attn_mma_kernel", "paged_attn_kernel",
+                "quant_attn_mma_kernel", "quant_attn_kernel")
 # the kernels each serving path launches
 PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                 4: ("int8_matmul", "requant", "paged_attention_kv4")}
 # main-path engine settings
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
+# paged attention at full granite geometry (B 8, H 32, K 8, hd 64,
+# pages of 16): (S, T), a prefill chunk and a decode step over the main
+# cell's 512 positions and over 4096
+PAGED_SHAPES = ((CHUNK, MAX_LEN), (1, MAX_LEN), (CHUNK, 4096), (1, 4096))
 # quantized flash attention at full granite geometry (B 1, H 32, K 8):
 # (S_q, S_kv, hd, causal, q_offset, bkv); the first two are its entry
 # phase; bkv 256, the last, takes the CUDA-core kernel (`qfa_plan`)
@@ -291,59 +298,86 @@ def check_requant(torch, np, timer, rng, report):
     return worst
 
 
-def check_paged_attention(torch, np, timer, rng, report, packed=False):
+def paged_inputs(torch, np, S, T, seed, packed=False):
+    """Seeded inputs of the paged attention at full granite geometry:
+    q, the K/V pools (int4-packed with per-head unpack operands when
+    `packed`), a permuted table, positions in [0, T - S) with the last
+    slot parked at INACTIVE_POS, score scale 1/2048.  -> (args, kw)."""
+    from repro_torch.kernels.paged_attention import staged_unpack_rq
+    from repro_torch.layers.attention import INACTIVE_POS
+
+    B, H, K, hd = N_SLOTS, 32, 8, 64
+    hd_store = hd // 2 if packed else hd
+    pps = T // PAGE
+    n_pool = B * pps + 1
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randint(-40, 41, (B, H, S, hd), dtype=torch.int8,
+                      device="cuda", generator=g)
+    lo, hi = (-128, 128) if packed else (-40, 41)  # any packed byte
+    kp = torch.randint(lo, hi, (n_pool, K, PAGE, hd_store),
+                       dtype=torch.int8, device="cuda", generator=g)
+    vp = torch.randint(-128, 128, (n_pool, K, PAGE, hd_store),
+                       dtype=torch.int8, device="cuda", generator=g)
+    perm = rng.permutation(np.arange(1, n_pool)).reshape(B, pps)
+    table = torch.from_numpy(perm.astype(np.int32)).cuda()
+    pos_np = rng.integers(0, T - S, size=B).astype(np.int32)
+    pos_np[-1] = INACTIVE_POS  # one parked row
+    pos = torch.from_numpy(pos_np).cuda()
+    scale = torch.tensor(1.0 / 2048.0, dtype=torch.float32, device="cuda")
+    kw = dict(group=H // K)
+    if packed:
+        kw["k_rq"] = staged_unpack_rq(K).cuda()
+        kw["v_rq"] = torch.roll(kw["k_rq"], 3, dims=1)
+    return (q, kp, vp, table, pos, scale), kw
+
+
+def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
     """Kernel vs plain version, int8 pools or int4-packed ones (per-head
-    unpack operands from `staged_unpack_rq`).  Tolerance
-    (`check_kernel`): the kernel's int8 probability image may differ
-    from the plain one by one quantum at no more than max(8, 1e-5 of)
-    its entries, and none by more; the plain version sums each row in
-    the kernel's order, so a sound kernel moves none.  The int32
-    output must equal the plain P.V over the kernel's own image and
-    the (unpacked) V view exactly, and the plain output itself
-    wherever the two images agree."""
+    unpack operands from `staged_unpack_rq`), at `PAGED_SHAPES`.
+    Tolerance (`check_kernel`): the kernel's int8 probability image may
+    differ from the plain one by one quantum at no more than max(8, 1e-5
+    of) its entries, and none by more; the int32 output must equal the
+    plain P.V over the kernel's own image and the (unpacked) V view
+    exactly, and the plain output itself wherever the two images agree.
+    The plain version sums each row in the kernel's order, so a sound
+    kernel moves none: the int8 mode (the tensor-core kernel) must
+    move 0 quanta with max |diff| 0.  Prints the launch `paged_plan`
+    took and its kernel's registers and spills (`ptxas`: the build's
+    report of paged_attention.cu)."""
     from repro_torch.kernels import paged_attention, paged_attention_plain
     from repro_torch.kernels.paged_attention import (
-        check_kernel, gathered_view, kv4_unpack, staged_unpack_rq,
+        check_kernel, gathered_view, kv4_unpack, paged_plan,
     )
-    from repro_torch.layers.attention import INACTIVE_POS
 
     name = "paged_attention_kv4" if packed else "paged_attention"
     worst = 0
-    B, H, K, hd = N_SLOTS, 32, 8, 64
-    group = H // K
-    hd_store = hd // 2 if packed else hd
-    kw = {}
-    if packed:
-        kw = dict(k_rq=staged_unpack_rq(K).cuda())
-        kw["v_rq"] = torch.roll(kw["k_rq"], 3, dims=1)
-    for S, T in ((CHUNK, MAX_LEN), (1, MAX_LEN), (CHUNK, 4096), (1, 4096)):
-        pps = T // PAGE
-        n_pool = B * pps + 1
-        q = torch.randint(-40, 41, (B, H, S, hd), dtype=torch.int8,
-                          device="cuda")
-        lo, hi = (-128, 128) if packed else (-40, 41)  # any packed byte
-        kp = torch.randint(lo, hi, (n_pool, K, PAGE, hd_store),
-                           dtype=torch.int8, device="cuda")
-        vp = torch.randint(-128, 128, (n_pool, K, PAGE, hd_store),
-                           dtype=torch.int8, device="cuda")
-        perm = rng.permutation(np.arange(1, n_pool)).reshape(B, pps)
-        table = torch.from_numpy(perm.astype(np.int32)).cuda()
-        pos_np = rng.integers(0, T - S, size=B).astype(np.int32)
-        pos_np[-1] = INACTIVE_POS  # one parked row
-        pos = torch.from_numpy(pos_np).cuda()
-        scale = torch.tensor(1.0 / 2048.0, dtype=torch.float32,
-                             device="cuda")
-        args = (q, kp, vp, table, pos, scale)
+    for n_shape, (S, T) in enumerate(PAGED_SHAPES):
+        args, kw = paged_inputs(torch, np, S, T, SEED + 20 + n_shape, packed)
+        q, kp, vp, table, pos, scale = args
+        B, H, _, hd = q.shape
+        K, hd_store = kp.shape[1], kp.shape[3]
+        group = kw["group"]
+        plan = paged_plan(B, K, group, S, hd, PAGE, T // PAGE, packed)
+        rt = plan.rows // 16
+        fn = (f"paged_attn_mma_kernel<{hd}, {plan.warps // rt}, {rt}, "
+              f"{int(plan.logits == 'shared')}>" if plan.kernel == "mma"
+              else f"paged_attn_kernel<{hd}, 1>")
+        print(f"  {name} S={S} T={T}: {fn}, {plan.blocks} blocks of "
+              f"{plan.rows} rows, {plan.warps} warps, {plan.stages} ring "
+              f"tiles of {plan.keys} keys, {plan.smem} B shared, logits "
+              f"{plan.logits}; ptxas: {ptxas.get(fn, 'not in the report')}")
         qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
-        got = paged_attention(*args, group=group, qp_out=qp, **kw)
+        got = paged_attention(*args, qp_out=qp, **kw)
         torch.cuda.synchronize()
         what = f"{name} S={S} T={T}"
-        moved, err = check_kernel(got, qp, *args, group=group, what=what,
-                                  **kw)
+        moved, err = check_kernel(got, qp, *args, what=what, **kw)
+        if not packed and (moved or err):
+            raise AssertionError(f"{what}: {moved} probability quanta "
+                                 f"moved, max |diff| {err} (0 required)")
         worst = max(worst, err)
-        ms = timer(lambda: paged_attention(*args, group=group, **kw))
-        plain = timer(lambda: paged_attention_plain(*args, group=group,
-                                                    **kw), 3)
+        ms = timer(lambda: paged_attention(*args, **kw))
+        plain = timer(lambda: paged_attention_plain(*args, **kw), 3)
         # SDPA on the gathered dense (unpacked) view: the yardstick
         k8, v8 = ((kv4_unpack(kp, kw["k_rq"]), kv4_unpack(vp, kw["v_rq"]))
                   if packed else (kp, vp))
@@ -355,11 +389,11 @@ def check_paged_attention(torch, np, timer, rng, report, packed=False):
         # what these inputs need: query row i of slot b sees keys
         # [0, min(T, pos[b] + i + 1)); a slot's K/V rows past its last
         # row's horizon are never needed
-        seen = np.minimum(T, pos_np.astype(np.int64)[:, None]
-                          + np.arange(1, S + 1))             # (B, S)
+        pos_np = pos.cpu().numpy().astype(np.int64)
+        seen = np.minimum(T, pos_np[:, None] + np.arange(1, S + 1))  # (B, S)
         n_bytes = q.numel() + 2 * int(seen[:, -1].sum()) * K * hd_store \
-            + 4 * B * pps + 4 * B + 4 * B * H * S * hd + (48 * K if packed
-                                                          else 0)
+            + 4 * B * (T // PAGE) + 4 * B + 4 * B * H * S * hd \
+            + (48 * K if packed else 0)
         n_ops = 2.0 * 2 * H * hd * float(seen.sum())
         bms, by = bound_ms(n_bytes, n_ops, INT8_OPS_S)
         row = dict(shape=f"S={S} T={T} B={B} H={H} K={K} hd={hd}", ms=ms,
@@ -714,7 +748,7 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
     owner = {"gemm_wgmma_kernel": "int8_matmul",
              "gemm_gemv_kernel": "int8_matmul",
              "requant_kernel": "requant",
-             "paged_attn_kernel<64, false>": "paged_attention",
+             "paged_attn_mma_kernel": "paged_attention",
              "paged_attn_kernel<64, true>": "paged_attention_kv4"}
     gemm_path = {"gemm_wgmma_kernel": "chunk (wgmma)",
                  "gemm_gemv_kernel": "decode (GEMV)"}
@@ -787,9 +821,9 @@ def main() -> int:
     errs["int8_matmul"] = check_int8_matmul(torch, np, timer, rng, report)
     errs["requant"] = check_requant(torch, np, timer, rng, report)
     errs["paged_attention"] = check_paged_attention(
-        torch, np, timer, rng, report)
+        torch, np, timer, report, ptxas["paged_attention"])
     errs["paged_attention_kv4"] = check_paged_attention(
-        torch, np, timer, rng, report, packed=True)
+        torch, np, timer, report, ptxas["paged_attention"], packed=True)
     errs["quant_flash_attention"] = check_quant_flash_attention(
         torch, np, timer, report, ptxas["quant_attention"])
     t0 = phase_done("kernels", t0)

@@ -28,6 +28,14 @@ unpacked back into the int8 image space by the requant formula
 to [-128, 127]; everything after that is the int8 mode.  Its launches
 count apart, on `paged_attention_kv4.launches`.
 
+On the card, `paged_plan` picks the launch from the shape alone: int8
+pools take the tensor-core kernel (one block per slot, kv head and 16
+or 32 stacked group rows, warps splitting each staged tile of keys, three
+passes over the keys with the logits kept in shared memory where they
+fit and the scores recomputed where not, each row stopped at its
+causal horizon while `horizon_stop` holds), int4-packed pools the
+first, CUDA-core kernel.
+
 `check_image` is the stated tolerance of the kernel's probability
 image (``qp_out``) against the plain one, `check_kernel` that of the
 kernel's whole result; `staged_unpack_rq` gives per-head operands that
@@ -36,17 +44,22 @@ make a wrong unpack show in those checks.
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.intmath import unpack_int4
 from repro_torch.kernels import build
+from repro_torch.kernels.int8_matmul import SMS
 
 NEG_INF = -1e9
 _SMEM_LIMIT = 220 * 1024  # of the 227 KB a block may opt into
-_TT = 32  # V tile positions (kTT in the CUDA source)
-_LANES = 32  # one warp per query row in the kernel's softmax
+_TT = 32  # V tile positions of the packed kernel (kTT in the CUDA source)
+_LANES = 32  # the row sum's partials (`_lane_sum`)
+# the horizon stop is exact while |score_scale| * 128 * 128 * hd stays at
+# or below this (kStopGuard in the CUDA source, which derives it)
+STOP_GUARD = 4.9e8
 # check_image: share of the image's entries that may move by one quantum
 MOVED_SHARE = 1e-5
 
@@ -65,6 +78,101 @@ def _lane_sum(p: torch.Tensor) -> torch.Tensor:
     for o in (16, 8, 4, 2, 1):
         part = part + part[..., lane ^ o]
     return part[..., :1]
+
+
+def horizon_stop(score_scale: float, hd: int) -> bool:
+    """Whether the int8 kernel stops each row at its causal horizon: the
+    host mirror of the kernel's guard, which it reads on the device
+    from *score_scale (a float32 product and compare, as here)."""
+    a = np.float32(abs(np.float32(score_scale))) * np.float32(16384.0 * hd)
+    return bool(a <= np.float32(STOP_GUARD))
+
+
+class PagedPlan(NamedTuple):
+    """How the wrapper launches the kernel for one shape."""
+    kernel: str   # "mma" (int8 pools, tensor cores) or "packed" (CUDA cores)
+    rows: int     # query rows of a block: 16 or 32 stacked group rows
+                  # (mma), or the S rows of one query head (packed)
+    warps: int    # warps of a block (mma: each takes one 32-key chunk
+                  # of a staged tile for one 16-row tile)
+    keys: int     # keys of a staged tile (mma), 0 (packed)
+    stages: int   # cp.async ring slots (mma), 0 (packed)
+    blocks: int
+    smem: int     # dynamic shared bytes of a block
+    logits: str   # where the f32 logits live: "shared" (in shared
+                  # memory; mma: pass 0 keeps them for passes 1 and 2),
+                  # "recomputed" (mma: the scores taken again on the
+                  # tensor cores in each of three passes) or "global"
+                  # (packed: a global scratch)
+
+
+# the (warps, rows) launch shapes the mma kernel is compiled for: 8 warps
+# over the keys of one 16-row tile, or 4 over each of two
+MMA_SHAPES = ((8, 16), (8, 32))
+# the mma kernel keeps a block's rows of logits in shared memory while
+# they take at most this many bytes (16 rows: T <= 1024; 32: T <= 512;
+# decode at group 4, 4 rows: T <= 4096)
+KEEP_LOGITS_BYTES = 80 * 1024
+
+
+def _logit_bytes(warps: int, rows: int, M: int, T: int) -> int:
+    """Bytes of the f32 logits the mma kernel keeps: the block's rows
+    below M over every tile of T."""
+    bt = 32 * warps * 16 // rows
+    return 4 * min(rows, M) * (-(-T // bt) * bt + 8)
+
+
+def _mma_smem(hd: int, warps: int, rows: int, stages: int, M: int, T: int,
+              pps: int, keep: bool) -> int:
+    """Shared bytes of the tensor-core kernel (its csrc layout): the
+    ring (a K or V tile a slot with the logits kept, else both), V^T,
+    the f32 rows (the logits, or one staging tile), the row maxima and
+    sums, the table; at least the P.V reduction, which reuses the space
+    at the end."""
+    bt = 32 * warps * 16 // rows
+    f32_rows = (_logit_bytes(warps, rows, M, T) if keep
+                else 4 * rows * (bt + 8))
+    layout = (stages * (1 if keep else 2) * bt * (hd + 16)
+              + hd * (bt + 16) + f32_rows + 64 * warps + 4 * rows
+              + 16 * ((pps + 3) // 4))
+    return max(layout, 64 * warps * (hd + 8))
+
+
+def paged_plan(B: int, K: int, group: int, S: int, hd: int, ps: int,
+               pps: int, packed: bool = False) -> PagedPlan:
+    """The launch for one shape.  int8 pools: a block of 8 warps per
+    slot, kv head and 16 or 32 of the group * S stacked rows.  Where
+    16-row blocks would leave SMs idle (decode), 16 rows, 8 warps over
+    their keys (256 a staged tile) and the deepest ring of 4, 3 or 2
+    tiles that fits; else 32 rows (two tiles, 4 warps over each, K/V
+    staged once for both) and a ring of 2.  The logits stay in shared
+    memory while they take at most KEEP_LOGITS_BYTES, else each pass
+    recomputes the scores.  (`tools/attn_ab.py --sweep` times every
+    such plan.)  Packed pools: the CUDA-core kernel, a block per (slot, query
+    head), its logits in shared memory while they fit, else in a
+    global scratch."""
+    T = pps * ps
+    M = group * S
+    if packed:
+        # q | table | V tile | int8 image | f32 logits
+        base = (S * hd + 16 * ((pps + 3) // 4) + _TT * hd
+                + 16 * ((S * T + 15) // 16))
+        shared = base + 4 * S * T <= _SMEM_LIMIT
+        return PagedPlan("packed", S, 4, 0, 0, B * K * group,
+                         base + 4 * S * T if shared else base,
+                         "shared" if shared else "global")
+    if B * K * -(-M // 16) < SMS:
+        warps, rows, depths = 8, 16, (4, 3, 2)
+    else:
+        warps, rows, depths = 8, 32, (2,)
+    keep = _logit_bytes(warps, rows, M, T) <= KEEP_LOGITS_BYTES
+    for stages in depths:
+        smem = _mma_smem(hd, warps, rows, stages, M, T, pps, keep)
+        if smem <= _SMEM_LIMIT:
+            break
+    return PagedPlan("mma", rows, warps, 32 * warps * 16 // rows, stages,
+                     B * K * -(-M // rows), smem,
+                     "shared" if keep else "recomputed")
 
 
 def kv4_unpack(pool: torch.Tensor, rq: torch.Tensor) -> torch.Tensor:
@@ -248,20 +356,15 @@ def paged_attention(q, k_pool, v_pool, table, pos, score_scale, *,
             qp_out.shape != (B, H, S, T) or qp_out.dtype != torch.int8
             or qp_out.device != dev or not qp_out.is_contiguous()):
         raise ValueError("qp_out must be a contiguous (B, H, S, T) int8")
-    # shared layout of csrc/paged_attention.cu: q | table | V tile |
-    # int8 image | f32 logits (the last in global scratch when too big)
-    base = S * hd + 16 * ((pps + 3) // 4) + _TT * hd + 16 * ((S * T + 15)
-                                                            // 16)
-    if base > _SMEM_LIMIT:
+    plan = paged_plan(B, K, group, S, hd, ps, pps, packed)
+    if plan.smem > _SMEM_LIMIT:
         raise ValueError(
-            f"S*T = {S * T} too large: the probability image must fit "
-            "shared memory")
+            f"S*T = {S * T} too large: the packed kernel's probability "
+            "image must fit shared memory" if packed else
+            f"{plan.smem} bytes of shared memory do not fit")
     out = torch.empty((B, H, S, hd), dtype=torch.int32, device=dev)
-    if base + 4 * S * T <= _SMEM_LIMIT:
-        scratch, smem = None, base + 4 * S * T
-    else:
-        scratch = torch.empty((B, H, S, T), dtype=torch.float32, device=dev)
-        smem = base
+    scratch = (torch.empty((B, H, S, T), dtype=torch.float32, device=dev)
+               if plan.logits == "global" else None)
     err = build.launcher("paged_attention")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         pos.data_ptr(), score_scale.data_ptr(), out.data_ptr(),
@@ -269,7 +372,8 @@ def paged_attention(q, k_pool, v_pool, table, pos, score_scale, *,
         None if qp_out is None else qp_out.data_ptr(),
         k_rq.data_ptr() if packed else None,
         v_rq.data_ptr() if packed else None,
-        B, H, S, hd, K, ps, pps, group, n_pool, smem,
+        B, H, S, hd, K, ps, pps, group, n_pool, plan.smem, plan.rows,
+        plan.stages, int(plan.logits == "shared"),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "paged_attention")
     (paged_attention_kv4 if packed else paged_attention).launches += 1

@@ -13,7 +13,14 @@ workspace across shapes, and the refusal of K not a multiple of 16;
 the requant kernel, the paged attention on a recycled table with GQA
 group 4 and a parked row in both pool modes (int8, and int4-packed
 with per-head unpack operands whose m, s0 and d differ from head to
-head), a planted wrong unpack that the packed check rejects, and the
+head), a planted wrong unpack that the packed check rejects, the int8
+mode's tensor-core kernel at every head width, group 1-8, S 1/4/32
+and T 512/4096 (horizons on and inside page boundaries, pos 0, a
+parked row, PAGE_NULL entries past the horizons, pages of 12 keys)
+with 0 quanta moved, a planted score scale that turns its horizon
+stop off on the device, and a planted layout (one-hot queries, V
+distinct by key and column) that shows a wrong fragment or key
+permutation, and the
 quantized flash attention on both of its kernels (every head width,
 bkv 128, 64, 32 and 48, GQA, ragged S_q and q_offset, not causal) with
 0 quanta moved, a planted case whose output differs between two KV
@@ -38,10 +45,11 @@ from repro_torch.kernels.int8_matmul import (
     _WORKSPACE, GEMV_COLS, WGMMA_TILES, GemmPlan, gemm_plan,
 )
 from repro_torch.kernels.paged_attention import (
-    check_image, check_kernel, gathered_view, kv4_unpack, staged_unpack_rq,
+    check_image, check_kernel, gathered_view, horizon_stop, kv4_unpack,
+    staged_unpack_rq,
 )
 from repro_torch.kernels.quant_attention import qfa_plan
-from repro_torch.layers.attention import INACTIVE_POS
+from repro_torch.layers.attention import INACTIVE_POS, PAGE_NULL
 
 # the module (the package exports its function under the same name)
 _gemm_module = sys.modules["repro_torch.kernels.int8_matmul"]
@@ -338,6 +346,141 @@ def test_packed_check_rejects_a_planted_wrong_unpack_on_card():
     assert check_kernel(good, good_qp, *args, scale, group=group,
                         k_rq=k_rq, v_rq=v_rq) == (0, 0)
     assert not torch.equal(floor_unpack(kp, k_rq), kv4_unpack(kp, k_rq))
+
+
+def _mma_inputs(seed, hd, group, S, T, *, ps=16, K=2, qmax=40):
+    """int8 pools on the card for the tensor-core kernel: 4 slots, pos
+    0 (slot 0); a last row's horizon on a page's end (slot 1); inside a
+    page (slot 2); parked at INACTIVE_POS (slot 3).  The table is a
+    recycled permutation whose entries past each active slot's last
+    horizon are PAGE_NULL (slot 0) or stale pages of other tenants."""
+    rng = np.random.default_rng(seed)
+    B, pps = 4, T // ps
+    H = K * group
+    n_pool = B * pps + 1
+    q = rng.integers(-qmax, qmax + 1, size=(B, H, S, hd)).astype(np.int8)
+    kp = rng.integers(-qmax, qmax + 1,
+                      size=(n_pool, K, ps, hd)).astype(np.int8)
+    vp = rng.integers(-128, 128, size=(n_pool, K, ps, hd)).astype(np.int8)
+    table = rng.permutation(np.arange(1, n_pool)).reshape(B, pps)
+    pos = np.array([0, max(0, ps * (pps // 3) - S), ps * (pps // 2) + 7,
+                    INACTIVE_POS], np.int32)
+    table[0, -(-S // ps):] = PAGE_NULL
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+        q, kp, vp, table.astype(np.int32), pos)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [512, 4096])
+@pytest.mark.parametrize("S", [1, 4, 32])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_paged_attention_mma_on_card(hd, group, S, T):
+    """The int8 mode's tensor-core kernel equals the plain version: 0
+    probability quanta moved, the same int32 output, one launch on the
+    int8 counter."""
+    _need_card()
+    args = _mma_inputs(hd * 1000 + group * 100 + S + T, hd, group, S, T)
+    scale = torch.tensor(1.0 / 1024.0, device="cuda")
+    assert horizon_stop(1.0 / 1024.0, hd)
+    B, H = args[0].shape[:2]
+    qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
+    n, n4 = paged_attention.launches, paged_attention_kv4.launches
+    got = paged_attention(*args, scale, group=group, qp_out=qp)
+    assert (paged_attention.launches, paged_attention_kv4.launches) == (
+        n + 1, n4)
+    assert check_kernel(got, qp, *args, scale, group=group,
+                        what=f"hd={hd} group={group} S={S} T={T}") == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 32])
+def test_paged_attention_mma_odd_page_size_on_card(S):
+    """Pages of 12 keys (no power of two: the kernel's page lookup
+    divides instead of shifting) over T 504: equal to the plain
+    version, 0 quanta moved."""
+    _need_card()
+    args = _mma_inputs(12 + S, 64, 4, S, 504, ps=12)
+    scale = torch.tensor(1.0 / 1024.0, device="cuda")
+    B, H = args[0].shape[:2]
+    qp = torch.empty((B, H, S, 504), dtype=torch.int8, device="cuda")
+    got = paged_attention(*args, scale, group=4, qp_out=qp)
+    assert check_kernel(got, qp, *args, scale, group=4,
+                        what=f"ps=12 S={S}") == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "extreme"])
+def test_paged_attention_mma_guard_off_on_card(case):
+    """Planted score scales past the horizon stop's guard, read by the
+    kernel from the device tensor: it scores all T keys and equals the
+    plain version over all T.  "extreme": decode rows with q -128,
+    keys +127 but the three after each slot's position, which are -128,
+    at |scale| * 128 * 128 * hd = 5.1e8: those masked keys hold the
+    row's max and its image, so stopping at the horizon would change
+    the output."""
+    _need_card()
+    hd, group, S, T = 64, 4, (4 if case == "random" else 1), 512
+    q, kp, vp, table, pos = _mma_inputs(77, hd, group, S, T, qmax=127)
+    if case == "random":
+        scale_f = 1000.0
+    else:
+        scale_f = float(np.float32(5.1e8 / (16384.0 * hd)))
+        q.fill_(-128)
+        kp.fill_(127)
+        pos[3] = 300  # no parked row here: every slot has a horizon
+        for b in range(4):
+            pages = table[b].long()
+            for key in range(int(pos[b]) + 1, int(pos[b]) + 4):
+                kp[pages[key // 16], :, key % 16] = -128
+    assert not horizon_stop(scale_f, hd)
+    scale = torch.tensor(scale_f, dtype=torch.float32, device="cuda")
+    B, H = q.shape[:2]
+    qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
+    got = paged_attention(q, kp, vp, table, pos, scale, group=group,
+                          qp_out=qp)
+    assert check_kernel(got, qp, q, kp, vp, table, pos, scale,
+                        group=group, what=case) == (0, 0)
+    if case == "extreme":  # the image lies past every horizon
+        past = torch.arange(T, device="cuda")[None, :] > pos.long()[:, None]
+        assert bool((qp.sum(dim=(1, 2), dtype=torch.int64)
+                     * past).sum(dim=1).gt(0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,group,S", [(64, 4, 32), (128, 2, 4),
+                                        (32, 8, 1)])
+def test_paged_attention_mma_planted_layout_on_card(hd, group, S):
+    """Planted: each query row one-hot in a head dimension of its own
+    (64 at d = (head * S + i) % hd), V distinct by key and column
+    ((7 key + 13 col) % 251 - 125 over the logical view), a scale that
+    makes each row's image peak on a few keys.  A wrong score fragment,
+    key permutation (sigma) or V transpose moves the image or the
+    output."""
+    _need_card()
+    T, ps = 512, 16
+    q, kp, vp, table, pos = _mma_inputs(hd + group + S, hd, group, S, T,
+                                        qmax=127)
+    B, H = q.shape[:2]
+    q.zero_()
+    for h in range(H):
+        for i in range(S):
+            q[:, h, i, (h * S + i) % hd] = 64
+    key = torch.arange(T, device="cuda")
+    col = torch.arange(hd, device="cuda")
+    vals = ((7 * key[:, None] + 13 * col[None, :]) % 251 - 125).to(
+        torch.int8)
+    for b in range(B):
+        pages = table[b].long()
+        vp[pages] = vals.reshape(T // ps, ps, hd)[:, None].expand(
+            -1, vp.shape[1], -1, -1)
+    scale = torch.tensor(1.0 / 256.0, device="cuda")
+    qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
+    got = paged_attention(q, kp, vp, table, pos, scale, group=group,
+                          qp_out=qp)
+    assert int((qp == 127).sum()) < qp.numel() // 2
+    assert check_kernel(got, qp, q, kp, vp, table, pos, scale,
+                        group=group, what="planted layout") == (0, 0)
 
 
 def _qfa_inputs(seed, hd, S_q, S_kv, n_rep, B=2, K=2):

@@ -8,7 +8,12 @@ cases cover S = 1 and S = C, chunks inside a page, across a page and
 on a page boundary, recycled tables with stale pages, parked
 (INACTIVE_POS) rows and GQA group 4.  The tolerance that the card's
 check applies to the kernel's probability image (`check_image`) is
-shown here to reject images a wrong kernel would make.
+shown here to reject images a wrong kernel would make.  The int8
+paged-attention kernel's own choices are held here too: its row sum's
+ownership of the 32 partials (emulated in numpy, bit for bit against
+`_lane_sum`), its causal horizon stop (exact under its guard, and a
+planted case just outside the guard that it would get wrong), and
+`paged_plan`'s launch at every shape the port runs.
 
 The CUDA kernels themselves run only on the card; their tests are in
 tests/test_torch_gpu.py.
@@ -30,7 +35,8 @@ from repro_torch.kernels.int8_matmul import (
     SMS, WGMMA_K_MAX, WGMMA_TILES, gemm_plan,
 )
 from repro_torch.kernels.paged_attention import (
-    _lane_sum, attention_probs, check_image,
+    _SMEM_LIMIT, MMA_SHAPES, NEG_INF, STOP_GUARD, _lane_sum, _mma_smem,
+    attention_probs, check_image, gathered_view, horizon_stop, paged_plan,
 )
 from repro_torch.layers.attention import INACTIVE_POS
 
@@ -325,3 +331,190 @@ def test_image_check_passes_a_few_single_moves():
     flat[torch.nonzero(flat > 0).flatten()[8]] += 1
     with pytest.raises(AssertionError):
         check_image(moved, good)
+
+
+def _owned_lane_sum(p, warps):
+    """numpy emulation of the int8 kernel's row sum (csrc pass 1) for
+    one 16-row tile and its `warps` warps: per staged tile of 32 *
+    warps keys, warp w's lane (g, t) puts p of rows g and g + 8, keys
+    32 w + 8 n + 2 t + e (its C fragment), into the tile's f32 rows;
+    the warp that owns a row (16 / warps rows each) adds column l of
+    each 32-key chunk to the row's partial l, chunk after chunk; then
+    the xor butterfly over the 32 lanes.  (With the logits kept, the
+    rows hold every tile at once and the owner walks the same chunks in
+    the same order.)  One float32 add at a time.  p: (16, T) float32 ->
+    (16,) float32."""
+    rows, T = p.shape
+    bt = 32 * warps
+    rpw = 16 // warps
+    part = np.zeros((16, 32), np.float32)
+    for j in range(-(-T // bt)):
+        stage = np.full((16, bt), np.nan, np.float32)
+        for w in range(warps):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for n in range(4):
+                    for e in range(4):
+                        key = j * bt + 32 * w + 8 * n + 2 * t + (e & 1)
+                        row = g if e < 2 else g + 8
+                        stage[row, 32 * w + 8 * n + 2 * t + (e & 1)] = (
+                            p[row, key] if key < T else np.float32(0.0))
+        for w in range(warps):
+            for x in range(rpw):
+                row = rpw * w + x
+                for c in range(warps):
+                    part[row] = part[row] + stage[row, 32 * c:32 * c + 32]
+    lane = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        part = part + part[:, lane ^ o]
+    assert (part == part[:, :1]).all()
+    return part[:, 0]
+
+
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("T", [16, 100, 512])
+def test_kernel_partial_ownership_equals_lane_sum(warps, T):
+    """The kernel's split of the 32 partials over warps and lanes (4
+    warps on each of two row tiles, or 8 on one) adds each partial's
+    keys in increasing t, so its sum is `_lane_sum`'s bit for bit, for
+    T no multiple of the tile too."""
+    rng = np.random.default_rng(T + warps)
+    p = rng.random((16, T), dtype=np.float32) * np.float32(1e-3)
+    p[:, ::9] = rng.random((16, len(range(0, T, 9))), dtype=np.float32)
+    want = _lane_sum(torch.from_numpy(p)).numpy()[:, 0]
+    np.testing.assert_array_equal(_owned_lane_sum(p, warps), want)
+
+
+def _softmax_parts(q, kp, table, pos, scale, group, lim=None):
+    """The plain version's row max, `_lane_sum` and image, over all T
+    keys (lim None) or with slot b's keys cut at lim[b] (the kernel's
+    horizon stop): the max over keys < lim only, p = 0 past it."""
+    S = q.shape[2]
+    kh = gathered_view(kp, table, group)
+    T = kh.shape[2]
+    s = torch.matmul(q.double(), kh.double().transpose(-1, -2))
+    lg = s.to(torch.int32).to(torch.float32) * scale
+    q_pos = pos.long()[:, None] + torch.arange(S)
+    keep = torch.arange(T)[None, None, :] <= q_pos[:, :, None]
+    lg = lg + torch.where(keep, 0.0, NEG_INF)[:, None]
+    lim = [T] * len(pos) if lim is None else lim
+    live = torch.arange(T)[None, :] < torch.as_tensor(lim)[:, None]
+    live = live[:, None, None, :]
+    m = torch.where(live, lg, -torch.inf).amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(lg - m), 0.0)
+    total = _lane_sum(p)
+    return m, total, torch.round(p / total * 127.0)
+
+
+def _extreme_case(T=64, S=1, hd=32):
+    """Decode rows (S 1), q all -128; keys at or before each slot's
+    position +127 (scores -128 * 127 * hd, the lowest), keys after it
+    -128 (scores +128 * 128 * hd, the highest): masked logits as high
+    against the visible ones as int8 operands can put them."""
+    B, K, group, ps = 2, 1, 2, 8
+    pps = T // ps
+    pos = torch.tensor([5, 20], dtype=torch.int32)
+    q = torch.full((B, K * group, S, hd), -128, dtype=torch.int8)
+    kp = torch.full((B * pps + 1, K, ps, hd), -128, dtype=torch.int8)
+    table = torch.arange(1, B * pps + 1, dtype=torch.int32).reshape(B, pps)
+    for b in range(B):
+        for key in range(int(pos[b]) + 1):  # visible to every row
+            kp[table[b, key // ps], 0, key % ps] = 127
+    lim = [min(T, int(pos[b]) + S) for b in range(B)]
+    return q, kp, table, pos, group, lim, hd
+
+
+def _scale_at(a, hd):
+    """The float32 score scale with |scale| * 128 * 128 * hd = a."""
+    return float(np.float32(a / (16384.0 * hd)))
+
+
+@pytest.mark.parametrize("scale", [1.0 / 2048.0, -1.0 / 64.0, "edge"])
+def test_horizon_stop_is_exact_under_its_guard(scale):
+    """Keys past the tile's last row's horizon dropped: the row max,
+    the lane sum and the image equal the plain version's over all T bit
+    for bit, at the engine's scale, a negative one, and the largest
+    scale the guard admits (on the extreme case, there)."""
+    if scale == "edge":
+        q, kp, table, pos, group, lim, hd = _extreme_case()
+        scale = _scale_at(STOP_GUARD, hd)
+    else:
+        rng = np.random.default_rng(5)
+        q, kp, _, table, pos = (torch.from_numpy(a) for a in _paged_case(
+            rng, B=4, K=2, group=2, S=8, ps=16, pps=8, n_pages=32,
+            pos=[0, 15, 61, 100], tables=rng.permutation(
+                np.arange(1, 33)).reshape(4, 8), qmax=127))
+        group, hd = 2, 32
+        lim = [min(128, int(p) + 8) for p in pos]
+    assert horizon_stop(scale, hd)
+    sc = torch.tensor(np.float32(scale))
+    m, total, img = _softmax_parts(q, kp, table, pos, sc, group)
+    assert torch.equal(img, torch.round(attention_probs(
+        q, kp, table, pos, sc, group=group) * 127.0))
+    m_s, total_s, img_s = _softmax_parts(q, kp, table, pos, sc, group, lim)
+    assert torch.equal(m_s, m) and torch.equal(total_s, total)
+    assert torch.equal(img_s, img)
+
+
+def test_horizon_stop_planted_case_just_outside_the_guard():
+    """At |scale| * 128 * 128 * hd = 5.1e8, just above the guard, a
+    masked key's logit (+A - 1e9) beats the visible keys' (-A): over
+    all T the row's mass sits past the horizon, and stopping there
+    would give another image.  The guard turns the stop off."""
+    q, kp, table, pos, group, lim, hd = _extreme_case()
+    scale = _scale_at(5.1e8, hd)
+    assert not horizon_stop(scale, hd)
+    sc = torch.tensor(np.float32(scale))
+    m, _, img = _softmax_parts(q, kp, table, pos, sc, group)
+    m_s, _, img_s = _softmax_parts(q, kp, table, pos, sc, group, lim)
+    assert (m > m_s).all() and not torch.equal(img_s, img)
+    past = torch.arange(img.shape[-1])[None, :] >= torch.as_tensor(
+        lim)[:, None]
+    assert int((img * past[:, None, None, :]).sum()) > 0
+
+
+# (B, K, group, S, hd, ps, pps): the engine's and chip_smoke.py's int8
+# shapes (full granite: 8 slots, 8 kv heads, group 4, hd 64, pages of
+# 16; T 512 and 4096), the card tests' (every hd, group, S and T of
+# test_paged_attention_mma_on_card) and the small recycled-table ones
+PLAN_SHAPES = (
+    [(8, 8, 4, S, 64, 16, pps) for S in (1, 32) for pps in (32, 256)]
+    + [(3, 2, grp, S, hd, 16, pps) for hd in (32, 64, 128)
+       for grp in (1, 2, 4, 8) for S in (1, 4, 32) for pps in (32, 256)]
+    + [(4, 2, 4, S, hd, 4, 4) for S in (1, 4) for hd in (32, 64, 128)])
+
+
+@pytest.mark.parametrize("B,K,group,S,hd,ps,pps", PLAN_SHAPES)
+def test_paged_plan_is_a_valid_launch(B, K, group, S, hd, ps, pps):
+    """Every int8 shape the port runs takes the tensor-core kernel
+    within 220 KB of shared memory: a compiled (warps, rows) shape with
+    a 32-key chunk a warp, a ring of 2-4 tiles, one 16-row tile a block
+    exactly where 16-row blocks would leave SMs idle, the
+    logits kept in shared memory while the block's rows below M take at
+    most 80 KB of them."""
+    p = paged_plan(B, K, group, S, hd, ps, pps)
+    T, M = ps * pps, group * S
+    assert p.kernel == "mma" and (p.warps, p.rows) in MMA_SHAPES
+    assert p.keys == 32 * p.warps * 16 // p.rows
+    assert (p.rows == 16) == (B * K * -(-M // 16) < 132)
+    assert p.blocks == B * K * -(-M // p.rows)
+    kept = 4 * min(p.rows, M) * (-(-T // p.keys) * p.keys + 8)
+    assert p.logits == ("shared" if kept <= 80 * 1024 else "recomputed")
+    keep = p.logits == "shared"
+    assert 2 <= p.stages <= 4
+    assert p.smem == _mma_smem(hd, p.warps, p.rows, p.stages, M, T, pps,
+                               keep)
+    assert p.smem <= _SMEM_LIMIT
+    # the P.V reduction reuses the space at the start
+    assert p.smem >= p.warps * 16 * (hd + 8) * 4
+
+
+@pytest.mark.parametrize("S,pps,logits", [(1, 32, "shared"),
+                                          (32, 32, "shared"),
+                                          (32, 256, "global")])
+def test_paged_plan_keeps_the_packed_kernels_layout(S, pps, logits):
+    """Packed pools keep the CUDA-core kernel and its layout: logits in
+    shared memory while they fit, else in a global scratch."""
+    p = paged_plan(8, 8, 4, S, 64, 16, pps, packed=True)
+    assert (p.kernel, p.rows, p.logits) == ("packed", S, logits)
+    assert p.blocks == 8 * 32 and p.smem <= _SMEM_LIMIT
