@@ -11,12 +11,11 @@ Phases (any failure raises and the script exits non-zero):
   kernels   each kernel against its plain PyTorch version on the card,
             at its path's shapes: the int8 GEMM (both modes) and the
             requant exactly; the paged attention in both pool modes
-            at S 32 and 1, T 512 and 4096: the int8 mode (the
-            tensor-core kernel, with the launch `paged_plan` took and
-            its registers and spills) equal to its plain version, 0
-            quanta moved and max |diff| 0; the int4-packed mode (per-head
-            unpack operands) within the stated tolerance of its
-            probability image (`check_kernel`); the quantized flash
+            (int8, and int4-packed with per-head unpack operands) at S
+            32 and 1, T 512 and 4096, on its tensor-core kernel (with
+            the launch `paged_plan` took and its registers and spills),
+            equal to its plain version: 0 quanta moved and max |diff|
+            0; the quantized flash
             attention at full granite geometry (S 8192 x 8192 with bkv
             128 and 64 on the tensor-core kernel and bkv 256 on the
             CUDA-core one, and 128 queries at offset 8064 over 8192
@@ -77,7 +76,7 @@ SOURCES = {
 }
 # the __global__ functions of csrc/*.cu
 KERNEL_NAMES = ("gemm_gemv_kernel", "gemm_wgmma_kernel", "requant_kernel",
-                "paged_attn_mma_kernel", "paged_attn_kernel",
+                "paged_attn_mma_kernel", "paged_attn_mma_packed_kernel",
                 "quant_attn_mma_kernel", "quant_attn_kernel")
 # the kernels each serving path launches
 PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
@@ -341,10 +340,10 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
     plain P.V over the kernel's own image and the (unpacked) V view
     exactly, and the plain output itself wherever the two images agree.
     The plain version sums each row in the kernel's order, so a sound
-    kernel moves none: the int8 mode (the tensor-core kernel) must
-    move 0 quanta with max |diff| 0.  Prints the launch `paged_plan`
-    took and its kernel's registers and spills (`ptxas`: the build's
-    report of paged_attention.cu)."""
+    kernel moves none: both pool modes must move 0 quanta with max
+    |diff| 0.  Prints the launch `paged_plan` took and its kernel's
+    registers and spills (`ptxas`: the build's report of
+    paged_attention.cu)."""
     from repro_torch.kernels import paged_attention, paged_attention_plain
     from repro_torch.kernels.paged_attention import (
         check_kernel, gathered_view, kv4_unpack, paged_plan,
@@ -360,9 +359,8 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
         group = kw["group"]
         plan = paged_plan(B, K, group, S, hd, PAGE, T // PAGE, packed)
         rt = plan.rows // 16
-        fn = (f"paged_attn_mma_kernel<{hd}, {plan.warps // rt}, {rt}, "
-              f"{int(plan.logits == 'shared')}>" if plan.kernel == "mma"
-              else f"paged_attn_kernel<{hd}, 1>")
+        fn = (f"paged_attn_mma{'_packed' if packed else ''}_kernel<{hd}, "
+              f"{plan.warps // rt}, {rt}, {int(plan.logits == 'shared')}>")
         print(f"  {name} S={S} T={T}: {fn}, {plan.blocks} blocks of "
               f"{plan.rows} rows, {plan.warps} warps, {plan.stages} ring "
               f"tiles of {plan.keys} keys, {plan.smem} B shared, logits "
@@ -372,7 +370,7 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
         torch.cuda.synchronize()
         what = f"{name} S={S} T={T}"
         moved, err = check_kernel(got, qp, *args, what=what, **kw)
-        if not packed and (moved or err):
+        if moved or err:
             raise AssertionError(f"{what}: {moved} probability quanta "
                                  f"moved, max |diff| {err} (0 required)")
         worst = max(worst, err)
@@ -749,7 +747,7 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
              "gemm_gemv_kernel": "int8_matmul",
              "requant_kernel": "requant",
              "paged_attn_mma_kernel": "paged_attention",
-             "paged_attn_kernel<64, true>": "paged_attention_kv4"}
+             "paged_attn_mma_packed_kernel": "paged_attention_kv4"}
     gemm_path = {"gemm_wgmma_kernel": "chunk (wgmma)",
                  "gemm_gemv_kernel": "decode (GEMV)"}
     split, by_path = {}, {}

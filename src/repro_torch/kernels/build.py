@@ -40,7 +40,7 @@ SIGNATURES = {
     "int8_matmul": [_P] * 9 + [_I] * 3 + [_P] + [_I] * 4 + [_LL]
     + [_I] * 5 + [_P] * 3,
     "requant": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 2 + [_P, _I, _LL, _I, _P],
-    "paged_attention": [_P] * 11 + [_I] * 9 + [_LL] + [_I] * 3 + [_P],
+    "paged_attention": [_P] * 10 + [_I] * 9 + [_LL] + [_I] * 3 + [_P],
     "quant_attention": [_P] * 4 + [_F] * 3 + [_I] * 14 + [_LL, _P],
 }
 

@@ -1,5 +1,5 @@
 // Unified (S, T) int8 paged attention over the paged KV arena, for
-// Hopper.
+// Hopper, over int8 pools and int4-packed ones.
 //
 // Replaces the Pallas kernel repro/kernels/paged_attention.py
 // (`_kernel` / `paged_attention_pallas`), both pool modes.  For slot b
@@ -26,19 +26,23 @@
 // on the card the two images agree bit for bit; the optional qp_out
 // image lets a check count the quanta that moved (`check_image`).
 //
-// Two kernels, by pool mode (kernels/paged_attention.py `paged_plan`):
+// One kernel for both pool modes, launched as paged_attn_mma_kernel<HD,
+// WC, RT, KEEP> over int8 pools and paged_attn_mma_packed_kernel<HD, WC,
+// RT, KEEP> over int4-packed ones (two names, so a profile tells them
+// apart); both run the body paged_attn_mma<HD, WC, RT, KEEP, PACKED>,
+// which differs between the modes only where pool bytes are read, with
+// the launch kernels/paged_attention.py `paged_plan` picks.
 //
-// paged_attn_mma_kernel<HD, WC, RT, KEEP> (int8 pools).  The group's
-// query heads and rows are stacked as rows r = g * S + i (g the head in
-// the group), so a kv head's pages serve the whole group; one m16 tile
-// holds 16 of those rows (decode at group 4: 4 rows).  A block takes
-// one slot, one kv head and RT row tiles, with WC warps on each tile
-// splitting its keys: a staged tile holds 32 WC keys, one 32-key chunk
-// a warp, and is read once for all RT tiles.  Decode takes (WC, RT) =
-// (8, 1), chunked prefill (4, 2): 8 warps either way.  The scores are
-// int8 tensor-core products (mma.sync.m16n8k32.s32.s8.s8.s32, K's
-// stored (key, hd) rows the "col" B operand by ldmatrix, Q's A
-// fragments in registers).  Three passes over the keys:
+// The group's query heads and rows are stacked as rows r = g * S + i (g
+// the head in the group), so a kv head's pages serve the whole group;
+// one m16 tile holds 16 of those rows (decode at group 4: 4 rows).  A
+// block takes one slot, one kv head and RT row tiles, with WC warps on
+// each tile splitting its keys: a staged tile holds 32 WC keys, one
+// 32-key chunk a warp, and is read once for all RT tiles.  Decode takes
+// (WC, RT) = (8, 1), chunked prefill (4, 2): 8 warps either way.  The
+// scores are int8 tensor-core products (mma.sync.m16n8k32.s32.s8.s8.s32,
+// K's stored (key, hd) rows the "col" B operand, Q's A fragments in
+// registers).  Three passes over the keys:
 //   pass 0  scores and logits; the row max (fmaxf: exact in any
 //           order), combined over the row tile's warps in shared
 //           memory.  KEEP: the logits stay in shared memory (f32, the
@@ -66,10 +70,39 @@
 // in every pass and expf taken twice.  K and V pages come by cp.async
 // into a ring of `stages` tiles through the page table (clamped to the
 // pool for memory safety); a page of one kv head is one contiguous
-// ps * hd run.  A warp whose tile has no valid row g + 8 (decode)
+// ps * row run.  A warp whose tile has no valid row g + 8 (decode)
 // skips that half's island.  int32 to float and rint to the image byte
 // go through the float 1.5 * 2^23 on the full-rate lanes: exact for
 // |s| < 2^22, and here |s| <= 128 * 128 * 128 = 2^21.
+//
+// Int8 pools: the ring holds hd-byte rows; K's B fragments come by
+// ldmatrix, V is transposed as it stands.
+//
+// Int4-packed pools: a pool row holds hd/2 bytes, two int4 nibbles each
+// (element 2i in the low nibble), and its int8 image is the kv head's
+// requant column of k_rq / v_rq ((6, K) int32: m, s0, lo, hi, d, zp)
+// applied to each nibble: clip to [lo, hi], >> s0, * m, >> (d - s0),
+// + zp, clip to [-128, 127], in wrapping int32 (the reference's
+// `page_kv`).  A block serves one kv head, so that image is a function
+// of the nibble alone: 32 lanes evaluate it once for each of the 16
+// nibble values of K and of V (`Unpack::one`: the same function on the
+// same inputs, so exact, wrapping included) into two 16-byte tables,
+// and every later expansion is a lookup.  The little-endian u16 at
+// packed byte 2i holds elements 4i..4i+3, element 4i+j in bits
+// 4j..4j+3: exactly the selector of a byte permute, so 4 elements take
+// two permutes over the table's halves and a per-byte select on each
+// nibble's top bit (`unpack4`, 6 steps).  The ring holds the packed
+// rows (hd/2 bytes: 16, 32 or 64, whole 16-byte vectors), half the
+// bytes of an int8 tile.  K needs no int8 tile: the dot over hd is an
+// integer sum, so any order of hd inside a 32-wide k-step is exact as
+// long as Q and K agree.  Packed, lane t's k-columns 4t..4t+3 and
+// 16+4t..16+4t+3 hold hd 8t..8t+3 and 8t+4..8t+7, so its two B
+// registers for a key are the two u16 halves of the 4 bytes at packed
+// byte 4t of that key's row: one shared load and two lookups (Q's A
+// fragments are loaded in the same hd order).  V is expanded where it
+// is transposed into V^T: four u16 of four keys through the V table,
+// then the int8 mode's byte transpose.  Everything after is the int8
+// mode's.
 //
 // The causal horizon stop.  Row i of slot b needs keys t <= pos[b] + i;
 // the block loads and scores keys t < min(T, pos[b] + i_max + 1) only,
@@ -86,7 +119,8 @@
 // enough; the kernel stops only while A <= kStopGuard = 4.9e8, read
 // on the device from *score_scale (the engine's scale is a device
 // tensor; the wrapper adds no host sync), and only for pos[b] >= 0.
-// Rows parked at INACTIVE_POS see all T.
+// Rows parked at INACTIVE_POS see all T.  Unpacked images lie in
+// [-128, 127] too, so the guard holds for both pool modes.
 //
 // What bounds it on the H100: not bytes (chip_smoke.py's bytes bound,
 // one read of a slot's K and V up to its horizon, is 15-30x below its
@@ -97,33 +131,16 @@
 // recomputed, an estimate from the source), with 16 warps an SM.  Blocks
 // of 32 rows halve the chunked-prefill grid to one wave and share each
 // staged tile; decode has 64 blocks for 132 SMs, 8 warps each
-// (`tools/attn_ab.py --sweep` times each plan).  Registers: Q hd/8,
-// P.V hd/2 a thread; shared memory: the ring, V^T hd (32 WC + 16), the
-// f32 rows, the table (`paged_plan`).
-//
-// paged_attn_kernel<HD, PACKED> (int4-packed pools only, until it is
-// redesigned in its turn): the first, CUDA-core kernel, one block per
-// (slot b, head h).  A pool row holds hd/2 bytes, two int4 nibbles each
-// (element 2i in the low nibble).  Every page load is unpacked in
-// registers into the int8 image with the kv head's requant column of
-// k_rq / v_rq ((6, K) int32: m, s0, lo, hi, d, zp): clip to [lo, hi],
-// >> s0, * m, >> (d - s0), + zp, clip to [-128, 127] (the reference's
-// `page_kv`).  Scores by dp4a with one key row per thread over all T
-// keys, the f32 logits of the block in shared memory while they fit
-// (else in a global scratch of B*H*S*T floats), the island one warp per
-// query row, P.V as scalar multiply-adds over a V tile of kTT positions
-// in shared memory; the int8 image (S*T bytes) always in shared
-// memory, so the wrapper refuses S*T above what fits.  Its int8
-// instantiation is gone: int8 pools take the tensor-core kernel.
+// (`tools/attn_ab.py --sweep [--packed]` times each plan).  The packed
+// mode adds its lookups, 6 steps for 4 elements of K or V.  Registers:
+// Q hd/8, P.V hd/2 a thread (packed: 4 more for the K table); shared
+// memory: the ring, the packed mode's two tables, V^T hd (32 WC + 16),
+// the f32 rows, the page table (`paged_plan`).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-// ---------------------------------------------------------------------
-// int8 pools: the tensor-core kernel
-// ---------------------------------------------------------------------
 
 // the horizon stop is exact while |score_scale| * 128 * 128 * hd stays
 // at or below this (header)
@@ -197,22 +214,75 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b,
                      0x5410);
 }
 
-template <int HD, int WC, int RT, bool KEEP>
-__global__ void __launch_bounds__(32 * WC * RT)
-paged_attn_mma_kernel(const int8_t* __restrict__ q,
-                      const int8_t* __restrict__ k_pool,
-                      const int8_t* __restrict__ v_pool,
-                      const int32_t* __restrict__ table,
-                      const int32_t* __restrict__ pos,
-                      const float* __restrict__ score_scale,
-                      int32_t* __restrict__ out, int8_t* __restrict__ qp_out,
-                      int H, int S, int K, int ps, int pps, int group,
-                      int n_pool, int stages) {
+// arithmetic shift right; shifts of 31 and more (and negative ones) give
+// the sign, as in the requant kernel
+__device__ __forceinline__ int sra(int x, int s) {
+  return (unsigned)s >= 31u ? (x >> 31) : (x >> s);
+}
+
+// one kv head's unpack requant column (rows of the (6, K) operand)
+struct Unpack {
+  int m, s0, lo, hi, d, zp;
+  __device__ Unpack(const int32_t* rq, int K, int kh)
+      : m(rq[kh]), s0(rq[K + kh]), lo(rq[2 * K + kh]), hi(rq[3 * K + kh]),
+        d(rq[4 * K + kh]), zp(rq[5 * K + kh]) {}
+  // one sign-extended int4 value -> its int8 image value (wrapping
+  // int32 multiply and add, like the reference)
+  __device__ __forceinline__ int one(int x) const {
+    x = min(max(x, lo), hi);
+    const int staged = (int)((unsigned)sra(x, s0) * (unsigned)m);
+    const int y = (int)((unsigned)sra(staged, d - s0) + (unsigned)zp);
+    return min(max(y, -128), 127);
+  }
+};
+
+// PTX prmt in its default mode: byte j of the result is byte c[4j+2:4j]
+// of {b, a} (a's bytes 0-3, b's 4-7), or where c[4j+3] is set that
+// byte's sign bit replicated; c[31:16] is not read
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Four nibbles (c[15:0], element j in bits 4j..4j+3) -> the word of
+// their four int8 images (element j in byte j) through a 16-byte table
+// (the image of nibble n in byte n % 4 of tb[n / 4]): entries 0-7 by one
+// permute (right where a nibble's bit 3 is clear), 8-15 by another with
+// bit 3 flipped (right where it is set), and the mask of the nibbles
+// whose bit 3 is set from sign bits: bytes 0 and 1 of c << 4 carry
+// nibbles 0 and 2's bit 3 in their sign bits, bytes 0 and 1 of c
+// nibbles 1 and 3's
+__device__ __forceinline__ uint32_t unpack4(uint32_t c,
+                                            const uint32_t (&tb)[4]) {
+  const uint32_t lo = prmt(tb[0], tb[1], c);
+  const uint32_t hi = prmt(tb[2], tb[3], c ^ 0x8888u);
+  const uint32_t m = prmt(c << 4, c, 0xD9C8u);
+  return (lo & ~m) | (hi & m);
+}
+
+#define PA_PARAMS                                                         \
+  const int8_t *__restrict__ q, const int8_t *__restrict__ k_pool,        \
+      const int8_t *__restrict__ v_pool, const int32_t *__restrict__ table, \
+      const int32_t *__restrict__ pos,                                    \
+      const float *__restrict__ score_scale, int32_t *__restrict__ out,   \
+      int8_t *__restrict__ qp_out, const int32_t *__restrict__ k_rq,      \
+      const int32_t *__restrict__ v_rq, int H, int S, int K, int ps,      \
+      int pps, int group, int n_pool, int stages
+#define PA_ARGS                                                          \
+  q, k_pool, v_pool, table, pos, score_scale, out, qp_out, k_rq, v_rq, H, \
+      S, K, ps, pps, group, n_pool, stages
+
+// k_rq / v_rq: the (6, K) unpack operands (PACKED only)
+template <int HD, int WC, int RT, bool KEEP, bool PACKED>
+__device__ __forceinline__ void paged_attn_mma(PA_PARAMS) {
   constexpr int W = WC * RT;        // warps: WC on each of RT row tiles
   constexpr int NTH = 32 * W;       // threads
   constexpr int BT = 32 * WC;       // keys of a staged tile, a chunk a warp
   constexpr int ROWS = 16 * RT;     // the block's rows
-  constexpr int KS = HD + 16;       // K / V row stride in shared memory
+  constexpr int ROW = PACKED ? HD / 2 : HD;  // bytes of a pool row
+  constexpr int KS = ROW + 16;      // staged K / V row stride
   constexpr int VTS = BT + 16;      // V^T row stride
   constexpr int RST = HD + 8;       // P.V reduction row stride (ints)
   // one ring slot: a K or a V tile (KEEP), else a K tile and a V tile
@@ -228,11 +298,13 @@ paged_attn_mma_kernel(const int8_t* __restrict__ q,
   const int LST = (KEEP ? (T + BT - 1) / BT * BT : BT) + 8;
   extern __shared__ __align__(16) unsigned char pa_smem[];
   // shared layout (`paged_plan` sizes it the same way):
-  //   ring (stages x BUF) | V^T (HD x VTS) | f32 rows (LR x LST) | row
-  //   maxima (W x 16 f32) | row sums (ROWS f32) | table (pps ints); the
-  //   P.V reduction (W x 16 x RST ints) reuses the space from the start
+  //   ring (stages x BUF) | unpack tables (PACKED: K, V, 16 bytes each)
+  //   | V^T (HD x VTS) | f32 rows (LR x LST) | row maxima (W x 16 f32) |
+  //   row sums (ROWS f32) | page table (pps ints); the P.V reduction
+  //   (W x 16 x RST ints) reuses the space from the start
   int8_t* ring = reinterpret_cast<int8_t*>(pa_smem);
-  int8_t* vt = ring + stages * BUF;
+  int8_t* ut = ring + stages * BUF;
+  int8_t* vt = ut + (PACKED ? 32 : 0);
   float* lg = reinterpret_cast<float*>(vt + HD * VTS);
   float* mx_s = lg + LR * LST;
   float* sum_s = mx_s + 16 * W;
@@ -276,20 +348,36 @@ paged_attn_mma_kernel(const int8_t* __restrict__ q,
     const int p = table[(long long)b * pps + i];
     tab_s[i] = min(max(p, 0), n_pool - 1);  // memory safety only
   }
+  if (PACKED && tid < 32) {  // the image of each nibble value, K then V
+    const Unpack un(tid < 16 ? k_rq : v_rq, K, kh);
+    ut[tid] = (int8_t)un.one(((tid & 15) ^ 8) - 8);
+  }
 
-  // Q's A fragments (rows past M are zero)
+  // Q's A fragments (rows past M are zero); packed, in the hd order of
+  // the K fragments (header): hd 8t..8t+3 and 8t+4..8t+7 of each k-step
   const int8_t* qg = q + row0 * HD;
   const bool va = ra < M, vb = rb < M;
+  constexpr int QHI = PACKED ? 4 : 16;  // a2/a3's hd past a0/a1's
   uint32_t qa[KC][4];
 #pragma unroll
   for (int c = 0; c < KC; ++c) {
-    const int col = 32 * c + 4 * t;
+    const int col = 32 * c + (PACKED ? 8 : 4) * t;
     qa[c][0] = va ? *(const uint32_t*)(qg + (long long)ra * HD + col) : 0u;
     qa[c][1] = vb ? *(const uint32_t*)(qg + (long long)rb * HD + col) : 0u;
-    qa[c][2] = va ? *(const uint32_t*)(qg + (long long)ra * HD + col + 16) : 0u;
-    qa[c][3] = vb ? *(const uint32_t*)(qg + (long long)rb * HD + col + 16) : 0u;
+    qa[c][2] =
+        va ? *(const uint32_t*)(qg + (long long)ra * HD + col + QHI) : 0u;
+    qa[c][3] =
+        vb ? *(const uint32_t*)(qg + (long long)rb * HD + col + QHI) : 0u;
   }
-  __syncthreads();  // the table is in place
+  __syncthreads();  // the page table (and the unpack tables) in place
+  uint32_t tk[4];   // PACKED: the K table
+  if (PACKED) {
+    const uint4 w = *reinterpret_cast<const uint4*>(ut);
+    tk[0] = w.x;
+    tk[1] = w.y;
+    tk[2] = w.z;
+    tk[3] = w.w;
+  }
 
   const bool pow2 = (ps & (ps - 1)) == 0;  // pages of 2^ps_log keys
   const int ps_log = __ffs(ps) - 1;
@@ -298,14 +386,14 @@ paged_attn_mma_kernel(const int8_t* __restrict__ q,
       const int pass = pass_of(s), key0 = (s % n_tiles) * BT;
       int8_t* kd = ring + (s % stages) * BUF;
       int8_t* vd = KEEP ? kd : kd + BT * KS;
-      for (int i = tid; i < BT * (HD / 16); i += NTH) {
-        const int r = i / (HD / 16), c = i % (HD / 16);
+      for (int i = tid; i < BT * (ROW / 16); i += NTH) {
+        const int r = i / (ROW / 16), c = i % (ROW / 16);
         const int key = key0 + r;
         if (key < lim) {
           const int page = pow2 ? key >> ps_log : key / ps;
           const int in_page = pow2 ? key & (ps - 1) : key % ps;
           const long long off =
-              (((long long)tab_s[page] * K + kh) * ps + in_page) * HD +
+              (((long long)tab_s[page] * K + kh) * ps + in_page) * ROW +
               16 * c;
           if (!KEEP || pass == 0)
             cp_async16(kd + r * KS + 16 * c, k_pool + off);
@@ -395,18 +483,36 @@ paged_attn_mma_kernel(const int8_t* __restrict__ q,
     if (pass == 2) {
       // ---- V^T with keys permuted: vt[d][32c + 4u + i] = v[32c + key_i][d]
       // for keys {base, base+1, base+8, base+9}, base = 16 (u / 4) +
-      // 2 (u % 4); one 4 x 4 byte transpose per (c, u, 4 hd columns)
+      // 2 (u % 4); one 4 x 4 byte transpose per (c, u, 4 hd columns),
+      // packed rows expanded through the V table first
       const int8_t* vsrc = KEEP ? kt : kt + BT * KS;
+      uint32_t tv[4];
+      if (PACKED) {
+        const uint4 w = *reinterpret_cast<const uint4*>(ut + 16);
+        tv[0] = w.x;
+        tv[1] = w.y;
+        tv[2] = w.z;
+        tv[3] = w.w;
+      }
       for (int i = tid; i < BT * HD / 16; i += NTH) {
         const int u = i & 7, rest = i >> 5;
         const int c = rest % WC;
         const int d4 = (rest / WC) * 4 + ((i >> 3) & 3);
         const int key = 32 * c + 16 * (u >> 2) + 2 * (u & 3);
-        const int8_t* src = vsrc + key * KS + 4 * d4;
-        const uint32_t w0 = *(const uint32_t*)src;
-        const uint32_t w1 = *(const uint32_t*)(src + KS);
-        const uint32_t w2 = *(const uint32_t*)(src + 8 * KS);
-        const uint32_t w3 = *(const uint32_t*)(src + 9 * KS);
+        uint32_t w0, w1, w2, w3;
+        if (PACKED) {  // hd 4 d4..+3: the u16 at packed byte 2 d4
+          const int8_t* src = vsrc + key * KS + 2 * d4;
+          w0 = unpack4(*(const uint16_t*)src, tv);
+          w1 = unpack4(*(const uint16_t*)(src + KS), tv);
+          w2 = unpack4(*(const uint16_t*)(src + 8 * KS), tv);
+          w3 = unpack4(*(const uint16_t*)(src + 9 * KS), tv);
+        } else {
+          const int8_t* src = vsrc + key * KS + 4 * d4;
+          w0 = *(const uint32_t*)src;
+          w1 = *(const uint32_t*)(src + KS);
+          w2 = *(const uint32_t*)(src + 8 * KS);
+          w3 = *(const uint32_t*)(src + 9 * KS);
+        }
         const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
         const uint32_t t1 = __byte_perm(w0, w1, 0x7362);
         const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
@@ -433,15 +539,26 @@ paged_attn_mma_kernel(const int8_t* __restrict__ q,
     if (live && (pass == 0 || !KEEP)) {
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
+        if (PACKED) {
+          // key 8n + g of the chunk: the 4 packed bytes at 16c + 4t of
+          // its row hold hd 32c + 8t..8t+7, b0 and b1 (header)
 #pragma unroll
-        for (int n = 0; n < 4; n += 2) {
-          uint32_t bf[4];
-          // matrices: keys 8n+0..7 at hd 32c and 32c+16, keys 8n+8..15
-          ldsm_x4(bf, kt + (32 * wc + 8 * n + (lane >> 4) * 8 +
-                            (lane & 7)) * KS +
-                          32 * c + ((lane >> 3) & 1) * 16);
-          mma_s8(sc[n], qa[c], bf[0], bf[1]);
-          mma_s8(sc[n + 1], qa[c], bf[2], bf[3]);
+          for (int n = 0; n < 4; ++n) {
+            const uint32_t w = *(const uint32_t*)(
+                kt + (32 * wc + 8 * n + g) * KS + 16 * c + 4 * t);
+            mma_s8(sc[n], qa[c], unpack4(w, tk), unpack4(w >> 16, tk));
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < 4; n += 2) {
+            uint32_t bf[4];
+            // matrices: keys 8n+0..7 at hd 32c and 32c+16, keys 8n+8..15
+            ldsm_x4(bf, kt + (32 * wc + 8 * n + (lane >> 4) * 8 +
+                              (lane & 7)) * KS +
+                            32 * c + ((lane >> 3) & 1) * 16);
+            mma_s8(sc[n], qa[c], bf[0], bf[1]);
+            mma_s8(sc[n + 1], qa[c], bf[2], bf[3]);
+          }
         }
       }
     }
@@ -614,323 +731,77 @@ paged_attn_mma_kernel(const int8_t* __restrict__ q,
   }
 }
 
+// int8 pools
 template <int HD, int WC, int RT, bool KEEP>
-int launch_mma(const int8_t* q, const int8_t* k_pool, const int8_t* v_pool,
-               const int32_t* table, const int32_t* pos, const float* scale,
-               int32_t* out, int8_t* qp_out, int B, int H, int S, int K,
-               int ps, int pps, int group, int n_pool, int stages,
-               size_t smem, cudaStream_t stream) {
+__global__ void __launch_bounds__(32 * WC * RT)
+paged_attn_mma_kernel(PA_PARAMS) {
+  paged_attn_mma<HD, WC, RT, KEEP, false>(PA_ARGS);
+}
+
+// int4-packed pools
+template <int HD, int WC, int RT, bool KEEP>
+__global__ void __launch_bounds__(32 * WC * RT)
+paged_attn_mma_packed_kernel(PA_PARAMS) {
+  paged_attn_mma<HD, WC, RT, KEEP, true>(PA_ARGS);
+}
+
+template <int HD, int WC, int RT, bool KEEP, bool PACKED>
+int launch_mma(PA_PARAMS, int B, size_t smem, cudaStream_t stream) {
+  auto* kernel = &paged_attn_mma_kernel<HD, WC, RT, KEEP>;
+  if (PACKED) kernel = &paged_attn_mma_packed_kernel<HD, WC, RT, KEEP>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_mma_kernel<HD, WC, RT, KEEP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid(B * K, (group * S + 16 * RT - 1) / (16 * RT));
-  paged_attn_mma_kernel<HD, WC, RT, KEEP><<<grid, 32 * WC * RT, smem,
-                                            stream>>>(
-      q, k_pool, v_pool, table, pos, scale, out, qp_out, H, S, K, ps, pps,
-      group, n_pool, stages);
+  kernel<<<grid, 32 * WC * RT, smem, stream>>>(PA_ARGS);
   return (int)cudaGetLastError();
 }
 
 // the compiled launch plans, 8 warps each: rows 16 (one row tile, 8
 // warps over its keys) or 32 (two row tiles, 4 warps over each), each
-// with the logits kept or recomputed
+// with the logits kept or recomputed, over either pool mode
 template <int HD>
-int launch_mma_plan(const int8_t* q, const int8_t* k_pool,
-                    const int8_t* v_pool, const int32_t* table,
-                    const int32_t* pos, const float* scale, int32_t* out,
-                    int8_t* qp_out, int B, int H, int S, int K, int ps,
-                    int pps, int group, int n_pool, int rows, int stages,
-                    int keep, size_t smem, cudaStream_t stream) {
-#define PA_MMA_LAUNCH(WC, RT)                                                \
-  return keep ? launch_mma<HD, WC, RT, true>(                                \
-                    q, k_pool, v_pool, table, pos, scale, out, qp_out, B, H, \
-                    S, K, ps, pps, group, n_pool, stages, smem, stream)      \
-              : launch_mma<HD, WC, RT, false>(                               \
-                    q, k_pool, v_pool, table, pos, scale, out, qp_out, B, H, \
-                    S, K, ps, pps, group, n_pool, stages, smem, stream);
-  if (rows == 16) PA_MMA_LAUNCH(8, 1)
-  if (rows == 32) PA_MMA_LAUNCH(4, 2)
+int launch_mma_plan(PA_PARAMS, int B, int rows, int keep, size_t smem,
+                    cudaStream_t stream) {
+  const bool packed = k_rq != nullptr;
+#define PA_MMA_LAUNCH(WC, RT, KEEP)                                       \
+  return packed ? launch_mma<HD, WC, RT, KEEP, true>(PA_ARGS, B, smem,    \
+                                                     stream)              \
+                : launch_mma<HD, WC, RT, KEEP, false>(PA_ARGS, B, smem,   \
+                                                      stream);
+  if (rows == 16 && keep) PA_MMA_LAUNCH(8, 1, true)
+  if (rows == 16) PA_MMA_LAUNCH(8, 1, false)
+  if (rows == 32 && keep) PA_MMA_LAUNCH(4, 2, true)
+  if (rows == 32) PA_MMA_LAUNCH(4, 2, false)
 #undef PA_MMA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------------
-// int4-packed pools: the first, CUDA-core kernel
-// ---------------------------------------------------------------------
-
-constexpr int kThreads = 128;
-constexpr int kRS = 4;   // query rows per thread in the P.V pass
-constexpr int kTT = 32;  // key positions per V tile staged in shared memory
-
-// arithmetic shift right; shifts of 31 and more (and negative ones) give
-// the sign, as in the requant kernel
-__device__ __forceinline__ int sra(int x, int s) {
-  return (unsigned)s >= 31u ? (x >> 31) : (x >> s);
-}
-
-// one kv head's unpack requant column (rows of the (6, K) operand)
-struct Unpack {
-  int m = 0, s0 = 0, lo = 0, hi = 0, d = 0, zp = 0;
-  __device__ Unpack() {}
-  __device__ Unpack(const int32_t* rq, int K, int kh)
-      : m(rq[kh]), s0(rq[K + kh]), lo(rq[2 * K + kh]), hi(rq[3 * K + kh]),
-        d(rq[4 * K + kh]), zp(rq[5 * K + kh]) {}
-  // one sign-extended int4 value -> its int8 image value (wrapping
-  // int32 multiply and add, like the reference)
-  __device__ __forceinline__ int one(int x) const {
-    x = min(max(x, lo), hi);
-    const int staged = (int)((unsigned)sra(x, s0) * (unsigned)m);
-    const int y = (int)((unsigned)sra(staged, d - s0) + (unsigned)zp);
-    return min(max(y, -128), 127);
-  }
-  // 16 packed bits (4 nibbles, element j in bits 4j..4j+3) -> a word
-  // of 4 int8 image values, element j in byte j
-  __device__ __forceinline__ int word(unsigned bits) const {
-    unsigned w = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int nib = (int)((bits >> (4 * j)) & 0xfu);
-      w |= ((unsigned)one((nib ^ 8) - 8) & 0xffu) << (8 * j);
-    }
-    return (int)w;
-  }
-};
-
-template <int HD, bool PACKED>
-__global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const int8_t* __restrict__ q,
-                  const int8_t* __restrict__ k_pool,
-                  const int8_t* __restrict__ v_pool,
-                  const int32_t* __restrict__ table,
-                  const int32_t* __restrict__ pos,
-                  const float* __restrict__ score_scale,
-                  int32_t* __restrict__ out, float* __restrict__ scratch,
-                  int8_t* __restrict__ qp_out,
-                  const int32_t* __restrict__ k_rq,
-                  const int32_t* __restrict__ v_rq, int H, int S, int K,
-                  int ps, int pps, int group, int n_pool) {
-  constexpr int HDW = HD / 4;
-  constexpr int ROW = PACKED ? HD / 2 : HD;  // bytes of one pool row
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int kh = h / group;
-  const int T = pps * ps;
-  const int tid = threadIdx.x;
-  const long long bh = (long long)b * H + h;
-
-  // shared layout (the wrapper sizes it the same way):
-  //   q (S*hd bytes) | table (pps ints, padded to 16 B) | V tile
-  //   (kTT*hd bytes) | probability image (S*T bytes, padded to 16 B) |
-  //   logits (S*T floats, unless they live in the global scratch)
-  int* q_s = reinterpret_cast<int*>(smem);
-  int* tab_s = q_s + S * HDW;
-  int* vt_s = tab_s + ((pps + 3) & ~3);
-  int8_t* qp_s = reinterpret_cast<int8_t*>(vt_s + kTT * HDW);
-  float* lg = scratch != nullptr
-                  ? scratch + bh * S * T
-                  : reinterpret_cast<float*>(qp_s + ((S * T + 15) & ~15));
-
-  const int* qg = reinterpret_cast<const int*>(q + bh * S * HD);
-  for (int i = tid; i < S * HDW; i += kThreads) q_s[i] = qg[i];
-  for (int i = tid; i < pps; i += kThreads) {
-    int p = table[(long long)b * pps + i];
-    tab_s[i] = min(max(p, 0), n_pool - 1);  // memory safety only
-  }
-  __syncthreads();
-
-  const float scale = *score_scale;
-  const int pos_b = pos[b];
-  Unpack kun, vun;
-  if (PACKED) {
-    kun = Unpack(k_rq, K, kh);
-    vun = Unpack(v_rq, K, kh);
-  }
-
-  // ---- scores: one key row per thread, dotted with every query row ----
-  for (int t = tid; t < T; t += kThreads) {
-    const long long row =
-        (((long long)tab_s[t / ps] * K + kh) * ps + (t % ps)) * ROW;
-    const int4* kr = reinterpret_cast<const int4*>(k_pool + row);
-    int kw[HDW];
-#pragma unroll
-    for (int c = 0; c < ROW / 16; ++c) {
-      const int4 v = kr[c];
-      if (PACKED) {  // 16 packed bytes -> 8 words of the int8 image
-        const int u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          kw[8 * c + 2 * e] = kun.word((unsigned)u[e] & 0xffffu);
-          kw[8 * c + 2 * e + 1] = kun.word((unsigned)u[e] >> 16);
-        }
-      } else {
-        kw[4 * c] = v.x;
-        kw[4 * c + 1] = v.y;
-        kw[4 * c + 2] = v.z;
-        kw[4 * c + 3] = v.w;
-      }
-    }
-    for (int i = 0; i < S; ++i) {
-      int acc = 0;
-#pragma unroll
-      for (int w = 0; w < HDW; ++w) acc = __dp4a(q_s[i * HDW + w], kw[w], acc);
-      float x = __fmul_rn((float)acc, scale);
-      x = __fadd_rn(x, (t <= pos_b + i) ? 0.0f : -1e9f);
-      lg[(long long)i * T + t] = x;
-    }
-  }
-  __syncthreads();
-
-  // ---- float island: one warp per query row ----
-  const int warp = tid / 32, lane = tid % 32;
-  for (int i = warp; i < S; i += kThreads / 32) {
-    float* r = lg + (long long)i * T;
-    float m = -INFINITY;
-    for (int t = lane; t < T; t += 32) m = fmaxf(m, r[t]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.0f;
-    for (int t = lane; t < T; t += 32) {
-      const float p = expf(__fsub_rn(r[t], m));
-      r[t] = p;
-      sum = __fadd_rn(sum, p);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
-    for (int t = lane; t < T; t += 32) {
-      const float img = rintf(__fmul_rn(__fdiv_rn(r[t], sum), 127.0f));
-      qp_s[i * T + t] = (int8_t)img;
-      if (qp_out != nullptr) qp_out[(bh * S + i) * T + t] = (int8_t)img;
-    }
-  }
-  __syncthreads();
-
-  // ---- integer P.V over the pages, V staged tile by tile ----
-  const int dw = tid % HDW;      // which 4 head dims
-  const int sg = tid / HDW;      // which query-row group
-  constexpr int NSG = kThreads / HDW;
-  for (int sb = 0; sb < S; sb += NSG * kRS) {
-    int acc[kRS][4];
-#pragma unroll
-    for (int r = 0; r < kRS; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0;
-    for (int t0 = 0; t0 < T; t0 += kTT) {
-      __syncthreads();  // the previous tile is consumed
-      for (int idx = tid; idx < kTT * HDW; idx += kThreads) {
-        const int t = t0 + idx / HDW;
-        int word = 0;
-        if (t < T) {
-          const long long row =
-              (((long long)tab_s[t / ps] * K + kh) * ps + (t % ps)) * ROW;
-          if (PACKED)
-            word = vun.word(*reinterpret_cast<const unsigned short*>(
-                v_pool + row + 2 * (idx % HDW)));
-          else
-            word = *reinterpret_cast<const int*>(v_pool + row +
-                                                 4 * (idx % HDW));
-        }
-        vt_s[idx] = word;
-      }
-      __syncthreads();
-      const int n_t = min(kTT, T - t0);
-      for (int tt = 0; tt < n_t; ++tt) {
-        const int vw = vt_s[tt * HDW + dw];
-        int v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = (int)(int8_t)((vw >> (8 * j)) & 0xff);
-#pragma unroll
-        for (int r = 0; r < kRS; ++r) {
-          const int i = sb + sg + r * NSG;
-          if (i < S) {
-            const int p = qp_s[i * T + t0 + tt];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[r][j] += p * v[j];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRS; ++r) {
-      const int i = sb + sg + r * NSG;
-      if (i < S) {
-        int32_t* o = out + (bh * S + i) * HD + 4 * dw;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] = acc[r][j];
-      }
-    }
-  }
-}
-
-template <int HD, bool PACKED>
-int launch(const int8_t* q, const int8_t* k_pool, const int8_t* v_pool,
-           const int32_t* table, const int32_t* pos, const float* scale,
-           int32_t* out, float* scratch, int8_t* qp_out, const int32_t* k_rq,
-           const int32_t* v_rq, int B, int H, int S, int K, int ps, int pps,
-           int group, int n_pool, size_t smem, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<HD, PACKED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  paged_attn_kernel<HD, PACKED><<<dim3(B, H), kThreads, smem, stream>>>(
-      q, k_pool, v_pool, table, pos, scale, out, scratch, qp_out, k_rq, v_rq,
-      H, S, K, ps, pps, group, n_pool);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// smem: the dynamic shared bytes of `paged_plan`'s layout for the
-// kernel of the pool mode.  k_rq / v_rq: the (6, K) unpack operands of
-// int4-packed pools (the CUDA-core kernel; scratch: its global logits, or
-// null when they fit shared memory), or null for int8 pools (the
-// tensor-core kernel; `rows` 16 or 32 a block, `stages` 2 to 4 ring
-// slots, `keep` the logits in shared memory instead of recomputing the
-// scores).
-// Returns a cudaError_t.
+// smem: the dynamic shared bytes of `paged_plan`'s layout; `rows` 16 or
+// 32 a block, `stages` 2 to 4 ring slots, `keep` the logits in shared
+// memory instead of recomputing the scores.  k_rq / v_rq: the (6, K)
+// unpack operands of int4-packed pools (hd/2-byte rows), or null for
+// int8 pools.  Returns a cudaError_t.
 extern "C" int paged_attention_launch(
     const int8_t* q, const int8_t* k_pool, const int8_t* v_pool,
     const int32_t* table, const int32_t* pos, const float* score_scale,
-    int32_t* out, float* scratch, int8_t* qp_out, const int32_t* k_rq,
-    const int32_t* v_rq, int B, int H, int S, int hd, int K, int ps,
-    int pps, int group, int n_pool, long long smem, int rows, int stages,
-    int keep, cudaStream_t stream) {
+    int32_t* out, int8_t* qp_out, const int32_t* k_rq, const int32_t* v_rq,
+    int B, int H, int S, int hd, int K, int ps, int pps, int group,
+    int n_pool, long long smem, int rows, int stages, int keep,
+    cudaStream_t stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if ((k_rq == nullptr) != (v_rq == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (k_rq != nullptr) {
-#define PA_PACKED_CASE(D)                                                  \
-  case D:                                                                  \
-    return launch<D, true>(q, k_pool, v_pool, table, pos, score_scale,     \
-                           out, scratch, qp_out, k_rq, v_rq, B, H, S, K,   \
-                           ps, pps, group, n_pool, (size_t)smem, stream);
-    switch (hd) {
-      PA_PACKED_CASE(32)
-      PA_PACKED_CASE(64)
-      PA_PACKED_CASE(128)
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-#undef PA_PACKED_CASE
-  }
   if (stages < 2 || stages > 4) return (int)cudaErrorInvalidValue;
 #define PA_MMA_CASE(D)                                                     \
   case D:                                                                  \
-    return launch_mma_plan<D>(q, k_pool, v_pool, table, pos, score_scale,  \
-                              out, qp_out, B, H, S, K, ps, pps, group,     \
-                              n_pool, rows, stages, keep, (size_t)smem,    \
-                              stream);
+    return launch_mma_plan<D>(PA_ARGS, B, rows, keep, (size_t)smem, stream);
   switch (hd) {
     PA_MMA_CASE(32)
     PA_MMA_CASE(64)

@@ -28,13 +28,15 @@ unpacked back into the int8 image space by the requant formula
 to [-128, 127]; everything after that is the int8 mode.  Its launches
 count apart, on `paged_attention_kv4.launches`.
 
-On the card, `paged_plan` picks the launch from the shape alone: int8
-pools take the tensor-core kernel (one block per slot, kv head and 16
-or 32 stacked group rows, warps splitting each staged tile of keys, three
-passes over the keys with the logits kept in shared memory where they
-fit and the scores recomputed where not, each row stopped at its
-causal horizon while `horizon_stop` holds), int4-packed pools the
-first, CUDA-core kernel.
+On the card both pool modes run one tensor-core kernel, with the launch
+`paged_plan` picks from the shape alone: one block per slot, kv head
+and 16 or 32 stacked group rows, warps splitting each staged tile of
+keys, three passes over the keys with the logits kept in shared memory
+where they fit and the scores recomputed where not, each row stopped
+at its causal horizon while `horizon_stop` holds.  Over packed pools
+the staged tiles hold the packed rows, and each block expands them
+through two 16-entry tables of its kv head (the function of
+`kv4_unpack` evaluated once for each of the 16 nibble values).
 
 `check_image` is the stated tolerance of the kernel's probability
 image (``qp_out``) against the plain one, `check_kernel` that of the
@@ -55,7 +57,6 @@ from repro_torch.kernels.int8_matmul import SMS
 
 NEG_INF = -1e9
 _SMEM_LIMIT = 220 * 1024  # of the 227 KB a block may opt into
-_TT = 32  # V tile positions of the packed kernel (kTT in the CUDA source)
 _LANES = 32  # the row sum's partials (`_lane_sum`)
 # the horizon stop is exact while |score_scale| * 128 * 128 * hd stays at
 # or below this (kStopGuard in the CUDA source, which derives it)
@@ -81,7 +82,7 @@ def _lane_sum(p: torch.Tensor) -> torch.Tensor:
 
 
 def horizon_stop(score_scale: float, hd: int) -> bool:
-    """Whether the int8 kernel stops each row at its causal horizon: the
+    """Whether the kernel stops each row at its causal horizon: the
     host mirror of the kernel's guard, which it reads on the device
     from *score_scale (a float32 product and compare, as here)."""
     a = np.float32(abs(np.float32(score_scale))) * np.float32(16384.0 * hd)
@@ -90,20 +91,18 @@ def horizon_stop(score_scale: float, hd: int) -> bool:
 
 class PagedPlan(NamedTuple):
     """How the wrapper launches the kernel for one shape."""
-    kernel: str   # "mma" (int8 pools, tensor cores) or "packed" (CUDA cores)
+    kernel: str   # "mma": the tensor-core kernel (both pool modes)
     rows: int     # query rows of a block: 16 or 32 stacked group rows
-                  # (mma), or the S rows of one query head (packed)
-    warps: int    # warps of a block (mma: each takes one 32-key chunk
-                  # of a staged tile for one 16-row tile)
-    keys: int     # keys of a staged tile (mma), 0 (packed)
-    stages: int   # cp.async ring slots (mma), 0 (packed)
+    warps: int    # warps of a block, each taking one 32-key chunk of a
+                  # staged tile for one 16-row tile
+    keys: int     # keys of a staged tile
+    stages: int   # cp.async ring slots
     blocks: int
     smem: int     # dynamic shared bytes of a block
-    logits: str   # where the f32 logits live: "shared" (in shared
-                  # memory; mma: pass 0 keeps them for passes 1 and 2),
-                  # "recomputed" (mma: the scores taken again on the
-                  # tensor cores in each of three passes) or "global"
-                  # (packed: a global scratch)
+    logits: str   # "shared" (pass 0 keeps the f32 logits in shared
+                  # memory for passes 1 and 2) or "recomputed" (the
+                  # scores taken again on the tensor cores in each of
+                  # three passes)
 
 
 # the (warps, rows) launch shapes the mma kernel is compiled for: 8 warps
@@ -123,16 +122,18 @@ def _logit_bytes(warps: int, rows: int, M: int, T: int) -> int:
 
 
 def _mma_smem(hd: int, warps: int, rows: int, stages: int, M: int, T: int,
-              pps: int, keep: bool) -> int:
+              pps: int, keep: bool, packed: bool = False) -> int:
     """Shared bytes of the tensor-core kernel (its csrc layout): the
-    ring (a K or V tile a slot with the logits kept, else both), V^T,
-    the f32 rows (the logits, or one staging tile), the row maxima and
-    sums, the table; at least the P.V reduction, which reuses the space
-    at the end."""
+    ring (a K or V tile a slot with the logits kept, else both; rows of
+    hd bytes, or hd/2 packed, 16 bytes apart more), the packed mode's
+    two 16-byte unpack tables, V^T, the f32 rows (the logits, or one
+    staging tile), the row maxima and sums, the page table; at least
+    the P.V reduction, which reuses the space at the end."""
     bt = 32 * warps * 16 // rows
     f32_rows = (_logit_bytes(warps, rows, M, T) if keep
                 else 4 * rows * (bt + 8))
-    layout = (stages * (1 if keep else 2) * bt * (hd + 16)
+    row = (hd // 2 if packed else hd) + 16
+    layout = (stages * (1 if keep else 2) * bt * row + (32 if packed else 0)
               + hd * (bt + 16) + f32_rows + 64 * warps + 4 * rows
               + 16 * ((pps + 3) // 4))
     return max(layout, 64 * warps * (hd + 8))
@@ -140,34 +141,25 @@ def _mma_smem(hd: int, warps: int, rows: int, stages: int, M: int, T: int,
 
 def paged_plan(B: int, K: int, group: int, S: int, hd: int, ps: int,
                pps: int, packed: bool = False) -> PagedPlan:
-    """The launch for one shape.  int8 pools: a block of 8 warps per
-    slot, kv head and 16 or 32 of the group * S stacked rows.  Where
-    16-row blocks would leave SMs idle (decode), 16 rows, 8 warps over
-    their keys (256 a staged tile) and the deepest ring of 4, 3 or 2
-    tiles that fits; else 32 rows (two tiles, 4 warps over each, K/V
+    """The launch for one shape, either pool mode: a block of 8 warps
+    per slot, kv head and 16 or 32 of the group * S stacked rows.
+    Where 16-row blocks would leave SMs idle (decode), 16 rows, 8 warps
+    over their keys (256 a staged tile) and the deepest ring of 4, 3 or
+    2 tiles that fits; else 32 rows (two tiles, 4 warps over each, K/V
     staged once for both) and a ring of 2.  The logits stay in shared
     memory while they take at most KEEP_LOGITS_BYTES, else each pass
-    recomputes the scores.  (`tools/attn_ab.py --sweep` times every
-    such plan.)  Packed pools: the CUDA-core kernel, a block per (slot, query
-    head), its logits in shared memory while they fit, else in a
-    global scratch."""
+    recomputes the scores.  `packed` (int4-packed pools) only shrinks
+    the ring's rows and adds the two unpack tables to the layout.
+    (`tools/attn_ab.py --sweep [--packed]` times every such plan.)"""
     T = pps * ps
     M = group * S
-    if packed:
-        # q | table | V tile | int8 image | f32 logits
-        base = (S * hd + 16 * ((pps + 3) // 4) + _TT * hd
-                + 16 * ((S * T + 15) // 16))
-        shared = base + 4 * S * T <= _SMEM_LIMIT
-        return PagedPlan("packed", S, 4, 0, 0, B * K * group,
-                         base + 4 * S * T if shared else base,
-                         "shared" if shared else "global")
     if B * K * -(-M // 16) < SMS:
         warps, rows, depths = 8, 16, (4, 3, 2)
     else:
         warps, rows, depths = 8, 32, (2,)
     keep = _logit_bytes(warps, rows, M, T) <= KEEP_LOGITS_BYTES
     for stages in depths:
-        smem = _mma_smem(hd, warps, rows, stages, M, T, pps, keep)
+        smem = _mma_smem(hd, warps, rows, stages, M, T, pps, keep, packed)
         if smem <= _SMEM_LIMIT:
             break
     return PagedPlan("mma", rows, warps, 32 * warps * 16 // rows, stages,
@@ -358,17 +350,11 @@ def paged_attention(q, k_pool, v_pool, table, pos, score_scale, *,
         raise ValueError("qp_out must be a contiguous (B, H, S, T) int8")
     plan = paged_plan(B, K, group, S, hd, ps, pps, packed)
     if plan.smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"S*T = {S * T} too large: the packed kernel's probability "
-            "image must fit shared memory" if packed else
-            f"{plan.smem} bytes of shared memory do not fit")
+        raise ValueError(f"{plan.smem} bytes of shared memory do not fit")
     out = torch.empty((B, H, S, hd), dtype=torch.int32, device=dev)
-    scratch = (torch.empty((B, H, S, T), dtype=torch.float32, device=dev)
-               if plan.logits == "global" else None)
     err = build.launcher("paged_attention")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         pos.data_ptr(), score_scale.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
         None if qp_out is None else qp_out.data_ptr(),
         k_rq.data_ptr() if packed else None,
         v_rq.data_ptr() if packed else None,

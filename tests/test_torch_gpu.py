@@ -13,14 +13,15 @@ workspace across shapes, and the refusal of K not a multiple of 16;
 the requant kernel, the paged attention on a recycled table with GQA
 group 4 and a parked row in both pool modes (int8, and int4-packed
 with per-head unpack operands whose m, s0 and d differ from head to
-head), a planted wrong unpack that the packed check rejects, the int8
-mode's tensor-core kernel at every head width, group 1-8, S 1/4/32
-and T 512/4096 (horizons on and inside page boundaries, pos 0, a
-parked row, PAGE_NULL entries past the horizons, pages of 12 keys)
-with 0 quanta moved, a planted score scale that turns its horizon
-stop off on the device, and a planted layout (one-hot queries, V
-distinct by key and column) that shows a wrong fragment or key
-permutation, and the
+head), a planted wrong unpack that the packed check rejects, the
+tensor-core kernel over int8 pools and over int4-packed ones at every
+head width, group 1-8, S 1/4/32 and T 512/4096 (horizons on and inside
+page boundaries, pos 0, a parked row, PAGE_NULL entries past the
+horizons, pages of 12 keys) with 0 quanta moved and each launch on its
+pool mode's counter, a planted score scale that turns its horizon stop
+off on the device, and a planted layout (one-hot queries, V distinct
+by key and column) that shows a wrong fragment, hd order, key
+permutation or nibble lookup, and the
 quantized flash attention on both of its kernels (every head width,
 bkv 128, 64, 32 and 48, GQA, ragged S_q and q_offset, not causal) with
 0 quanta moved, a planted case whose output differs between two KV
@@ -315,8 +316,8 @@ def test_paged_attention_kv4_on_card(S):
     got = paged_attention(*args, scale, group=group, k_rq=k_rq, v_rq=v_rq,
                           qp_out=qp)
     assert paged_attention_kv4.launches == n + 1
-    check_kernel(got, qp, *args, scale, group=group, k_rq=k_rq, v_rq=v_rq,
-                 what=f"kv4 S={S}")
+    assert check_kernel(got, qp, *args, scale, group=group, k_rq=k_rq,
+                        v_rq=v_rq, what=f"kv4 S={S}") == (0, 0)
 
 
 def floor_unpack(pool, rq):
@@ -348,99 +349,125 @@ def test_packed_check_rejects_a_planted_wrong_unpack_on_card():
     assert not torch.equal(floor_unpack(kp, k_rq), kv4_unpack(kp, k_rq))
 
 
-def _mma_inputs(seed, hd, group, S, T, *, ps=16, K=2, qmax=40):
-    """int8 pools on the card for the tensor-core kernel: 4 slots, pos
-    0 (slot 0); a last row's horizon on a page's end (slot 1); inside a
+def _mma_inputs(seed, hd, group, S, T, *, ps=16, K=2, qmax=40,
+                packed=False):
+    """Pools on the card for the tensor-core kernel: 4 slots, pos 0
+    (slot 0); a last row's horizon on a page's end (slot 1); inside a
     page (slot 2); parked at INACTIVE_POS (slot 3).  The table is a
     recycled permutation whose entries past each active slot's last
-    horizon are PAGE_NULL (slot 0) or stale pages of other tenants."""
+    horizon are PAGE_NULL (slot 0) or stale pages of other tenants.
+    int8 pools hold keys in [-qmax, qmax]; int4-packed ones (`packed`)
+    any bytes, with per-head unpack operands (`staged_unpack_rq`, V's
+    rolled by one head).  -> (q, k_pool, v_pool, table, pos), and the
+    keywords k_rq / v_rq (packed) or none."""
     rng = np.random.default_rng(seed)
     B, pps = 4, T // ps
     H = K * group
     n_pool = B * pps + 1
     q = rng.integers(-qmax, qmax + 1, size=(B, H, S, hd)).astype(np.int8)
-    kp = rng.integers(-qmax, qmax + 1,
-                      size=(n_pool, K, ps, hd)).astype(np.int8)
-    vp = rng.integers(-128, 128, size=(n_pool, K, ps, hd)).astype(np.int8)
+    if packed:
+        kp = rng.integers(-128, 128, size=(n_pool, K, ps, hd // 2))
+    else:
+        kp = rng.integers(-qmax, qmax + 1, size=(n_pool, K, ps, hd))
+    vp = rng.integers(-128, 128, size=kp.shape)
     table = rng.permutation(np.arange(1, n_pool)).reshape(B, pps)
     pos = np.array([0, max(0, ps * (pps // 3) - S), ps * (pps // 2) + 7,
                     INACTIVE_POS], np.int32)
     table[0, -(-S // ps):] = PAGE_NULL
-    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
-        q, kp, vp, table.astype(np.int32), pos)]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+        q, kp.astype(np.int8), vp.astype(np.int8), table.astype(np.int32),
+        pos)]
+    kw = {}
+    if packed:
+        rq = staged_unpack_rq(K).cuda()
+        kw = dict(k_rq=rq, v_rq=torch.roll(rq, 1, dims=1))
+    return args, kw
+
+
+def _mma_launch(args, scale, group, kw, what):
+    """One launch of the tensor-core kernel with its image, held at 0
+    quanta moved and the plain output, counted on the pool mode's own
+    counter.  -> the image."""
+    q, table = args[0], args[3]
+    B, H, S = q.shape[:3]
+    T = table.shape[1] * args[1].shape[2]
+    qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
+    n, n4 = paged_attention.launches, paged_attention_kv4.launches
+    got = paged_attention(*args, scale, group=group, qp_out=qp, **kw)
+    assert (paged_attention.launches, paged_attention_kv4.launches) == (
+        (n, n4 + 1) if kw else (n + 1, n4))
+    assert check_kernel(got, qp, *args, scale, group=group, what=what,
+                        **kw) == (0, 0)
+    return qp
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("T", [512, 4096])
 @pytest.mark.parametrize("S", [1, 4, 32])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("hd", [32, 64, 128])
-def test_paged_attention_mma_on_card(hd, group, S, T):
-    """The int8 mode's tensor-core kernel equals the plain version: 0
-    probability quanta moved, the same int32 output, one launch on the
-    int8 counter."""
+def test_paged_attention_mma_on_card(hd, group, S, T, packed):
+    """The tensor-core kernel over int8 pools, or int4-packed ones,
+    equals the plain version: 0 probability quanta moved, the same int32
+    output, one launch on the pool mode's counter."""
     _need_card()
-    args = _mma_inputs(hd * 1000 + group * 100 + S + T, hd, group, S, T)
+    args, kw = _mma_inputs(hd * 1000 + group * 100 + S + T, hd, group, S,
+                           T, packed=packed)
     scale = torch.tensor(1.0 / 1024.0, device="cuda")
     assert horizon_stop(1.0 / 1024.0, hd)
-    B, H = args[0].shape[:2]
-    qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
-    n, n4 = paged_attention.launches, paged_attention_kv4.launches
-    got = paged_attention(*args, scale, group=group, qp_out=qp)
-    assert (paged_attention.launches, paged_attention_kv4.launches) == (
-        n + 1, n4)
-    assert check_kernel(got, qp, *args, scale, group=group,
-                        what=f"hd={hd} group={group} S={S} T={T}") == (0, 0)
+    _mma_launch(args, scale, group, kw,
+                f"hd={hd} group={group} S={S} T={T} packed={packed}")
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("S", [1, 32])
-def test_paged_attention_mma_odd_page_size_on_card(S):
+def test_paged_attention_mma_odd_page_size_on_card(S, packed):
     """Pages of 12 keys (no power of two: the kernel's page lookup
     divides instead of shifting) over T 504: equal to the plain
-    version, 0 quanta moved."""
+    version, 0 quanta moved, in both pool modes."""
     _need_card()
-    args = _mma_inputs(12 + S, 64, 4, S, 504, ps=12)
+    args, kw = _mma_inputs(12 + S, 64, 4, S, 504, ps=12, packed=packed)
     scale = torch.tensor(1.0 / 1024.0, device="cuda")
-    B, H = args[0].shape[:2]
-    qp = torch.empty((B, H, S, 504), dtype=torch.int8, device="cuda")
-    got = paged_attention(*args, scale, group=4, qp_out=qp)
-    assert check_kernel(got, qp, *args, scale, group=4,
-                        what=f"ps=12 S={S}") == (0, 0)
+    _mma_launch(args, scale, 4, kw, f"ps=12 S={S} packed={packed}")
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("case", ["random", "extreme"])
-def test_paged_attention_mma_guard_off_on_card(case):
+def test_paged_attention_mma_guard_off_on_card(case, packed):
     """Planted score scales past the horizon stop's guard, read by the
     kernel from the device tensor: it scores all T keys and equals the
     plain version over all T.  "extreme": decode rows with q -128,
     keys +127 but the three after each slot's position, which are -128,
     at |scale| * 128 * 128 * hd = 5.1e8: those masked keys hold the
     row's max and its image, so stopping at the horizon would change
-    the output."""
+    the output.  Packed, those key images come from nibbles 7 and -8
+    through a K column that clips 7 * 19 to 127 and -8 * 19 to -128."""
     _need_card()
     hd, group, S, T = 64, 4, (4 if case == "random" else 1), 512
-    q, kp, vp, table, pos = _mma_inputs(77, hd, group, S, T, qmax=127)
+    args, kw = _mma_inputs(77, hd, group, S, T, qmax=127, packed=packed)
+    q, kp, vp, table, pos = args
     if case == "random":
         scale_f = 1000.0
     else:
         scale_f = float(np.float32(5.1e8 / (16384.0 * hd)))
+        top, bottom = (0x77, -0x78) if packed else (127, -128)
+        if packed:
+            kw["k_rq"][:] = torch.tensor(
+                [19, 0, -8, 7, 0, 0], dtype=torch.int32,
+                device="cuda")[:, None]
         q.fill_(-128)
-        kp.fill_(127)
+        kp.fill_(top)
         pos[3] = 300  # no parked row here: every slot has a horizon
         for b in range(4):
             pages = table[b].long()
             for key in range(int(pos[b]) + 1, int(pos[b]) + 4):
-                kp[pages[key // 16], :, key % 16] = -128
+                kp[pages[key // 16], :, key % 16] = bottom
     assert not horizon_stop(scale_f, hd)
     scale = torch.tensor(scale_f, dtype=torch.float32, device="cuda")
-    B, H = q.shape[:2]
-    qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
-    got = paged_attention(q, kp, vp, table, pos, scale, group=group,
-                          qp_out=qp)
-    assert check_kernel(got, qp, q, kp, vp, table, pos, scale,
-                        group=group, what=case) == (0, 0)
+    qp = _mma_launch(args, scale, group, kw, f"{case} packed={packed}")
     if case == "extreme":  # the image lies past every horizon
         past = torch.arange(T, device="cuda")[None, :] > pos.long()[:, None]
         assert bool((qp.sum(dim=(1, 2), dtype=torch.int64)
@@ -448,39 +475,39 @@ def test_paged_attention_mma_guard_off_on_card(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("hd,group,S", [(64, 4, 32), (128, 2, 4),
                                         (32, 8, 1)])
-def test_paged_attention_mma_planted_layout_on_card(hd, group, S):
+def test_paged_attention_mma_planted_layout_on_card(hd, group, S, packed):
     """Planted: each query row one-hot in a head dimension of its own
     (64 at d = (head * S + i) % hd), V distinct by key and column
-    ((7 key + 13 col) % 251 - 125 over the logical view), a scale that
-    makes each row's image peak on a few keys.  A wrong score fragment,
-    key permutation (sigma) or V transpose moves the image or the
-    output."""
+    (int8: (7 key + 13 col) % 251 - 125 over the logical view; packed:
+    random nibbles, rows that differ at once), a scale that makes each
+    row's image peak on a few keys.  A wrong score fragment, hd order,
+    key permutation (sigma), nibble lookup or V transpose moves the
+    image or the output."""
     _need_card()
     T, ps = 512, 16
-    q, kp, vp, table, pos = _mma_inputs(hd + group + S, hd, group, S, T,
-                                        qmax=127)
+    args, kw = _mma_inputs(hd + group + S, hd, group, S, T, qmax=127,
+                           packed=packed)
+    q, kp, vp, table, pos = args
     B, H = q.shape[:2]
     q.zero_()
     for h in range(H):
         for i in range(S):
             q[:, h, i, (h * S + i) % hd] = 64
-    key = torch.arange(T, device="cuda")
-    col = torch.arange(hd, device="cuda")
-    vals = ((7 * key[:, None] + 13 * col[None, :]) % 251 - 125).to(
-        torch.int8)
-    for b in range(B):
-        pages = table[b].long()
-        vp[pages] = vals.reshape(T // ps, ps, hd)[:, None].expand(
-            -1, vp.shape[1], -1, -1)
+    if not packed:
+        key = torch.arange(T, device="cuda")
+        col = torch.arange(hd, device="cuda")
+        vals = ((7 * key[:, None] + 13 * col[None, :]) % 251 - 125).to(
+            torch.int8)
+        for b in range(B):
+            pages = table[b].long()
+            vp[pages] = vals.reshape(T // ps, ps, hd)[:, None].expand(
+                -1, vp.shape[1], -1, -1)
     scale = torch.tensor(1.0 / 256.0, device="cuda")
-    qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
-    got = paged_attention(q, kp, vp, table, pos, scale, group=group,
-                          qp_out=qp)
+    qp = _mma_launch(args, scale, group, kw, f"planted layout {packed}")
     assert int((qp == 127).sum()) < qp.numel() // 2
-    assert check_kernel(got, qp, q, kp, vp, table, pos, scale,
-                        group=group, what="planted layout") == (0, 0)
 
 
 def _qfa_inputs(seed, hd, S_q, S_kv, n_rep, B=2, K=2):

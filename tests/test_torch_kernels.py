@@ -8,12 +8,13 @@ cases cover S = 1 and S = C, chunks inside a page, across a page and
 on a page boundary, recycled tables with stale pages, parked
 (INACTIVE_POS) rows and GQA group 4.  The tolerance that the card's
 check applies to the kernel's probability image (`check_image`) is
-shown here to reject images a wrong kernel would make.  The int8
+shown here to reject images a wrong kernel would make.  The
 paged-attention kernel's own choices are held here too: its row sum's
 ownership of the 32 partials (emulated in numpy, bit for bit against
 `_lane_sum`), its causal horizon stop (exact under its guard, and a
 planted case just outside the guard that it would get wrong), and
-`paged_plan`'s launch at every shape the port runs.
+`paged_plan`'s launch at every shape the port runs, over int8 pools
+and int4-packed ones.
 
 The CUDA kernels themselves run only on the card; their tests are in
 tests/test_torch_gpu.py.
@@ -473,7 +474,7 @@ def test_horizon_stop_planted_case_just_outside_the_guard():
     assert int((img * past[:, None, None, :]).sum()) > 0
 
 
-# (B, K, group, S, hd, ps, pps): the engine's and chip_smoke.py's int8
+# (B, K, group, S, hd, ps, pps): the engine's and chip_smoke.py's
 # shapes (full granite: 8 slots, 8 kv heads, group 4, hd 64, pages of
 # 16; T 512 and 4096), the card tests' (every hd, group, S and T of
 # test_paged_attention_mma_on_card) and the small recycled-table ones
@@ -484,15 +485,19 @@ PLAN_SHAPES = (
     + [(4, 2, 4, S, hd, 4, 4) for S in (1, 4) for hd in (32, 64, 128)])
 
 
+@pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("B,K,group,S,hd,ps,pps", PLAN_SHAPES)
-def test_paged_plan_is_a_valid_launch(B, K, group, S, hd, ps, pps):
-    """Every int8 shape the port runs takes the tensor-core kernel
-    within 220 KB of shared memory: a compiled (warps, rows) shape with
-    a 32-key chunk a warp, a ring of 2-4 tiles, one 16-row tile a block
-    exactly where 16-row blocks would leave SMs idle, the
-    logits kept in shared memory while the block's rows below M take at
-    most 80 KB of them."""
-    p = paged_plan(B, K, group, S, hd, ps, pps)
+def test_paged_plan_is_a_valid_launch(B, K, group, S, hd, ps, pps, packed):
+    """Every shape the port runs, over int8 pools or int4-packed ones,
+    takes the tensor-core kernel within 220 KB of shared memory: a
+    compiled (warps, rows) shape with a 32-key chunk a warp, a ring of
+    2-4 tiles, one 16-row tile a block exactly where 16-row blocks would
+    leave SMs idle, the logits kept in shared memory while the block's
+    rows below M take at most 80 KB of them.  Packed pools take the
+    int8 mode's launch with the ring's rows halved (hd/2 bytes, 16 apart
+    more) and two 16-byte unpack tables: no limit on S*T of their own
+    (S 32 over T 4096 keeps neither logits nor an image of S*T)."""
+    p = paged_plan(B, K, group, S, hd, ps, pps, packed)
     T, M = ps * pps, group * S
     assert p.kernel == "mma" and (p.warps, p.rows) in MMA_SHAPES
     assert p.keys == 32 * p.warps * 16 // p.rows
@@ -503,18 +508,19 @@ def test_paged_plan_is_a_valid_launch(B, K, group, S, hd, ps, pps):
     keep = p.logits == "shared"
     assert 2 <= p.stages <= 4
     assert p.smem == _mma_smem(hd, p.warps, p.rows, p.stages, M, T, pps,
-                               keep)
+                               keep, packed)
     assert p.smem <= _SMEM_LIMIT
     # the P.V reduction reuses the space at the start
     assert p.smem >= p.warps * 16 * (hd + 8) * 4
-
-
-@pytest.mark.parametrize("S,pps,logits", [(1, 32, "shared"),
-                                          (32, 32, "shared"),
-                                          (32, 256, "global")])
-def test_paged_plan_keeps_the_packed_kernels_layout(S, pps, logits):
-    """Packed pools keep the CUDA-core kernel and its layout: logits in
-    shared memory while they fit, else in a global scratch."""
-    p = paged_plan(8, 8, 4, S, 64, 16, pps, packed=True)
-    assert (p.kernel, p.rows, p.logits) == ("packed", S, logits)
-    assert p.blocks == 8 * 32 and p.smem <= _SMEM_LIMIT
+    if packed:
+        # the int8 mode's launch, its ring as deep or deeper
+        p8 = paged_plan(B, K, group, S, hd, ps, pps)
+        assert p._replace(stages=p8.stages, smem=p8.smem) == p8
+        assert p.stages >= p8.stages
+        # the int8 layout at this depth with hd/2 bytes fewer a ring row,
+        # plus the tables
+        int8_same = _mma_smem(hd, p.warps, p.rows, p.stages, M, T, pps,
+                              keep)
+        slots = p.stages * (1 if keep else 2) * p.keys
+        assert p.smem == max(64 * p.warps * (hd + 8),
+                             int8_same - slots * hd // 2 + 32)

@@ -8,7 +8,10 @@ against `ref.paged_attention_ref(k_rq=..., v_rq=...)`, one
 byte) and the engine's tokens against the reference's
 `ServingEngine(paged=True, paged_kernel=False, kv_bits=4)`.  The
 reference's packed Pallas kernel does not run under this jax, so its
-jnp mirror and its write-then-gather path stand for it.
+jnp mirror and its write-then-gather path stand for it.  The card
+kernel's way to the same unpack is transcribed in numpy and held
+against `kv4_unpack`: its 16-entry table per kv head, the byte-permute
+lookup through it, and the packed score fragments built from it.
 """
 import jax
 import jax.numpy as jnp
@@ -199,6 +202,177 @@ def test_kv4_unpack_matches_reference_page_unpack():
             want = ref.kv4_unpack_page_ref(jnp.asarray(pool[page, kh]),
                                            jnp.asarray(rq), kh)
             np.testing.assert_array_equal(got[page, kh], np.asarray(want))
+
+
+# ---------------------------------------------------------------------
+# the card kernel's per-block unpack tables and nibble lookups, in numpy
+# ---------------------------------------------------------------------
+def _sra(x, s):
+    """int32 arithmetic shift right as the kernel's `sra`: shifts of 31
+    and over (and negative ones) give the sign."""
+    s = np.asarray(s, np.int64)
+    return np.where((s < 0) | (s >= 31), x >> 31,
+                    x >> np.clip(s, 0, 31)).astype(np.int32)
+
+
+def kernel_unpack_table(rq):
+    """The tables a block of the packed kernel builds: `Unpack::one((n ^
+    8) - 8)` for the 16 nibble values n of each kv head, (K, 16) int8,
+    transcribed in int32 with the multiply and the add wrapping."""
+    m, s0, lo, hi, d, zp = (np.asarray(r, np.int32)[:, None] for r in rq)
+    x = (np.arange(16, dtype=np.int32) ^ 8) - 8
+    x = np.minimum(np.maximum(x, lo), hi)
+    staged = (_sra(x, s0).astype(np.uint32) * m.astype(np.uint32)).astype(
+        np.int32)
+    y = (_sra(staged, d - s0).astype(np.uint32) + zp.astype(np.uint32)
+         ).astype(np.int32)
+    return np.clip(y, -128, 127).astype(np.int8)
+
+
+def _nibbles(pool):
+    """The raw nibbles (0..15) of a packed pool, element 2i from the low
+    nibble of byte i."""
+    u = pool.view(np.uint8)
+    return np.stack([u & 15, u >> 4], axis=-1).reshape(
+        *pool.shape[:-1], 2 * pool.shape[-1])
+
+
+def _unpack_cols(case, K, rng):
+    if case == "staged":
+        return staged_unpack_rq(K).numpy()
+    if case == "reference":
+        return np.array(j_kv4_operand(_kv4_tables(rng, K)["v_unpack"], K))
+    if case == "random":
+        s0 = rng.integers(0, 34, K)
+        lo = rng.integers(-10, 4, K)
+        return np.stack([rng.integers(-2**31, 2**31, K), s0, lo,
+                         lo + rng.integers(0, 12, K),
+                         s0 + rng.integers(-2, 34, K),
+                         rng.integers(-2**20, 2**20, K)]).astype(np.int32)
+    # x * m wraps int32 for |x| >= 4: 4 (2^29 + 3) = 2^31 + 12
+    col = [2**29 + 3, 0, -8, 7, 24, 0]
+    return np.array([col] * K, np.int32).T.copy()
+
+
+@pytest.mark.parametrize("case", ["staged", "reference", "random",
+                                  "wrapping"])
+def test_kernel_unpack_table_equals_kv4_unpack(case):
+    """The 16-entry table per kv head, indexed by every nibble of a
+    seeded packed pool, is `kv4_unpack` of that pool (the reference's
+    page unpack for operands from its own `_kv4_operand`): for the
+    operands the card checks use, the reference's, seeded random
+    columns (shifts of 31 and over, and below 0) and a column whose
+    multiply wraps int32."""
+    rng = np.random.default_rng(31)
+    K = 8
+    rq = _unpack_cols(case, K, rng)
+    pool = rng.integers(-128, 128, size=(5, K, 4, 16)).astype(np.int8)
+    tab = kernel_unpack_table(rq)
+    got = tab[np.arange(K)[None, :, None, None], _nibbles(pool)]
+    want = kv4_unpack(torch.from_numpy(pool), torch.from_numpy(rq)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == "reference":
+        for kh in range(K):
+            np.testing.assert_array_equal(got[1, kh], np.asarray(
+                ref.kv4_unpack_page_ref(jnp.asarray(pool[1, kh]),
+                                        jnp.asarray(rq), kh)))
+    if case == "wrapping":  # without the wrap the images would differ
+        x = np.arange(-8, 8, dtype=np.int64)
+        unwrapped = np.clip((x * (2**29 + 3)) >> 24, -128, 127)
+        assert not np.array_equal(tab[0, (x & 15)], unwrapped)
+
+
+def test_packed_u16_nibble_j_is_element_4i_plus_j():
+    """The selector identity the kernel's lookups rest on: the
+    little-endian u16 at packed byte 2i holds elements 4i..4i+3, element
+    4i+j in bits 4j..4j+3."""
+    pool = np.random.default_rng(32).integers(
+        -128, 128, size=(3, 2, 4, 16)).astype(np.int8)
+    u16 = pool.view("<u2")
+    nib = (u16[..., None] >> (4 * np.arange(4))) & 15
+    elems = unpack_int4(torch.from_numpy(pool)).numpy()
+    np.testing.assert_array_equal(
+        nib.reshape(*pool.shape[:-1], -1), elems.view(np.uint8) & 15)
+
+
+def _prmt(a, b, c):
+    """PTX prmt.b32 in its default mode, over uint32 arrays: byte j of
+    the result is byte c[4j+2:4j] of {b, a}, or where c[4j+3] is set that
+    byte's sign bit replicated; c[31:16] is not read."""
+    src = (np.asarray(b, np.uint64) << np.uint64(32)) | np.asarray(
+        a, np.uint64)
+    c = np.asarray(c, np.uint64)
+    out = np.zeros(np.broadcast(src, c).shape, np.uint64)
+    for j in range(4):
+        sel = (c >> np.uint64(4 * j)) & np.uint64(15)
+        byte = (src >> (np.uint64(8) * (sel & np.uint64(7)))) & np.uint64(255)
+        sign = np.where(byte & np.uint64(128), np.uint64(255), np.uint64(0))
+        out |= np.where(sel & np.uint64(8), sign, byte) << np.uint64(8 * j)
+    return out.astype(np.uint32)
+
+
+def _unpack4(c, tb):
+    """The kernel's `unpack4`: four nibbles (c[15:0]) through a 16-byte
+    table held as four uint32 (entry n in byte n % 4 of tb[n // 4])."""
+    c = np.asarray(c, np.uint32)
+    lo = _prmt(tb[0], tb[1], c)
+    hi = _prmt(tb[2], tb[3], c ^ np.uint32(0x8888))
+    m = _prmt(c << np.uint32(4), c, 0xD9C8)
+    return (lo & ~m) | (hi & m)
+
+
+@pytest.mark.parametrize("case", ["staged", "random"])
+def test_unpack4_equals_the_table_lookup(case):
+    """`unpack4` (two permutes and a select on each nibble's top bit)
+    gives, for every one of the 65536 u16 selectors, with or without
+    bits above 16, the word of the four nibbles' table entries."""
+    rng = np.random.default_rng(33)
+    tabs = (kernel_unpack_table(staged_unpack_rq(8).numpy())
+            if case == "staged"
+            else rng.integers(-128, 128, size=(8, 16)).astype(np.int8))
+    c = np.arange(1 << 16, dtype=np.uint32)
+    high = rng.integers(0, 1 << 16, size=c.shape).astype(np.uint32) << 16
+    for tab in tabs:
+        tb = tab.view("<u4")
+        want = np.zeros_like(c)
+        for j in range(4):
+            want |= tab.view(np.uint8)[(c >> (4 * j)) & 15].astype(
+                np.uint32) << (8 * j)
+        np.testing.assert_array_equal(_unpack4(c, tb), want)
+        np.testing.assert_array_equal(_unpack4(c | high, tb), want)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_packed_score_fragments_give_the_scores(hd):
+    """The packed kernel's score fragments, built lane by lane as the
+    kernel builds them (Q's A registers from hd 32c + 8t and + 4; K's
+    two B registers from the 4 packed bytes at 16c + 4t of key g's row,
+    expanded by `unpack4`) and put through the m16n8k32 product's
+    definition, give q . k over the unpacked keys exactly."""
+    rng = np.random.default_rng(34 + hd)
+    q = rng.integers(-128, 128, size=(16, hd)).astype(np.int8)
+    rows = rng.integers(-128, 128, size=(8, hd // 2)).astype(np.int8)
+    tab = kernel_unpack_table(staged_unpack_rq(3).numpy())[2]
+    tb = tab.view("<u4")
+    kimg = tab[_nibbles(rows)]
+    d = np.zeros((16, 8), np.int64)
+    for c in range(hd // 32):
+        a = np.zeros((16, 32), np.int64)
+        bm = np.zeros((32, 8), np.int64)
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            col = 32 * c + 8 * t
+            for r in (g, g + 8):
+                a[r, 4 * t:4 * t + 4] = q[r, col:col + 4]
+                a[r, 16 + 4 * t:20 + 4 * t] = q[r, col + 4:col + 8]
+            w = rows[g].view("<u4")[(16 * c + 4 * t) // 4]
+            for lo_k, half in ((4 * t, w & 0xFFFF), (16 + 4 * t, w >> 16)):
+                word = _unpack4(np.uint32(half), tb)
+                bm[lo_k:lo_k + 4, g] = np.array(
+                    [word], np.uint32).view(np.int8)
+        d += a @ bm
+    np.testing.assert_array_equal(
+        d, q.astype(np.int64) @ kimg.astype(np.int64).T)
 
 
 def _wrong_unpack(pool, rq, kind):

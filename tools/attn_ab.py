@@ -3,8 +3,8 @@
 card.
 
     python3 tools/attn_ab.py --base DIR
-    python3 tools/attn_ab.py --base DIR --paged
-    python3 tools/attn_ab.py --sweep
+    python3 tools/attn_ab.py --base DIR --paged [--packed]
+    python3 tools/attn_ab.py --sweep [--packed]
     python3 tools/attn_ab.py --sass
 
 Times `repro_torch.kernels.quant_flash_attention` of the checkout at DIR
@@ -12,20 +12,23 @@ and of this one at `chip_smoke.QFA_SHAPES` (full granite_3_2b geometry:
 B 1, 32 query heads, 8 kv heads), or with `--paged` the int8 paged
 attention `repro_torch.kernels.paged_attention` at
 `chip_smoke.PAGED_SHAPES` (8 slots, 32 query heads, 8 kv heads, hd 64,
-pages of 16; S 32 and 1, T 512 and 4096), in turns: base, this, this,
-base, each in a process of its own that builds its own kernels.  Both
-trees get the same seeded inputs (`chip_smoke.qfa_inputs`,
-`chip_smoke.paged_inputs`); each time is `chip_smoke.Timer`'s median of
+pages of 16; S 32 and 1, T 512 and 4096), over int4-packed pools with
+`--packed`, in turns: base, this, this, base, each in a process of its
+own that builds its own kernels.  Both trees get the same seeded
+inputs (`chip_smoke.qfa_inputs`, `chip_smoke.paged_inputs`, its
+`packed` pools and unpack operands with `--packed`); each time is
+`chip_smoke.Timer`'s median of
 10 launches with the L2 flushed before each.  Each process also hashes
 its outputs, so the line says whether the two trees wrote the same
 bytes.  Prints the card's name and power limit, then one line per
 shape.
 
-`--sweep` times the int8 paged attention of this checkout at
-`chip_smoke.PAGED_SHAPES` under every launch plan its kernel takes (the
-logits kept in shared memory, "s", or recomputed, "r"; 4 warps on 16
-rows, 8 on 16 or 8 on 32; a ring of 2, 3 or 4 tiles; where it fits
-shared memory), marking the one `paged_plan` picks.
+`--sweep` times the int8 paged attention of this checkout (with
+`--packed`, over int4-packed pools) at `chip_smoke.PAGED_SHAPES` under
+every launch plan its kernel takes (the logits kept in shared memory,
+"s", or recomputed, "r"; 8 warps on 16 rows or on 32; a ring of 2, 3
+or 4 tiles; where it fits shared memory), marking the one `paged_plan`
+picks; each plan's output must equal the chosen plan's.
 
 `--sass` builds this checkout's quant_attention.cu and paged_attention.cu
 and prints, for each tensor-core kernel, its static SASS instruction
@@ -47,9 +50,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def time_tree(tree: str, paged: bool) -> None:
-    """Child: time this tree's quant_flash_attention (or its int8 paged
-    attention), print JSON."""
+def time_tree(tree: str, paged: bool, packed: bool) -> None:
+    """Child: time this tree's quant_flash_attention (or its paged
+    attention, over int8 or int4-packed pools), print JSON."""
     sys.path.insert(0, str(Path(tree) / "src"))
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -64,7 +67,8 @@ def time_tree(tree: str, paged: bool) -> None:
     out = {}
     for i, shape in enumerate(PAGED_SHAPES if paged else QFA_SHAPES):
         if paged:
-            args, kw = paged_inputs(torch, np, *shape, SEED + 20 + i)
+            args, kw = paged_inputs(torch, np, *shape, SEED + 20 + i,
+                                    packed)
             fn = lambda: paged_attention(*args, **kw)  # noqa: E731
         else:
             q, k, v, kw = qfa_inputs(torch, shape, SEED + 10 + i)
@@ -76,8 +80,9 @@ def time_tree(tree: str, paged: bool) -> None:
     print(json.dumps(out))
 
 
-def sweep() -> None:
-    """Time every launch plan of the int8 paged attention."""
+def sweep(packed: bool) -> None:
+    """Time every launch plan of the paged attention (int8 or packed
+    pools)."""
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -91,18 +96,18 @@ def sweep() -> None:
     timer = Timer(torch)
     chosen = pa.paged_plan
     for i, (S, T) in enumerate(PAGED_SHAPES):
-        args, kw = paged_inputs(torch, np, S, T, SEED + 20 + i)
+        args, kw = paged_inputs(torch, np, S, T, SEED + 20 + i, packed)
         q, kp = args[0], args[1]
         shape = (q.shape[0], kp.shape[1], kw["group"], S, q.shape[3],
                  kp.shape[2], T // kp.shape[2])
-        pick = chosen(*shape)
+        pick = chosen(*shape, packed)
         want = paged_attention(*args, **kw)
         cells = []
         for logits, (warps, rows), stages in itertools.product(
                 ("shared", "recomputed"), pa.MMA_SHAPES, (2, 3, 4)):
             smem = pa._mma_smem(shape[4], warps, rows, stages,
                                 shape[2] * S, T, shape[6],
-                                logits == "shared")
+                                logits == "shared", packed)
             if smem > pa._SMEM_LIMIT:
                 continue
             plan = pick._replace(warps=warps, rows=rows,
@@ -156,12 +161,15 @@ def main() -> int:
                     help="SASS opcode counts of this checkout's kernels")
     ap.add_argument("--paged", action="store_true",
                     help="A/B the int8 paged attention instead")
+    ap.add_argument("--packed", action="store_true",
+                    help="the paged attention over int4-packed pools "
+                    "(with --paged or --sweep)")
     ap.add_argument("--sweep", action="store_true",
                     help="time every launch plan of the paged attention")
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.tree:
-        time_tree(args.tree, args.paged)
+        time_tree(args.tree, args.paged, args.packed)
         return 0
     if not (args.sass or args.sweep or args.base):
         ap.error("give --base DIR, --sweep or --sass")
@@ -172,7 +180,7 @@ def main() -> int:
     print(f"card: {card}")
     if args.sass or args.sweep:
         if args.sweep:
-            sweep()
+            sweep(args.packed)
         if args.sass:
             sass()
         return 0
@@ -181,7 +189,8 @@ def main() -> int:
                         ("base", args.base)):
         res = subprocess.run(
             [sys.executable, __file__, "--base", args.base, "--tree",
-             str(tree)] + (["--paged"] if args.paged else []),
+             str(tree)] + (["--paged"] if args.paged else [])
+            + (["--packed"] if args.packed else []),
             check=True, capture_output=True, text=True)
         runs.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
     print("  shape (S T)" if args.paged
