@@ -9,8 +9,12 @@ Phases (any failure raises and the script exits non-zero):
             nvcc per source, in parallel) and print the card's name and
             power limit
   kernels   each kernel against its plain PyTorch version on the card,
-            at its path's shapes: the int8 GEMM (both modes) and the
-            requant exactly; the paged attention in both pool modes
+            at its path's shapes: the int8 GEMM (both modes) exactly;
+            the requant's three forms (apply_rqt, heads-to-rows for
+            ctx_rqt; the whole QAdd; the MLP's LUT, gate product and
+            h_rqt) exactly at the chunk and decode shapes, per-channel,
+            scalar-path and wrapping tables; the paged attention in both
+            pool modes
             (int8, and int4-packed with per-head unpack operands) at S
             32 and 1, T 512 and 4096, on its tensor-core kernel (with
             the launch `paged_plan` took and its registers and spills),
@@ -34,7 +38,8 @@ Phases (any failure raises and the script exits non-zero):
   main      full granite_3_2b (40 layers, random seeded weights deployed
             layer by layer without calibration): 8 ragged requests
             (prompts 17-300, 16 new tokens) through `ServingEngine`,
-            every kernel of the path launched, a second run with equal
+            every kernel of the path launched (GEMM launches by site
+            and path, requant launches by form), a second run with equal
             tokens, a profiled third run; then the same three runs over
             int4-packed pools (kv_bits 4) on the same tables
 
@@ -76,8 +81,13 @@ SOURCES = {
 }
 # the __global__ functions of csrc/*.cu
 KERNEL_NAMES = ("gemm_gemv_kernel", "gemm_wgmma_kernel", "requant_kernel",
+                "requant_add_kernel", "requant_gate_kernel",
                 "paged_attn_mma_kernel", "paged_attn_mma_packed_kernel",
                 "quant_attn_mma_kernel", "quant_attn_kernel")
+# the requant kernel's __global__ functions -> the call forms each serves
+REQUANT_KERNELS = {"requant_kernel": "rqt, rqt_heads",
+                   "requant_add_kernel": "add",
+                   "requant_gate_kernel": "gate"}
 # the kernels each serving path launches
 PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                 4: ("int8_matmul", "requant", "paged_attention_kv4")}
@@ -126,10 +136,12 @@ def ptxas_summary(report: str) -> dict:
             # its mangled name
             mangled = line.split("'")[1]
             at = [mangled.find(k) for k in KERNEL_NAMES if k in mangled]
-            m = re.match(r"([a-z_]+_kernel)((?:ILi\d+E|Li\d+E|Lb[01]E)*)",
+            # (integers and bools as numbers, int8_t and int as types)
+            m = re.match(r"([a-z_]+_kernel)I?((?:L[ib]\d+E|[ai])*)",
                          mangled[min(at):] if at else "")
             fn = (m.group(1) + "<" + ", ".join(
-                re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
+                n or {"a": "int8", "i": "int32"}[t] for n, t in re.findall(
+                    r"L[ib](\d+)E|([ai])", m.group(2))) + ">"
                   if m else mangled[:40])
         if "registers" in line or "spill" in line:
             out[fn] = (out[fn] + "; " if fn in out else "") + line.split(
@@ -258,42 +270,134 @@ def host_us_per_call(torch, np, rng, report, calls=1000):
               f"({calls} calls, no synchronise), device {dev * 1e3:.1f} us")
 
 
-def check_requant(torch, np, timer, rng, report):
-    from repro_torch.core.requant import apply_rqt
-    from repro_torch.kernels import requant
+def requant_tables(torch, np, rng, N, kind, ratio, *, int32_out=False,
+                   zp=0, acc_bound=float(1 << 24)):
+    """A requant tree on the card.  `scalar` and `channel`: the port's
+    scheduler (make_rqt) for eps_in / eps_out = `ratio` (times 0.5-1.5
+    per channel) and `acc_bound`; `wrap`: per-channel m in [2^28,
+    2^31), s0 0, d 20, pre-clip +-2^20, so the staged product
+    (q >> s0) * m wraps in int32."""
+    from repro_torch.core.requant import make_rqt
 
-    worst = 0
-    B, S, H, hd, d, ff = N_SLOTS, CHUNK, 32, 64, 2048, 8192
-    cases = [
-        ("ctx_rqt", (B, H, S, hd), False, False, 1 << 14),
-        ("h_rqt", (B * S, ff), False, False, 1 << 15),
-        ("add rq_a", (B, S, d), False, True, 1 << 7),
-        ("add rq_b", (B, S, d), True, True, 1 << 26),
-        ("ctx_rqt decode", (B, H, 1, hd), False, False, 1 << 14),
+    if kind == "wrap":
+        m = rng.integers(1 << 28, 1 << 31, size=N)
+        t = {"m": (m - (1 << 32) * (m >= 1 << 31)).astype(np.int32),
+             "d": np.int32(20), "s0": np.zeros(N, np.int32),
+             "lo": np.full(N, -(1 << 20), np.int32),
+             "hi": np.full(N, 1 << 20, np.int32), "zp": np.int32(zp)}
+    else:
+        eps = ratio * (rng.uniform(0.5, 1.5, size=N) if kind == "channel"
+                       else float(rng.uniform(0.5, 1.5)))
+        kw = dict(qmin=-(1 << 24), qmax=1 << 24) if int32_out else {}
+        t = make_rqt(eps, 1.0, zp_out=zp, acc_bound=acc_bound, **kw)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in t.items()}
+
+
+def requant_cases(torch, np, rng):
+    """(form, name, kernel call, plain call, bytes, operations) of every
+    shape `check_requant` holds: the serving path's sites at its chunk
+    (M 256) and decode (M 8) shapes first, then per-channel, int32-out
+    and int32-a variants, shapes that take the scalar path (numel or N
+    not a multiple of 16) and tables whose staged product wraps."""
+    from repro_torch.kernels import (
+        requant, requant_add, requant_add_plain, requant_gate,
+        requant_gate_plain, requant_plain,
+    )
+
+    B, H, hd, d, ff = N_SLOTS, 32, 64, 2048, 8192
+    dev = "cuda"
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, dtype=torch.int8, device=dev)
+
+    def i32(shape, amp):
+        return torch.randint(-amp, amp, shape, dtype=torch.int32, device=dev)
+
+    def tab_bytes(*rqs):
+        return sum(16 * t["m"].numel() for t in rqs)
+
+    def rqt(name, shape, kind, *, heads=False, out32=False):
+        q = i32(shape, 1 << 14)
+        rq = requant_tables(torch, np, rng, shape[-1], kind, 1 / 128,
+                            int32_out=out32, zp=0 if out32 else 3)
+        kw = dict(heads_to_rows=heads)
+        if out32:
+            kw.update(qmin=-(1 << 24), qmax=1 << 24, out_dtype=torch.int32)
+        n = q.numel()
+        return ("rqt_heads" if heads else "rqt", name,
+                lambda: requant(q, rq, **kw),
+                lambda: requant_plain(q, rq, **kw),
+                n * (4 + (4 if out32 else 1)) + tab_bytes(rq), 10.0 * n)
+
+    def add(name, shape, kind_a, kind_b, *, a32=False):
+        a = i32(shape, 1 << 17) if a32 else i8(shape)
+        b = i32(shape, 1 << 17)
+        N = shape[-1]
+        # the bound QAdd.deploy schedules both branches for
+        kw = dict(int32_out=True, acc_bound=float(1 << 16))
+        t = {"rq_a": requant_tables(torch, np, rng, N, kind_a,
+                                    1e-3 if a32 else 0.5, **kw),
+             "rq_b": requant_tables(torch, np, rng, N, kind_b, 1e-3, **kw),
+             "zp_a": torch.tensor(5, dtype=torch.int32, device=dev),
+             "zp_b": torch.tensor(-7, dtype=torch.int32, device=dev)}
+        n = a.numel()
+        return ("add", name, lambda: requant_add(a, b, t),
+                lambda: requant_add_plain(a, b, t),
+                n * (a.element_size() + 4 + 1)
+                + tab_bytes(t["rq_a"], t["rq_b"]), 24.0 * n)
+
+    def gate(name, shape, kind):
+        s_pre, s_u = i8(shape), i8(shape)
+        lut = i8((256,))
+        zp_g = torch.tensor(-11, dtype=torch.int32, device=dev)
+        rq = requant_tables(torch, np, rng, shape[-1], kind, 1 / 256, zp=2)
+        n = s_pre.numel()
+        return ("gate", name, lambda: requant_gate(s_pre, s_u, lut, zp_g, rq),
+                lambda: requant_gate_plain(s_pre, s_u, lut, zp_g, rq),
+                3 * n + 256 + tab_bytes(rq), 13.0 * n)
+
+    return [
+        rqt("ctx_rqt chunk", (B, H, CHUNK, hd), "scalar", heads=True),
+        rqt("ctx_rqt decode", (B, H, 1, hd), "scalar", heads=True),
+        gate("gate+h_rqt chunk", (B * CHUNK, ff), "scalar"),
+        gate("gate+h_rqt decode", (B, ff), "scalar"),
+        add("QAdd chunk", (B, CHUNK, d), "scalar", "channel"),
+        add("QAdd decode", (B, 1, d), "scalar", "channel"),
+        rqt("per-channel", (B * CHUNK, d), "channel"),
+        rqt("int32-out per-channel", (B, CHUNK, d), "channel", out32=True),
+        add("QAdd int32 a", (B, CHUNK, d), "channel", "channel", a32=True),
+        rqt("tail", (3, 37, 29), "scalar"),
+        rqt("heads tail", (2, 3, 5, 24), "channel", heads=True),
+        add("QAdd tail", (5, 3, 100), "scalar", "channel"),
+        gate("gate tail", (7, 333), "channel"),
+        rqt("wrap", (B * CHUNK, d), "wrap"),
+        add("QAdd wrap", (B, 1, d), "wrap", "wrap", a32=True),
+        gate("gate wrap", (B, ff), "wrap"),
     ]
-    for name, shape, per_ch, i32, amp in cases:
-        q = torch.randint(-amp, amp, shape, dtype=torch.int32,
-                          device="cuda")
-        rqt = rand_rqt(torch, np, rng, shape[-1], per_ch, int32_out=i32)
-        kw = (dict(qmin=-(1 << 24), qmax=1 << 24, out_dtype=torch.int32)
-              if i32 else {})
-        got = requant(q, rqt, **kw)
-        want = apply_rqt(q, rqt, **kw)
+
+
+def check_requant(torch, np, timer, rng, report):
+    """Each call form of the requant kernel against its plain version,
+    exactly, at `requant_cases`; each time beside its bytes bound."""
+    worst = 0
+    for form, name, fn, plain, n_bytes, n_ops in requant_cases(
+            torch, np, rng):
+        got, want = fn(), plain()
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if got.dtype != want.dtype or err != 0:
-            raise AssertionError(f"requant {name}: max err {err}")
+        if got.dtype != want.dtype or got.shape != want.shape or err != 0:
+            raise AssertionError(f"requant {form} {name}: max err {err}")
         worst = max(worst, err)
-        ms = timer(lambda: requant(q, rqt, **kw))
-        plain = timer(lambda: apply_rqt(q, rqt, **kw), 3)
-        n = q.numel()
-        bms, by = bound_ms(n * (4 + (4 if i32 else 1)), 8.0 * n, INT32_OPS_S)
-        row = dict(shape=f"{name} {tuple(shape)}", ms=ms, plain_ms=plain,
-                   bound_ms=bms, bound_by=by, library_ms=None,
-                   max_abs_err=err)
+        ms = timer(fn)
+        plain_ms = timer(plain, 3)
+        bms, by = bound_ms(n_bytes, n_ops, INT32_OPS_S)
+        row = dict(shape=f"{form}: {name} {tuple(got.shape)}", ms=ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=None, max_abs_err=err)
         report.setdefault("requant", []).append(row)
         print(f"  requant {row['shape']}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), exact")
+              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), exact")
     return worst
 
 
@@ -685,6 +789,22 @@ def gemm_site_launches(kernels, cfg, steps: int, total: int) -> None:
         raise AssertionError(f"a GEMM launch off the serving sites: {by}")
 
 
+def requant_form_launches(kernels, cfg, steps: int, total: int) -> None:
+    """Print the main run's requant launches by form
+    (`requant.by_form`): per layer and step one heads-to-rows ctx_rqt,
+    one gate and two QAdds, and nothing else."""
+    by = kernels.requant.by_form
+    L = cfg.n_layers * steps
+    want = {"rqt_heads": L, "gate": L, "add": 2 * L}
+    print("  requant launches by form: " + ", ".join(
+        f"{k} {n}" for k, n in sorted(by.items()))
+        + f"; sum {sum(by.values())} = {sum(by.values()) / steps:.0f} per "
+        "step")
+    if by != want or total != sum(want.values()):
+        raise AssertionError(f"requant launches {by} (total {total}) are "
+                             f"not {want}")
+
+
 def serve_twice(torch, kernels, lm, tables, reqs, kv_bits):
     """Two runs of the main path at `kv_bits`: the counts are set to 0
     just before run 1 and read just after; every kernel of the path
@@ -705,6 +825,7 @@ def serve_twice(torch, kernels, lm, tables, reqs, kv_bits):
         raise AssertionError(f"kernels off the path launched: {launches}")
     gemm_site_launches(kernels, lm.cfg, s1["steps"],
                        launches["int8_matmul"])
+    requant_form_launches(kernels, lm.cfg, s1["steps"], launches["requant"])
     tok2, s2 = serve(lm, tables, reqs, "cuda", kv_bits)
     if tok1 != tok2:
         raise AssertionError(f"kv_bits {kv_bits}: a second run gave other "
@@ -745,20 +866,22 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
     busy_us = sum(e.self_device_time_total for e in rows)
     owner = {"gemm_wgmma_kernel": "int8_matmul",
              "gemm_gemv_kernel": "int8_matmul",
-             "requant_kernel": "requant",
+             **{k: "requant" for k in REQUANT_KERNELS},
              "paged_attn_mma_kernel": "paged_attention",
              "paged_attn_mma_packed_kernel": "paged_attention_kv4"}
     gemm_path = {"gemm_wgmma_kernel": "chunk (wgmma)",
                  "gemm_gemv_kernel": "decode (GEMV)"}
-    split, by_path = {}, {}
+    split, by_path, by_form = {}, {}, {}
     for e in rows:
         who = next((v for k, v in owner.items() if k in e.key), "torch ops")
         split[who] = split.get(who, 0.0) + e.self_device_time_total / 1e3
-        for k, v in gemm_path.items():
-            if k in e.key:
-                ms, n = by_path.get(v, (0.0, 0))
-                by_path[v] = (ms + e.self_device_time_total / 1e3,
-                              n + e.count)
+        for table, names in ((by_path, gemm_path),
+                             (by_form, REQUANT_KERNELS)):
+            for k, v in names.items():
+                if k in e.key:
+                    ms, n = table.get(v, (0.0, 0))
+                    table[v] = (ms + e.self_device_time_total / 1e3,
+                                n + e.count)
     print(f"  profile (kv_bits {kv_bits} run 3): device busy "
           f"{busy_us / 1e3:.1f} ms; wall "
           f"{wall * 1e3:.1f} ms under the profiler, "
@@ -769,9 +892,14 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
           f"steps: {n_kernels / stats['steps']:.0f} per step")
     print("  device ms by owner: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(split.items(), key=lambda x: -x[1])))
-    print("  int8_matmul device ms by path: " + ", ".join(
-        f"{k} {ms:.1f} in {n} launches ({ms / n * 1e3:.1f} us each)"
-        for k, (ms, n) in sorted(by_path.items())))
+    for what, table in (("int8_matmul device ms by path", by_path),
+                        ("requant device ms by kernel (form)", by_form)):
+        print(f"  {what}: " + ", ".join(
+            f"{k} {ms:.1f} in {n} launches ({ms / n * 1e3:.1f} us each)"
+            for k, (ms, n) in sorted(table.items())))
+    ms, n = (sum(x) for x in zip(*by_form.values())) if by_form else (0, 0)
+    print(f"  requant: {ms:.1f} ms in {n} launches "
+          f"({ms / max(n, 1) * 1e3:.2f} us each)")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
@@ -834,7 +962,7 @@ def main() -> int:
     launches = phase_main(torch, np, kernels)
     phase_done("main", t0)
     launches["quant_flash_attention"] = entry["quant_flash_attention"]
-    rep_shape = {"int8_matmul": 8, "requant": 3, "paged_attention": 0,
+    rep_shape = {"int8_matmul": 8, "requant": 4, "paged_attention": 0,
                  "paged_attention_kv4": 0, "quant_flash_attention": 0}
     rows = []
     for name in kernels.KERNELS:

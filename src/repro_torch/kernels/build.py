@@ -34,15 +34,20 @@ NVCC_FLAGS = (
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-# argument types of each source's C entry point `<name>_launch`, which
-# returns a cudaError_t
+# argument types of each C entry point `<name>_launch`, which returns a
+# cudaError_t; each lives in csrc/<name>.cu, or in the source ENTRIES
+# names
 SIGNATURES = {
     "int8_matmul": [_P] * 9 + [_I] * 3 + [_P] + [_I] * 4 + [_LL]
     + [_I] * 5 + [_P] * 3,
-    "requant": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 2 + [_P, _I, _LL, _I, _P],
+    "requant": [_P] * 7 + [_I] * 3 + [_P] + [_I] * 8 + [_P],
+    "requant_add": [_P, _I] + [_P] * 7 + [_I] + [_P] * 8 + [_I, _P]
+    + [_I] * 5 + [_P],
+    "requant_gate": [_P] * 10 + [_I, _P] + [_I] * 5 + [_P],
     "paged_attention": [_P] * 10 + [_I] * 9 + [_LL] + [_I] * 3 + [_P],
     "quant_attention": [_P] * 4 + [_F] * 3 + [_I] * 14 + [_LL, _P],
 }
+ENTRIES = {"requant_add": "requant", "requant_gate": "requant"}
 
 _LOCK = threading.Lock()
 _LAUNCHERS: Dict[str, ctypes._CFuncPtr] = {}
@@ -110,13 +115,15 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 def launcher(name: str) -> ctypes._CFuncPtr:
-    """The C entry point `<name>_launch` of csrc/<name>.cu, its library
-    built and loaded on first use."""
+    """The C entry point `<name>_launch` of its source (csrc/<name>.cu,
+    or the one ENTRIES names), the library built and loaded on first
+    use."""
     with _LOCK:
         fn = _LAUNCHERS.get(name)
         if fn is None:
-            _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_target(name)[1]))
+            src = ENTRIES.get(name, name)
+            _finish(src, _start(src))
+            lib = ctypes.CDLL(str(_target(src)[1]))
             fn = getattr(lib, f"{name}_launch")
             fn.restype = ctypes.c_int
             fn.argtypes = SIGNATURES[name]

@@ -2,8 +2,8 @@
 `repro.layers.add.QAdd`, Eq. 24).
 
 Each branch is requantized into the fresh symmetric output space as an
-int32 image clipped to +-2^24 (the requant kernel's int32-out mode),
-the two are summed in int32 and clipped once to int8.
+int32 image clipped to +-2^24, the two are summed in int32 and clipped
+once to int8: one launch of the requant kernel's add form.
 """
 from __future__ import annotations
 
@@ -14,10 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.requant import make_rqt
-from repro_torch.kernels.requant_kernel import requant
-from repro_torch.layers.common import ACT_QMAX, ACT_QMIN, DeployCtx
-
-_BRANCH = 1 << 24
+from repro_torch.kernels.requant_kernel import BRANCH, requant_add
+from repro_torch.layers.common import DeployCtx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,9 +30,9 @@ class QAdd:
         lo, hi = ctx.range(f"{scope}{self.name}", "resid")
         amax = max(abs(lo), abs(hi), 1e-6)
         eps_s = 2.0 * amax / 255.0
-        rq_a = make_rqt(eps_a, eps_s, zp_out=0, qmin=-_BRANCH, qmax=_BRANCH,
+        rq_a = make_rqt(eps_a, eps_s, zp_out=0, qmin=-BRANCH, qmax=BRANCH,
                         requant_factor=ctx.factor, acc_bound=float(1 << 16))
-        rq_b = make_rqt(eps_b, eps_s, zp_out=0, qmin=-_BRANCH, qmax=_BRANCH,
+        rq_b = make_rqt(eps_b, eps_s, zp_out=0, qmin=-BRANCH, qmax=BRANCH,
                         requant_factor=ctx.factor, acc_bound=float(1 << 16))
         return (
             {"rq_a": rq_a, "rq_b": rq_b,
@@ -47,10 +45,4 @@ class QAdd:
                  s_b: torch.Tensor) -> torch.Tensor:
         """Branches (int8 images or int32 accumulators, any zp) ->
         symmetric int8 sum."""
-        qa = (s_a.to(torch.int32) - t["zp_a"].to(torch.int32)).contiguous()
-        qb = (s_b.to(torch.int32) - t["zp_b"].to(torch.int32)).contiguous()
-        ya = requant(qa, t["rq_a"], qmin=-_BRANCH, qmax=_BRANCH,
-                     out_dtype=torch.int32)
-        yb = requant(qb, t["rq_b"], qmin=-_BRANCH, qmax=_BRANCH,
-                     out_dtype=torch.int32)
-        return (ya + yb).clamp(ACT_QMIN, ACT_QMAX).to(torch.int8)
+        return requant_add(s_a, s_b, t)

@@ -185,8 +185,8 @@ class QAttention:
         kw = {} if kv4 is None else dict(k_rq=kv4["k_rq"], v_rq=kv4["v_rq"])
         acc = paged_attention(q, cache["k"], cache["v"], cache["table"], pos,
                               t["score_scale"], group=self.group, **kw)
-        s_ctx = requant(acc, t["ctx_rqt"])
-        s_ctx = s_ctx.permute(0, 2, 1, 3).reshape(B, S, H * hd)
+        s_ctx = requant(acc, t["ctx_rqt"], heads_to_rows=True)
+        s_ctx = s_ctx.view(B, S, H * hd)
         return subs["wo"].apply_id(t["wo"], s_ctx)
 
 

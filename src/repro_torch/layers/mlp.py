@@ -5,6 +5,8 @@
         --wu GEMM + u_rqt epilogue-----> s_u (sym)
     prod = (s_g - zp_g) * s_u            int32, exact
         --requant h_rqt--> s_h --wd GEMM--> int32 (the block's Add)
+
+The LUT, the product and h_rqt are one launch (`requant_gate`).
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.requant_kernel import requant
+from repro_torch.kernels.requant_kernel import requant_gate
 from repro_torch.layers.act_quant import QAct
 from repro_torch.layers.common import ActKind, DeployCtx
 from repro_torch.layers.linear import QLinear
@@ -67,11 +69,8 @@ class QMLP:
 
     def apply_id(self, t: dict, s_x: torch.Tensor) -> torch.Tensor:
         subs = self._sub()
-        act_g = QAct(self.act, name=f"{self.name}.gate")
         s_pre = subs["wg"].apply_id(t["wg"], s_x, t["g_tab"]["rqt"])
-        s_g = act_g.apply_lut(t["g_tab"], s_pre)
         s_u = subs["wu"].apply_id(t["wu"], s_x, t["u_rqt"])
-        prod = (s_g.to(torch.int32) - t["zp_g"].to(torch.int32)) * s_u.to(
-            torch.int32)
-        s_h = requant(prod.contiguous(), t["h_rqt"])
+        s_h = requant_gate(s_pre, s_u, t["g_tab"]["lut"], t["zp_g"],
+                           t["h_rqt"])
         return subs["wd"].apply_id(t["wd"], s_h)

@@ -10,7 +10,12 @@ It covers both paths of the int8 GEMM (the GEMV and the wgmma
 pipeline, split K or not) at every serving shape and ragged ones, a
 planted layout, split K with int8 out looped 50 times, the shared
 workspace across shapes, and the refusal of K not a multiple of 16;
-the requant kernel, the paged attention on a recycled table with GQA
+the requant kernel's three forms (apply_rqt with heads-to-rows, the
+QAdd, the MLP's gate) at the serving path's chunk and decode shapes,
+scalar-path shapes, per-channel and wrapping tables, int8 and int32 a,
+a misaligned input, each launch counted once on its form, and a
+2-layer engine whose launches by form are (1, 1, 2) a layer and step,
+the paged attention on a recycled table with GQA
 group 4 and a parked row in both pool modes (int8, and int4-packed
 with per-head unpack operands whose m, s0 and d differ from head to
 head), a planted wrong unpack that the packed check rejects, the
@@ -40,7 +45,8 @@ from repro_torch.core.requant import apply_rqt, make_rqt
 from repro_torch.kernels import (
     int8_matmul, int8_matmul_plain, paged_attention, paged_attention_kv4,
     paged_attention_plain, quant_flash_attention, quant_flash_attention_plain,
-    requant,
+    requant, requant_add, requant_add_plain, requant_gate,
+    requant_gate_plain, requant_plain,
 )
 from repro_torch.kernels.int8_matmul import (
     _WORKSPACE, GEMV_COLS, WGMMA_TILES, GemmPlan, gemm_plan,
@@ -254,6 +260,160 @@ def test_requant_on_card(per_channel):
     rq32 = _rq(make_rqt(eps, 0.05, qmin=-(1 << 24), qmax=1 << 24))
     kw = dict(qmin=-(1 << 24), qmax=1 << 24, out_dtype=torch.int32)
     assert torch.equal(requant(q, rq32, **kw), apply_rqt(q, rq32, **kw))
+
+
+def _card_rqt(rng, N, kind, ratio, *, zp=0, int32_out=False,
+              acc_bound=float(1 << 24)):
+    """Requant tables on the card: `scalar` or `channel` from make_rqt
+    (eps_in / eps_out about `ratio`), `wrap` with per-channel m in
+    [2^28, 2^31) and s0 0 so the staged product wraps in int32."""
+    if kind == "wrap":
+        m = rng.integers(1 << 28, 1 << 31, size=N)
+        return _rq({"m": (m - (1 << 32) * (m >= 1 << 31)).astype(np.int32),
+                    "d": np.int32(20), "s0": np.zeros(N, np.int32),
+                    "lo": np.full(N, -(1 << 20), np.int32),
+                    "hi": np.full(N, 1 << 20, np.int32), "zp": np.int32(zp)})
+    eps = ratio * (rng.uniform(0.5, 1.5, size=N) if kind == "channel"
+                   else float(rng.uniform(0.5, 1.5)))
+    kw = dict(qmin=-(1 << 24), qmax=1 << 24) if int32_out else {}
+    return _rq(make_rqt(eps, 1.0, zp_out=zp, acc_bound=acc_bound, **kw))
+
+
+def _counted(form, fn):
+    """fn() with exactly one requant launch, on `form`."""
+    before = requant.launches, dict(requant.by_form)
+    out = fn()
+    assert requant.launches == before[0] + 1
+    assert requant.by_form.get(form, 0) == before[1].get(form, 0) + 1
+    return out
+
+
+# the serving path's chunk and decode shapes (8 slots, 32 heads, hd 64,
+# d 2048, d_ff 8192, chunks of 32) and shapes off 16-element vectors
+RQT_CASES = [((8, 32, 32, 64), "scalar", True, False),
+             ((8, 32, 1, 64), "scalar", True, False),
+             ((2, 3, 5, 24), "channel", True, False),
+             ((2, 4, 3, 32), "wrap", True, False),
+             ((256, 2048), "channel", False, False),
+             ((8, 32, 2048), "channel", False, True),
+             ((3, 37, 29), "scalar", False, False),
+             ((7, 100), "channel", False, True),
+             ((256, 2048), "wrap", False, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind,heads,out32", RQT_CASES)
+def test_requant_form_rqt_on_card(shape, kind, heads, out32):
+    _need_card()
+    rng = np.random.default_rng(len(shape) + 7 * shape[-1])
+    q = torch.from_numpy(rng.integers(-(1 << 14), 1 << 14, size=shape)
+                         .astype(np.int32)).cuda()
+    rq = _card_rqt(rng, shape[-1], kind, 1 / 128, zp=0 if out32 else 3,
+                   int32_out=out32)
+    kw = dict(heads_to_rows=heads)
+    if out32:
+        kw.update(qmin=-(1 << 24), qmax=1 << 24, out_dtype=torch.int32)
+    got = _counted("rqt_heads" if heads else "rqt",
+                   lambda: requant(q, rq, **kw))
+    assert torch.equal(got, requant_plain(q, rq, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 4])
+def test_requant_misaligned_input_takes_the_scalar_path_on_card(offset):
+    _need_card()
+    rng = np.random.default_rng(offset)
+    flat = torch.from_numpy(rng.integers(-(1 << 14), 1 << 14, size=(
+        8 * 2048 + offset,)).astype(np.int32)).cuda()
+    q = flat[offset:].view(8, 2048)
+    rq = _card_rqt(rng, 2048, "channel", 1 / 128)
+    got = _counted("rqt", lambda: requant(q, rq))
+    assert torch.equal(got, requant_plain(q, rq))
+
+
+ADD_CARD_CASES = [((8, 32, 2048), True, "scalar", "channel"),
+                  ((8, 1, 2048), True, "scalar", "channel"),
+                  ((8, 32, 2048), False, "channel", "channel"),
+                  ((8, 1, 2048), False, "scalar", "scalar"),
+                  ((5, 3, 100), True, "scalar", "channel"),
+                  ((5, 3, 37), True, "scalar", "scalar"),
+                  ((8, 1, 2048), False, "wrap", "wrap"),
+                  ((4, 64), True, "channel", "wrap")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,a_int8,kind_a,kind_b", ADD_CARD_CASES)
+def test_requant_form_add_on_card(shape, a_int8, kind_a, kind_b):
+    _need_card()
+    rng = np.random.default_rng(shape[0] + 3 * shape[-1] + a_int8)
+    N = shape[-1]
+    a = (rng.integers(-128, 128, size=shape).astype(np.int8) if a_int8
+         else rng.integers(-(1 << 17), 1 << 17, size=shape).astype(np.int32))
+    b = rng.integers(-(1 << 17), 1 << 17, size=shape).astype(np.int32)
+    kw = dict(int32_out=True, acc_bound=float(1 << 16))
+    t = {"rq_a": _card_rqt(rng, N, kind_a, 0.5 if a_int8 else 1e-3, **kw),
+         "rq_b": _card_rqt(rng, N, kind_b, 1e-3, **kw),
+         "zp_a": torch.tensor(5, dtype=torch.int32).cuda(),
+         "zp_b": torch.tensor(-7, dtype=torch.int32).cuda()}
+    a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    got = _counted("add", lambda: requant_add(a, b, t))
+    assert torch.equal(got, requant_add_plain(a, b, t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind", [
+    ((256, 8192), "scalar"), ((8, 8192), "scalar"), ((7, 333), "channel"),
+    ((8, 8192), "wrap"), ((16, 96), "channel")])
+def test_requant_form_gate_on_card(shape, kind):
+    _need_card()
+    rng = np.random.default_rng(shape[0] + shape[-1])
+    s_pre, s_u = (torch.from_numpy(rng.integers(-128, 128, size=shape)
+                                   .astype(np.int8)).cuda() for _ in "ab")
+    lut = torch.from_numpy(rng.integers(-128, 128, size=256)
+                           .astype(np.int8)).cuda()
+    zp_g = torch.tensor(-11, dtype=torch.int32).cuda()
+    rq = _card_rqt(rng, shape[-1], kind, 1 / 256, zp=2)
+    got = _counted("gate", lambda: requant_gate(s_pre, s_u, lut, zp_g, rq))
+    assert torch.equal(got, requant_gate_plain(s_pre, s_u, lut, zp_g, rq))
+
+
+@pytest.mark.gpu
+def test_engine_requant_launches_by_form_on_card():
+    """A 2-layer reduced granite on the card: every step launches the
+    requant kernel once heads-to-rows (ctx_rqt), once for the gate and
+    twice for the QAdds in each layer, and nothing else; its tokens
+    equal the CPU's (plain versions)."""
+    _need_card()
+    import copy
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import deploy_model, ragged_requests
+    from repro_torch.serving import (
+        SchedulerConfig, ServingConfig, ServingEngine,
+    )
+
+    lm, t_gpu = deploy_model("granite_3_2b", reduced=True, max_seq=64,
+                             seed=0, device="cuda")
+    _, t_cpu = deploy_model("granite_3_2b", reduced=True, max_seq=64,
+                            seed=0, device="cpu")
+    reqs = ragged_requests(5, lm.cfg.vocab, np.random.default_rng(1),
+                           prompt_lo=5, prompt_hi=40, gen=5)
+
+    def serve(tables, device):
+        eng = ServingEngine(lm, tables, ServingConfig(
+            n_slots=4, max_len=64, page_size=8, n_pages=40, device=device,
+            scheduler=SchedulerConfig(prefill_chunk=8)))
+        for r in reqs:
+            eng.submit(copy.deepcopy(r))
+        done = eng.run_until_drained()
+        return {c.req_id: list(c.tokens) for c in done}, eng.stats()["steps"]
+
+    kernels.reset_launch_counts()
+    tok, steps = serve(t_gpu, "cuda")
+    L = lm.cfg.n_layers * steps
+    assert requant.by_form == {"rqt_heads": L, "gate": L, "add": 2 * L}
+    assert requant.launches == 4 * L
+    assert tok == serve(t_cpu, "cpu")[0]
 
 
 @pytest.mark.gpu

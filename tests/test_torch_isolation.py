@@ -26,7 +26,8 @@ PORT = ROOT / "src" / "repro_torch"
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
-        ROOT / "tools" / "gemm_ab.py", ROOT / "tools" / "attn_ab.py"]
+        ROOT / "tools" / "gemm_ab.py", ROOT / "tools" / "attn_ab.py",
+        ROOT / "tools" / "requant_ab.py"]
     assert len(files) > 25
     return files
 
