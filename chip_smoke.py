@@ -9,7 +9,9 @@ Phases (any failure raises and the script exits non-zero):
             nvcc per source, in parallel) and print the card's name and
             power limit
   kernels   each kernel against its plain PyTorch version on the card,
-            at its path's shapes: the int8 GEMM (both modes) exactly;
+            at its path's shapes: the int8 GEMM (both modes) exactly,
+            at granite_3_2b's sites and at every site of llama3_2_3b and
+            chatglm3_6b (M 8 and 256), with the plan `gemm_plan` took;
             the requant's three forms (apply_rqt, heads-to-rows for
             ctx_rqt; the whole QAdd; the MLP's LUT, gate product and
             h_rqt) exactly at the chunk and decode shapes, per-channel,
@@ -18,8 +20,10 @@ Phases (any failure raises and the script exits non-zero):
             (int8, and int4-packed with per-head unpack operands) at S
             32 and 1, T 512 and 4096, on its tensor-core kernel (with
             the launch `paged_plan` took and its registers and spills),
-            equal to its plain version: 0 quanta moved and max |diff|
-            0; the quantized flash
+            and at the new configs' heads (hd 128; group 3 with 8 kv
+            heads, group 16 with 2; S 32 and 1 at T 512), equal to its
+            plain version: 0 quanta moved and max |diff| 0; the
+            quantized flash
             attention at full granite geometry (S 8192 x 8192 with bkv
             128 and 64 on the tensor-core kernel and bkv 256 on the
             CUDA-core one, and 128 queries at offset 8064 over 8192
@@ -29,19 +33,33 @@ Phases (any failure raises and the script exits non-zero):
             floor
   entry     `quant_flash_attention` driven through its entry point (no
             serving path calls it), counts read around it
-  parity    full-width granite_3_2b cut to 2 layers, the card against
-            the CPU (plain versions), at kv_bits 8 and 4: one
-            prefill_chunk must give equal int32 logits and K/V pools
-            (packed at 4) byte for byte, and the engine equal greedy
-            tokens on the same ragged requests; torch.exp of the two
-            devices is compared over [-104, 0] first
+  parity    granite_3_2b, llama3_2_3b and chatglm3_6b at full width,
+            each cut to 2 layers, the card against the CPU (plain
+            versions), at kv_bits 8 and 4: one prefill_chunk must give
+            equal int32 logits and K/V pools (packed at 4) byte for
+            byte, and the engine equal greedy tokens on the same ragged
+            requests; torch.exp of the two devices is compared over
+            [-104, 0] first
   main      full granite_3_2b (40 layers, random seeded weights deployed
             layer by layer without calibration): 8 ragged requests
             (prompts 17-300, 16 new tokens) through `ServingEngine`,
             every kernel of the path launched (GEMM launches by site
-            and path, requant launches by form), a second run with equal
-            tokens, a profiled third run; then the same three runs over
-            int4-packed pools (kv_bits 4) on the same tables
+            and path, requant launches by form); a second run on a
+            fresh engine with telemetry on, after `warmup()` and
+            `reset_stats()`, with equal tokens (bit-neutrality), its
+            full `stats()` and host time per step phase; a profiled
+            third run with `record_function` ranges around each
+            dispatch; then the same three runs over int4-packed pools
+            (kv_bits 4) on the same tables
+  open-loop on the same granite tables: 16 ragged requests closed-loop,
+            then the same requests under Poisson arrivals at about twice
+            the closed loop's requests per second (`run_open_loop`, TTFT
+            and ITL SLOs), with equal tokens request by request
+  configs   llama3_2_3b and chatglm3_6b at full width and depth, each
+            served once (8 ragged requests, kv_bits 8, after
+            `warmup()`): deploy time, device memory, launches by kernel
+            (counts set to 0 just before the run), GEMM launches by site
+            and path, the full `stats()`
 
 Then a `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -97,6 +115,15 @@ N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
 # pages of 16): (S, T), a prefill chunk and a decode step over the main
 # cell's 512 positions and over 4096
 PAGED_SHAPES = ((CHUNK, MAX_LEN), (1, MAX_LEN), (CHUNK, 4096), (1, 4096))
+# the configs served beside granite_3_2b, and the geometry each gives
+# the paged attention: (H, K, hd), GQA group 3 and group 16
+CONFIGS = ("llama3_2_3b", "chatglm3_6b")
+CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128)}
+# open-loop phase: requests, their arrival rate over the closed loop's
+# requests per second, and the SLOs of the goodput roll-up (seconds)
+OPEN_LOOP_N, OPEN_LOOP_RATE, SLO_TTFT_S, SLO_ITL_S = 16, 2.0, 2.0, 0.25
+# the engine's record_function range around each dispatch
+ANNOTATION = "repro_torch.serving/"
 # quantized flash attention at full granite geometry (B 1, H 32, K 8):
 # (S_q, S_kv, hd, causal, q_offset, bkv); the first two are its entry
 # phase; bkv 256, the last, takes the CUDA-core kernel (`qfa_plan`)
@@ -191,52 +218,74 @@ def rand_rqt(torch, np, rng, N, per_channel, *, int32_out):
             for k, v in t.items()}
 
 
-def check_int8_matmul(torch, np, timer, rng, report):
+def gemm_case(torch, np, timer, rng, report, M, K, N, mode, site=""):
+    """One int8_matmul shape against its plain version, exactly; its
+    time beside its bound, plain and library times, and its plan.
+    -> max |diff| (0)."""
     from repro_torch.kernels import int8_matmul, int8_matmul_plain
     from repro_torch.kernels.int8_matmul import gemm_plan
 
+    x = torch.randint(-128, 128, (M, K), dtype=torch.int8, device="cuda")
+    w = torch.randint(-128, 128, (N, K), dtype=torch.int8,
+                      device="cuda").t()
+    bias = torch.randint(-(1 << 20), 1 << 20, (N,), dtype=torch.int32,
+                         device="cuda")
+    rqt = (rand_rqt(torch, np, rng, N, True, int32_out=False)
+           if mode == "int8" else None)
+    got = int8_matmul(x, w, bias, rqt)
+    want = int8_matmul_plain(x, w, bias, rqt)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if got.dtype != want.dtype or err != 0:
+        raise AssertionError(
+            f"int8_matmul {site} {mode} M={M} K={K} N={N}: max err {err}")
+    del want
+    ms = timer(lambda: int8_matmul(x, w, bias, rqt))
+    plain = timer(lambda: int8_matmul_plain(x, w, bias, rqt), 3)
+    lib = None
+    if mode == "int32" and M > 16:
+        lib = timer(lambda: torch._int_mm(x, w))
+    out_b = M * N * (1 if mode == "int8" else 4)
+    n_bytes = M * K + K * N + 4 * N * (5 if mode == "int8" else 1)
+    bms, by = bound_ms(n_bytes + out_b, 2.0 * M * N * K, INT8_OPS_S)
+    p = gemm_plan(M, N, K)
+    row = dict(shape=f"M={M} K={K} N={N} {mode}-out", ms=ms,
+               plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+               max_abs_err=err, site=site,
+               plan=f"{p.path} {p.bm}x{p.bn}, {p.splits} split(s), "
+               f"{p.blocks} blocks")
+    report.setdefault("int8_matmul", []).append(row)
+    print(f"  int8_matmul {site + ' ' if site else ''}{row['shape']}: "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
+          f"({by}), library {lib if lib is None else round(lib, 4)} ms, "
+          f"exact; {row['plan']}, {(n_bytes + out_b) / ms / 1e6:.0f} GB/s")
+    return err
+
+
+def check_int8_matmul(torch, np, timer, rng, report):
     worst = 0
     for M in (N_SLOTS, N_SLOTS * CHUNK):
         for K, N, mode in ((2048, 2048, "int8"), (2048, 512, "int8"),
                            (2048, 8192, "int8"), (2048, 2048, "int32"),
                            (8192, 2048, "int32"), (2048, 49408, "int32")):
-            x = torch.randint(-128, 128, (M, K), dtype=torch.int8,
-                              device="cuda")
-            w = torch.randint(-128, 128, (N, K), dtype=torch.int8,
-                              device="cuda").t()
-            bias = torch.randint(-(1 << 20), 1 << 20, (N,),
-                                 dtype=torch.int32, device="cuda")
-            rqt = (rand_rqt(torch, np, rng, N, True, int32_out=False)
-                   if mode == "int8" else None)
-            got = int8_matmul(x, w, bias, rqt)
-            want = int8_matmul_plain(x, w, bias, rqt)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int64) - want.to(torch.int64))
-                      .abs().max())
-            if got.dtype != want.dtype or err != 0:
-                raise AssertionError(
-                    f"int8_matmul {mode} M={M} K={K} N={N}: max err {err}")
-            worst = max(worst, err)
-            ms = timer(lambda: int8_matmul(x, w, bias, rqt))
-            plain = timer(lambda: int8_matmul_plain(x, w, bias, rqt), 3)
-            lib = None
-            if mode == "int32" and M > 16:
-                lib = timer(lambda: torch._int_mm(x, w))
-            out_b = M * N * (1 if mode == "int8" else 4)
-            n_bytes = M * K + K * N + 4 * N * (5 if mode == "int8" else 1)
-            bms, by = bound_ms(n_bytes + out_b, 2.0 * M * N * K, INT8_OPS_S)
-            row = dict(shape=f"M={M} K={K} N={N} {mode}-out", ms=ms,
-                       plain_ms=plain, bound_ms=bms, bound_by=by,
-                       library_ms=lib, max_abs_err=err)
-            report.setdefault("int8_matmul", []).append(row)
-            p = gemm_plan(M, N, K)
-            print(f"  int8_matmul {row['shape']}: kernel {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
-                  f"library {lib if lib is None else round(lib, 4)} ms, "
-                  f"exact; {p.path} {p.bm}x{p.bn}, {p.splits} split(s), "
-                  f"{p.blocks} blocks, "
-                  f"{(n_bytes + out_b) / ms / 1e6:.0f} GB/s")
+            worst = max(worst, gemm_case(torch, np, timer, rng, report,
+                                         M, K, N, mode))
     host_us_per_call(torch, np, rng, report)
+    return worst
+
+
+def check_config_gemms(torch, np, timer, rng, report):
+    """The GEMM at every QLinear site of the configs served beside
+    granite_3_2b (`gemm_sites`), decode (M 8) and chunk (M 256)."""
+    from repro_torch.configs.base import get_config
+
+    worst = 0
+    for arch in CONFIGS:
+        for (K, N, mode), site in gemm_sites(get_config(arch)).items():
+            for M in (N_SLOTS, N_SLOTS * CHUNK):
+                worst = max(worst, gemm_case(torch, np, timer, rng, report,
+                                             M, K, N, mode,
+                                             f"{arch} {site}"))
     return worst
 
 
@@ -401,15 +450,17 @@ def check_requant(torch, np, timer, rng, report):
     return worst
 
 
-def paged_inputs(torch, np, S, T, seed, packed=False):
-    """Seeded inputs of the paged attention at full granite geometry:
+def paged_inputs(torch, np, S, T, seed, packed=False, heads=(32, 8, 64)):
+    """Seeded inputs of the paged attention at full width (`heads`: H,
+    K, hd; granite_3_2b's by default), 8 slots, pages of 16:
     q, the K/V pools (int4-packed with per-head unpack operands when
     `packed`), a permuted table, positions in [0, T - S) with the last
     slot parked at INACTIVE_POS, score scale 1/2048.  -> (args, kw)."""
     from repro_torch.kernels.paged_attention import staged_unpack_rq
     from repro_torch.layers.attention import INACTIVE_POS
 
-    B, H, K, hd = N_SLOTS, 32, 8, 64
+    B = N_SLOTS
+    H, K, hd = heads
     hd_store = hd // 2 if packed else hd
     pps = T // PAGE
     n_pool = B * pps + 1
@@ -437,8 +488,8 @@ def paged_inputs(torch, np, S, T, seed, packed=False):
 
 def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
     """Kernel vs plain version, int8 pools or int4-packed ones (per-head
-    unpack operands from `staged_unpack_rq`), at `PAGED_SHAPES`.
-    Tolerance (`check_kernel`): the kernel's int8 probability image may
+    unpack operands from `staged_unpack_rq`), at `PAGED_SHAPES` and at
+    the heads of `CONFIGS` (S 32 and 1 at T 512).  Tolerance (`check_kernel`): the kernel's int8 probability image may
     differ from the plain one by one quantum at no more than max(8, 1e-5
     of) its entries, and none by more; the int32 output must equal the
     plain P.V over the kernel's own image and the (unpacked) V view
@@ -454,9 +505,14 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
     )
 
     name = "paged_attention_kv4" if packed else "paged_attention"
+    cases = [("", S, T, (32, 8, 64), SEED + 20 + i)
+             for i, (S, T) in enumerate(PAGED_SHAPES)]
+    cases += [(arch + " ", S, MAX_LEN, CONFIG_HEADS[arch], SEED + 40 + i)
+              for i, (arch, S) in enumerate(
+                  (a, S) for a in CONFIGS for S in (CHUNK, 1))]
     worst = 0
-    for n_shape, (S, T) in enumerate(PAGED_SHAPES):
-        args, kw = paged_inputs(torch, np, S, T, SEED + 20 + n_shape, packed)
+    for label, S, T, heads, seed in cases:
+        args, kw = paged_inputs(torch, np, S, T, seed, packed, heads)
         q, kp, vp, table, pos, scale = args
         B, H, _, hd = q.shape
         K, hd_store = kp.shape[1], kp.shape[3]
@@ -465,14 +521,15 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
         rt = plan.rows // 16
         fn = (f"paged_attn_mma{'_packed' if packed else ''}_kernel<{hd}, "
               f"{plan.warps // rt}, {rt}, {int(plan.logits == 'shared')}>")
-        print(f"  {name} S={S} T={T}: {fn}, {plan.blocks} blocks of "
-              f"{plan.rows} rows, {plan.warps} warps, {plan.stages} ring "
+        print(f"  {name} {label}S={S} T={T} group={group}: {fn}, "
+              f"{plan.blocks} blocks of {plan.rows} rows ("
+              f"{min(group * S, plan.rows)} filled), {plan.warps} warps, {plan.stages} ring "
               f"tiles of {plan.keys} keys, {plan.smem} B shared, logits "
               f"{plan.logits}; ptxas: {ptxas.get(fn, 'not in the report')}")
         qp = torch.empty((B, H, S, T), dtype=torch.int8, device="cuda")
         got = paged_attention(*args, qp_out=qp, **kw)
         torch.cuda.synchronize()
-        what = f"{name} S={S} T={T}"
+        what = f"{name} {label}S={S} T={T} H={H} K={K} hd={hd}"
         moved, err = check_kernel(got, qp, *args, what=what, **kw)
         if moved or err:
             raise AssertionError(f"{what}: {moved} probability quanta "
@@ -498,9 +555,11 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
             + (48 * K if packed else 0)
         n_ops = 2.0 * 2 * H * hd * float(seen.sum())
         bms, by = bound_ms(n_bytes, n_ops, INT8_OPS_S)
-        row = dict(shape=f"S={S} T={T} B={B} H={H} K={K} hd={hd}", ms=ms,
-                   plain_ms=plain, bound_ms=bms, bound_by=by,
-                   library_ms=lib, max_abs_err=err, quanta_moved=moved)
+        row = dict(shape=f"{label}S={S} T={T} B={B} H={H} K={K} hd={hd}",
+                   ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=lib, max_abs_err=err, quanta_moved=moved,
+                   plan=f"{plan.blocks} blocks of {plan.rows} rows, "
+                   f"{plan.stages} ring tiles, logits {plan.logits}")
         report.setdefault(name, []).append(row)
         print(f"  {name} {row['shape']}: kernel {ms:.4f} ms, "
               f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), SDPA "
@@ -612,21 +671,29 @@ def phase_entry(torch, kernels):
     return launches
 
 
-def serve(lm, tables, requests, device, kv_bits=8):
+def serve(lm, tables, requests, device, kv_bits=8, *, telemetry=None,
+          warm=False, engine=None):
+    """Serve `requests` closed-loop (submit all, drain) on a fresh
+    engine, or on `engine`; with `warm`, after `warmup()` and
+    `reset_stats()`.  -> ({req_id: tokens}, stats, engine)."""
     import copy
 
     from repro_torch.serving import (
         SchedulerConfig, ServingConfig, ServingEngine,
     )
 
-    eng = ServingEngine(lm, tables, ServingConfig(
+    eng = engine or ServingEngine(lm, tables, ServingConfig(
         n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE, n_pages=N_PAGES,
-        device=device, kv_bits=kv_bits,
+        device=device, kv_bits=kv_bits, telemetry=telemetry,
         scheduler=SchedulerConfig(prefill_chunk=CHUNK)))
+    if warm:
+        eng.warmup()
+        eng.reset_stats()
+    n0 = len(eng.completed)
     for r in requests:
         eng.submit(copy.deepcopy(r))
-    done = eng.run_until_drained()
-    return {c.req_id: list(c.tokens) for c in done}, eng.stats()
+    done = eng.run_until_drained()[n0:]
+    return {c.req_id: list(c.tokens) for c in done}, eng.stats(), eng
 
 
 def exp_agreement(torch):
@@ -684,40 +751,53 @@ def prefill_parity(torch, np, lm, t_np, kv_bits):
     for name, a, b in zip(("logits", "K pool", "V pool"), out["cuda"],
                           out["cpu"]):
         if a.dtype != b.dtype or not torch.equal(a, b):
-            raise AssertionError(
-                f"prefill_chunk kv_bits {kv_bits} {name}: card != CPU")
-    print(f"  prefill_chunk kv_bits {kv_bits} ({N_SLOTS} x {CHUNK}, "
-          "2 layers): int32 "
+            raise AssertionError(f"{cfg.name} prefill_chunk kv_bits "
+                                 f"{kv_bits} {name}: card != CPU")
+    print(f"  {cfg.name} prefill_chunk kv_bits {kv_bits} ({N_SLOTS} x "
+          f"{CHUNK}, 2 layers): int32 "
           f"logits {tuple(out['cpu'][0].shape)} and K/V pools "
           f"{tuple(out['cpu'][1].shape)} equal byte for byte")
 
 
 def phase_parity(torch, np):
+    t0 = time.perf_counter()
+    bad, total = exp_agreement(torch)
+    print(f"  exp on the card vs the CPU: {bad} of {total} float32 inputs "
+          f"in [-104, 0] differ ({time.perf_counter() - t0:.1f} s)")
+    for arch in ("granite_3_2b",) + CONFIGS:
+        config_parity(torch, np, arch)
+
+
+def config_parity(torch, np, arch):
+    """`arch` at full width cut to 2 layers, the card against the CPU at
+    kv_bits 8 and 4: one prefill_chunk byte for byte, then the engine's
+    tokens on 4 ragged requests."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import ragged_requests
     from repro_torch.models.lm import DecoderLM, tables_from_numpy
 
     t0 = time.perf_counter()
-    bad, total = exp_agreement(torch)
-    print(f"  exp on the card vs the CPU: {bad} of {total} float32 inputs "
-          f"in [-104, 0] differ ({time.perf_counter() - t0:.1f} s)")
-    cfg = dataclasses.replace(get_config("granite_3_2b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     lm = DecoderLM(cfg, max_seq=MAX_LEN)
     t_np = lm.deploy(lm.init_np(SEED))
     reqs = ragged_requests(4, cfg.vocab, np.random.default_rng(SEED + 1),
                            prompt_lo=17, prompt_hi=80, gen=6)
     tables = {dev: tables_from_numpy(t_np, dev) for dev in ("cuda", "cpu")}
+    print(f"  {arch}: 2 layers at full width (d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_padded}) deployed in "
+          f"{time.perf_counter() - t0:.1f} s")
     for kv_bits in (8, 4):
         t0 = time.perf_counter()
         prefill_parity(torch, np, lm, t_np, kv_bits)
-        gpu_tok, _ = serve(lm, tables["cuda"], reqs, "cuda", kv_bits)
-        cpu_tok, _ = serve(lm, tables["cpu"], reqs, "cpu", kv_bits)
-        print(f"  2-layer full-width parity, kv_bits {kv_bits}: "
+        gpu_tok = serve(lm, tables["cuda"], reqs, "cuda", kv_bits)[0]
+        cpu_tok = serve(lm, tables["cpu"], reqs, "cpu", kv_bits)[0]
+        print(f"  {arch} 2-layer full-width parity, kv_bits {kv_bits}: "
               f"{len(reqs)} requests, "
               f"{sum(len(v) for v in gpu_tok.values())} tokens in "
               f"{time.perf_counter() - t0:.1f} s")
         if gpu_tok != cpu_tok:
-            raise AssertionError(f"kv_bits {kv_bits}: card tokens "
+            raise AssertionError(f"{arch} kv_bits {kv_bits}: card tokens "
                                  f"{gpu_tok} != CPU {cpu_tok}")
         for v in gpu_tok.values():
             if not all(0 <= t < cfg.vocab for t in v):
@@ -726,6 +806,7 @@ def phase_parity(torch, np):
 
 
 def phase_main(torch, np, kernels):
+    """-> (launches of run 1 by kernel, the granite lm and tables)."""
     from repro_torch.launch.serve import deploy_model, ragged_requests
 
     t0 = time.perf_counter()
@@ -751,7 +832,117 @@ def phase_main(torch, np, kernels):
     print(f"  kv_bits 4 tokens equal to the int8 run's at {same} of {total}"
           f" positions ({same / total:.3f}; lossy by design, uncalibrated "
           "tables)")
-    return launches
+    return launches, lm, tables
+
+
+def print_stats(what: str, s: dict) -> None:
+    """An engine's full stats(): the latency roll-up in ms, then every
+    other key."""
+    ms = {k: round(v * 1e3, 3) for k, v in s.items() if k.endswith("_s")
+          and k not in ("wall_s", "throughput_tok_s")}
+    print(f"  {what} stats (ms): {json.dumps(ms)}")
+    print(f"  {what} stats: " + json.dumps(
+        {k: v for k, v in s.items() if k not in ms}))
+
+
+def phase_open_loop(torch, np, kernels, lm, tables):
+    """The granite engine under open-loop load: OPEN_LOOP_N ragged
+    requests served closed-loop on a warmed engine (its requests per
+    second set the rate), then, after `reset_stats()`, the same
+    requests arriving by `poisson_arrivals` at OPEN_LOOP_RATE times
+    that rate through `run_open_loop` with the TTFT and ITL SLOs.
+    Every request's tokens must equal its closed-loop tokens."""
+    import copy
+
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.serving import poisson_arrivals, run_open_loop
+
+    reqs = ragged_requests(OPEN_LOOP_N, lm.cfg.vocab,
+                           np.random.default_rng(SEED + 5), prompt_lo=17,
+                           prompt_hi=300, gen=16)
+    closed, sc, eng = serve(lm, tables, reqs, "cuda", warm=True)
+    rps = sc["n_completed"] / sc["wall_s"]
+    print(f"  closed loop: {sc['n_completed']} requests in "
+          f"{sc['wall_s']:.3f} s = {rps:.3f} req/s, {sc['steps']} steps, "
+          f"p99 TTFT {sc['p99_ttft_s'] * 1e3:.1f} ms, p99 ITL "
+          f"{sc['p99_itl_s'] * 1e3:.1f} ms")
+    eng.reset_stats()
+    rate = OPEN_LOOP_RATE * rps
+    arrivals = poisson_arrivals(OPEN_LOOP_N, rate,
+                                np.random.default_rng(SEED + 6))
+    kernels.reset_launch_counts()
+    res = run_open_loop(eng, copy.deepcopy(reqs), arrivals,
+                        slo_ttft_s=SLO_TTFT_S, slo_itl_s=SLO_ITL_S)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"  open loop at {rate:.3f} req/s offered ({OPEN_LOOP_RATE} x "
+          f"the closed loop), SLOs TTFT {SLO_TTFT_S} s / ITL {SLO_ITL_S} "
+          f"s: " + json.dumps(res.to_dict()))
+    print_stats("open loop", eng.stats())
+    print(f"  open loop launches {launches}")
+    first = min(closed)
+    opened = {c.req_id: list(c.tokens) for c in res.completions}
+    if res.n_completed != OPEN_LOOP_N or sorted(opened) != list(
+            range(first + OPEN_LOOP_N, first + 2 * OPEN_LOOP_N)):
+        raise AssertionError(f"open loop completed {sorted(opened)}")
+    for i in range(OPEN_LOOP_N):
+        if opened[first + OPEN_LOOP_N + i] != closed[first + i]:
+            raise AssertionError(f"open-loop request {i}: tokens differ "
+                                 "from the closed loop's")
+    if launches["int8_matmul"] == 0 or launches["paged_attention"] == 0:
+        raise AssertionError(f"open loop launched {launches}")
+    print(f"  open-loop tokens equal the closed loop's for all "
+          f"{OPEN_LOOP_N} requests")
+
+
+def phase_configs(torch, np, kernels):
+    """Each of CONFIGS at full width and depth, served once on the card:
+    8 ragged requests (prompts 17-300, 16 new tokens), kv_bits 8, after
+    `warmup()`; the counts are set to 0 just before the run and read
+    just after, and every kernel of the path must have launched."""
+    from repro_torch.launch.serve import deploy_model, ragged_requests
+
+    out = {}
+    for arch in CONFIGS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lm, tables = deploy_model(arch, reduced=False, max_seq=MAX_LEN,
+                                  seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        cfg = lm.cfg
+        print(f"  deployed {arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_padded}) layer by layer in "
+              f"{time.perf_counter() - t0:.1f} s; device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        reqs = ragged_requests(8, cfg.vocab, np.random.default_rng(SEED + 2),
+                               prompt_lo=17, prompt_hi=300, gen=16)
+        eng = serve(lm, tables, [], "cuda", warm=True)[2]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        tok, s = serve(lm, tables, reqs, "cuda", engine=eng)[:2]
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        print(f"  {arch}: prompts {[r.prompt_len for r in reqs]}, "
+              f"{s['steps']} steps, launches {launches}, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if len(tok) != len(reqs) or any(len(v) != 16 for v in tok.values()):
+            raise AssertionError(f"{arch}: not every request finished: {tok}")
+        if not all(0 <= t < cfg.vocab for v in tok.values() for t in v):
+            raise AssertionError(f"{arch}: a token outside the vocab")
+        path = PATH_KERNELS[8]
+        if any(launches[n] == 0 for n in path) or any(
+                c for n, c in launches.items() if n not in path):
+            raise AssertionError(f"{arch}: launches {launches} are not the "
+                                 f"path's {path}")
+        gemm_site_launches(kernels, cfg, s["steps"], launches["int8_matmul"])
+        requant_form_launches(kernels, cfg, s["steps"], launches["requant"])
+        print_stats(arch, s)
+        print(f"  {arch} tokens: {tok}")
+        out[arch] = launches
+        del lm, tables, eng
+    return out
 
 
 def gemm_sites(cfg) -> dict:
@@ -808,10 +999,16 @@ def requant_form_launches(kernels, cfg, steps: int, total: int) -> None:
 def serve_twice(torch, kernels, lm, tables, reqs, kv_bits):
     """Two runs of the main path at `kv_bits`: the counts are set to 0
     just before run 1 and read just after; every kernel of the path
-    must have launched and no kernel of the other pool mode; run 2's
-    tokens must equal run 1's.  -> (launches, tokens, run 2 stats)."""
+    must have launched and no kernel of the other pool mode.  Run 2 is
+    a fresh engine with telemetry on, after `warmup()` and
+    `reset_stats()`: its tokens must equal run 1's (telemetry is
+    bit-neutral on the card), and it prints its full stats() and the
+    host's mean time per step phase.  -> (launches, tokens, run 2
+    stats)."""
+    from repro_torch.serving import Telemetry
+
     kernels.reset_launch_counts()
-    tok1, s1 = serve(lm, tables, reqs, "cuda", kv_bits)
+    tok1, s1, _ = serve(lm, tables, reqs, "cuda", kv_bits)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     if len(tok1) != len(reqs) or any(len(v) != 16 for v in tok1.values()):
@@ -826,10 +1023,17 @@ def serve_twice(torch, kernels, lm, tables, reqs, kv_bits):
     gemm_site_launches(kernels, lm.cfg, s1["steps"],
                        launches["int8_matmul"])
     requant_form_launches(kernels, lm.cfg, s1["steps"], launches["requant"])
-    tok2, s2 = serve(lm, tables, reqs, "cuda", kv_bits)
+    tel = Telemetry()
+    tok2, s2, _ = serve(lm, tables, reqs, "cuda", kv_bits, telemetry=tel,
+                        warm=True)
     if tok1 != tok2:
-        raise AssertionError(f"kv_bits {kv_bits}: a second run gave other "
-                             "tokens")
+        raise AssertionError(f"kv_bits {kv_bits}: the telemetry run gave "
+                             "other tokens")
+    m = tel.metrics()
+    if m["n_steps"] != s2["steps"] or m["compile_misses"] != 0:
+        raise AssertionError(f"telemetry run: {m['n_steps']} step records "
+                             f"for {s2['steps']} steps, "
+                             f"{m['compile_misses']} unwarmed shapes")
     print(f"  kv_bits {kv_bits}: prompts {[r.prompt_len for r in reqs]}, "
           f"{s1['steps']} steps, launches {launches}, pool bytes "
           f"{s1['pool_bytes']}")
@@ -838,6 +1042,16 @@ def serve_twice(torch, kernels, lm, tables, reqs, kv_bits):
               f"{s['wall_s']:.3f} s = {s['throughput_tok_s']:.2f} tok/s, "
               f"p50 TTFT {s['p50_ttft_s'] * 1e3:.1f} ms, p50 ITL "
               f"{s['p50_itl_s'] * 1e3:.1f} ms")
+    print_stats(f"kv_bits {kv_bits} run 2 (telemetry on, warmed)", s2)
+    wall = sum(st["wall_s"] for st in m["steps"])
+    print(f"  kv_bits {kv_bits} run 2 host ms per step phase (mean over "
+          f"the steps it ran in; total): " + ", ".join(
+              f"{ph} {m['phase_mean_s'][ph] * 1e3:.2f} "
+              f"({m['phase_total_s'][ph] * 1e3:.1f})"
+              for ph in m["phase_mean_s"])
+          + f"; step wall {wall / max(m['n_steps'], 1) * 1e3:.2f} "
+          f"({wall * 1e3:.1f}); {len(tel.events)} events, dispatch "
+          f"shapes {m['compile_hits']} hits / {m['compile_misses']} misses")
     print(f"  kv_bits {kv_bits} run 2 tokens equal run 1: {tok1}")
     return launches, tok1, s2
 
@@ -849,18 +1063,28 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
     profiler slows the host, so its own wall time overstates idleness).
     Only device activity is recorded: host ops' rows would count their
     kernels twice, and recording them makes the profiled run and the
-    event post-processing several times slower."""
+    event post-processing several times slower.  The engine runs with
+    `profile_annotations` on, so each dispatch sits in a
+    `record_function` range (ANNOTATION); where the device-only trace
+    carries those ranges, their device time is printed beside the busy
+    time (and kept out of it), else that it carries none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.serving import Telemetry
+
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, stats = serve(lm, tables, reqs, "cuda", kv_bits)
+        _, stats, _ = serve(lm, tables, reqs, "cuda", kv_bits,
+                            telemetry=Telemetry(profile_annotations=True))
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    ranges = [e for e in events if e.key.startswith(ANNOTATION)]
+    rows = [e for e in events
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not e.key.startswith(ANNOTATION)]
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     busy_us = sum(e.self_device_time_total for e in rows)
@@ -887,6 +1111,13 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
           f"{wall * 1e3:.1f} ms under the profiler, "
           f"{wall_unprofiled * 1e3:.1f} ms unprofiled (run 2): idle share "
           f"{1 - busy_us / 1e6 / wall_unprofiled:.3f} of run 2")
+    if ranges:
+        print("  record_function ranges in the device-only trace: " + ", ".join(
+            f"{e.key} x{e.count}: device {e.device_time_total / 1e3:.1f} ms"
+            f" ({e.device_type})" for e in ranges) + f" of {busy_us / 1e3:.1f}"
+            " ms busy")
+    else:
+        print("  record_function ranges in the device-only trace: none")
     n_kernels = sum(e.count for e in rows)
     print(f"  {n_kernels} device kernels and copies in {stats['steps']} "
           f"steps: {n_kernels / stats['steps']:.0f} per step")
@@ -944,7 +1175,9 @@ def main() -> int:
     timer = Timer(torch)
     t0 = time.perf_counter()
     print("[kernels] each kernel vs its plain version on the card")
-    errs["int8_matmul"] = check_int8_matmul(torch, np, timer, rng, report)
+    errs["int8_matmul"] = max(
+        check_int8_matmul(torch, np, timer, rng, report),
+        check_config_gemms(torch, np, timer, rng, report))
     errs["requant"] = check_requant(torch, np, timer, rng, report)
     errs["paged_attention"] = check_paged_attention(
         torch, np, timer, report, ptxas["paged_attention"])
@@ -955,12 +1188,20 @@ def main() -> int:
     t0 = phase_done("kernels", t0)
     print("[entry] quant_flash_attention through its entry point")
     entry = phase_entry(torch, kernels)
-    print("[parity] 2-layer full width, card vs CPU")
+    print("[parity] 2-layer full width, card vs CPU: " + ", ".join(
+        ("granite_3_2b",) + CONFIGS))
     phase_parity(torch, np)
     t0 = phase_done("entry and parity", t0)
     print("[main] full granite_3_2b on the card")
-    launches = phase_main(torch, np, kernels)
-    phase_done("main", t0)
+    launches, lm, tables = phase_main(torch, np, kernels)
+    t0 = phase_done("main", t0)
+    print("[open-loop] granite_3_2b under Poisson arrivals")
+    phase_open_loop(torch, np, kernels, lm, tables)
+    del lm, tables
+    t0 = phase_done("open-loop", t0)
+    print("[configs] " + " and ".join(CONFIGS) + " at full width and depth")
+    phase_configs(torch, np, kernels)
+    phase_done("configs", t0)
     launches["quant_flash_attention"] = entry["quant_flash_attention"]
     rep_shape = {"int8_matmul": 8, "requant": 4, "paged_attention": 0,
                  "paged_attention_kv4": 0, "quant_flash_attention": 0}

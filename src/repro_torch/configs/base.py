@@ -1,7 +1,9 @@
 """Architecture configuration schema + registry (port of
 `repro.configs.base`, cut to what the dense serving path reads).
 
-Only `granite_3_2b` is registered in this slice.
+Registered: the dense configs the port serves with its layers as they
+are, `granite_3_2b`, `llama3_2_3b` and `chatglm3_6b` (the reference's
+values, one file each).
 """
 from __future__ import annotations
 
@@ -11,13 +13,13 @@ from typing import Dict
 
 _REGISTRY: Dict[str, "ArchConfig"] = {}
 
-ARCH_IDS = ["granite_3_2b"]
+ARCH_IDS = ["granite_3_2b", "llama3_2_3b", "chatglm3_6b"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense (the only family this slice serves)
+    family: str                 # dense (the only family the port serves)
     n_layers: int
     d_model: int
     vocab: int

@@ -78,6 +78,10 @@ class PagedArena:
         return self.n_pages - len(self._free_pages)
 
     @property
+    def free_pages(self) -> int:
+        return len(self._free_pages)
+
+    @property
     def budget_left(self) -> int:
         return self.n_pages - self.committed_pages
 
@@ -162,6 +166,37 @@ class PagedArena:
 
     def advance(self, slot: int, n: int = 1):
         self.lengths[slot] += n
+
+    def reset_peaks(self):
+        """Restart the page high-water marks from the current state
+        (`ServingEngine.reset_stats`: a warmup window's peaks must not
+        leak into the measured window's report)."""
+        self.max_pages_in_use = self.pages_in_use
+        self.max_committed = self.committed_pages
+
+    # -- telemetry ------------------------------------------------------
+    def span_pages(self, slot: int, start: int, end: int) -> list:
+        """Physical pages backing positions [start, end) of `slot` (the
+        `prefill_chunk` event's page context).  Called after
+        touch_range, so no PAGE_NULL appears for a real position."""
+        if end <= start:
+            return []
+        ps = self.page_size
+        return [int(self.page_table[slot, blk])
+                for blk in range(start // ps, (end - 1) // ps + 1)]
+
+    def gauges(self) -> dict:
+        """Instantaneous occupancy and page pressure, sampled into each
+        telemetry step record (host counters only)."""
+        return {
+            "n_leased": self.n_leased,
+            "n_free": self.n_free,
+            "occupancy": self.n_leased / self.n_slots,
+            "pages_in_use": self.pages_in_use,
+            "free_pages": self.free_pages,
+            "committed_pages": self.committed_pages,
+            "max_pages_in_use": self.max_pages_in_use,
+        }
 
     # -- device view ----------------------------------------------------
     def decode_view(self) -> dict:

@@ -1,6 +1,7 @@
 """`ServingConfig`: the engine's validated construction record (port of
-`repro.serving.config`, cut to this slice's path: the paged arena, FCFS,
-synchronous chunked dispatch, int8 or int4-packed KV).
+`repro.serving.config`, cut to the port's path: the paged arena, FCFS,
+synchronous chunked dispatch, int8 or int4-packed KV, and the
+telemetry sink).
 
 `kv_bits` is the KV storage width: 8 keeps the int8 KV images, 4 packs
 two int4 nibbles per pool cell (half the pool bytes, per-kv-head
@@ -12,11 +13,14 @@ has only those, so the one check left is the value
 `device` places the KV pools and every dispatch; it defaults to
 ``"cuda"``.  Tables handed to the engine must already live there
 (`models.lm.tables_from_numpy(..., device)`).
+
+`telemetry` is the engine's observability sink
+(`serving.telemetry.Telemetry`); None gives the no-op `NULL`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Any, Optional
 
 from repro_torch.models.lm import check_kv_bits
 from repro_torch.serving.scheduler import SchedulerConfig
@@ -35,6 +39,7 @@ class ServingConfig:
     policy: Optional["SchedulingPolicy"] = None  # None -> FCFSPolicy()
     device: str = "cuda"
     kv_bits: int = 8
+    telemetry: Any = None  # None -> serving.telemetry.NULL
 
     def __post_init__(self):
         if self.n_slots < 1:

@@ -1,7 +1,7 @@
 """`ServingEngine`: continuous batching over the integer-only model
 (port of `repro.serving.engine.ServingEngine`, the default path:
 FCFS policy, synchronous steps, paged arena, chunked prefill, int8 or
-int4-packed KV (`ServingConfig.kv_bits`)).
+int4-packed KV (`ServingConfig.kv_bits`), telemetry).
 
 Each `step()`:
 
@@ -15,15 +15,32 @@ Each `step()`:
      of their prompt at their offset, everything else parks at
      INACTIVE_POS.  The dispatch width is the chunk width C when any
      prefill row rides along and 1 otherwise, so exactly two shapes
-     exist, (n_slots, C) and (n_slots, 1);
+     exist, (n_slots, C) and (n_slots, 1), both run by `warmup()`;
   4. takes each row's next token by greedy argmax on the device over
      the int32 logits (first index on ties, like `jnp.argmax`) and
      harvests the (n_slots,) token vector, the step's one host sync.
 
-Left out of this slice (later slices port them): the prefix trie and
-copy-on-write, warm pages, preemption and `PrioritySLOPolicy`,
-telemetry, the async depth-1 dispatch queue, mesh and kv-head
-sharding, `SlotArena` and the whole-prompt prefill modes.
+Telemetry (`ServingConfig.telemetry`, DESIGN.md §Observability): the
+engine threads an off-by-default, bit-neutral sink through every
+lifecycle transition (the reference's trace events), every step phase
+(spans `admission`, `plan_chunks`, `unified_dispatch`, `harvest`) and
+every dispatch (shape counters, and `torch.profiler.record_function`
+ranges when `profile_annotations` is on).  The hooks read host state
+only, so telemetry cannot change a token.  On the card the kernels run
+asynchronously to the host, so `unified_dispatch` times the host's
+work to build and enqueue a step (Python, torch dispatch and kernel
+launches) and `harvest` times the wait for the device to finish it
+(the `nxt.cpu()` sync) plus the host bookkeeping after it.  Per-token
+emit stamps always accrue on the completions, and `stats()` rolls
+them up into TTFT / ITL percentiles and the queued / prefill / decode
+breakdown.
+
+Left out of the port so far (later slices port them): the prefix trie
+and copy-on-write, warm pages, preemption and `PrioritySLOPolicy`, the
+async depth-1 dispatch queue, mesh and kv-head sharding, `SlotArena`
+and the whole-prompt prefill modes.  Their `stats()` keys read as the
+reference's do without them: `n_preempts` 0, `dispatch_depth` 0,
+`mesh_devices` 1, `kv_shard` False.
 """
 from __future__ import annotations
 
@@ -44,6 +61,7 @@ from repro_torch.serving.request import (
     Request, RequestState,
 )
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.telemetry import NULL
 
 ChunkRow = Tuple[PrefillState, int, int]  # (state, offset, n_tokens)
 
@@ -61,6 +79,7 @@ class ServingEngine:
             device=self.device, kv_bits=cfg.kv_bits)
         self.sched = Scheduler(cfg.scheduler, cfg.max_len)
         self.on_token = on_token
+        self.tel = cfg.telemetry if cfg.telemetry is not None else NULL
         self.active: Dict[int, RequestState] = {}  # slot -> decode state
         # slot -> chunked-prefill progress, in admission order
         self.prefilling: Dict[int, PrefillState] = {}
@@ -70,6 +89,7 @@ class ServingEngine:
         self._n_generated = 0
         self._n_admit_rejects = 0
         self._occupancy_sum = 0.0
+        self._max_active = 0
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
 
@@ -87,29 +107,45 @@ class ServingEngine:
         self._next_id += 1
         req.arrival_time = time.perf_counter()
         self.sched.submit(req)
+        if self.tel.enabled:
+            self.tel.event("submit", req_id=req.req_id,
+                           prompt_len=req.prompt_len,
+                           max_new_tokens=req.max_new_tokens)
         return req.req_id
 
     # -- one engine step ------------------------------------------------
     def step(self) -> bool:
-        """Plan, admit, dispatch and harvest once.  False when idle."""
+        """Plan, admit, dispatch and harvest once.  False when idle.
+        Telemetry spans time each phase (the reference's `_step_sync`);
+        with the Null sink each span is a shared no-op context."""
         if self._t_first is None:
             self._t_first = time.perf_counter()
-        plan = self.policy.plan(self._view())
-        progressed = self._execute_admissions(plan)
-        chunk_plan = self._materialize_chunks(plan)
+        tel = self.tel
+        tel.begin_step(self._steps)
+        with tel.span("admission"):
+            plan = self.policy.plan(self._view())
+            progressed = self._execute_admissions(plan)
+        chunk_plan: List[ChunkRow] = []
+        if plan.chunks:
+            with tel.span("plan_chunks"):
+                chunk_plan = self._materialize_chunks(plan)
         do_decode = bool(plan.decode and self.active)
-        self._occupancy_sum += self.arena.n_leased / self.arena.n_slots
-        self._steps += 1
         if chunk_plan or do_decode:
-            self._harvest(*self._dispatch(chunk_plan, do_decode))
+            rec = self._dispatch(chunk_plan, do_decode)
+            self._tick_stats()
+            with tel.span("harvest"):
+                self._harvest(*rec)
             progressed = True
+        else:
+            self._tick_stats()
         self._t_last = time.perf_counter()
+        self._end_step()
         return progressed
 
     def run_until_drained(self, max_steps: int = 1_000_000
                           ) -> List[Completion]:
         steps = 0
-        while self.sched.n_pending or self.prefilling or self.active:
+        while self._busy():
             if steps >= max_steps:
                 raise RuntimeError(f"not drained after {max_steps} steps")
             self.step()
@@ -168,8 +204,13 @@ class ServingEngine:
                                     written=0)
             self.prefilling[slot] = PrefillState(
                 request=req, slot=slot, admit_time=time.perf_counter())
+            if self.tel.enabled:
+                self.tel.event("admit", req_id=req.req_id, slot=slot)
             progressed = True
         self._n_admit_rejects += len(plan.rejects)
+        if self.tel.enabled:
+            for req_id, reason in plan.rejects:
+                self.tel.event("admit_reject", req_id=req_id, reason=reason)
         return progressed
 
     def _materialize_chunks(self, plan: StepPlan) -> List[ChunkRow]:
@@ -189,26 +230,29 @@ class ServingEngine:
                 out.append((st, st.offset, n))
         return out
 
-    def _dispatch(self, chunk_plan: List[ChunkRow], do_decode: bool):
-        """THE unified dispatch over every arena row (row = slot)."""
-        B = self.arena.n_slots
-        C = self.sched.cfg.prefill_chunk
-        W = C if chunk_plan else 1
-        toks = np.zeros((B, W), np.int32)
-        start = np.full((B,), INACTIVE_POS, np.int32)
-        last = np.zeros((B,), np.int32)
-        decode_slots: List[int] = []
-        if do_decode:
-            for slot, st in self.active.items():
-                toks[slot, 0] = st.last_token
-                start[slot] = st.pos
-                self.arena.touch(slot, st.pos)
-                decode_slots.append(slot)
-        for st, off, n in chunk_plan:
-            toks[st.slot, :n] = st.source[off:off + n]
-            start[st.slot] = off
-            last[st.slot] = n - 1
-            self.arena.touch_range(st.slot, off, off + n)
+    def _tick_stats(self):
+        self._occupancy_sum += self.arena.n_leased / self.arena.n_slots
+        self._max_active = max(self._max_active, len(self.active))
+        self._steps += 1
+
+    def _end_step(self):
+        """Close the telemetry step record, folding in the gauges (host
+        counters only; no dispatch queue yet, so its depth is 0)."""
+        if not self.tel.enabled:
+            return
+        self.tel.end_step(
+            queue_depth=0,
+            n_pending=self.sched.n_pending,
+            n_active=len(self.active),
+            n_prefilling=len(self.prefilling),
+            admit_rejects=self._n_admit_rejects,
+            **self.arena.gauges(),
+        )
+
+    def _unified(self, toks: np.ndarray, start: np.ndarray,
+                 last: np.ndarray) -> torch.Tensor:
+        """Enqueue one prefill_chunk over every row and the greedy
+        argmax; -> the (n_slots,) next-token vector on the device."""
         dev = self.device
         logits = self.lm.prefill_chunk(
             self.tables,
@@ -217,7 +261,38 @@ class ServingEngine:
             torch.from_numpy(start).to(dev),
             torch.from_numpy(last).to(dev),
         )
-        nxt = torch.argmax(logits[:, 0, :], dim=-1)
+        return torch.argmax(logits[:, 0, :], dim=-1)
+
+    def _dispatch(self, chunk_plan: List[ChunkRow], do_decode: bool):
+        """THE unified dispatch over every arena row (row = slot)."""
+        tel = self.tel
+        with tel.span("unified_dispatch"):
+            B = self.arena.n_slots
+            C = self.sched.cfg.prefill_chunk
+            W = C if chunk_plan else 1
+            toks = np.zeros((B, W), np.int32)
+            start = np.full((B,), INACTIVE_POS, np.int32)
+            last = np.zeros((B,), np.int32)
+            decode_slots: List[int] = []
+            if do_decode:
+                for slot, st in self.active.items():
+                    toks[slot, 0] = st.last_token
+                    start[slot] = st.pos
+                    self.arena.touch(slot, st.pos)
+                    decode_slots.append(slot)
+            for st, off, n in chunk_plan:
+                toks[st.slot, :n] = st.source[off:off + n]
+                start[st.slot] = off
+                last[st.slot] = n - 1
+                self.arena.touch_range(st.slot, off, off + n)
+                if tel.enabled:
+                    tel.event(
+                        "prefill_chunk", req_id=st.request.req_id,
+                        slot=st.slot, start=off, end=off + n,
+                        pages=self.arena.span_pages(st.slot, off, off + n))
+            tel.dispatch("unified", (B, W))
+            with tel.annotate("repro_torch.serving/unified"):
+                nxt = self._unified(toks, start, last)
         return nxt, chunk_plan, decode_slots
 
     def _harvest(self, nxt: torch.Tensor, chunk_plan: List[ChunkRow],
@@ -233,7 +308,7 @@ class ServingEngine:
             st.pos += 1
             st.emit_times.append(now)
             self.arena.advance(slot)
-            self._emit(st.request, tok)
+            self._emit(st.request, tok, slot)
             self._maybe_finish(st, now)
         for st, off, n in chunk_plan:
             self.arena.advance(st.slot, n)
@@ -251,11 +326,16 @@ class ServingEngine:
             pos=req.prompt_len, first_token_time=now,
             admit_time=pst.admit_time, emit_times=[now])
         self.active[pst.slot] = st
-        self._emit(req, first)
+        if self.tel.enabled:
+            self.tel.event("first_token", req_id=req.req_id, slot=pst.slot,
+                           token=first)
+        self._emit(req, first, pst.slot)
         self._maybe_finish(st, now)
 
-    def _emit(self, req: Request, tok: int):
+    def _emit(self, req: Request, tok: int, slot: int):
         self._n_generated += 1
+        if self.tel.enabled:
+            self.tel.event("emit", req_id=req.req_id, slot=slot, token=tok)
         if self.on_token is not None:
             self.on_token(req.req_id, tok)
 
@@ -275,29 +355,98 @@ class ServingEngine:
             arrival_time=req.arrival_time,
             first_token_time=st.first_token_time, finish_time=now,
             admit_time=st.admit_time, emit_times=list(st.emit_times)))
+        if self.tel.enabled:
+            self.tel.event("finish", req_id=req.req_id, slot=st.slot,
+                           reason=reason, n_generated=len(st.tokens))
         del self.active[st.slot]
         self.arena.release(st.slot)
 
+    # -- warmup -------------------------------------------------------
+    def _busy(self) -> bool:
+        return bool(self.sched.n_pending or self.prefilling or self.active)
+
+    def warmup(self):
+        """Run both dispatch shapes once, (n_slots, 1) and (n_slots, C),
+        with every row parked at INACTIVE_POS, so the first step of a
+        measured window meets no first-use cost (the kernels' build,
+        the GEMM workspace, torch's caches).  Parked rows write only
+        the PAGE_NULL trash page, so every page a request can hold is
+        left byte-equal; the results are dropped.  Both shapes are
+        registered with the telemetry's dispatch counters, so a warmed
+        window reads all hits.  Requires an idle engine."""
+        if self._busy():
+            raise RuntimeError("warmup on a non-idle engine")
+        B = self.arena.n_slots
+        parked = np.full((B,), INACTIVE_POS, np.int32)
+        for W in (1, self.sched.cfg.prefill_chunk):
+            self.tel.dispatch("unified", (B, W))
+            self._unified(np.zeros((B, W), np.int32), parked,
+                          np.zeros((B,), np.int32)).cpu()
+
     # -- statistics -----------------------------------------------------
+    def reset_stats(self):
+        """Zero the run statistics and the completion log (e.g. after a
+        warmup workload), restart the arena's peaks and clear the
+        telemetry buffers.  Requires an idle engine: in-flight state
+        would skew the next window."""
+        if self._busy():
+            raise RuntimeError("reset_stats on a non-idle engine")
+        self.completed.clear()
+        self._steps = 0
+        self._occupancy_sum = 0.0
+        self._n_generated = 0
+        self._max_active = 0
+        self._n_admit_rejects = 0
+        self._t_first = None
+        self._t_last = None
+        self.arena.reset_peaks()
+        self.tel.clear()
+
     def stats(self) -> dict:
         wall = ((self._t_last - self._t_first)
                 if self._t_first is not None and self._t_last is not None
                 else 0.0)
         ttfts = [c.ttft for c in self.completed]
         itls = [d for c in self.completed for d in c.itl]
+        queued = [c.queued_s for c in self.completed]
+        prefills = [c.prefill_s for c in self.completed]
+        decodes = [c.decode_s for c in self.completed]
+
+        def mean(xs):
+            return float(np.mean(xs)) if xs else 0.0
+
+        def pct(xs, q):
+            return float(np.percentile(xs, q)) if xs else 0.0
+
         out = {
             "n_completed": len(self.completed),
             "n_generated": self._n_generated,
             "steps": self._steps,
             "wall_s": wall,
             "throughput_tok_s": (self._n_generated / wall) if wall else 0.0,
-            "p50_ttft_s": float(np.percentile(ttfts, 50)) if ttfts else 0.0,
-            "p99_ttft_s": float(np.percentile(ttfts, 99)) if ttfts else 0.0,
-            "p50_itl_s": float(np.percentile(itls, 50)) if itls else 0.0,
+            "mean_ttft_s": mean(ttfts),
+            "p50_ttft_s": pct(ttfts, 50),
+            "p95_ttft_s": pct(ttfts, 95),
+            "p99_ttft_s": pct(ttfts, 99),
+            "max_ttft_s": float(np.max(ttfts)) if ttfts else 0.0,
+            # inter-token latency: pooled per-request emit gaps
+            "mean_itl_s": mean(itls),
+            "p50_itl_s": pct(itls, 50),
+            "p95_itl_s": pct(itls, 95),
+            "p99_itl_s": pct(itls, 99),
+            # where a request's wall time went
+            "mean_queued_s": mean(queued),
+            "mean_prefill_s": mean(prefills),
+            "mean_decode_s": mean(decodes),
             "admit_rejects": self._n_admit_rejects,
+            "n_preempts": 0,  # FCFS never preempts
             "policy": getattr(self.policy, "name", "?"),
             "mean_occupancy": (
                 self._occupancy_sum / self._steps if self._steps else 0.0),
+            "max_active": self._max_active,
+            "dispatch_depth": 0,
+            "mesh_devices": 1,
+            "kv_shard": False,
             "device": str(self.device),
         }
         out.update(self.arena.stats())

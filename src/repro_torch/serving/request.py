@@ -108,3 +108,19 @@ class Completion:
     def itl(self) -> List[float]:
         """Gaps between consecutive token emissions."""
         return [b - a for a, b in zip(self.emit_times, self.emit_times[1:])]
+
+    # -- latency breakdown (queued / prefill / decode) ------------------
+    @property
+    def queued_s(self) -> float:
+        """Arrival -> slot lease (admission queueing)."""
+        return self.admit_time - self.arrival_time
+
+    @property
+    def prefill_s(self) -> float:
+        """Slot lease -> first generated token (the chunked prefill)."""
+        return self.first_token_time - self.admit_time
+
+    @property
+    def decode_s(self) -> float:
+        """First generated token -> finish (pure decode)."""
+        return self.finish_time - self.first_token_time

@@ -32,7 +32,12 @@ bkv 128, 64, 32 and 48, GQA, ragged S_q and q_offset, not causal) with
 0 quanta moved, a planted case whose output differs between two KV
 partitions, held at each, and a planted score scale under which
 skipping the causal blocks past a tile would change the output, on both
-kernels.
+kernels.  The shapes llama3_2_3b and chatglm3_6b give the kernels: the
+GEMM at every site of both, the paged attention at hd 128 with GQA
+group 3 over 8 kv heads and group 16 over 2 (both pool modes, S 1/4/32,
+T 512/4096), the requant forms at their widths; and 2-layer engines on
+the card with telemetry on and off (equal tokens, equal to the CPU's)
+and a warmup that leaves the pools byte-equal.
 """
 import sys
 
@@ -756,3 +761,179 @@ def test_quant_flash_attention_computes_masked_blocks_when_it_must(bkv):
     assert int((want != skipped).sum()) > 0
     got = quant_flash_attention(q, k, v, **kw)
     assert torch.equal(got, want)
+
+
+# -- the shapes llama3_2_3b and chatglm3_6b give the kernels ---------------
+# (K, N) of every GEMM site: wq and wo, wk and wv, gate and up, down, the
+# head; llama3_2_3b (d 3072, 24/8 heads of 128, d_ff 8192, vocab 128256),
+# then chatglm3_6b (d 4096, 32/2 heads of 128, d_ff 13696, vocab 65024)
+CONFIG_KN = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072),
+             (3072, 128256),
+             (4096, 4096), (4096, 256), (4096, 13696), (13696, 4096),
+             (4096, 65024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 17, 256, 300])
+@pytest.mark.parametrize("K,N", CONFIG_KN)
+def test_int8_matmul_config_sites_on_card(K, N, M):
+    """Both paths at every GEMM site of the two configs, both modes,
+    scalar and per-column tables, wrapping biases: equal to the plain
+    version."""
+    _need_card()
+    rng = np.random.default_rng(M * 7 + K + N)
+    x, w, b = _gemm_operands(rng, M, K, N)
+    for r in _gemm_tables(rng, K, N):
+        got = int8_matmul(x, w, b, r)
+        want = int8_matmul_plain(x, w, b, r)
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want), (gemm_plan(M, N, K), r is None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("T", [512, 4096])
+@pytest.mark.parametrize("S", [1, 4, 32])
+@pytest.mark.parametrize("group,K", [(3, 8), (16, 2)])
+def test_paged_attention_mma_config_groups_on_card(group, K, S, T, packed):
+    """The tensor-core kernel at the configs' heads, hd 128: GQA group 3
+    over 8 kv heads (llama3_2_3b's 24/8) and group 16 over 2
+    (chatglm3_6b's 32/2), both pool modes: 0 quanta moved, the plain
+    output, one launch on the pool mode's counter."""
+    _need_card()
+    args, kw = _mma_inputs(7000 + group * 100 + S + T, 128, group, S, T,
+                           K=K, packed=packed)
+    scale = torch.tensor(1.0 / 2048.0, device="cuda")
+    _mma_launch(args, scale, group, kw,
+                f"hd=128 group={group} K={K} S={S} T={T} packed={packed}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 24, 32, 128), (8, 24, 1, 128),
+                                   (8, 32, 32, 128), (8, 32, 1, 128)])
+def test_requant_ctx_rqt_config_heads_on_card(shape):
+    _need_card()
+    rng = np.random.default_rng(shape[1] + shape[2])
+    q = torch.from_numpy(rng.integers(-(1 << 14), 1 << 14, size=shape)
+                         .astype(np.int32)).cuda()
+    rq = _card_rqt(rng, shape[-1], "scalar", 1 / 128)
+    got = _counted("rqt_heads",
+                   lambda: requant(q, rq, heads_to_rows=True))
+    assert torch.equal(got, requant_plain(q, rq, heads_to_rows=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind_a", [
+    ((8, 32, 3072), "scalar"), ((8, 1, 3072), "scalar"),
+    ((8, 32, 4096), "scalar"), ((8, 1, 4096), "channel")])
+def test_requant_form_add_config_widths_on_card(shape, kind_a):
+    """The QAdd at d 3072 and 4096, int8 residual a, per-channel rq_b."""
+    _need_card()
+    rng = np.random.default_rng(shape[1] + shape[2])
+    kw = dict(int32_out=True, acc_bound=float(1 << 16))
+    t = {"rq_a": _card_rqt(rng, shape[-1], kind_a, 0.5, **kw),
+         "rq_b": _card_rqt(rng, shape[-1], "channel", 1e-3, **kw),
+         "zp_a": torch.tensor(5, dtype=torch.int32).cuda(),
+         "zp_b": torch.tensor(-7, dtype=torch.int32).cuda()}
+    a = torch.from_numpy(rng.integers(-128, 128, size=shape)
+                         .astype(np.int8)).cuda()
+    b = torch.from_numpy(rng.integers(-(1 << 17), 1 << 17, size=shape)
+                         .astype(np.int32)).cuda()
+    got = _counted("add", lambda: requant_add(a, b, t))
+    assert torch.equal(got, requant_add_plain(a, b, t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 8192), (8, 8192), (256, 13696),
+                                   (8, 13696)])
+def test_requant_form_gate_config_widths_on_card(shape):
+    """The MLP's gate (LUT, gate product, h_rqt) at d_ff 8192
+    (llama3_2_3b) and 13696 (chatglm3_6b), chunk and decode rows."""
+    _need_card()
+    rng = np.random.default_rng(shape[0] + 3 * shape[1])
+    s_pre, s_u = (torch.from_numpy(rng.integers(-128, 128, size=shape)
+                                   .astype(np.int8)).cuda() for _ in "ab")
+    lut = torch.from_numpy(rng.integers(-128, 128, size=256)
+                           .astype(np.int8)).cuda()
+    zp_g = torch.tensor(-11, dtype=torch.int32).cuda()
+    rq = _card_rqt(rng, shape[-1], "scalar", 1 / 256, zp=2)
+    got = _counted("gate", lambda: requant_gate(s_pre, s_u, lut, zp_g, rq))
+    assert torch.equal(got, requant_gate_plain(s_pre, s_u, lut, zp_g, rq))
+
+
+def _engines_on_card_and_cpu(arch, kv_bits, telemetry=None):
+    """A 2-layer reduced `arch` deployed on the card and on the CPU, one
+    engine on each."""
+    from repro_torch.launch.serve import deploy_model
+    from repro_torch.serving import (
+        SchedulerConfig, ServingConfig, ServingEngine,
+    )
+
+    out = []
+    for device in ("cuda", "cpu"):
+        lm, t = deploy_model(arch, reduced=True, max_seq=64, seed=0,
+                             device=device)
+        out.append(ServingEngine(lm, t, ServingConfig(
+            n_slots=4, max_len=64, page_size=8, n_pages=40, device=device,
+            kv_bits=kv_bits, telemetry=telemetry if device == "cuda"
+            else None, scheduler=SchedulerConfig(prefill_chunk=8))))
+    return out
+
+
+def _serve_all(eng, reqs):
+    import copy
+
+    for r in reqs:
+        eng.submit(copy.deepcopy(r))
+    return {c.req_id: list(c.tokens) for c in eng.run_until_drained()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("arch", ["granite_3_2b", "llama3_2_3b",
+                                  "chatglm3_6b"])
+def test_engine_telemetry_is_bit_neutral_on_card(arch, kv_bits):
+    """A 2-layer engine on the card with telemetry on gives the tokens of
+    one with it off, and of the CPU's; every step has its record and
+    every request its lifecycle events."""
+    _need_card()
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.serving import Telemetry
+
+    tel = Telemetry(profile_annotations=True)
+    on, cpu = _engines_on_card_and_cpu(arch, kv_bits, tel)
+    off, _ = _engines_on_card_and_cpu(arch, kv_bits)
+    reqs = ragged_requests(5, on.lm.cfg.vocab, np.random.default_rng(2),
+                           prompt_lo=5, prompt_hi=40, gen=5)
+    tok = _serve_all(on, reqs)
+    assert tok == _serve_all(off, reqs) == _serve_all(cpu, reqs)
+    assert len(tel.steps) == on.stats()["steps"]
+    assert sum(e["event"] == "emit" for e in tel.events) == 25
+    assert sum(e["event"] == "finish" for e in tel.events) == 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_warmup_leaves_the_pools_byte_equal_on_card(kv_bits):
+    """After a drained workload, warmup on the card leaves every page a
+    request can hold byte-equal (its parked rows write only the
+    PAGE_NULL trash page), its pools equal the CPU engine's after the
+    same sequence, and the next window's tokens equal the CPU's."""
+    _need_card()
+    from repro_torch.launch.serve import ragged_requests
+
+    card, cpu = _engines_on_card_and_cpu("llama3_2_3b", kv_bits)
+    reqs = ragged_requests(5, card.lm.cfg.vocab, np.random.default_rng(3),
+                           prompt_lo=5, prompt_hi=40, gen=5)
+    for eng in (card, cpu):
+        _serve_all(eng, reqs)
+    before = [card.arena.caches[kv].clone() for kv in ("k", "v")]
+    card.warmup()
+    cpu.warmup()
+    for kv, b in zip(("k", "v"), before):
+        assert torch.equal(card.arena.caches[kv][:, 1:], b[:, 1:])
+        assert torch.equal(card.arena.caches[kv].cpu(), cpu.arena.caches[kv])
+    for eng in (card, cpu):
+        eng.reset_stats()
+    assert _serve_all(card, reqs) == _serve_all(cpu, reqs)
+    assert card.stats()["n_completed"] == len(reqs)
