@@ -39,7 +39,13 @@ Phases (any failure raises and the script exits non-zero):
             equal int32 logits and K/V pools (packed at 4) byte for
             byte, and the engine equal greedy tokens on the same ragged
             requests; torch.exp of the two devices is compared over
-            [-104, 0] first
+            [-104, 0] first (torch.exp, reported; the paged
+            attention's `island_exp`, which must agree); granite also
+            serves a system-prompt workload with an aligned-exact twin
+            (one copy-on-write) with the prefix cache on and one
+            scripted preemption, with equal tokens, equal prefix and
+            preemption counters and both pools equal byte for byte
+            after the drain
   main      full granite_3_2b (40 layers, random seeded weights deployed
             layer by layer without calibration): 8 ragged requests
             (prompts 17-300, 16 new tokens) through `ServingEngine`,
@@ -55,7 +61,25 @@ Phases (any failure raises and the script exits non-zero):
             then the same requests under Poisson arrivals at about twice
             the closed loop's requests per second (`run_open_loop`, TTFT
             and ITL SLOs), with equal tokens request by request
-  configs   llama3_2_3b and chatglm3_6b at full width and depth, each
+  prefix    on the same granite tables: 24 requests sharing a 256-token
+            system prompt (32-token suffixes, 16 new tokens) over a pool
+            of 40 pages (two cold requests and 2 pages), served cold and
+            with the prefix cache (`benchmarks/serve_bench.py`'s
+            shared-prefix-vs-cold lane at the main geometry): equal
+            tokens, pages served from the cache, a clean arena after the
+            drain; mean TTFT, peak concurrency and their ratios
+  preempt   on the same granite tables, `PrioritySLOPolicy`: the main
+            phase's 8 requests at class 0, then, once all 8 decode, 4
+            class-1 requests, at kv_bits 8 and 4: at least 4
+            preemptions, every class-0 request's tokens equal to its
+            main run 1 tokens (every resume passes the engine's
+            resume-parity oracle); then the open-loop phase's 16
+            requests at classes i % 2 under the same arrivals with the
+            TTFT SLO as aging target, tokens equal to the closed loop's,
+            p99 TTFT per class
+  configs   llama3_2_3b and chatglm3_6b at full width, cut to their first
+            CONFIG_LAYERS layers (14 of 28, to keep the script under
+            1000 s; their deploy is most of its time), each
             served once (8 ragged requests, kv_bits 8, after
             `warmup()`): deploy time, device memory, launches by kernel
             (counts set to 0 just before the run), GEMM launches by site
@@ -119,9 +143,15 @@ PAGED_SHAPES = ((CHUNK, MAX_LEN), (1, MAX_LEN), (CHUNK, 4096), (1, 4096))
 # the paged attention: (H, K, hd), GQA group 3 and group 16
 CONFIGS = ("llama3_2_3b", "chatglm3_6b")
 CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128)}
+# the served depth of CONFIGS' full-width runs (both have 28 layers)
+CONFIG_LAYERS = 14
 # open-loop phase: requests, their arrival rate over the closed loop's
 # requests per second, and the SLOs of the goodput roll-up (seconds)
 OPEN_LOOP_N, OPEN_LOOP_RATE, SLO_TTFT_S, SLO_ITL_S = 16, 2.0, 2.0, 0.25
+# prefix phase: system-prompt and suffix tokens, requests per slot
+PREFIX_LEN, SUFFIX_LEN, PREFIX_PER_SLOT = 256, 32, 3
+# preempt phase: class-1 requests submitted once the 8 class-0 decode
+N_URGENT = 4
 # the engine's record_function range around each dispatch
 ANNOTATION = "repro_torch.serving/"
 # quantized flash attention at full granite geometry (B 1, H 32, K 8):
@@ -671,6 +701,22 @@ def phase_entry(torch, kernels):
     return launches
 
 
+def make_engine(lm, tables, device, kv_bits=8, *, max_prefills=2,
+                **config):
+    """An engine at the main cell's geometry; `config` overrides
+    `ServingConfig` fields (n_pages, policy, prefix_cache, ...)."""
+    from repro_torch.serving import (
+        SchedulerConfig, ServingConfig, ServingEngine,
+    )
+
+    kw = dict(n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE,
+              n_pages=N_PAGES, device=device, kv_bits=kv_bits,
+              scheduler=SchedulerConfig(prefill_chunk=CHUNK,
+                                        max_prefills_per_step=max_prefills))
+    kw.update(config)
+    return ServingEngine(lm, tables, ServingConfig(**kw))
+
+
 def serve(lm, tables, requests, device, kv_bits=8, *, telemetry=None,
           warm=False, engine=None):
     """Serve `requests` closed-loop (submit all, drain) on a fresh
@@ -678,14 +724,8 @@ def serve(lm, tables, requests, device, kv_bits=8, *, telemetry=None,
     `reset_stats()`.  -> ({req_id: tokens}, stats, engine)."""
     import copy
 
-    from repro_torch.serving import (
-        SchedulerConfig, ServingConfig, ServingEngine,
-    )
-
-    eng = engine or ServingEngine(lm, tables, ServingConfig(
-        n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE, n_pages=N_PAGES,
-        device=device, kv_bits=kv_bits, telemetry=telemetry,
-        scheduler=SchedulerConfig(prefill_chunk=CHUNK)))
+    eng = engine or make_engine(lm, tables, device, kv_bits,
+                                telemetry=telemetry)
     if warm:
         eng.warmup()
         eng.reset_stats()
@@ -699,8 +739,9 @@ def serve(lm, tables, requests, device, kv_bits=8, *, telemetry=None,
 def exp_agreement(torch):
     """torch.exp on the card against torch.exp on the host CPU over
     every float32 in [-104, 0] (the softmax's exponents; below -104 both
-    give 0).  The attention's only float work is the softmax, so these
-    two are what card-vs-CPU parity rests on.  -> (differing, total)."""
+    give 0).  The paged attention takes `island_exp` instead, the same
+    on both (`island_exp_agreement`); this count says why.  -> (differing,
+    total)."""
     lo = -(1 << 31)                                     # bits of -0.0
     hi = lo + (0xC2D00000 - 0x80000000) + 1             # bits of -104.0
     step = 1 << 26
@@ -713,6 +754,30 @@ def exp_agreement(torch):
         on_cpu = torch.exp(x.cpu()).view(torch.int32)
         bad += int((on_card != on_cpu).sum())
     return bad, hi - lo
+
+
+def island_exp_agreement(torch, stride=61):
+    """`island_exp` (the paged attention's exp, in its plain version) on
+    the card against the CPU over every `stride`-th float32 in [-104,
+    0]: it must agree everywhere (one rounded float32 operation a step).
+    -> the number of inputs compared."""
+    from repro_torch.kernels.paged_attention import island_exp
+
+    lo = -(1 << 31)
+    hi = lo + (0xC2D00000 - 0x80000000) + 1
+    step = stride << 22
+    n = 0
+    for a in range(lo, hi, step):
+        bits = torch.arange(a, min(a + step, hi), stride, dtype=torch.int64,
+                            device="cuda").to(torch.int32)
+        x = bits.view(torch.float32)
+        on_card = island_exp(x).view(torch.int32).cpu()
+        on_cpu = island_exp(x.cpu()).view(torch.int32)
+        bad = int((on_card != on_cpu).sum())
+        if bad:
+            raise AssertionError(f"island_exp: card != CPU on {bad} inputs")
+        n += x.numel()
+    return n
 
 
 def prefill_parity(torch, np, lm, t_np, kv_bits):
@@ -762,8 +827,13 @@ def prefill_parity(torch, np, lm, t_np, kv_bits):
 def phase_parity(torch, np):
     t0 = time.perf_counter()
     bad, total = exp_agreement(torch)
-    print(f"  exp on the card vs the CPU: {bad} of {total} float32 inputs "
-          f"in [-104, 0] differ ({time.perf_counter() - t0:.1f} s)")
+    print(f"  torch.exp on the card vs the CPU: {bad} of {total} float32 "
+          f"inputs in [-104, 0] differ ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n = island_exp_agreement(torch)
+    print(f"  island_exp (the paged attention's exp) on the card vs the CPU:"
+          f" equal on all {n} inputs compared (every 61st float32 in "
+          f"[-104, 0]; {time.perf_counter() - t0:.1f} s)")
     for arch in ("granite_3_2b",) + CONFIGS:
         config_parity(torch, np, arch)
 
@@ -803,10 +873,83 @@ def config_parity(torch, np, arch):
             if not all(0 <= t < cfg.vocab for t in v):
                 raise AssertionError(f"token outside the vocab: {v}")
         print(f"  card == CPU plain versions, token for token: {gpu_tok}")
+        if arch == "granite_3_2b":
+            cache_parity(torch, np, lm, tables, kv_bits)
+
+
+class EvictNewestDecode:
+    """FCFS plus one scripted eviction: at plan call `at`, the most
+    recently admitted decode with at least 2 tokens of budget left
+    (so it is still decoding when the eviction runs)."""
+
+    name = "scripted"
+
+    def __init__(self, at: int):
+        from repro_torch.serving import FCFSPolicy
+
+        self.inner, self.at, self.calls, self.fired = FCFSPolicy(), at, 0, 0
+
+    def plan(self, view):
+        plan = self.inner.plan(view)
+        if self.calls == self.at:
+            live = [d for d in view.active if d.budget_left >= 2]
+            if live:
+                plan.preempt.append(
+                    max(live, key=lambda d: (d.admit_time, d.req_id)).slot)
+                self.fired += 1
+        self.calls += 1
+        return plan
+
+
+CACHE_KEYS = ("prefix_hits", "prefix_misses", "prefix_hit_pages",
+              "cow_splits", "warm_evictions", "n_preempts", "steps")
+
+
+def cache_parity(torch, np, lm, tables, kv_bits):
+    """A system-prompt workload (a 2-page prompt shared by three
+    requests with their own suffixes, and its aligned-exact twin, whose
+    last position copy-on-writes the last shared page) served with the
+    prefix cache on and one scripted preemption (plan call 6), on the
+    card and on the CPU: equal tokens, equal prefix and preemption
+    counters, and both pools equal byte for byte after the drain."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(SEED + 9)
+    pre = rng.integers(0, lm.cfg.vocab, size=(2 * PAGE,))
+    reqs = [Request(np.concatenate([pre, rng.integers(
+        0, lm.cfg.vocab, size=(int(rng.integers(10, 40)),))]), 8)
+        for _ in range(3)] + [Request(pre.copy(), 8)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pol = EvictNewestDecode(6)
+        eng = make_engine(lm, tables[dev], dev, kv_bits, policy=pol,
+                          prefix_cache=True, cache_keep_pages=16)
+        tok, s, _ = serve(lm, tables[dev], reqs, dev, engine=eng)
+        out[dev] = (tok, {k: s[k] for k in CACHE_KEYS}, pol.fired,
+                    [eng.arena.caches[kv].cpu() for kv in ("k", "v")],
+                    eng.arena)
+    (gt, gs, gf, gp, ga), (ct, cs, cf, cp, _) = out["cuda"], out["cpu"]
+    if gt != ct or gs != cs or gf != cf:
+        raise AssertionError(f"kv_bits {kv_bits} prefix cache + preemption: "
+                             f"card {gt} {gs} != CPU {ct} {cs}")
+    if not (gs["cow_splits"] >= 1 and gs["n_preempts"] == gf == 1
+            and gs["prefix_hit_pages"] >= 4 and gs["prefix_hits"] >= 2):
+        raise AssertionError(f"kv_bits {kv_bits}: the workload did not "
+                             f"split, preempt and hit: {gs}")
+    for name, a, b in zip(("K pool", "V pool"), gp, cp):
+        if not torch.equal(a, b):
+            raise AssertionError(f"kv_bits {kv_bits} prefix cache: {name} "
+                                 "card != CPU after the drain")
+    if int((ga.refcount != 0).sum()) or ga.committed_pages:
+        raise AssertionError("prefix cache: the card's arena is not clean")
+    print(f"  granite_3_2b kv_bits {kv_bits} prefix cache + scripted "
+          f"preemption: card == CPU in tokens, counters {gs} and both pools "
+          f"byte for byte")
 
 
 def phase_main(torch, np, kernels):
-    """-> (launches of run 1 by kernel, the granite lm and tables)."""
+    """-> (launches of run 1 by kernel, the granite lm and tables, the 8
+    requests, run 1's tokens by kv_bits)."""
     from repro_torch.launch.serve import deploy_model, ragged_requests
 
     t0 = time.perf_counter()
@@ -832,7 +975,7 @@ def phase_main(torch, np, kernels):
     print(f"  kv_bits 4 tokens equal to the int8 run's at {same} of {total}"
           f" positions ({same / total:.3f}; lossy by design, uncalibrated "
           "tables)")
-    return launches, lm, tables
+    return launches, lm, tables, reqs, {8: tok8, 4: tok4}
 
 
 def print_stats(what: str, s: dict) -> None:
@@ -851,7 +994,9 @@ def phase_open_loop(torch, np, kernels, lm, tables):
     second set the rate), then, after `reset_stats()`, the same
     requests arriving by `poisson_arrivals` at OPEN_LOOP_RATE times
     that rate through `run_open_loop` with the TTFT and ITL SLOs.
-    Every request's tokens must equal its closed-loop tokens."""
+    Every request's tokens must equal its closed-loop tokens.  -> (the
+    requests, their closed-loop tokens in order, the closed loop's
+    req/s)."""
     import copy
 
     from repro_torch.launch.serve import ragged_requests
@@ -893,10 +1038,172 @@ def phase_open_loop(torch, np, kernels, lm, tables):
         raise AssertionError(f"open loop launched {launches}")
     print(f"  open-loop tokens equal the closed loop's for all "
           f"{OPEN_LOOP_N} requests")
+    return reqs, [closed[first + i] for i in range(OPEN_LOOP_N)], rps
+
+
+def check_path_launches(launches: dict, kv_bits: int, what: str) -> None:
+    """Every kernel of the kv_bits path launched, and no other."""
+    path = PATH_KERNELS[kv_bits]
+    if any(launches[n] == 0 for n in path) or any(
+            c for n, c in launches.items() if n not in path):
+        raise AssertionError(f"{what}: launches {launches} are not the "
+                             f"path's {path}")
+
+
+def phase_prefix(torch, np, kernels, lm, tables):
+    """The shared-prefix-vs-cold lane at the main geometry: 3 x N_SLOTS
+    requests sharing one PREFIX_LEN-token system prompt, each with its
+    own SUFFIX_LEN-token suffix and 16 new tokens, over a pool that
+    holds two cold requests and 2 pages; served cold, then with the
+    prefix cache (keep = the pool), each on a fresh warmed engine that
+    may admit every request in one step.  Tokens must be equal request
+    by request, the cache must serve pages, and the arena must be clean
+    after the drain."""
+    from repro_torch.serving import shared_prefix_workload
+
+    n, gen = PREFIX_PER_SLOT * N_SLOTS, 16
+    n_pages = 2 * -(-(PREFIX_LEN + SUFFIX_LEN + gen - 1) // PAGE) + 2
+    reqs = shared_prefix_workload(
+        n, lm.cfg.vocab, np.random.default_rng(SEED + 7),
+        prefix_len=PREFIX_LEN, suffix_len=SUFFIX_LEN, max_new_tokens=gen)
+    lanes = {}
+    for lane, kw in (("cold", {}), ("shared", dict(
+            prefix_cache=True, cache_keep_pages=n_pages))):
+        eng = make_engine(lm, tables, "cuda", n_pages=n_pages,
+                          max_prefills=n, **kw)
+        eng.warmup()
+        eng.reset_stats()
+        kernels.reset_launch_counts()
+        tok, s, _ = serve(lm, tables, reqs, "cuda", engine=eng)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        check_path_launches(launches, 8, lane)
+        print(f"  {lane} launches {launches}")
+        if sorted(tok) != list(range(n)) or any(
+                len(v) != gen for v in tok.values()):
+            raise AssertionError(f"{lane}: not every request finished")
+        lanes[lane] = (tok, s, eng.arena)
+        print_stats(f"prefix {lane}", s)
+    (ct, cs, _), (st, ss, arena) = lanes["cold"], lanes["shared"]
+    if st != ct:
+        bad = [i for i in range(n) if st[i] != ct[i]]
+        raise AssertionError(f"shared tokens differ from cold at {bad}")
+    if ss["prefix_hit_pages"] <= 0:
+        raise AssertionError("the shared lane never hit the cache")
+    if int((arena.refcount != 0).sum()) or arena.committed_pages:
+        raise AssertionError("shared lane: refcounts or commitments left "
+                             "after the drain")
+    print(f"  {n} requests, {PREFIX_LEN}-token system prompt, {n_pages} "
+          f"pages: mean TTFT cold {cs['mean_ttft_s'] * 1e3:.1f} ms / shared "
+          f"{ss['mean_ttft_s'] * 1e3:.1f} ms (ttft_uplift "
+          f"{cs['mean_ttft_s'] / ss['mean_ttft_s']:.3f}), max_active cold "
+          f"{cs['max_active']} / shared {ss['max_active']} "
+          f"(concurrency_uplift {ss['max_active'] / cs['max_active']:.3f}), "
+          f"steps {cs['steps']} / {ss['steps']}, tok/s "
+          f"{cs['throughput_tok_s']:.2f} / {ss['throughput_tok_s']:.2f}; "
+          f"prefix hits {ss['prefix_hits']}, hit pages "
+          f"{ss['prefix_hit_pages']}, cow splits {ss['cow_splits']}")
+    print(f"  shared tokens equal cold for all {n} requests")
+
+
+def phase_preempt(torch, np, kernels, lm, tables, reqs, run1, kv_bits):
+    """`PrioritySLOPolicy(preempt=True)`: the main phase's requests at
+    class 0; once all of them decode, N_URGENT class-1 requests, each
+    of which evicts a class-0 decode.  Every class-0 request must end
+    with its main run 1 tokens (every resume passes the engine's
+    resume-parity oracle, which raises otherwise)."""
+    import copy
+
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.serving import PrioritySLOPolicy
+
+    eng = make_engine(lm, tables, "cuda", kv_bits,
+                      policy=PrioritySLOPolicy(preempt=True))
+    kernels.reset_launch_counts()
+    for r in reqs:
+        eng.submit(copy.deepcopy(r))
+    while len(eng.active) < len(reqs):
+        eng.step()
+        if eng.completed or eng.stats()["steps"] > 100:
+            raise AssertionError("a class-0 request finished before all "
+                                 "of them decoded")
+    urgent = ragged_requests(N_URGENT, lm.cfg.vocab,
+                             np.random.default_rng(SEED + 8), prompt_lo=17,
+                             prompt_hi=300, gen=16)
+    for r in urgent:
+        r.priority = 1
+        eng.submit(r)
+    done = {c.req_id: c for c in eng.run_until_drained()}
+    torch.cuda.synchronize()
+    s = eng.stats()
+    launches = kernels.launch_counts()
+    check_path_launches(launches, kv_bits, f"preempt kv_bits {kv_bits}")
+    print(f"  preempt kv_bits {kv_bits} launches {launches}")
+    if s["n_preempts"] < N_URGENT:
+        raise AssertionError(f"only {s['n_preempts']} preemptions")
+    for rid, tokens in run1.items():
+        if list(done[rid].tokens) != tokens:
+            raise AssertionError(f"kv_bits {kv_bits} class-0 request {rid}:"
+                                 " tokens differ from main run 1")
+    if len(done) != len(reqs) + N_URGENT or any(
+            c.n_generated != 16 for c in done.values()):
+        raise AssertionError("preempt: not every request finished")
+    print(f"  kv_bits {kv_bits}: {s['n_preempts']} preemptions, evicted "
+          f"requests {sorted(r for r, c in done.items() if c.n_preempts)}, "
+          f"{s['steps']} steps, {s['throughput_tok_s']:.2f} tok/s; class-0 "
+          f"tokens equal main run 1 for all {len(reqs)}")
+    print_stats(f"preempt kv_bits {kv_bits}", s)
+
+
+def phase_overload(torch, np, kernels, lm, tables, reqs, closed, rps):
+    """The open-loop phase's requests at classes i % 2 under
+    `PrioritySLOPolicy(preempt=True, slo_ttft_s=SLO_TTFT_S)`, arriving
+    by the open-loop phase's draw at OPEN_LOOP_RATE times the closed
+    loop's req/s: all complete with their closed-loop tokens; p99 TTFT
+    per class from the completions."""
+    import copy
+
+    from repro_torch.serving import (
+        PrioritySLOPolicy, poisson_arrivals, run_open_loop,
+    )
+
+    eng = make_engine(lm, tables, "cuda", policy=PrioritySLOPolicy(
+        preempt=True, slo_ttft_s=SLO_TTFT_S))
+    eng.warmup()
+    classed = copy.deepcopy(list(reqs))
+    for i, r in enumerate(classed):
+        r.priority = i % 2
+    rate = OPEN_LOOP_RATE * rps
+    arrivals = poisson_arrivals(OPEN_LOOP_N, rate,
+                                np.random.default_rng(SEED + 6))
+    kernels.reset_launch_counts()
+    res = run_open_loop(eng, classed, arrivals, slo_ttft_s=SLO_TTFT_S,
+                        slo_itl_s=SLO_ITL_S)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_path_launches(launches, 8, "overload")
+    print(f"  overload launches {launches}")
+    got = {c.req_id: c for c in res.completions}
+    if sorted(got) != list(range(OPEN_LOOP_N)):
+        raise AssertionError(f"overload completed {sorted(got)}")
+    for i in range(OPEN_LOOP_N):
+        if list(got[i].tokens) != closed[i]:
+            raise AssertionError(f"overload request {i}: tokens differ from "
+                                 "the closed loop's")
+    p99 = {k: float(np.percentile([got[i].ttft for i in got if i % 2 == k],
+                                  99)) for k in (0, 1)}
+    print(f"  overload at {rate:.3f} req/s asked, PrioritySLOPolicy "
+          f"(preempt, aging at {SLO_TTFT_S} s): " + json.dumps(res.to_dict()))
+    print(f"  overload n_preempts {res.n_preempts}; p99 TTFT class 0 "
+          f"{p99[0] * 1e3:.1f} ms, class 1 {p99[1] * 1e3:.1f} ms")
+    print_stats("overload", eng.stats())
+    print(f"  overload tokens equal the closed loop's for all {OPEN_LOOP_N} "
+          "requests")
 
 
 def phase_configs(torch, np, kernels):
-    """Each of CONFIGS at full width and depth, served once on the card:
+    """Each of CONFIGS at full width over its first CONFIG_LAYERS layers,
+    served once on the card:
     8 ragged requests (prompts 17-300, 16 new tokens), kv_bits 8, after
     `warmup()`; the counts are set to 0 just before the run and read
     just after, and every kernel of the path must have launched."""
@@ -908,7 +1215,8 @@ def phase_configs(torch, np, kernels):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         lm, tables = deploy_model(arch, reduced=False, max_seq=MAX_LEN,
-                                  seed=SEED, device="cuda")
+                                  seed=SEED, device="cuda",
+                                  n_layers=CONFIG_LAYERS)
         torch.cuda.synchronize()
         cfg = lm.cfg
         print(f"  deployed {arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
@@ -931,11 +1239,7 @@ def phase_configs(torch, np, kernels):
             raise AssertionError(f"{arch}: not every request finished: {tok}")
         if not all(0 <= t < cfg.vocab for v in tok.values() for t in v):
             raise AssertionError(f"{arch}: a token outside the vocab")
-        path = PATH_KERNELS[8]
-        if any(launches[n] == 0 for n in path) or any(
-                c for n, c in launches.items() if n not in path):
-            raise AssertionError(f"{arch}: launches {launches} are not the "
-                                 f"path's {path}")
+        check_path_launches(launches, 8, arch)
         gemm_site_launches(kernels, cfg, s["steps"], launches["int8_matmul"])
         requant_form_launches(kernels, cfg, s["steps"], launches["requant"])
         print_stats(arch, s)
@@ -1013,13 +1317,7 @@ def serve_twice(torch, kernels, lm, tables, reqs, kv_bits):
     launches = kernels.launch_counts()
     if len(tok1) != len(reqs) or any(len(v) != 16 for v in tok1.values()):
         raise AssertionError(f"not every request finished 16 tokens: {tok1}")
-    path = PATH_KERNELS[kv_bits]
-    if any(launches[n] == 0 for n in path):
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
-    off_path = [n for n, c in launches.items() if c and n not in path]
-    if off_path:
-        raise AssertionError(f"kernels off the path launched: {launches}")
+    check_path_launches(launches, kv_bits, f"kv_bits {kv_bits} run 1")
     gemm_site_launches(kernels, lm.cfg, s1["steps"],
                        launches["int8_matmul"])
     requant_form_launches(kernels, lm.cfg, s1["steps"], launches["requant"])
@@ -1193,13 +1491,23 @@ def main() -> int:
     phase_parity(torch, np)
     t0 = phase_done("entry and parity", t0)
     print("[main] full granite_3_2b on the card")
-    launches, lm, tables = phase_main(torch, np, kernels)
+    launches, lm, tables, reqs, run1 = phase_main(torch, np, kernels)
     t0 = phase_done("main", t0)
     print("[open-loop] granite_3_2b under Poisson arrivals")
-    phase_open_loop(torch, np, kernels, lm, tables)
-    del lm, tables
+    ol_reqs, closed, rps = phase_open_loop(torch, np, kernels, lm, tables)
     t0 = phase_done("open-loop", t0)
-    print("[configs] " + " and ".join(CONFIGS) + " at full width and depth")
+    print("[prefix] granite_3_2b system-prompt workload, cold vs shared")
+    phase_prefix(torch, np, kernels, lm, tables)
+    t0 = phase_done("prefix", t0)
+    print("[preempt] granite_3_2b under PrioritySLOPolicy")
+    for kv_bits in (8, 4):
+        phase_preempt(torch, np, kernels, lm, tables, reqs, run1[kv_bits],
+                      kv_bits)
+    phase_overload(torch, np, kernels, lm, tables, ol_reqs, closed, rps)
+    del lm, tables
+    t0 = phase_done("preempt", t0)
+    print("[configs] " + " and ".join(CONFIGS) + f" at full width, "
+          f"{CONFIG_LAYERS} layers")
     phase_configs(torch, np, kernels)
     phase_done("configs", t0)
     launches["quant_flash_attention"] = entry["quant_flash_attention"]

@@ -7,7 +7,8 @@
 //
 //   scores   s[i, t] = q[b, h, i, :] . k[page(t), h // group, t % ps, :]
 //   logits   x = float(s) * score_scale + (t <= pos[b] + i ? 0 : -1e9)
-//   softmax  one global f32 softmax per query row (max, expf, sum, /)
+//   softmax  one global f32 softmax per query row (max, island_exp, sum,
+//            /)
 //   image    qp = rint(127 * p)      (round half to even, like jnp.round)
 //   out      acc[b, h, i, :] = sum_t qp[i, t] * v[page(t), ..., t % ps, :]
 //
@@ -19,7 +20,10 @@
 // Float island: compiled without fast math and with --fmad=false, and
 // written with explicit __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn, so each
 // logit, exponent and quotient rounds exactly like the plain PyTorch
-// version (torch's CUDA expf is the same libdevice expf).  The row sum
+// version.  The exponent is `island_exp`, the plain version's exp step
+// for step (one rounding an operation), not a library expf: a library
+// exp differs between the card and the CPU, so the CPU's plain image
+// would not be the card's.  The row sum
 // runs in a fixed order that the plain version reproduces (`_lane_sum`):
 // 32 partials, partial l adding the keys t = l (mod 32) in increasing t,
 // then a xor butterfly over the partials (offsets 16, 8, 4, 2, 1).  So
@@ -47,7 +51,8 @@
 //           order), combined over the row tile's warps in shared
 //           memory.  KEEP: the logits stay in shared memory (f32, the
 //           block's rows below M over T);
-//   pass 1  p = expf(x - max), and the row sum in `_lane_sum`'s order:
+//   pass 1  p = island_exp(x - max), and the row sum in `_lane_sum`'s
+//           order:
 //           the warp that owns a row (16 / WC rows a warp) adds, lane l
 //           to partial l, column l of each 32-key chunk, chunk after
 //           chunk, then the butterfly.  The 32 partials are independent,
@@ -66,8 +71,8 @@
 //           is exact.  The WC warps' int32 partial products are added at
 //           the end.
 // KEEP loads each K and V tile once (pass 0, pass 2) and takes one
-// expf a score; without it (long T: the logits do not fit) K is read
-// in every pass and expf taken twice.  K and V pages come by cp.async
+// exp a score; without it (long T: the logits do not fit) K is read
+// in every pass and exp taken twice.  K and V pages come by cp.async
 // into a ring of `stages` tiles through the page table (clamped to the
 // pool for memory safety); a page of one kv head is one contiguous
 // ps * row run.  A warp whose tile has no valid row g + 8 (decode)
@@ -108,13 +113,13 @@
 // the block loads and scores keys t < min(T, pos[b] + i_max + 1) only,
 // i_max its last row's i.  That is bit-equal to scoring all T keys
 // while every masked logit lands at least ~104 below the row max, so
-// that expf gives 0.0f (adding 0.0f leaves a partial as it is, the
+// that island_exp gives 0.0f (adding 0.0f leaves a partial as it is, the
 // image is 0, P.V gains nothing) and no masked logit is the max.  With
 // A = |score_scale| * 128 * 128 * hd, every logit of a visible key lies
 // in [-A', A'], A' = A (1 + 2^-24) (one rounding of the product); a
 // masked one is fl(x - 1e9) <= A' - 1e9 + 32 (half an ulp below 2^30);
 // key 0 is visible to every row (pos >= 0), so the max is >= -A'; the
-// difference rounds to at most 2 A' - 1e9 + 64.  expf of anything
+// difference rounds to at most 2 A' - 1e9 + 64.  island_exp of anything
 // below -104 is 0.0f, so 2 A' + 168 < 1e9, i.e. A < ~4.9999988e8, is
 // enough; the kernel stops only while A <= kStopGuard = 4.9e8, read
 // on the device from *score_scale (the engine's scale is a device
@@ -126,7 +131,7 @@
 // one read of a slot's K and V up to its horizon, is 15-30x below its
 // time) and not the tensor cores, but how many of its dependent steps
 // an SM overlaps: each block runs a chain of ring waits, barriers and
-// the exact island (accurate expf, IEEE division; about 50
+// the exact island (island_exp, IEEE division; about 50
 // lane-instructions a visible score with the logits kept and 90
 // recomputed, an estimate from the source), with 16 warps an SM.  Blocks
 // of 32 rows halve the chunked-prefill grid to one wave and share each
@@ -205,6 +210,31 @@ __device__ __forceinline__ float int_to_float(int s) {  // |s| < 2^22
 // (rint), and for 0 <= y < 256 that integer is the low byte of the bits.
 __device__ __forceinline__ uint32_t rint_bits(float y) {  // 0 <= y < 256
   return (uint32_t)__float_as_int(__fadd_rn(y, kMagic));
+}
+
+// exp(x) for x <= 0, as `kernels.paged_attention.island_exp` computes it
+// (Cephes' expf): k = rint(x log2 e), r = x - k C1 - k C2 (C1 has 9
+// significant bits, so k C1 is exact), e^r = 1 + r + r^2 P(r) in Horner
+// form, times 2^k in two exact powers of two (one rounding, subnormals
+// included), and 0 below -104.  Every step one float32 operation
+// rounded to nearest: the plain version's result on any device.
+__device__ __forceinline__ float island_exp(float x) {
+  if (x < -104.0f) return 0.0f;
+  const float k = rintf(__fmul_rn(x, 0x1.715476p+0f));
+  const float r = __fsub_rn(__fsub_rn(x, __fmul_rn(k, 0x1.63p-1f)),
+                            __fmul_rn(k, -0x1.bd0106p-13f));
+  float p = 0x1.a0d2cep-13f;
+  p = __fadd_rn(__fmul_rn(p, r), 0x1.6e879cp-10f);
+  p = __fadd_rn(__fmul_rn(p, r), 0x1.111210p-7f);
+  p = __fadd_rn(__fmul_rn(p, r), 0x1.555382p-5f);
+  p = __fadd_rn(__fmul_rn(p, r), 0x1.555554p-3f);
+  p = __fadd_rn(__fmul_rn(p, r), 0x1p-1f);
+  const float y =
+      __fadd_rn(__fadd_rn(__fmul_rn(p, __fmul_rn(r, r)), r), 1.0f);
+  const int ki = (int)k;
+  const int k1 = ki >> 1;  // floor(k / 2): k <= 0
+  return __fmul_rn(__fmul_rn(y, __int_as_float((k1 + 127) << 23)),
+                   __int_as_float((ki - k1 + 127) << 23));
 }
 
 // the low bytes of four rint_bits as one A-fragment register
@@ -447,7 +477,7 @@ __device__ __forceinline__ void paged_attn_mma(PA_PARAMS) {
     }
     if (KEEP && j == 0 && pass == 2) {
       // ---- pass 1 from shared memory, by the warp that owns a row:
-      // p = expf(x - max) in place over the 32-key chunks below lim,
+      // p = island_exp(x - max) in place over the 32-key chunks below lim,
       // lane l adding column l of each chunk to the row's partial l,
       // chunk after chunk (0 past lim and in rows past M: adding it is
       // exact, and those rows' sums and images are never stored)
@@ -466,7 +496,7 @@ __device__ __forceinline__ void paged_attn_mma(PA_PARAMS) {
 #pragma unroll 4
           for (int key = 0; key < L; key += 32) {
             const float p = valid && key + lane < lim
-                                ? expf(__fsub_rn(row[key], m))
+                                ? island_exp(__fsub_rn(row[key], m))
                                 : 0.0f;
             row[key] = p;
             part = __fadd_rn(part, p);
@@ -610,8 +640,8 @@ __device__ __forceinline__ void paged_attn_mma(PA_PARAMS) {
           const int key = key0 + 8 * n + 2 * t + (e & 1);
           p[e] = 0.0f;
           if (live && e < ne && key < lim)
-            p[e] = expf(__fsub_rn(logit(sc[n][e], key, e < 2 ? pa : pb),
-                                  e < 2 ? m0 : m1));
+            p[e] = island_exp(__fsub_rn(
+                logit(sc[n][e], key, e < 2 ? pa : pb), e < 2 ? m0 : m1));
         }
         *(float2*)(lg + la * LST + col0 + 8 * n) = make_float2(p[0], p[1]);
         *(float2*)(lg + lb * LST + col0 + 8 * n) = make_float2(p[2], p[3]);
@@ -650,8 +680,8 @@ __device__ __forceinline__ void paged_attn_mma(PA_PARAMS) {
           for (int e = 0; e < 4; ++e) {
             const int key = key0 + 8 * n + 2 * t + (e & 1);
             if (e < ne && key < lim)
-              p[e] = expf(__fsub_rn(logit(sc[n][e], key, e < 2 ? pa : pb),
-                                    e < 2 ? m0 : m1));
+              p[e] = island_exp(__fsub_rn(
+                  logit(sc[n][e], key, e < 2 ? pa : pb), e < 2 ? m0 : m1));
           }
         }
 #pragma unroll

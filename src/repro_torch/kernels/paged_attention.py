@@ -15,9 +15,13 @@ hd) view through the table, integer scores, -1e9 additive causal mask,
 one global f32 softmax per row, round(127 p) to the int8 image, integer
 P.V.  The integer products run in float64, exact at these ranges
 (|terms| <= 2^14, T*hd far below 2^39).  The row sum of the softmax is
-taken in the kernel's order (`_lane_sum`), so on the card the plain
-image equals the kernel's bit for bit; the reference leaves that order
-to XLA.
+taken in the kernel's order (`_lane_sum`), and its exponent is
+`island_exp`, a fixed sequence of float32 operations each rounded once,
+which the kernel repeats step for step; so the plain image equals the
+kernel's bit for bit, and the plain version gives the same image on
+the CPU as on the card (a library exp differs between the two on a few
+percent of inputs).  The reference leaves that order and its exp to
+XLA.
 
 Int4-packed pool mode (the reference's `packed` kernel mode, kv_bits
 4): pools (n_pages + 1, K, ps, hd/2) int8, two int4 nibbles per cell
@@ -63,6 +67,45 @@ _LANES = 32  # the row sum's partials (`_lane_sum`)
 STOP_GUARD = 4.9e8
 # check_image: share of the image's entries that may move by one quantum
 MOVED_SHARE = 1e-5
+
+
+# island_exp's float32 constants, exact (hex; the CUDA source spells
+# the same hex literals): Cephes' expf, log2(e), ln 2 split in two (C1
+# has 9 significant bits, so k * C1 is exact for |k| < 2^15), and the
+# polynomial P with e^r ~ 1 + r + r^2 P(r) on |r| <= ln(2) / 2,
+# highest power first
+_LOG2E = float.fromhex("0x1.715476p+0")
+_LN2_C1, _LN2_C2 = float.fromhex("0x1.63p-1"), float.fromhex("-0x1.bd0106p-13")
+_EXP_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.a0d2cep-13", "0x1.6e879cp-10", "0x1.111210p-7", "0x1.555382p-5",
+    "0x1.555554p-3", "0x1p-1"))
+# below this island_exp gives 0.0 (the horizon stop's premise)
+EXP_ZERO_BELOW = -104.0
+
+
+def island_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor x <= 0 as the kernel's `island_exp`
+    computes it: k = rint(x log2 e), r = x - k C1 - k C2, e^r by a
+    degree-7 polynomial in Horner form, times 2^k in two exact-power
+    steps (one rounding, subnormals included), 0 below -104.  Every
+    step is one IEEE float32 operation rounded to nearest, so the result
+    is the same on every device; within 1 ulp of the exact value."""
+    f32 = torch.float32
+    x = x.to(f32)
+
+    def c(v):
+        return torch.tensor(v, dtype=f32, device=x.device)
+
+    k = torch.round(x * c(_LOG2E))
+    r = (x - k * c(_LN2_C1)) - k * c(_LN2_C2)
+    p = c(_EXP_POLY[0])
+    for coef in _EXP_POLY[1:]:
+        p = p * r + c(coef)
+    y = (p * (r * r) + r) + c(1.0)
+    ki = k.to(torch.int32)
+    k1 = torch.div(ki, 2, rounding_mode="floor")
+    y = (y * ((k1 + 127) << 23).view(f32)) * ((ki - k1 + 127) << 23).view(f32)
+    return torch.where(x < EXP_ZERO_BELOW, torch.zeros_like(y), y)
 
 
 def _lane_sum(p: torch.Tensor) -> torch.Tensor:
@@ -205,7 +248,7 @@ def attention_probs(q, k_pool, table, pos, score_scale, *, group: int = 1):
     keep = k_pos[None, None, :] <= q_pos[:, :, None]     # (B, S, T)
     lg = lg + torch.where(keep, 0.0, NEG_INF)[:, None]
     m = lg.amax(dim=-1, keepdim=True)
-    p = torch.exp(lg - m)
+    p = island_exp(lg - m)
     return p / _lane_sum(p)
 
 

@@ -19,8 +19,12 @@ into goodput and the sustained verdict (`serving.loadgen`).
 `--trace-out`, `--metrics-out` and `--profile-annotations` each turn
 telemetry on: the JSONL request trace, the per-step phase metrics, and
 `torch.profiler.record_function` ranges around each dispatch.
-`--shared-prefix N` gives every request the same N-token prefix (the
-workload's shape only: the port has no prefix cache yet).
+`--shared-prefix N` gives every request the same N-token prefix (a
+system-prompt workload), which `--prefix-cache` shares page by page
+(`--cache-keep-pages` keeps released prefix pages warm).  `--policy
+priority` serves by `Request.priority` with preemption
+(`PrioritySLOPolicy`; with `--slo-ttft-p99 S` pending requests older
+than S jump the order).
 
 Example (on the card; add --reduced --device cpu for a CPU smoke run,
 --kv-bits 4 for int4-packed KV pools):
@@ -32,8 +36,10 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -42,17 +48,21 @@ from repro_torch.layers.common import DeployCtx
 from repro_torch.models.lm import DecoderLM, load_layer, tree_to_torch
 from repro_torch.serving import (
     Request, SchedulerConfig, ServingConfig, ServingEngine, Telemetry,
-    poisson_arrivals, run_open_loop, shared_prefix_workload,
+    make_policy, poisson_arrivals, run_open_loop, shared_prefix_workload,
 )
 
 
 def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", n_layers: Optional[int] = None):
     """-> (lm, tables on `device`), equal to
-    `tables_from_numpy(lm.deploy(lm.init_np(seed)), device)`."""
+    `tables_from_numpy(lm.deploy(lm.init_np(seed)), device)`.
+    `n_layers` cuts the depth (the first n layers of the config, at its
+    full width; None: all of them)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     lm = DecoderLM(cfg, max_seq=max_seq)
     ctx = DeployCtx(calib=None)
     t_embed, eps_x = lm.deploy_embed(ctx, lm.init_embed_np(seed))
@@ -117,10 +127,21 @@ def main(argv=None):
                     help="KV storage width: 8 = int8 KV images; 4 = two "
                     "int4 nibbles per pool cell (half the pool bytes, "
                     "lossy against int8 KV)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="refcounted prefix caching with copy-on-write "
+                    "page sharing")
+    ap.add_argument("--cache-keep-pages", type=int, default=0,
+                    help="warm-page budget: registered pages kept after "
+                    "their last reference drops, evicted LRU under "
+                    "pressure (0: evict at once; needs --prefix-cache)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="give every request the SAME random prefix of "
-                    "this many tokens (a system-prompt workload; 0: "
-                    "independent prompts)")
+                    "this many tokens (a system-prompt workload, what "
+                    "--prefix-cache shares; 0: independent prompts)")
+    ap.add_argument("--policy", default="fcfs", choices=("fcfs", "priority"),
+                    help="scheduling policy: fcfs serves in arrival "
+                    "order; priority ranks admission by request class "
+                    "and preempts lower-class work")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="open-loop Poisson arrival rate in requests/s "
                     "(0: closed loop, submit everything and drain)")
@@ -157,6 +178,12 @@ def main(argv=None):
         n_slots=args.slots, max_len=max_len, page_size=args.page_size,
         n_pages=args.pages or None, device=args.device,
         kv_bits=args.kv_bits, telemetry=tel,
+        prefix_cache=args.prefix_cache,
+        cache_keep_pages=args.cache_keep_pages,
+        policy=make_policy(
+            args.policy,
+            **({"slo_ttft_s": args.slo_ttft_p99}
+               if args.policy == "priority" and args.slo_ttft_p99 else {})),
         scheduler=SchedulerConfig(prefill_chunk=args.prefill_chunk)))
     engine.warmup()  # both dispatch widths, before the measured window
     rng = np.random.default_rng(args.seed)
@@ -199,7 +226,8 @@ def main(argv=None):
           f"prefill {s['mean_prefill_s'] * 1e3:.0f} ms, "
           f"decode {s['mean_decode_s'] * 1e3:.0f} ms "
           f"(admit rejects {s['admit_rejects']}, occupancy "
-          f"{s['mean_occupancy']:.2f}, policy {s['policy']})")
+          f"{s['mean_occupancy']:.2f}, policy {s['policy']}, preempts "
+          f"{s['n_preempts']})")
     if open_loop is not None:
         o = open_loop
         print(f"  open loop: offered {o.offered_qps:.2f} req/s, goodput "

@@ -1,6 +1,8 @@
 """Continuous-batching integer serving over the paged arena (port of
-`repro.serving`: the default FCFS / synchronous / chunked path, int8
-or int4-packed KV, telemetry and the open-loop load generator)."""
+`repro.serving`: the synchronous chunked path, int8 or int4-packed KV,
+the prefix cache with copy-on-write and warm pages, FCFS and
+`PrioritySLOPolicy` with bit-exact preemption, telemetry and the
+open-loop load generator)."""
 from repro_torch.layers.attention import INACTIVE_POS, PAGE_NULL
 from repro_torch.serving.cache import PagedArena
 from repro_torch.serving.config import ServingConfig
@@ -10,8 +12,9 @@ from repro_torch.serving.loadgen import (
     trace_arrivals,
 )
 from repro_torch.serving.policy import (
-    EngineView, FCFSPolicy, SchedulingPolicy, StepPlan,
+    EngineView, FCFSPolicy, PrioritySLOPolicy, SchedulingPolicy, StepPlan,
+    make_policy,
 )
-from repro_torch.serving.request import Completion, Request
+from repro_torch.serving.request import Completion, Request, ResumeState
 from repro_torch.serving.scheduler import SchedulerConfig, Scheduler
 from repro_torch.serving.telemetry import NULL, NullTelemetry, Telemetry

@@ -1,5 +1,5 @@
-"""Paged KV arena (port of `repro.serving.cache.PagedArena`, without the
-prefix cache, warm pages, copy-on-write and sharding).
+"""Paged KV arena (port of `repro.serving.cache.PagedArena` with its
+prefix cache; without sharding).
 
 At kv_bits 4 the pools are int4-packed: each K/V leaf's trailing
 head_dim axis is halved (two nibbles per int8 cell, both of one
@@ -12,15 +12,28 @@ allocation mid-decode can never fail; physical pages are allocated
 lazily (`touch` / `touch_range`) as the request writes and recycled
 wholesale on `release`.
 
-Host bookkeeping (free lists, page table, lengths, commitments) is
-numpy and Python, as in the reference.  The pools are torch tensors on
-the serving device, laid out per `models.lm.DecoderLM.init_pools`, and
-the dispatch writes them in place; `decode_view()` hands them out with
-the page table copied to the device.
+`prefix_cache=True` adds refcounted page sharing: a trie keyed by the
+bytes of each full page's tokens, chained from the root, maps token
+prefixes to physical pages.  Admission installs the longest registered
+match into the new slot's table row and charges only the unshared
+suffix; `touch` copies a shared or registered page into a private one
+before the first write into it (copy-on-write); pages whose last
+reference drops stay WARM (registered, refcount 0) under the
+`keep_pages` budget and are evicted LRU when a pop needs them.  The
+invariant `committed_pages + pinned_cache_pages <= n_pages` keeps every
+future pop covered by free plus warm pages.
+
+Host bookkeeping (free lists, page table, lengths, commitments,
+refcounts, the trie) is numpy and Python, as in the reference.  The
+pools are torch tensors on the serving device, laid out per
+`models.lm.DecoderLM.init_pools`, and the dispatch writes them in
+place; `decode_view()` hands them out with the page table copied to
+the device.  The copy-on-write page copy is torch indexing on both
+pools, enqueued on the device before the dispatch that follows it.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,9 +41,26 @@ import torch
 from repro_torch.layers.attention import PAGE_NULL
 
 
+class _PrefixNode:
+    """One registered full page of prefix content (a trie node), keyed
+    in its parent's `children` by the raw bytes of the page's int32
+    tokens.  Reaching a node at depth d certifies the token prefix
+    [0, (d + 1) * page_size) byte for byte, which is exactly what the
+    KV image of that page depends on."""
+
+    __slots__ = ("parent", "key", "page", "children")
+
+    def __init__(self, parent, key: bytes, page: int):
+        self.parent = parent
+        self.key = key
+        self.page = page
+        self.children: dict = {}
+
+
 class PagedArena:
     def __init__(self, lm, n_slots: int, max_len: int, page_size: int = 16,
-                 n_pages: int = 64, *, device="cuda", kv_bits: int = 8):
+                 n_pages: int = 64, *, device="cuda", kv_bits: int = 8,
+                 prefix_cache: bool = False, keep_pages: int = 0):
         if max_len > lm.max_seq:
             raise ValueError(
                 f"max_len {max_len} exceeds model max_seq {lm.max_seq}")
@@ -60,6 +90,26 @@ class PagedArena:
         self.max_pages_in_use = 0
         self.max_committed = 0
 
+        # prefix cache: refcounts count table-row references per page
+        # (kept with the cache off too); the trie maps full-page token
+        # content to pages; _warm holds registered refcount-0 pages in
+        # LRU (insertion) order
+        self.prefix_cache = bool(prefix_cache)
+        self.keep_pages = int(keep_pages)
+        self.refcount = np.zeros(n_pages + 1, np.int32)
+        self._trie_root = _PrefixNode(None, b"", PAGE_NULL)
+        self._page_node: dict = {}  # physical page -> _PrefixNode
+        self._warm: dict = {}  # page -> None, LRU by insertion
+        self._slot_node: List[_PrefixNode] = [self._trie_root] * n_slots
+        self._slot_registered = np.zeros(n_slots, np.int32)
+        self.shared_at_admit = np.zeros(n_slots, np.int32)
+        self.on_cow = None  # engine hook: fn(slot, old_page, new_page)
+        self.prefix_hits = 0  # admissions that matched >= 1 page
+        self.prefix_misses = 0  # cache-eligible admissions, no match
+        self.prefix_hit_pages = 0  # pages served without recompute
+        self.cow_splits = 0
+        self.warm_evictions = 0
+
     # -- page accounting ------------------------------------------------
     def _pages_for(self, total_len: int) -> int:
         """Worst-case pages for a request writing [0, total_len - 1)."""
@@ -82,19 +132,87 @@ class PagedArena:
         return len(self._free_pages)
 
     @property
+    def cache_pages(self) -> int:
+        """Pages the prefix cache owns (registered in the trie)."""
+        return len(self._page_node)
+
+    @property
+    def warm_pages(self) -> int:
+        """Registered pages no slot references, evictable on demand."""
+        return len(self._warm)
+
+    @property
+    def pinned_cache_pages(self) -> int:
+        """Registered pages some slot still references."""
+        return len(self._page_node) - len(self._warm)
+
+    @property
     def budget_left(self) -> int:
-        return self.n_pages - self.committed_pages
+        """Uncommitted pages: warm pages count as available, pinned
+        cache pages do not."""
+        return self.n_pages - self.committed_pages - self.pinned_cache_pages
 
     def pages_needed(self, total_len: int) -> int:
         return self._pages_for(total_len)
 
-    def can_admit(self, prompt_len: int, total_len: int) -> bool:
+    def _match_node(self, tokens) -> Tuple[List[int], _PrefixNode]:
+        """The physical pages of the longest registered full-page prefix
+        of `tokens`, and the deepest node matched."""
+        toks = np.asarray(tokens, np.int32)
+        node = self._trie_root
+        pages: List[int] = []
+        ps = self.page_size
+        for blk in range(toks.size // ps):
+            child = node.children.get(toks[blk * ps:(blk + 1) * ps].tobytes())
+            if child is None:
+                break
+            pages.append(child.page)
+            node = child
+        return pages, node
+
+    def _discount(self, matched: int, prompt_len: int) -> int:
+        """Commit discount for `matched` shared pages of a
+        `prompt_len`-token source.  When the match covers the whole
+        source, its last position is still recomputed (its logits seed
+        decode) inside the last shared page, which copy-on-writes into a
+        private page: that one stays in the request's own budget."""
+        if matched == 0:
+            return 0
+        if matched * self.page_size < prompt_len:
+            return matched
+        return matched - 1
+
+    def admit_cost(self, total_len: int, tokens=None) -> int:
+        """Pages a request must bring of its own: the worst case minus
+        the shared-prefix discount."""
+        need = self._pages_for(total_len)
+        if tokens is None or not self.prefix_cache:
+            return need
+        matched, _ = self._match_node(tokens)
+        return need - self._discount(len(matched), len(tokens))
+
+    def committed_for(self, slot: int) -> int:
+        """Pages committed to `slot`'s lease (returned to the budget if
+        a policy preempts it); shrinks as its pages are registered."""
+        return int(self._commit[slot])
+
+    def can_admit(self, prompt_len: int, total_len: int,
+                  tokens=None) -> bool:
         """A free decode row AND uncommitted budget for the request's
-        own worst case."""
+        own worst case.  With `tokens` and the prefix cache on it is
+        charged only its unshared suffix, plus the matched pages that
+        are warm now (`revive`): installed, they stop being
+        evictable."""
         if not self._free_slots:
             return False
-        return (self.committed_pages + self._pages_for(total_len)
-                <= self.n_pages)
+        need = self._pages_for(total_len)
+        revive = 0
+        if self.prefix_cache and tokens is not None:
+            matched, _ = self._match_node(tokens)
+            need -= self._discount(len(matched), len(tokens))
+            revive = sum(1 for p in matched if p in self._warm)
+        return (self.committed_pages + self.pinned_cache_pages + revive
+                + need <= self.n_pages)
 
     def check_request(self, prompt_len: int, total_len: int):
         need = self._pages_for(total_len)
@@ -107,39 +225,128 @@ class PagedArena:
         return "no_slot" if not self._free_slots else "no_pages"
 
     # -- lifecycle ------------------------------------------------------
+    def _pop_page(self) -> int:
+        """A free page, evicting the LRU warm page when none is free."""
+        if not self._free_pages:
+            if not self._warm:
+                raise RuntimeError(
+                    "page pool exhausted despite commitment accounting")
+            self._evict_warm(next(iter(self._warm)))
+        return self._free_pages.pop()
+
+    def _evict_warm(self, page: int):
+        """Unregister and free one warm page.  Deeper nodes under it
+        become unreachable from the root and age out on their own."""
+        del self._warm[page]
+        node = self._page_node.pop(page)
+        if node.parent is not None:
+            node.parent.children.pop(node.key, None)
+        self._free_pages.append(page)
+        self.warm_evictions += 1
+
+    def _retire(self, page: int):
+        """A registered page's last reference dropped: keep it warm under
+        the keep budget (LRU by retirement order)."""
+        self._warm[page] = None
+        while len(self._warm) > self.keep_pages:
+            self._evict_warm(next(iter(self._warm)))
+
     def alloc(self, req_id: int, prompt_len: int,
-              total_len: Optional[int] = None, written: int = 0) -> int:
+              total_len: Optional[int] = None, written: int = 0,
+              tokens=None) -> int:
         """Lease a slot + commit the page budget; allocate pages for the
         `written` positions materialized at admission (0 on the chunked
-        path, whose pages arrive chunk by chunk via touch_range)."""
+        path, whose pages arrive chunk by chunk via touch_range).
+
+        `tokens` (prefix cache, `written` 0): the request's source.  The
+        longest registered full-page prefix is installed into the slot's
+        table row, refcounted and charged to the cache ledger, and
+        `lengths[slot]` says how many leading positions admission made
+        valid (at most prompt_len - 1: the last source position is
+        always recomputed); the engine starts its chunk cursor there."""
         total_len = prompt_len if total_len is None else total_len
-        if not self.can_admit(prompt_len, total_len):
+        use = (tokens if self.prefix_cache and tokens is not None
+               and written == 0 else None)
+        if not self.can_admit(prompt_len, total_len, tokens=use):
             raise RuntimeError("out of slots or page budget")
         slot = self._free_slots.pop()
         self.owner[slot] = req_id
-        need = self._pages_for(total_len)
+        if use is not None:
+            shared, node = self._match_node(use)
+            need = self._pages_for(total_len) - self._discount(
+                len(shared), len(use))
+        else:
+            shared, node = [], self._trie_root
+            need = self._pages_for(total_len)
         self._commit[slot] = need
         self.committed_pages += need
         self.max_committed = max(self.max_committed, self.committed_pages)
-        self.lengths[slot] = written
-        for blk in range(-(-written // self.page_size)):
-            self.page_table[slot, blk] = self._pop_page()
+        # install the shared prefix; warm pages are revived (pinned)
+        for blk, page in enumerate(shared):
+            self.page_table[slot, blk] = page
+            self.refcount[page] += 1
+            self._warm.pop(page, None)
+        if self.prefix_cache:
+            self._slot_node[slot] = node
+            self._slot_registered[slot] = len(shared)
+            self.shared_at_admit[slot] = len(shared)
+            if use is not None:
+                if shared:
+                    self.prefix_hits += 1
+                    self.prefix_hit_pages += len(shared)
+                else:
+                    self.prefix_misses += 1
+        materialized = (min(len(shared) * self.page_size, prompt_len - 1)
+                        if shared else written)
+        self.lengths[slot] = materialized
+        for blk in range(len(shared), -(-materialized // self.page_size)):
+            page = self._pop_page()
+            self.page_table[slot, blk] = page
+            self.refcount[page] = 1
         self.max_pages_in_use = max(self.max_pages_in_use, self.pages_in_use)
         return slot
 
-    def _pop_page(self) -> int:
-        if not self._free_pages:
-            raise RuntimeError(
-                "page pool exhausted despite commitment accounting")
-        return self._free_pages.pop()
-
     def touch(self, slot: int, pos: int):
-        """Allocate the page holding `pos` before a write there."""
+        """Allocate the page holding `pos` before a write there; a page
+        that is shared (refcount > 1) or registered is first split by
+        copy-on-write, so a dispatch only ever writes pages its row
+        owns alone."""
         blk = pos // self.page_size
-        if int(self.page_table[slot, blk]) != PAGE_NULL:
+        page = int(self.page_table[slot, blk])
+        if page != PAGE_NULL:
+            if self.prefix_cache and (self.refcount[page] > 1
+                                      or page in self._page_node):
+                self._cow(slot, blk, page)
             return
-        self.page_table[slot, blk] = self._pop_page()
+        new = self._pop_page()
+        self.page_table[slot, blk] = new
+        self.refcount[new] = 1
         self.max_pages_in_use = max(self.max_pages_in_use, self.pages_in_use)
+
+    def _copy_page(self, src: int, dst: int):
+        """pool[dst] <- pool[src] on both pools, in place."""
+        for pool in (self.caches["k"], self.caches["v"]):
+            pool[:, dst] = pool[:, src]
+
+    def _cow(self, slot: int, blk: int, old: int):
+        """Copy-on-write split of `slot`'s logical block `blk`.  The pop
+        is covered by the slot's commit: under the engine the only split
+        is the re-prefill of the last position of a page-aligned exact
+        match, whose page `_discount` left in the request's budget."""
+        new = self._pop_page()
+        self._copy_page(old, new)
+        self.page_table[slot, blk] = new
+        self.refcount[new] = 1
+        self.refcount[old] -= 1
+        if self.refcount[old] == 0:
+            if old in self._page_node:
+                self._retire(old)
+            else:  # unshared and unregistered: a plain free
+                self._free_pages.append(old)
+        self.cow_splits += 1
+        self.max_pages_in_use = max(self.max_pages_in_use, self.pages_in_use)
+        if self.on_cow is not None:
+            self.on_cow(slot, old, new)
 
     def touch_range(self, slot: int, start: int, end: int):
         """Allocate every page covering positions [start, end)."""
@@ -149,30 +356,93 @@ class PagedArena:
                          (end - 1) // self.page_size + 1):
             self.touch(slot, blk * self.page_size)
 
-    def release(self, slot: int):
-        """Recycle the slot and all its pages; uncommit its budget."""
+    def release_pages(self, slot: int) -> List[int]:
+        """Drop every page reference of `slot` and point its table row
+        back at PAGE_NULL, without ending the lease: pages no other row
+        shares are freed, or kept warm if registered.  -> the freed
+        page ids."""
         if self.owner[slot] is None:
             raise RuntimeError(f"slot {slot} is not leased")
+        freed = []
         for blk in range(self.pages_per_slot):
             page = int(self.page_table[slot, blk])
-            if page != PAGE_NULL:
-                self._free_pages.append(page)
-                self.page_table[slot, blk] = PAGE_NULL
+            if page == PAGE_NULL:
+                continue
+            self.page_table[slot, blk] = PAGE_NULL
+            self.refcount[page] -= 1
+            if self.refcount[page] > 0:
+                continue  # other rows still share it
+            if page in self._page_node:
+                self._retire(page)
+                continue
+            self._free_pages.append(page)
+            freed.append(page)
         self.lengths[slot] = 0
+        if self.prefix_cache:
+            self._slot_node[slot] = self._trie_root
+            self._slot_registered[slot] = 0
+            self.shared_at_admit[slot] = 0
+        return freed
+
+    def release(self, slot: int):
+        """Recycle the slot and all its pages; uncommit its budget."""
+        self.release_pages(slot)
         self.owner[slot] = None
         self.committed_pages -= int(self._commit[slot])
         self._commit[slot] = 0
         self._free_slots.append(slot)
 
+    def register_prefix(self, slot: int, tokens, upto: int):
+        """Publish `slot`'s FULL pages covering positions [0, upto) to
+        the prefix cache, moving each newly registered page from the
+        slot's commit to the cache ledger.  Idempotent per slot (a block
+        cursor); where another slot registered the same content first,
+        its pages win and this slot's stay private.  No-op with the
+        cache off."""
+        if not self.prefix_cache or self.owner[slot] is None:
+            return
+        nblk = min(int(upto) // self.page_size, self.pages_per_slot)
+        cur = int(self._slot_registered[slot])
+        if nblk <= cur:
+            return
+        toks = np.asarray(tokens, np.int32)
+        ps = self.page_size
+        node = self._slot_node[slot]
+        for blk in range(cur, nblk):
+            key = toks[blk * ps:(blk + 1) * ps].tobytes()
+            child = node.children.get(key)
+            if child is None:
+                page = int(self.page_table[slot, blk])
+                child = _PrefixNode(node, key, page)
+                node.children[key] = child
+                self._page_node[page] = child
+                self._commit[slot] -= 1  # slot-paid -> cache-paid
+                self.committed_pages -= 1
+            node = child
+        self._slot_node[slot] = node
+        self._slot_registered[slot] = nblk
+
+    def flush_cache(self) -> int:
+        """Evict every warm page now.  -> the number evicted."""
+        n = 0
+        while self._warm:
+            self._evict_warm(next(iter(self._warm)))
+            n += 1
+        return n
+
     def advance(self, slot: int, n: int = 1):
         self.lengths[slot] += n
 
     def reset_peaks(self):
-        """Restart the page high-water marks from the current state
-        (`ServingEngine.reset_stats`: a warmup window's peaks must not
-        leak into the measured window's report)."""
+        """Restart the page high-water marks and the prefix counters from
+        the current state (`ServingEngine.reset_stats`)."""
         self.max_pages_in_use = self.pages_in_use
         self.max_committed = self.committed_pages
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_hit_pages = 0
+        self.cow_splits = 0
+        self.warm_evictions = 0
 
     # -- telemetry ------------------------------------------------------
     def span_pages(self, slot: int, start: int, end: int) -> list:
@@ -188,7 +458,7 @@ class PagedArena:
     def gauges(self) -> dict:
         """Instantaneous occupancy and page pressure, sampled into each
         telemetry step record (host counters only)."""
-        return {
+        out = {
             "n_leased": self.n_leased,
             "n_free": self.n_free,
             "occupancy": self.n_leased / self.n_slots,
@@ -197,6 +467,10 @@ class PagedArena:
             "committed_pages": self.committed_pages,
             "max_pages_in_use": self.max_pages_in_use,
         }
+        if self.prefix_cache:
+            out["cache_pages"] = self.cache_pages
+            out["warm_pages"] = self.warm_pages
+        return out
 
     # -- device view ----------------------------------------------------
     def decode_view(self) -> dict:
@@ -210,7 +484,7 @@ class PagedArena:
         return {"k": self.caches["k"], "v": self.caches["v"], "table": table}
 
     def stats(self) -> dict:
-        return {
+        out = {
             "arena": "paged",
             "arena_positions": self.n_pages * self.page_size,
             "page_size": self.page_size,
@@ -223,3 +497,16 @@ class PagedArena:
             "max_pages_in_use": self.max_pages_in_use,
             "max_committed_pages": self.max_committed,
         }
+        if self.prefix_cache:
+            out.update({
+                "prefix_cache": True,
+                "cache_keep_pages": self.keep_pages,
+                "cache_pages": self.cache_pages,
+                "warm_pages": self.warm_pages,
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefix_hit_pages": self.prefix_hit_pages,
+                "cow_splits": self.cow_splits,
+                "warm_evictions": self.warm_evictions,
+            })
+        return out

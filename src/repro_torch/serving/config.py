@@ -1,7 +1,7 @@
 """`ServingConfig`: the engine's validated construction record (port of
-`repro.serving.config`, cut to the port's path: the paged arena, FCFS,
-synchronous chunked dispatch, int8 or int4-packed KV, and the
-telemetry sink).
+`repro.serving.config`, cut to the port's path: the paged arena, a
+scheduling policy, synchronous chunked dispatch, int8 or int4-packed
+KV, the prefix cache, and the telemetry sink).
 
 `kv_bits` is the KV storage width: 8 keeps the int8 KV images, 4 packs
 two int4 nibbles per pool cell (half the pool bytes, per-kv-head
@@ -13,6 +13,15 @@ has only those, so the one check left is the value
 `device` places the KV pools and every dispatch; it defaults to
 ``"cuda"``.  Tables handed to the engine must already live there
 (`models.lm.tables_from_numpy(..., device)`).
+
+`prefix_cache` turns on refcounted page sharing across requests
+(a content-keyed trie of full pages, suffix-only admission,
+copy-on-write); `cache_keep_pages` is its warm-page budget: registered
+pages kept resident (refcount 0, evicted LRU on demand) after their
+last holder releases them, so a later shared-prefix admission or a
+preemption's resume reuses them without recompute (0: evict at once).
+The reference also requires the paged arena for both; the port has
+only that arena.
 
 `telemetry` is the engine's observability sink
 (`serving.telemetry.Telemetry`); None gives the no-op `NULL`.
@@ -40,6 +49,8 @@ class ServingConfig:
     device: str = "cuda"
     kv_bits: int = 8
     telemetry: Any = None  # None -> serving.telemetry.NULL
+    prefix_cache: bool = False
+    cache_keep_pages: int = 0  # warm-page budget (needs prefix_cache)
 
     def __post_init__(self):
         if self.n_slots < 1:
@@ -53,5 +64,11 @@ class ServingConfig:
             self.n_pages = -(-(self.n_slots * self.max_len) // self.page_size)
         if self.n_pages < 1:
             raise ValueError(f"n_pages must be >= 1, got {self.n_pages}")
+        if self.cache_keep_pages < 0:
+            raise ValueError("cache_keep_pages must be >= 0, "
+                             f"got {self.cache_keep_pages}")
+        if self.cache_keep_pages and not self.prefix_cache:
+            raise ValueError("cache_keep_pages needs prefix_cache=True "
+                             "(warm pages are prefix-cache state)")
         if self.scheduler is None:
             self.scheduler = SchedulerConfig()

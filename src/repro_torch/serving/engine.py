@@ -1,24 +1,40 @@
 """`ServingEngine`: continuous batching over the integer-only model
-(port of `repro.serving.engine.ServingEngine`, the default path:
-FCFS policy, synchronous steps, paged arena, chunked prefill, int8 or
-int4-packed KV (`ServingConfig.kv_bits`), telemetry).
+(port of `repro.serving.engine.ServingEngine`: synchronous steps over
+the paged arena, chunked prefill, int8 or int4-packed KV
+(`ServingConfig.kv_bits`), a scheduling policy with preemption, the
+prefix cache, telemetry).
 
 Each `step()`:
 
   1. samples a read-only `EngineView` and asks the policy for a
      `StepPlan`;
-  2. admits the planned requests (lease a slot, commit the page
-     budget);
-  3. issues ONE unified dispatch of `DecoderLM.prefill_chunk` over
+  2. preempts the planned slots: releases their pages and lease, parks
+     a decode's progress in a host-side `ResumeState` and requeues the
+     request at the queue head;
+  3. admits the planned requests (lease a slot, commit the page
+     budget; with the prefix cache, install the longest registered
+     prefix of the source and start the chunk cursor past it);
+  4. issues ONE unified dispatch of `DecoderLM.prefill_chunk` over
      every arena row: decode rows carry their last token as a width-1
      chunk at their decode position, prefill rows carry the next chunk
      of their prompt at their offset, everything else parks at
      INACTIVE_POS.  The dispatch width is the chunk width C when any
      prefill row rides along and 1 otherwise, so exactly two shapes
      exist, (n_slots, C) and (n_slots, 1), both run by `warmup()`;
-  4. takes each row's next token by greedy argmax on the device over
+  5. takes each row's next token by greedy argmax on the device over
      the int32 logits (first index on ties, like `jnp.argmax`) and
      harvests the (n_slots,) token vector, the step's one host sync.
+     With the prefix cache on, every page a chunk or a decode just
+     filled is registered.
+
+Preemption is exact: a preempted decode re-prefills `prompt +
+tokens[:-1]` and resumes from `tokens[-1]` without emitting anything;
+the re-prefill's last row must regenerate `tokens[-1]`, else
+`_resume_decoding` raises (the resume-parity oracle).  With the prefix
+cache on and a warm-page budget, the victim's registered pages stay
+warm through its release, so the resume re-prefills at most the
+unregistered tail.  A copy-on-write split happens in the `touch` loop
+of the dispatch, before the step's `prefill_chunk` is enqueued.
 
 Telemetry (`ServingConfig.telemetry`, DESIGN.md §Observability): the
 engine threads an off-by-default, bit-neutral sink through every
@@ -35,12 +51,11 @@ emit stamps always accrue on the completions, and `stats()` rolls
 them up into TTFT / ITL percentiles and the queued / prefill / decode
 breakdown.
 
-Left out of the port so far (later slices port them): the prefix trie
-and copy-on-write, warm pages, preemption and `PrioritySLOPolicy`, the
-async depth-1 dispatch queue, mesh and kv-head sharding, `SlotArena`
-and the whole-prompt prefill modes.  Their `stats()` keys read as the
-reference's do without them: `n_preempts` 0, `dispatch_depth` 0,
-`mesh_devices` 1, `kv_shard` False.
+Left out of the port so far (later slices port them): the async
+depth-1 dispatch queue, mesh and kv-head sharding, `SlotArena` and the
+whole-prompt prefill modes.  Their `stats()` keys read as the
+reference's do without them: `dispatch_depth` 0, `mesh_devices` 1,
+`kv_shard` False.
 """
 from __future__ import annotations
 
@@ -58,7 +73,7 @@ from repro_torch.serving.policy import (
 )
 from repro_torch.serving.request import (
     FINISH_LENGTH, FINISH_MAX_LEN, FINISH_STOP, Completion, PrefillState,
-    Request, RequestState,
+    Request, RequestState, ResumeState,
 )
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.telemetry import NULL
@@ -76,7 +91,8 @@ class ServingEngine:
         self.policy = cfg.policy if cfg.policy is not None else FCFSPolicy()
         self.arena = PagedArena(
             lm, cfg.n_slots, cfg.max_len, cfg.page_size, cfg.n_pages,
-            device=self.device, kv_bits=cfg.kv_bits)
+            device=self.device, kv_bits=cfg.kv_bits,
+            prefix_cache=cfg.prefix_cache, keep_pages=cfg.cache_keep_pages)
         self.sched = Scheduler(cfg.scheduler, cfg.max_len)
         self.on_token = on_token
         self.tel = cfg.telemetry if cfg.telemetry is not None else NULL
@@ -84,10 +100,17 @@ class ServingEngine:
         # slot -> chunked-prefill progress, in admission order
         self.prefilling: Dict[int, PrefillState] = {}
         self.completed: List[Completion] = []
+        # req_id -> decode progress parked by a preemption, waiting in
+        # the queue for re-admission
+        self._resume: Dict[int, ResumeState] = {}
+        self._prefix_on = bool(cfg.prefix_cache)
+        if self._prefix_on:
+            self.arena.on_cow = self._on_cow
         self._next_id = 0
         self._steps = 0
         self._n_generated = 0
         self._n_admit_rejects = 0
+        self._n_preempts = 0
         self._occupancy_sum = 0.0
         self._max_active = 0
         self._t_first: Optional[float] = None
@@ -95,10 +118,11 @@ class ServingEngine:
 
     # -- submission -----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16,
-               stop_token: Optional[int] = None) -> int:
-        """Enqueue a request; returns its req_id."""
+               stop_token: Optional[int] = None, priority: int = 0) -> int:
+        """Enqueue a request; returns its req_id.  `priority` is a
+        policy hint (FCFS ignores it)."""
         req = (prompt if isinstance(prompt, Request)
-               else Request(prompt, max_new_tokens, stop_token))
+               else Request(prompt, max_new_tokens, stop_token, priority))
         self.arena.check_request(
             req.prompt_len, req.prompt_len + req.max_new_tokens)
         # the id is spent before the scheduler may refuse the request,
@@ -124,7 +148,8 @@ class ServingEngine:
         tel.begin_step(self._steps)
         with tel.span("admission"):
             plan = self.policy.plan(self._view())
-            progressed = self._execute_admissions(plan)
+            progressed = self._execute_preemptions(plan)
+            progressed |= self._execute_admissions(plan)
         chunk_plan: List[ChunkRow] = []
         if plan.chunks:
             with tel.span("plan_chunks"):
@@ -154,37 +179,97 @@ class ServingEngine:
 
     # -- plan construction + execution ----------------------------------
     def _view(self) -> EngineView:
+        """The policy's snapshot of host state.  `need_pages` is the
+        request's own worst case, minus the prefix the cache already
+        holds when it is on (the suffix-only charge); a parked resume
+        re-prefills prompt + tokens[:-1]."""
         arena = self.arena
         cfg = self.sched.cfg
+        pending = []
+        for r in self.sched.pending:
+            resume = self._resume.get(r.req_id)
+            n_gen = len(resume.tokens) if resume is not None else 0
+            total = r.prompt_len + r.max_new_tokens
+            need = (arena.admit_cost(total,
+                                     tokens=self._resume_source(r, resume))
+                    if self._prefix_on else arena.pages_needed(total))
+            pending.append(PendingSnap(
+                req=r, req_id=r.req_id, priority=r.priority,
+                arrival_time=r.arrival_time, prompt_len=r.prompt_len,
+                max_new_tokens=r.max_new_tokens,
+                source_len=r.prompt_len + max(n_gen - 1, 0),
+                need_pages=need, n_generated=n_gen))
         return EngineView(
             now=time.perf_counter(),
-            pending=tuple(
-                PendingSnap(
-                    req=r, req_id=r.req_id, arrival_time=r.arrival_time,
-                    prompt_len=r.prompt_len,
-                    max_new_tokens=r.max_new_tokens,
-                    need_pages=arena.pages_needed(
-                        r.prompt_len + r.max_new_tokens))
-                for r in self.sched.pending),
+            pending=tuple(pending),
             prefilling=tuple(
                 PrefillSnap(
                     req_id=st.request.req_id, slot=slot,
+                    priority=st.request.priority,
+                    arrival_time=st.request.arrival_time,
                     admit_time=st.admit_time, offset=st.offset,
-                    total=st.source_len)
+                    total=st.source_len, is_resume=st.resume is not None,
+                    pages_committed=arena.committed_for(slot))
                 for slot, st in self.prefilling.items()),
             active=tuple(
                 DecodeSnap(
                     req_id=st.request.req_id, slot=slot,
+                    priority=st.request.priority,
+                    arrival_time=st.request.arrival_time,
+                    admit_time=st.admit_time,
                     first_token_time=st.first_token_time,
                     n_generated=len(st.tokens),
-                    budget_left=st.request.max_new_tokens - len(st.tokens))
+                    budget_left=st.request.max_new_tokens - len(st.tokens),
+                    pages_committed=arena.committed_for(slot))
                 for slot, st in self.active.items()),
             free_slots=arena.n_free,
             budget_left=arena.budget_left,
+            gauges=arena.gauges(),
+            prefill_mode="chunked",
             prefill_chunk=cfg.prefill_chunk,
             max_chunks_per_step=cfg.max_chunks_per_step,
             max_prefills_per_step=cfg.max_prefills_per_step,
         )
+
+    def _execute_preemptions(self, plan: StepPlan) -> bool:
+        """Evict the planned slots, in reverse so that requeueing at the
+        head leaves them in plan order.  A slot no longer leased is
+        skipped: plans are advisory."""
+        did = False
+        for slot in reversed(plan.preempt):
+            did |= self._preempt_slot(slot)
+        return did
+
+    def _preempt_slot(self, slot: int) -> bool:
+        """Release the slot's pages and lease, park a decode's progress
+        in a ResumeState and requeue the request at the queue head; the
+        re-prefill rebuilds the KV image bit for bit."""
+        if slot in self.prefilling:
+            st = self.prefilling.pop(slot)
+            req, resume = st.request, st.resume
+            if resume is not None:
+                resume.n_preempts += 1
+        elif slot in self.active:
+            ast = self.active.pop(slot)
+            req = ast.request
+            resume = ResumeState(
+                tokens=list(ast.tokens),
+                first_token_time=ast.first_token_time,
+                admit_time=ast.admit_time,
+                emit_times=list(ast.emit_times),
+                n_preempts=ast.n_preempts + 1)
+        else:
+            return False  # already finished and released
+        self._n_preempts += 1
+        if self.tel.enabled:
+            self.tel.event(
+                "preempt", req_id=req.req_id, slot=slot, reason="policy",
+                n_generated=len(resume.tokens) if resume is not None else 0)
+        self.arena.release(slot)
+        if resume is not None:
+            self._resume[req.req_id] = resume
+        self.sched.requeue(req)
+        return True
 
     def _execute_admissions(self, plan: StepPlan) -> bool:
         """Lease slots to the planned requests in plan order; the arena
@@ -194,24 +279,57 @@ class ServingEngine:
             if not self.sched.take(req):
                 continue
             total = req.prompt_len + req.max_new_tokens
-            if not self.arena.can_admit(req.prompt_len, total):
+            tokens = (self._resume_source(req, self._resume.get(req.req_id))
+                      if self._prefix_on else None)
+            if not self.arena.can_admit(req.prompt_len, total,
+                                        tokens=tokens):
                 self.sched.requeue(req)
                 plan.rejects.append(
                     (req.req_id,
                      self.arena.reject_reason(req.prompt_len, total)))
                 break
-            slot = self.arena.alloc(req.req_id, req.prompt_len, total,
-                                    written=0)
-            self.prefilling[slot] = PrefillState(
-                request=req, slot=slot, admit_time=time.perf_counter())
-            if self.tel.enabled:
-                self.tel.event("admit", req_id=req.req_id, slot=slot)
+            self._admit(req)
             progressed = True
         self._n_admit_rejects += len(plan.rejects)
         if self.tel.enabled:
             for req_id, reason in plan.rejects:
                 self.tel.event("admit_reject", req_id=req_id, reason=reason)
         return progressed
+
+    def _resume_source(self, req: Request,
+                       resume: Optional[ResumeState]) -> np.ndarray:
+        """What to prefill: the prompt, or prompt + tokens[:-1] for a
+        preempted request, whose last row regenerates tokens[-1]."""
+        if resume is None:
+            return req.prompt
+        return np.concatenate(
+            [req.prompt, np.asarray(resume.tokens[:-1], np.int32)])
+
+    def _admit(self, req: Request):
+        """Lease a slot and start the request's chunked prefill.  The
+        chunk cursor starts where the arena's installed shared prefix
+        ends; a resumed request keeps its original stamps."""
+        resume = self._resume.pop(req.req_id, None)
+        source = self._resume_source(req, resume)
+        slot = self.arena.alloc(
+            req.req_id, int(source.size), req.prompt_len + req.max_new_tokens,
+            written=0, tokens=source if self._prefix_on else None)
+        off0 = int(self.arena.lengths[slot]) if self._prefix_on else 0
+        self.prefilling[slot] = PrefillState(
+            request=req, slot=slot, offset=off0,
+            admit_time=(resume.admit_time if resume is not None
+                        else time.perf_counter()),
+            source=source, resume=resume)
+        if self.tel.enabled:
+            self.tel.event("admit", req_id=req.req_id, slot=slot)
+            if self._prefix_on:
+                pages = int(self.arena.shared_at_admit[slot])
+                if pages:
+                    self.tel.event("prefix_hit", req_id=req.req_id,
+                                   slot=slot, pages=pages, tokens=off0)
+                else:
+                    self.tel.event("prefix_miss", req_id=req.req_id,
+                                   slot=slot)
 
     def _materialize_chunks(self, plan: StepPlan) -> List[ChunkRow]:
         """Resolve the plan's (req_id, n) rows against live prefill
@@ -308,15 +426,29 @@ class ServingEngine:
             st.pos += 1
             st.emit_times.append(now)
             self.arena.advance(slot)
+            if self._prefix_on and st.pos % self.arena.page_size == 0:
+                # a page just filled: publish it (this keeps a later
+                # preemption victim's pages warm through its release)
+                self.arena.register_prefix(
+                    slot, np.concatenate(
+                        [st.request.prompt, np.asarray(st.tokens, np.int32)]),
+                    st.pos)
             self._emit(st.request, tok, slot)
             self._maybe_finish(st, now)
         for st, off, n in chunk_plan:
             self.arena.advance(st.slot, n)
+            if self._prefix_on:
+                # every position below off + n is final: publish the
+                # full pages
+                self.arena.register_prefix(st.slot, st.source, off + n)
             if off + n < st.source_len:
                 st.offset = off + n
                 continue
             del self.prefilling[st.slot]  # final chunk completed
-            self._start_decoding(st, int(nxt[st.slot]), now)
+            if st.resume is not None:
+                self._resume_decoding(st, int(nxt[st.slot]))
+            else:
+                self._start_decoding(st, int(nxt[st.slot]), now)
 
     def _start_decoding(self, pst: PrefillState, first: int, now: float):
         """Graduate a prefilled request to decode; TTFT stops here."""
@@ -331,6 +463,39 @@ class ServingEngine:
                            token=first)
         self._emit(req, first, pst.slot)
         self._maybe_finish(st, now)
+
+    def _resume_decoding(self, pst: PrefillState, predicted: int):
+        """Re-enter decode after a preemption's re-prefill, emitting
+        nothing.  The source was prompt + tokens[:-1], so its last row
+        must regenerate tokens[-1]: the resume-parity oracle."""
+        req, resume = pst.request, pst.resume
+        if predicted != resume.tokens[-1]:
+            raise RuntimeError(
+                "resume parity violated: re-prefill regenerated token "
+                f"{predicted} but the preempted request had emitted "
+                f"{resume.tokens[-1]} (req {req.req_id})")
+        self.active[pst.slot] = RequestState(
+            request=req, slot=pst.slot, tokens=list(resume.tokens),
+            last_token=resume.tokens[-1],
+            pos=req.prompt_len + len(resume.tokens) - 1,
+            first_token_time=resume.first_token_time,
+            admit_time=resume.admit_time,
+            emit_times=list(resume.emit_times),
+            n_preempts=resume.n_preempts)
+        if self.tel.enabled:
+            self.tel.event("resume", req_id=req.req_id, slot=pst.slot,
+                           n_preempts=resume.n_preempts)
+
+    def _on_cow(self, slot: int, old_page: int, new_page: int):
+        """Arena hook: a copy-on-write split while touching `slot` (in
+        the dispatch's touch loop, so the slot is prefilling or
+        active)."""
+        if not self.tel.enabled:
+            return
+        st = self.prefilling.get(slot) or self.active.get(slot)
+        self.tel.event("cow_split",
+                       req_id=st.request.req_id if st is not None else -1,
+                       slot=slot, old_page=old_page, new_page=new_page)
 
     def _emit(self, req: Request, tok: int, slot: int):
         self._n_generated += 1
@@ -354,7 +519,8 @@ class ServingEngine:
             tokens=list(st.tokens), finish_reason=reason,
             arrival_time=req.arrival_time,
             first_token_time=st.first_token_time, finish_time=now,
-            admit_time=st.admit_time, emit_times=list(st.emit_times)))
+            admit_time=st.admit_time, emit_times=list(st.emit_times),
+            n_preempts=st.n_preempts))
         if self.tel.enabled:
             self.tel.event("finish", req_id=req.req_id, slot=st.slot,
                            reason=reason, n_generated=len(st.tokens))
@@ -397,6 +563,7 @@ class ServingEngine:
         self._n_generated = 0
         self._max_active = 0
         self._n_admit_rejects = 0
+        self._n_preempts = 0
         self._t_first = None
         self._t_last = None
         self.arena.reset_peaks()
@@ -439,7 +606,7 @@ class ServingEngine:
             "mean_prefill_s": mean(prefills),
             "mean_decode_s": mean(decodes),
             "admit_rejects": self._n_admit_rejects,
-            "n_preempts": 0,  # FCFS never preempts
+            "n_preempts": self._n_preempts,  # policy evictions executed
             "policy": getattr(self.policy, "name", "?"),
             "mean_occupancy": (
                 self._occupancy_sum / self._steps if self._steps else 0.0),

@@ -46,9 +46,8 @@ def shared_prefix_workload(n: int, vocab: int, rng: np.random.Generator, *,
                            max_new_tokens: int) -> List[Request]:
     """System-prompt workload: `n` requests sharing ONE random
     `prefix_len`-token prefix, each with its own random
-    `suffix_len`-token tail.  The port has no prefix cache yet, so
-    every request prefills its whole prompt; the shape is the
-    reference's."""
+    `suffix_len`-token tail: what the prefix cache shares
+    (`ServingConfig.prefix_cache`)."""
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
     if prefix_len < 0 or suffix_len < 0:

@@ -1,12 +1,16 @@
 """Request / response contract for the continuous-batching engine
-(port of `repro.serving.request`, framework-free; the preemption
-`ResumeState` stays out of this slice).
+(port of `repro.serving.request`, framework-free).
 
 A `Request` is the unit of admission: one prompt, a generation budget,
 and an optional stop token.  The engine stamps `req_id` and
 `arrival_time` at submit().  A `Completion` is the terminal record;
 all timing fields are host wall-clock (time.perf_counter) stamps, so
 TTFT and latency compare directly across requests of one run.
+
+`ResumeState` is what a preemption parks host-side: the generated
+tokens and the original stamps.  The request re-prefills
+`prompt + tokens[:-1]` and resumes decoding from `tokens[-1]`; integer
+determinism makes the rebuilt KV image bit-identical.
 """
 from __future__ import annotations
 
@@ -22,11 +26,14 @@ FINISH_MAX_LEN = "max_len"  # hit the arena's sequence capacity (defensive)
 
 @dataclasses.dataclass
 class Request:
-    """One generation request (prompt tokens + budget)."""
+    """One generation request (prompt tokens + budget).  `priority` is
+    a scheduling-class hint for SLO-aware policies (larger is more
+    urgent); FCFS ignores it."""
 
     prompt: np.ndarray  # (P,) int32 token ids
     max_new_tokens: int
     stop_token: Optional[int] = None
+    priority: int = 0  # policy hint; FCFS ignores it
     req_id: int = -1  # stamped by ServingEngine.submit()
     arrival_time: float = 0.0  # stamped by ServingEngine.submit()
 
@@ -43,23 +50,40 @@ class Request:
 
 
 @dataclasses.dataclass
+class ResumeState:
+    """Decode progress carried across a preemption: the tokens
+    generated so far (tokens[-1] is the next decode input) and the
+    original stamps, so queued_s and the ITL series span the stall."""
+
+    tokens: List[int]
+    first_token_time: float
+    admit_time: float  # original slot-lease stamp
+    emit_times: List[float] = dataclasses.field(default_factory=list)
+    n_preempts: int = 1  # times this request has been evicted
+
+
+@dataclasses.dataclass
 class PrefillState:
     """Engine-internal chunked-prefill progress for a leased slot:
-    `offset` prompt tokens are already in the arena, the next chunk
-    covers [offset, offset + chunk)."""
+    `offset` source tokens are already in the arena, the next chunk
+    covers [offset, offset + chunk).  `source` is the prompt, or on a
+    resume (`resume` set) `prompt + resume.tokens[:-1]`, whose last
+    row's logits must regenerate `resume.tokens[-1]`."""
 
     request: Request
     slot: int
     offset: int = 0
     admit_time: float = 0.0  # slot-lease stamp
+    source: Optional[np.ndarray] = None  # None -> request.prompt
+    resume: Optional[ResumeState] = None
 
-    @property
-    def source(self) -> np.ndarray:
-        return self.request.prompt
+    def __post_init__(self):
+        if self.source is None:
+            self.source = self.request.prompt
 
     @property
     def source_len(self) -> int:
-        return self.request.prompt_len
+        return int(self.source.size)
 
 
 @dataclasses.dataclass
@@ -75,6 +99,7 @@ class RequestState:
     first_token_time: float
     admit_time: float = 0.0
     emit_times: List[float] = dataclasses.field(default_factory=list)
+    n_preempts: int = 0  # evictions survived (a resume carries it over)
 
 
 @dataclasses.dataclass
@@ -90,6 +115,7 @@ class Completion:
     finish_time: float
     admit_time: float = 0.0
     emit_times: List[float] = dataclasses.field(default_factory=list)
+    n_preempts: int = 0  # evictions this request survived
 
     @property
     def n_generated(self) -> int:

@@ -45,9 +45,7 @@ import torch
 
 # The event schema: kind -> required payload fields.  Every event also
 # carries "t" (monotonic seconds, time.perf_counter) and, when emitted
-# inside an engine step, "step".  Kinds this slice never emits
-# (preemption, prefix cache) are kept so the table stays the
-# reference's.
+# inside an engine step, "step".  The table is the reference's.
 EVENT_FIELDS: Dict[str, frozenset] = {
     "submit": frozenset({"req_id", "prompt_len", "max_new_tokens"}),
     "admit": frozenset({"req_id", "slot"}),

@@ -136,6 +136,32 @@ def test_layer_by_layer_deploy_model_equals_whole_tree():
     eq(whole, streamed)
 
 
+def test_deploy_model_depth_cut_keeps_the_first_layers():
+    """`n_layers` serves the config's first layers at its full width:
+    layer 0's tables equal the uncut deploy's, and the cut model has
+    one layer."""
+    lm, cut = deploy_model("granite_3_2b", reduced=True, max_seq=64, seed=5,
+                           device="cpu", n_layers=1)
+    _, full = deploy_model("granite_3_2b", reduced=True, max_seq=64, seed=5,
+                           device="cpu")
+    assert lm.cfg.n_layers == 1 and len(cut["layers"]) == 1
+    assert lm.cfg.d_model == _port_lm().cfg.d_model
+
+    def leaves(t, path=""):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], f"{path}/{k}")
+        else:
+            yield path, t
+
+    for (pa, a), (pb, b) in zip(leaves(cut["layers"][0]),
+                                leaves(full["layers"][0])):
+        assert pa == pb
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    for (_, a), (_, b) in zip(leaves(cut["embed"]), leaves(full["embed"])):
+        assert torch.equal(a, b)
+
+
 def test_numpy_init_has_the_reference_shapes_and_scales(reference):
     p = _port_lm().init_np(0)
     ref = reference["p_np"]

@@ -37,7 +37,12 @@ GEMM at every site of both, the paged attention at hd 128 with GQA
 group 3 over 8 kv heads and group 16 over 2 (both pool modes, S 1/4/32,
 T 512/4096), the requant forms at their widths; and 2-layer engines on
 the card with telemetry on and off (equal tokens, equal to the CPU's)
-and a warmup that leaves the pools byte-equal.
+and a warmup that leaves the pools byte-equal.  The prefix cache's
+copy-on-write page copy on the card in both pool modes equals the same
+copy on the CPU and leaves every other page untouched, and a 2-layer
+engine on the card with the prefix cache and a scripted preemption
+gives the CPU engine's tokens, counters and pools; the paged
+attention's exp (`island_exp`) gives the CPU's bits on the card.
 """
 import sys
 
@@ -937,3 +942,127 @@ def test_warmup_leaves_the_pools_byte_equal_on_card(kv_bits):
         eng.reset_stats()
     assert _serve_all(card, reqs) == _serve_all(cpu, reqs)
     assert card.stats()["n_completed"] == len(reqs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_cow_page_copy_on_card(kv_bits):
+    """A write into a registered page copy-on-writes it: on the card the
+    new page holds the old page's bytes on both pools (int4-packed at
+    kv_bits 4), every other page is untouched, and the pools equal the
+    CPU arena's after the same split."""
+    _need_card()
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.serving import PagedArena
+
+    lm = DecoderLM(get_config("granite_3_2b").reduced(), max_seq=64)
+    arenas = [PagedArena(lm, 2, 64, 8, 12, device=dev, kv_bits=kv_bits,
+                         prefix_cache=True, keep_pages=12)
+              for dev in ("cuda", "cpu")]
+    g = torch.Generator().manual_seed(kv_bits)
+    init = {kv: torch.randint(-128, 128, tuple(arenas[1].caches[kv].shape),
+                              dtype=torch.int8, generator=g)
+            for kv in ("k", "v")}
+    toks = np.arange(24, dtype=np.int32)
+    for a in arenas:
+        for kv in ("k", "v"):
+            a.caches[kv].copy_(init[kv])
+        s0 = a.alloc(0, 24, 30, tokens=toks)
+        a.touch_range(s0, 0, 24)
+        a.advance(s0, 24)
+        a.register_prefix(s0, toks, 24)
+        s1 = a.alloc(1, 24, 30, tokens=toks)
+        assert int(a.lengths[s1]) == 23
+        old = int(a.page_table[s1, 2])
+        a.touch(s1, 23)
+        new = int(a.page_table[s1, 2])
+        assert new != old and a.cow_splits == 1
+    for kv in ("k", "v"):
+        want = init[kv].clone()
+        want[:, new] = want[:, old]
+        got = arenas[0].caches[kv].cpu()
+        assert torch.equal(got, want)
+        assert torch.equal(got, arenas[1].caches[kv])
+
+
+class _EvictNewestDecode:
+    """FCFS plus one scripted eviction at plan call `at`: the most
+    recently admitted decode with at least 2 tokens of budget left."""
+
+    name = "scripted"
+
+    def __init__(self, at):
+        from repro_torch.serving import FCFSPolicy
+
+        self.inner, self.at, self.calls, self.fired = FCFSPolicy(), at, 0, 0
+
+    def plan(self, view):
+        plan = self.inner.plan(view)
+        live = [d for d in view.active if d.budget_left >= 2]
+        if self.calls == self.at and live:
+            plan.preempt.append(
+                max(live, key=lambda d: (d.admit_time, d.req_id)).slot)
+            self.fired += 1
+        self.calls += 1
+        return plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_prefix_cache_and_preemption_on_card(kv_bits):
+    """A 2-layer reduced granite engine on the card with the prefix cache
+    on (a shared 16-token prompt, its aligned-exact twin) and one
+    scripted preemption gives the CPU engine's tokens, prefix and
+    preemption counters and pools, and drains clean."""
+    _need_card()
+    from repro_torch.launch.serve import deploy_model
+    from repro_torch.serving import (
+        Request, SchedulerConfig, ServingConfig, ServingEngine,
+    )
+
+    rng = np.random.default_rng(5)
+    pre = rng.integers(0, 256, size=(16,))
+    reqs = [Request(np.concatenate([pre, rng.integers(0, 256, size=(n,))]),
+                    8) for n in (5, 11, 3)] + [Request(pre.copy(), 8)]
+    out = []
+    for device in ("cuda", "cpu"):
+        lm, t = deploy_model("granite_3_2b", reduced=True, max_seq=64,
+                             seed=0, device=device)
+        pol = _EvictNewestDecode(5)
+        eng = ServingEngine(lm, t, ServingConfig(
+            n_slots=4, max_len=64, page_size=8, n_pages=40, device=device,
+            kv_bits=kv_bits, policy=pol, prefix_cache=True,
+            cache_keep_pages=8, scheduler=SchedulerConfig(prefill_chunk=16)))
+        tok = _serve_all(eng, reqs)
+        st = eng.stats()
+        out.append((tok, pol.fired, {k: st[k] for k in (
+            "prefix_hits", "prefix_misses", "prefix_hit_pages", "cow_splits",
+            "warm_evictions", "n_preempts", "steps")},
+            [eng.arena.caches[kv].cpu() for kv in ("k", "v")]))
+        assert int((eng.arena.refcount != 0).sum()) == 0
+        assert eng.arena.committed_pages == 0
+    (gt, gf, gs, gp), (ct, cf, cs, cp) = out
+    assert gt == ct and gf == cf == 1 and gs == cs
+    assert gs["cow_splits"] >= 1 and gs["n_preempts"] == 1
+    assert gs["prefix_hit_pages"] >= 2
+    for a, b in zip(gp, cp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_island_exp_card_equals_cpu():
+    """The paged attention's exp (`island_exp`, in its plain version) on
+    the card gives the CPU's bits on every 7th float32 of [-104, 0] and
+    on the values next to its cutoff."""
+    _need_card()
+    from repro_torch.kernels.paged_attention import island_exp
+
+    lo, n = -(1 << 31), 0x42D00000 + 1
+    for a in range(lo, lo + n, 7 << 24):
+        x = torch.arange(a, min(a + (7 << 24), lo + n), 7,
+                         dtype=torch.int64).to(torch.int32).view(torch.float32)
+        assert torch.equal(island_exp(x.cuda()).cpu(), island_exp(x))
+    edge = torch.tensor([-104.0, -103.99999, -104.00001, -87.33655, 0.0])
+    assert torch.equal(island_exp(edge.cuda()).cpu(), island_exp(edge))
+

@@ -11,7 +11,9 @@ check applies to the kernel's probability image (`check_image`) is
 shown here to reject images a wrong kernel would make.  The
 paged-attention kernel's own choices are held here too: its row sum's
 ownership of the 32 partials (emulated in numpy, bit for bit against
-`_lane_sum`), its causal horizon stop (exact under its guard, and a
+`_lane_sum`), its exp (`island_exp`: within 1 ulp, 0 below -104, and
+a scalar float32 evaluation of the kernel's steps gives its bits), its
+causal horizon stop (exact under its guard, and a
 planted case just outside the guard that it would get wrong), and
 `paged_plan`'s launch at every shape the port runs, over int8 pools
 and int4-packed ones.
@@ -19,6 +21,8 @@ and int4-packed ones.
 The CUDA kernels themselves run only on the card; their tests are in
 tests/test_torch_gpu.py.
 """
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,7 +41,8 @@ from repro_torch.kernels.int8_matmul import (
 )
 from repro_torch.kernels.paged_attention import (
     _SMEM_LIMIT, MMA_SHAPES, NEG_INF, STOP_GUARD, _lane_sum, _mma_smem,
-    attention_probs, check_image, gathered_view, horizon_stop, paged_plan,
+    attention_probs, check_image, gathered_view, horizon_stop, island_exp,
+    paged_plan,
 )
 from repro_torch.layers.attention import INACTIVE_POS
 
@@ -244,6 +249,54 @@ def test_paged_attention_plain_matches_ref(case, group):
         torch.tensor(scale), group=group)
     assert got.dtype == torch.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _floats_in(lo_bits, hi_bits, stride):
+    """Every `stride`-th float32 whose bits lie in [lo_bits, hi_bits)
+    (as signed int32)."""
+    return torch.arange(lo_bits, hi_bits, stride,
+                        dtype=torch.int64).to(torch.int32).view(torch.float32)
+
+
+def test_island_exp_is_within_one_ulp_and_zero_below_104():
+    """The attention's exp over a sweep of [-104, 0] (every 97th
+    float32): at most 1 ulp from the exact value (float64 exp rounded
+    once), exactly 1 at 0, and 0.0 for every input below -104 (the
+    horizon stop's premise) and at the -1e9 mask."""
+    x = _floats_in(-(1 << 31), -(1 << 31) + 0x42D00000 + 1, 97)
+    got = island_exp(x).view(torch.int32).to(torch.int64)
+    want = torch.exp(x.double()).float().view(torch.int32).to(torch.int64)
+    assert int((got - want).abs().max()) <= 1
+    assert island_exp(torch.tensor([0.0, -0.0])).tolist() == [1.0, 1.0]
+    below = torch.tensor([-104.0001, -200.0, -1e9, NEG_INF - 1e6])
+    assert island_exp(below).tolist() == [0.0] * 4
+
+
+def test_island_exp_equals_a_scalar_float32_evaluation():
+    """`island_exp` is one IEEE float32 operation a step: numpy's scalar
+    float32 arithmetic, evaluating the kernel's sequence, gives the same
+    bits (what makes the plain image the same on any device)."""
+    pa = sys.modules["repro_torch.kernels.paged_attention"]
+    f = np.float32
+    x = _floats_in(-(1 << 31), -(1 << 31) + 0x42D00000 + 1, 100003)
+    want = []
+    for v in x.numpy():
+        if v < f(-104.0):
+            want.append(f(0.0))
+            continue
+        k = f(np.rint(f(v * f(pa._LOG2E))))
+        r = f(f(v - f(k * f(pa._LN2_C1))) - f(k * f(pa._LN2_C2)))
+        p = f(pa._EXP_POLY[0])
+        for c in pa._EXP_POLY[1:]:
+            p = f(f(p * r) + f(c))
+        y = f(f(f(p * f(r * r)) + r) + f(1.0))
+        ki = int(k)
+        k1 = ki >> 1
+        s1 = np.array([(k1 + 127) << 23], np.int32).view(np.float32)[0]
+        s2 = np.array([(ki - k1 + 127) << 23], np.int32).view(np.float32)[0]
+        want.append(f(f(y * s1) * s2))
+    np.testing.assert_array_equal(island_exp(x).view(torch.int32).numpy(),
+                                  np.array(want, np.float32).view(np.int32))
 
 
 @pytest.mark.parametrize("fn,args", [
