@@ -33,9 +33,19 @@ Phases (any failure raises and the script exits non-zero):
             floor
   entry     `quant_flash_attention` driven through its entry point (no
             serving path calls it), counts read around it
-  parity    granite_3_2b, llama3_2_3b and chatglm3_6b at full width,
-            each cut to 2 layers, the card against the CPU (plain
-            versions), at kv_bits 8 and 4: one prefill_chunk must give
+  calibrate granite_3_2b at full width cut to 2 layers: the
+            FullPrecision forward of the entry point's calibration
+            sample (`DecoderLM.calibrate`) on the card and on the CPU
+            from the same init_np params, every range within 1e-4 of
+            its span; the calibration time on each; one deploy from the
+            card's ranges, the correlation of its int32 logits with the
+            float logits on the sample (and of a DEFAULT_RANGES
+            deploy's), then the parity below on that one table set
+  parity    granite_3_2b (in the calibrate phase), llama3_2_3b and
+            chatglm3_6b at full width, each cut to 2 layers, calibrated
+            on the card and deployed once, the card against the CPU
+            (plain versions), at kv_bits 8 and 4: one prefill_chunk must
+            give
             equal int32 logits and K/V pools (packed at 4) byte for
             byte, and the engine equal greedy tokens on the same ragged
             requests; torch.exp of the two devices is compared over
@@ -46,8 +56,9 @@ Phases (any failure raises and the script exits non-zero):
             scripted preemption, with equal tokens, equal prefix and
             preemption counters and both pools equal byte for byte
             after the drain
-  main      full granite_3_2b (40 layers, random seeded weights deployed
-            layer by layer without calibration): 8 ragged requests
+  main      full granite_3_2b (40 layers, random seeded weights
+            calibrated and deployed layer by layer by `deploy_model`, as
+            every later phase's are): 8 ragged requests
             (prompts 17-300, 16 new tokens) through `ServingEngine`,
             every kernel of the path launched (GEMM launches by site
             and path, requant launches by form); a second run on a
@@ -77,8 +88,16 @@ Phases (any failure raises and the script exits non-zero):
             requests at classes i % 2 under the same arrivals with the
             TTFT SLO as aging target, tokens equal to the closed loop's,
             p99 TTFT per class
+  async     dispatch depth 1 on the same granite tables: the main
+            phase's 8 requests at kv_bits 8, depth 0 and depth 1 in
+            turns (0, 1, 1, 0; fresh warmed engines, telemetry on), at
+            kv_bits 4 at depth 1 (depth 0: main run 2), and the preempt
+            cell at kv_bits 8, each run with the counts set to 0 just
+            before and read just after; tokens equal depth 0's request
+            by request; tok/s and host ms per step of the admission,
+            harvest and dispatch phases of every run
   configs   llama3_2_3b and chatglm3_6b at full width, cut to their first
-            CONFIG_LAYERS layers (14 of 28, to keep the script under
+            CONFIG_LAYERS layers (4 of 28, to keep the script under
             1000 s; their deploy is most of its time), each
             served once (8 ragged requests, kv_bits 8, after
             `warmup()`): deploy time, device memory, launches by kernel
@@ -144,7 +163,7 @@ PAGED_SHAPES = ((CHUNK, MAX_LEN), (1, MAX_LEN), (CHUNK, 4096), (1, 4096))
 CONFIGS = ("llama3_2_3b", "chatglm3_6b")
 CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128)}
 # the served depth of CONFIGS' full-width runs (both have 28 layers)
-CONFIG_LAYERS = 14
+CONFIG_LAYERS = 4
 # open-loop phase: requests, their arrival rate over the closed loop's
 # requests per second, and the SLOs of the goodput roll-up (seconds)
 OPEN_LOOP_N, OPEN_LOOP_RATE, SLO_TTFT_S, SLO_ITL_S = 16, 2.0, 2.0, 0.25
@@ -152,6 +171,8 @@ OPEN_LOOP_N, OPEN_LOOP_RATE, SLO_TTFT_S, SLO_ITL_S = 16, 2.0, 2.0, 0.25
 PREFIX_LEN, SUFFIX_LEN, PREFIX_PER_SLOT = 256, 32, 3
 # preempt phase: class-1 requests submitted once the 8 class-0 decode
 N_URGENT = 4
+# the card's float32 calibration against the CPU's, as a share of the span
+CALIB_TOL = 1e-4
 # the engine's record_function range around each dispatch
 ANNOTATION = "repro_torch.serving/"
 # quantized flash attention at full granite geometry (B 1, H 32, K 8):
@@ -824,6 +845,94 @@ def prefill_parity(torch, np, lm, t_np, kv_bits):
           f"{tuple(out['cpu'][1].shape)} equal byte for byte")
 
 
+def calibrated_2_layers(arch):
+    """`arch` at full width cut to 2 layers: -> (lm, its init_np float
+    params, the entry point's calibration sample)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import calibration_sample
+    from repro_torch.models.lm import DecoderLM
+
+    lm = DecoderLM(dataclasses.replace(get_config(arch), n_layers=2),
+                   max_seq=MAX_LEN)
+    return lm, lm.init_np(SEED), calibration_sample(lm.cfg.vocab, MAX_LEN)
+
+
+def fp_id_agreement(torch, lm, p_card, t_np, sample):
+    """The float logits of `sample` (every position) against the int32
+    logits of the deployed tables `t_np` on the card (prefill_chunk at
+    position 0 over fresh pools, read out at each position in turn):
+    -> (Pearson correlation over the real vocab, share of positions
+    whose argmax agree)."""
+    from repro_torch.models.lm import tables_from_numpy
+
+    B, S = sample.shape
+    tok = torch.from_numpy(sample).cuda()
+    fp = lm.logits(p_card, lm.apply(p_card, lm.embed_in(p_card, tok)))
+    tables = tables_from_numpy(t_np, "cuda")
+    pps = -(-S // PAGE)
+    caches = lm.init_pools(B * pps, PAGE, "cuda")
+    caches["table"] = torch.arange(1, B * pps + 1, dtype=torch.int32,
+                                   device="cuda").reshape(B, pps)
+    start = torch.zeros(B, dtype=torch.int32, device="cuda")
+    idl = torch.cat([lm.prefill_chunk(tables, tok, caches, start,
+                                      torch.full_like(start, s))
+                     for s in range(S)], dim=1)
+    V = lm.cfg.vocab
+    a, b = fp[..., :V].double(), idl[..., :V].double()
+    corr = float(torch.corrcoef(torch.stack([a.flatten(), b.flatten()]))[
+        0, 1])
+    agree = float((a.argmax(-1) == b.argmax(-1)).double().mean())
+    return corr, agree
+
+
+def phase_calibrate(torch, np):
+    """granite_3_2b at full width over 2 layers: calibrate on the card
+    and on the CPU from the same init_np params (each range within
+    CALIB_TOL of the CPU's span), deploy once from the card's ranges,
+    hold the float against the integer logits on the calibration
+    sample (and a DEFAULT_RANGES deploy's), then the card-vs-CPU parity
+    on that one table set."""
+    from repro_torch.models.lm import params_to_torch
+
+    lm, p, sample = calibrated_2_layers("granite_3_2b")
+    calibs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        calibs[dev] = lm.calibrate(p, sample, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+    card, cpu = calibs["cuda"], calibs["cpu"]
+    if list(card.hi) != list(cpu.hi):
+        raise AssertionError("card and CPU calibrations observe other names")
+    share = {n: max(abs(card.hi[n] - cpu.hi[n]), abs(card.lo[n] - cpu.lo[n]))
+             / max(cpu.hi[n] - cpu.lo[n], 1e-6) for n in cpu.hi}
+    worst = max(share, key=share.get)
+    print(f"  calibration of {sample.shape[0]} x {sample.shape[1]} tokens "
+          f"(params to the device, float32 forward, {len(cpu.hi)} ranges "
+          f"observed): card {secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s; "
+          f"largest card-vs-CPU range difference {share[worst]:.3e} of the "
+          f"span ({worst}), limit {CALIB_TOL:g}")
+    if share[worst] > CALIB_TOL:
+        raise AssertionError(f"calibration: card != CPU at {worst}")
+    spans = sorted((max(abs(cpu.lo[n]), abs(cpu.hi[n])), n) for n in cpu.hi)
+    print(f"  ranges (abs max) from {spans[0][0]:.4g} ({spans[0][1]}) to "
+          f"{spans[-1][0]:.4g} ({spans[-1][1]})")
+    t0 = time.perf_counter()
+    t_np = lm.deploy(p, card)
+    print(f"  deployed from the card's ranges in "
+          f"{time.perf_counter() - t0:.1f} s")
+    p_card = params_to_torch(p, "cuda")
+    for what, tables in (("calibrated", t_np),
+                         ("DEFAULT_RANGES", lm.deploy(p, None))):
+        corr, agree = fp_id_agreement(torch, lm, p_card, tables, sample)
+        print(f"  FP vs ID logits on the calibration sample, {what} "
+              f"tables: correlation {corr:.6f}, argmax agreement "
+              f"{agree:.4f}")
+    del p_card
+    config_parity(torch, np, "granite_3_2b", lm=lm, t_np=t_np)
+
+
 def phase_parity(torch, np):
     t0 = time.perf_counter()
     bad, total = exp_agreement(torch)
@@ -834,28 +943,30 @@ def phase_parity(torch, np):
     print(f"  island_exp (the paged attention's exp) on the card vs the CPU:"
           f" equal on all {n} inputs compared (every 61st float32 in "
           f"[-104, 0]; {time.perf_counter() - t0:.1f} s)")
-    for arch in ("granite_3_2b",) + CONFIGS:
+    for arch in CONFIGS:
         config_parity(torch, np, arch)
 
 
-def config_parity(torch, np, arch):
-    """`arch` at full width cut to 2 layers, the card against the CPU at
-    kv_bits 8 and 4: one prefill_chunk byte for byte, then the engine's
-    tokens on 4 ragged requests."""
-    from repro_torch.configs.base import get_config
+def config_parity(torch, np, arch, lm=None, t_np=None):
+    """`arch` at full width cut to 2 layers, one table set (calibrated
+    on the card, or `t_np`) on both devices, the card against the CPU
+    at kv_bits 8 and 4: one prefill_chunk byte for byte, then the
+    engine's tokens on 4 ragged requests."""
     from repro_torch.launch.serve import ragged_requests
-    from repro_torch.models.lm import DecoderLM, tables_from_numpy
+    from repro_torch.models.lm import tables_from_numpy
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
-    lm = DecoderLM(cfg, max_seq=MAX_LEN)
-    t_np = lm.deploy(lm.init_np(SEED))
+    if t_np is None:
+        lm, p, sample = calibrated_2_layers(arch)
+        t_np = lm.deploy(p, lm.calibrate(p, sample, device="cuda"))
+    cfg = lm.cfg
     reqs = ragged_requests(4, cfg.vocab, np.random.default_rng(SEED + 1),
                            prompt_lo=17, prompt_hi=80, gen=6)
     tables = {dev: tables_from_numpy(t_np, dev) for dev in ("cuda", "cpu")}
     print(f"  {arch}: 2 layers at full width (d {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_padded}) deployed in "
+          f"{cfg.d_ff}, vocab {cfg.vocab_padded}): one table set "
+          f"calibrated on the card, on both devices in "
           f"{time.perf_counter() - t0:.1f} s")
     for kv_bits in (8, 4):
         t0 = time.perf_counter()
@@ -957,9 +1068,9 @@ def phase_main(torch, np, kernels):
                               max_seq=MAX_LEN, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     deploy_s = time.perf_counter() - t0
-    print(f"  deployed granite_3_2b ({lm.cfg.n_layers} layers, d "
-          f"{lm.cfg.d_model}, vocab {lm.cfg.vocab_padded}) layer by layer "
-          f"in {deploy_s:.1f} s; device memory "
+    print(f"  calibrated and deployed granite_3_2b ({lm.cfg.n_layers} "
+          f"layers, d {lm.cfg.d_model}, vocab {lm.cfg.vocab_padded}) layer "
+          f"by layer in {deploy_s:.1f} s; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     reqs = ragged_requests(8, lm.cfg.vocab, np.random.default_rng(SEED + 2),
                            prompt_lo=17, prompt_hi=300, gen=16)
@@ -973,8 +1084,8 @@ def phase_main(torch, np, kernels):
     same = sum(a == b for r in tok8 for a, b in zip(tok8[r], tok4[r]))
     total = sum(len(v) for v in tok8.values())
     print(f"  kv_bits 4 tokens equal to the int8 run's at {same} of {total}"
-          f" positions ({same / total:.3f}; lossy by design, uncalibrated "
-          "tables)")
+          f" positions ({same / total:.3f}; lossy by design: int4 K/V on "
+          "the calibrated per-kv-head ranges)")
     return launches, lm, tables, reqs, {8: tok8, 4: tok4}
 
 
@@ -1106,18 +1217,20 @@ def phase_prefix(torch, np, kernels, lm, tables):
     print(f"  shared tokens equal cold for all {n} requests")
 
 
-def phase_preempt(torch, np, kernels, lm, tables, reqs, run1, kv_bits):
+def phase_preempt(torch, np, kernels, lm, tables, reqs, run1, kv_bits,
+                  depth=0):
     """`PrioritySLOPolicy(preempt=True)`: the main phase's requests at
     class 0; once all of them decode, N_URGENT class-1 requests, each
     of which evicts a class-0 decode.  Every class-0 request must end
     with its main run 1 tokens (every resume passes the engine's
-    resume-parity oracle, which raises otherwise)."""
+    resume-parity oracle, which raises otherwise).  `depth` is the
+    engine's dispatch depth.  -> ({req_id: tokens}, stats)."""
     import copy
 
     from repro_torch.launch.serve import ragged_requests
     from repro_torch.serving import PrioritySLOPolicy
 
-    eng = make_engine(lm, tables, "cuda", kv_bits,
+    eng = make_engine(lm, tables, "cuda", kv_bits, dispatch_depth=depth,
                       policy=PrioritySLOPolicy(preempt=True))
     kernels.reset_launch_counts()
     for r in reqs:
@@ -1137,8 +1250,9 @@ def phase_preempt(torch, np, kernels, lm, tables, reqs, run1, kv_bits):
     torch.cuda.synchronize()
     s = eng.stats()
     launches = kernels.launch_counts()
-    check_path_launches(launches, kv_bits, f"preempt kv_bits {kv_bits}")
-    print(f"  preempt kv_bits {kv_bits} launches {launches}")
+    what = f"preempt kv_bits {kv_bits} depth {depth}"
+    check_path_launches(launches, kv_bits, what)
+    print(f"  {what} launches {launches}")
     if s["n_preempts"] < N_URGENT:
         raise AssertionError(f"only {s['n_preempts']} preemptions")
     for rid, tokens in run1.items():
@@ -1148,11 +1262,64 @@ def phase_preempt(torch, np, kernels, lm, tables, reqs, run1, kv_bits):
     if len(done) != len(reqs) + N_URGENT or any(
             c.n_generated != 16 for c in done.values()):
         raise AssertionError("preempt: not every request finished")
-    print(f"  kv_bits {kv_bits}: {s['n_preempts']} preemptions, evicted "
+    print(f"  {what}: {s['n_preempts']} preemptions, evicted "
           f"requests {sorted(r for r, c in done.items() if c.n_preempts)}, "
           f"{s['steps']} steps, {s['throughput_tok_s']:.2f} tok/s; class-0 "
           f"tokens equal main run 1 for all {len(reqs)}")
-    print_stats(f"preempt kv_bits {kv_bits}", s)
+    print_stats(what, s)
+    return {r: list(c.tokens) for r, c in done.items()}, s
+
+
+def phase_async(torch, np, kernels, lm, tables, reqs, run1, preempt0):
+    """Dispatch depth 1 on the main granite tables.  The 8-request cell
+    at kv_bits 8 with depth 0 and depth 1 in turns (0, 1, 1, 0: the
+    host's speed drifts over a run), and at kv_bits 4 at depth 1 (its
+    depth 0 is main run 2, the same setup), each run on a fresh warmed
+    engine with telemetry on and the counts set to 0 just before and
+    read just after (every kernel of the path launched); then the
+    preempt cell at kv_bits 8 at depth 1.  Tokens must equal depth 0's
+    request by request (main run 1; the depth-0 preempt cell).  Each
+    run prints tok/s and the host's ms per step in the admission,
+    harvest and dispatch phases."""
+    from repro_torch.serving import Telemetry
+
+    for kv_bits, depths in ((8, (0, 1, 1, 0)), (4, (1,))):
+        rate = {0: [], 1: []}
+        for depth in depths:
+            tel = Telemetry()
+            eng = make_engine(lm, tables, "cuda", kv_bits, telemetry=tel,
+                              dispatch_depth=depth)
+            kernels.reset_launch_counts()
+            tok, s, _ = serve(lm, tables, reqs, "cuda", engine=eng,
+                              warm=True)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            what = f"depth {depth} kv_bits {kv_bits}"
+            check_path_launches(launches, kv_bits, what)
+            if tok != run1[kv_bits]:
+                raise AssertionError(f"{what}: tokens differ from main "
+                                     "run 1's (depth 0)")
+            if s["dispatch_depth"] != depth or eng.queue.pending:
+                raise AssertionError(f"{what}: a step left in flight")
+            ph = tel.metrics()["phase_mean_s"]
+            rate[depth].append(s["throughput_tok_s"])
+            print(f"  {what} (warmed, telemetry on): "
+                  f"{s['throughput_tok_s']:.2f} tok/s, {s['steps']} steps "
+                  f"in {s['wall_s']:.3f} s; host ms per step: " + ", ".join(
+                      f"{k} {ph.get(k, 0.0) * 1e3:.3f}" for k in (
+                          "admission", "harvest", "plan_chunks",
+                          "unified_dispatch"))
+                  + f"; launches {launches}")
+        print(f"  kv_bits {kv_bits}: tokens equal main run 1's in all "
+              f"{len(depths)} runs; tok/s depth 0 {rate[0]}, depth 1 "
+              f"{rate[1]}")
+    tok, _ = phase_preempt(torch, np, kernels, lm, tables, reqs, run1[8], 8,
+                           depth=1)
+    if tok != preempt0:
+        raise AssertionError("preempt cell: depth 1 tokens differ from "
+                             "depth 0's")
+    print(f"  preempt cell depth 1 tokens equal depth 0's for all "
+          f"{len(tok)} requests")
 
 
 def phase_overload(torch, np, kernels, lm, tables, reqs, closed, rps):
@@ -1486,10 +1653,15 @@ def main() -> int:
     t0 = phase_done("kernels", t0)
     print("[entry] quant_flash_attention through its entry point")
     entry = phase_entry(torch, kernels)
-    print("[parity] 2-layer full width, card vs CPU: " + ", ".join(
-        ("granite_3_2b",) + CONFIGS))
+    t0 = phase_done("entry", t0)
+    print("[calibrate] granite_3_2b at full width, 2 layers: calibrate on "
+          "the card and the CPU, deploy once, card vs CPU")
+    phase_calibrate(torch, np)
+    t0 = phase_done("calibrate", t0)
+    print("[parity] 2-layer full width, calibrated, card vs CPU: "
+          + ", ".join(CONFIGS))
     phase_parity(torch, np)
-    t0 = phase_done("entry and parity", t0)
+    t0 = phase_done("parity", t0)
     print("[main] full granite_3_2b on the card")
     launches, lm, tables, reqs, run1 = phase_main(torch, np, kernels)
     t0 = phase_done("main", t0)
@@ -1500,12 +1672,15 @@ def main() -> int:
     phase_prefix(torch, np, kernels, lm, tables)
     t0 = phase_done("prefix", t0)
     print("[preempt] granite_3_2b under PrioritySLOPolicy")
-    for kv_bits in (8, 4):
-        phase_preempt(torch, np, kernels, lm, tables, reqs, run1[kv_bits],
-                      kv_bits)
+    preempt0 = {kv_bits: phase_preempt(torch, np, kernels, lm, tables, reqs,
+                                       run1[kv_bits], kv_bits)[0]
+                for kv_bits in (8, 4)}
     phase_overload(torch, np, kernels, lm, tables, ol_reqs, closed, rps)
-    del lm, tables
     t0 = phase_done("preempt", t0)
+    print("[async] granite_3_2b at dispatch depth 1")
+    phase_async(torch, np, kernels, lm, tables, reqs, run1, preempt0[8])
+    del lm, tables
+    t0 = phase_done("async", t0)
     print("[configs] " + " and ".join(CONFIGS) + f" at full width, "
           f"{CONFIG_LAYERS} layers")
     phase_configs(torch, np, kernels)

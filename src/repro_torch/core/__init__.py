@@ -1,2 +1,2 @@
 """Integer primitives of the ID path (requant, isqrt, LUTs) and the
-calibration state deployment reads."""
+calibrator whose ranges deployment reads."""

@@ -2,14 +2,22 @@
 `repro.launch.serve`: `deploy_model` and the CLI, cut to the flags of
 the dense paged/chunked/FCFS path).
 
-`deploy_model` draws the float params from numpy (seeded) and deploys
-them WITHOUT calibration (`DEFAULT_RANGES`, as the reference's
-full-size dry runs deploy) LAYER BY LAYER: each layer's floats are
-drawn, deployed and moved to the device before they are dropped, so
-the host never holds all the model's float weights at once (about
-10 GB of float32 for granite_3_2b).  The float draw of the next layer
-runs in a thread while the current one deploys, so the host holds at
-most two layers' floats.
+`deploy_model` does what the reference's does: init -> calibrate ->
+deploy.  It draws the float params from numpy (seeded), runs the
+FullPrecision forward of a calibration sample (`calibration_sample`:
+`SyntheticStream` batch 0, 4 x min(64, max_seq - 1) tokens) in
+float32 on `device`, observing every activation range, and deploys
+the integer tables from those ranges.  It goes LAYER BY LAYER: each
+layer's floats are drawn, moved to the device, run on the running
+activation (observing), deployed from the ranges just observed and
+dropped, so the host never holds all the model's float weights at
+once (about 10 GB of float32 for granite_3_2b).  This equals the
+whole-model `lm.deploy(p, lm.calibrate(p, sample))`: layer i's
+observations depend only on the forward up to layer i, and its deploy
+reads only its own.  The float draw of the next layer runs in a thread
+while the current one calibrates and deploys, so the host holds at
+most two layers' floats.  The calibration-free deploy stays
+`lm.deploy(p, None)` (DEFAULT_RANGES).
 
 The CLI warms the engine (`ServingEngine.warmup`) before its measured
 window, then serves the requests closed-loop (submit everything, drain)
@@ -24,7 +32,8 @@ system-prompt workload), which `--prefix-cache` shares page by page
 (`--cache-keep-pages` keeps released prefix pages warm).  `--policy
 priority` serves by `Request.priority` with preemption
 (`PrioritySLOPolicy`; with `--slo-ttft-p99 S` pending requests older
-than S jump the order).
+than S jump the order).  `--dispatch-depth 1` leaves one step in
+flight on the device while the host plans the next (same tokens).
 
 Example (on the card; add --reduced --device cpu for a CPU smoke run,
 --kv-bits 4 for int4-packed KV pools):
@@ -42,37 +51,61 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.core.calibrate import Calibrator
+from repro_torch.data.synthetic import SyntheticConfig, SyntheticStream
 from repro_torch.layers.common import DeployCtx
-from repro_torch.models.lm import DecoderLM, load_layer, tree_to_torch
+from repro_torch.models.lm import (
+    DecoderLM, load_layer, params_to_torch, tree_to_torch,
+)
 from repro_torch.serving import (
     Request, SchedulerConfig, ServingConfig, ServingEngine, Telemetry,
     make_policy, poisson_arrivals, run_open_loop, shared_prefix_workload,
 )
 
 
+CALIB_BATCH = 4  # calibration rows, as the reference entry point's
+
+
+def calibration_sample(vocab: int, max_seq: int) -> np.ndarray:
+    """The reference entry point's calibration tokens: `SyntheticStream`
+    batch 0 of CALIB_BATCH rows, min(64, max_seq - 1) tokens each."""
+    stream = SyntheticStream(SyntheticConfig(
+        vocab=vocab, seq_len=min(64, max_seq - 1), global_batch=CALIB_BATCH))
+    return stream.batch(0)[:, :-1]
+
+
 def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
                  device="cuda", n_layers: Optional[int] = None):
     """-> (lm, tables on `device`), equal to
-    `tables_from_numpy(lm.deploy(lm.init_np(seed)), device)`.
-    `n_layers` cuts the depth (the first n layers of the config, at its
-    full width; None: all of them)."""
+    `tables_from_numpy(lm.deploy(p, lm.calibrate(p, sample, device)),
+    device)` with p = `lm.init_np(seed)` and sample =
+    `calibration_sample(vocab, max_seq)`: the float forward runs on
+    `device`.  `n_layers` cuts the depth (the first n layers of the
+    config, at its full width; None: all of them)."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     lm = DecoderLM(cfg, max_seq=max_seq)
-    ctx = DeployCtx(calib=None)
-    t_embed, eps_x = lm.deploy_embed(ctx, lm.init_embed_np(seed))
+    calib = Calibrator()
+    ctx = DeployCtx(calib=calib)
+    sample = calibration_sample(cfg.vocab, max_seq)
+    p_embed = lm.init_embed_np(seed)
+    x = lm.embed_in({"embed": params_to_torch(p_embed, device)},
+                    torch.from_numpy(sample).to(device), calib)
+    t_embed, eps_x = lm.deploy_embed(ctx, p_embed)
     tables = {
         "meta": {"eps_in": eps_x},
         "embed": tree_to_torch(t_embed, device),
         "layers": [],
     }
-    del t_embed
-    # layers deploy in order (each one's tables need the previous
+    del t_embed, p_embed
+    # layers calibrate and deploy in order (each one's float input is
+    # the previous layer's output, and its tables need the previous
     # layer's output quantum); the next layer's floats are drawn
     # meanwhile, and each layer's floats are dropped once deployed
     n = cfg.n_layers
@@ -82,10 +115,14 @@ def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
             p_i = ahead.result()
             if i + 1 < n:
                 ahead = pool.submit(lm.init_layer_np, seed, i + 1)
+            x = lm.apply_layer(params_to_torch(p_i, device), i, x, calib)
             t_i, eps_x = lm.deploy_layer(ctx, i, p_i, eps_x)
             del p_i
             tables["layers"].append(load_layer(tree_to_torch(t_i, device)))
     p_norm, p_head = lm.init_head_np(seed)
+    lm.logits({"norm_f": params_to_torch(p_norm, device),
+               "head": params_to_torch(p_head, device)}, x, calib)
+    del x
     tn, th, eps_logits = lm.deploy_head(ctx, p_norm, p_head, eps_x)
     tables["norm_f"] = tree_to_torch(tn, device)
     tables["head"] = tree_to_torch(th, device)
@@ -138,6 +175,10 @@ def main(argv=None):
                     help="give every request the SAME random prefix of "
                     "this many tokens (a system-prompt workload, what "
                     "--prefix-cache shares; 0: independent prompts)")
+    ap.add_argument("--dispatch-depth", type=int, default=0, choices=(0, 1),
+                    help="dispatch queue depth: 1 plans each step while "
+                    "the previous one runs on the device (0: "
+                    "synchronous)")
     ap.add_argument("--policy", default="fcfs", choices=("fcfs", "priority"),
                     help="scheduling policy: fcfs serves in arrival "
                     "order; priority ranks admission by request class "
@@ -177,7 +218,8 @@ def main(argv=None):
     engine = ServingEngine(lm, tables, ServingConfig(
         n_slots=args.slots, max_len=max_len, page_size=args.page_size,
         n_pages=args.pages or None, device=args.device,
-        kv_bits=args.kv_bits, telemetry=tel,
+        kv_bits=args.kv_bits, dispatch_depth=args.dispatch_depth,
+        telemetry=tel,
         prefix_cache=args.prefix_cache,
         cache_keep_pages=args.cache_keep_pages,
         policy=make_policy(
@@ -215,7 +257,8 @@ def main(argv=None):
           f"in {s['wall_s']:.2f} s ({s['throughput_tok_s']:.1f} tok/s, "
           f"peak {s['max_pages_in_use']}/{s['n_pages']} pages, "
           f"peak concurrency {s['max_active']}, "
-          f"kv_bits {s['kv_bits']}, {s['pool_bytes']} pool bytes)")
+          f"kv_bits {s['kv_bits']}, {s['pool_bytes']} pool bytes, "
+          f"dispatch_depth {s['dispatch_depth']})")
     print(f"  TTFT mean/p50/p95/p99/max {s['mean_ttft_s'] * 1e3:.0f}/"
           f"{s['p50_ttft_s'] * 1e3:.0f}/{s['p95_ttft_s'] * 1e3:.0f}/"
           f"{s['p99_ttft_s'] * 1e3:.0f}/{s['max_ttft_s'] * 1e3:.0f} ms, "

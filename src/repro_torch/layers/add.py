@@ -1,5 +1,5 @@
-"""Add of two residual branches, ID path (port of
-`repro.layers.add.QAdd`, Eq. 24).
+"""Add of two residual branches (port of `repro.layers.add.QAdd`,
+Eq. 24: the float `apply_fp`, `deploy` and `apply_id`).
 
 Each branch is requantized into the fresh symmetric output space as an
 int32 image clipped to +-2^24, the two are summed in int32 and clipped
@@ -21,6 +21,13 @@ from repro_torch.layers.common import DeployCtx
 @dataclasses.dataclass(frozen=True)
 class QAdd:
     name: str = "add"
+
+    def apply_fp(self, a: torch.Tensor, b: torch.Tensor, calib=None,
+                 scope: str = "") -> torch.Tensor:
+        y = a + b
+        if calib is not None:
+            calib.observe(f"{scope}{self.name}", y)
+        return y
 
     def deploy(
         self, ctx: DeployCtx, scope: str,

@@ -1,6 +1,14 @@
-"""Grouped-query attention, paged integer serving path (port of
-`repro.layers.attention.QAttention`: `deploy` and the paged-kernel
-branch of `apply_id`).
+"""Grouped-query attention (port of `repro.layers.attention.QAttention`:
+the float forward `apply_float` without a cache, `deploy` and the
+paged-kernel branch of `apply_id`).
+
+The float forward (FullPrecision, calibration's pass) runs causal
+attention over the whole sequence in float32: q/k/v matmuls, float
+RoPE, scores, softmax and P.V as plain torch operations, observing
+q, k, v (before RoPE), each kv head's K and V (after RoPE, what the
+cache stores: the int4 pools' per-head ranges), the probabilities and
+ctx.  No library attention call stands in: the calibrator reads the
+probabilities.
 
 ID dataflow per layer (B slot rows, S query rows each):
 
@@ -49,9 +57,12 @@ from repro_torch.kernels.requant_kernel import requant
 from repro_torch.layers.act_quant import QAct
 from repro_torch.layers.common import ActKind, DeployCtx
 from repro_torch.layers.linear import QLinear
-from repro_torch.layers.rope import gather_trig, rope_tables_int, rotate_int
+from repro_torch.layers.rope import (
+    apply_rope_fp, gather_trig, rope_tables_fp, rope_tables_int, rotate_int,
+)
 
 EPS_P = 1.0 / 127.0  # probability quantum (symmetric int8, zp=0)
+NEG_INF = -1e9  # the float forward's causal mask
 PAGE_NULL = 0  # physical page 0 is the trash page
 INACTIVE_POS = 1 << 30  # parked rows: past every cache, int32-safe
 
@@ -60,6 +71,19 @@ INACTIVE_POS = 1 << 30  # parked rows: past every cache, int32-safe
 def _rope_cached(hd: int, max_seq: int, base: float, fraction: float,
                  device: str):
     return rope_tables_int(hd, max_seq, base, fraction, device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_fp_cached(hd: int, max_seq: int, base: float, fraction: float,
+                    device: str):
+    return rope_tables_fp(hd, max_seq, base, fraction, device=device)
+
+
+def _causal_mask(S: int, device) -> torch.Tensor:
+    """(S, S) float32: 0 where key j <= query i, NEG_INF elsewhere."""
+    i = torch.arange(S, device=device)
+    return torch.where(i[None, :] <= i[:, None], 0.0, NEG_INF).to(
+        torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +112,46 @@ class QAttention:
 
     def init_np(self, rng: np.random.Generator) -> dict:
         return {n: lay.init_np(rng) for n, lay in self._sub().items()}
+
+    def apply_float(self, p: dict, x: torch.Tensor, calib=None,
+                    scope: str = "") -> torch.Tensor:
+        """FullPrecision forward, x (B, S, d) float32 at positions
+        0..S-1 (the reference's `apply_float` with no cache) -> the wo
+        output (B, S, d)."""
+        subs = self._sub()
+        B, S, _ = x.shape
+        H, K, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        q = subs["wq"].apply_fp(p["wq"], x)
+        k = subs["wk"].apply_fp(p["wk"], x)
+        v = subs["wv"].apply_fp(p["wv"], x)
+        if calib is not None:
+            calib.observe(f"{scope}{self.name}.q", q)
+            calib.observe(f"{scope}{self.name}.k", k)
+            calib.observe(f"{scope}{self.name}.v", v)
+        q = q.reshape(B, S, H, hd).permute(0, 2, 1, 3)
+        k = k.reshape(B, S, K, hd).permute(0, 2, 1, 3)
+        v = v.reshape(B, S, K, hd).permute(0, 2, 1, 3)
+        rot, cos, sin = _rope_fp_cached(hd, self.max_seq, self.rope_base,
+                                        self.rope_fraction, str(x.device))
+        positions = torch.arange(S, device=x.device)
+        q = apply_rope_fp(q, cos, sin, positions, rot)
+        k = apply_rope_fp(k, cos, sin, positions, rot)
+        if calib is not None:
+            for h in range(K):
+                calib.observe(f"{scope}{self.name}.k.h{h}", k[:, h])
+                calib.observe(f"{scope}{self.name}.v.h{h}", v[:, h])
+        kh = k.repeat_interleave(self.group, dim=1)
+        vh = v.repeat_interleave(self.group, dim=1)
+        scores = torch.matmul(q, kh.transpose(-1, -2)) / float(np.sqrt(hd))
+        scores = scores + _causal_mask(S, x.device)
+        probs = torch.softmax(scores, dim=-1)
+        if calib is not None:
+            calib.observe(f"{scope}{self.name}.probs", probs)
+        ctx_ = torch.matmul(probs.to(x.dtype), vh)
+        ctx_ = ctx_.permute(0, 2, 1, 3).reshape(B, S, H * hd)
+        if calib is not None:
+            calib.observe(f"{scope}{self.name}.ctx", ctx_)
+        return subs["wo"].apply_fp(p["wo"], ctx_)
 
     def _qkv_acts(self):
         rt2 = float(np.sqrt(2.0))  # RoPE rotation headroom

@@ -1,6 +1,8 @@
 """Shared layer scaffolding (port of `repro.layers.common`, cut to the
-dense serving path): activation kinds, the deploy context, the
-default calibration ranges and per-layer tree stacking.
+dense path): activation kinds, the float activations of the
+FullPrecision forward (`act_fn`) and their numpy twins for LUT
+building, the deploy context, the default calibration ranges and
+per-layer tree stacking.
 
 Conventions (as in the reference): stored activation images are int8
 with a per-space zero point, the residual stream and norm inputs are
@@ -15,6 +17,7 @@ import enum
 from typing import Optional
 
 import numpy as np
+import torch
 
 ACT_QMIN, ACT_QMAX = -128, 127
 
@@ -25,6 +28,19 @@ class ActKind(enum.Enum):
     RELU2 = "relu2"
     SILU = "silu"
     GELU = "gelu"
+
+
+def act_fn(kind: ActKind, x: torch.Tensor) -> torch.Tensor:
+    """Full-precision activation of the float forward, written as the
+    reference's `act_fn` is, operation for operation, for the kinds the
+    dense configs use."""
+    if kind is ActKind.SILU:
+        return x * (1.0 / (1.0 + torch.exp(-x)))
+    if kind is ActKind.GELU:
+        # tanh approximation (the reference's, jax.nn.gelu approximate)
+        c = float(np.sqrt(2.0 / np.pi))
+        return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3)))
+    raise NotImplementedError(f"{kind} is outside the dense slice")
 
 
 def act_fn_np(kind: ActKind, x: np.ndarray) -> np.ndarray:

@@ -1,7 +1,8 @@
-"""Token embedding, ID path (port of `repro.layers.embedding.QEmbed`).
+"""Token embedding (port of `repro.layers.embedding.QEmbed`: the
+float forward, `deploy` and the ID path).
 
 The int8 table is the first activation image (symmetric, zp = 0); the
-lookup is a gather.
+lookup is a gather in both representations.
 """
 from __future__ import annotations
 
@@ -23,6 +24,13 @@ class QEmbed:
     def init_np(self, rng: np.random.Generator) -> dict:
         table = rng.standard_normal((self.vocab, self.d), dtype=np.float32)
         return {"table": table * np.float32(0.02)}
+
+    def apply_fp(self, p: dict, tok: torch.Tensor, calib=None,
+                 scope: str = "") -> torch.Tensor:
+        y = p["table"][tok.to(torch.int64)]
+        if calib is not None:
+            calib.observe(f"{scope}{self.name}", y)
+        return y
 
     def deploy(self, ctx: DeployCtx, p_np: dict) -> Tuple[dict, float, int]:
         t = np.asarray(p_np["table"], np.float64)

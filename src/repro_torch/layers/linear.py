@@ -1,5 +1,8 @@
-"""Quantizable Linear, ID path (port of `repro.layers.linear.QLinear`:
-`deploy` and `apply_id`).
+"""Quantizable Linear (port of `repro.layers.linear.QLinear`: the
+float forward `apply_fp`, `deploy` and `apply_id`).
+
+`apply_fp` is a plain float32 matmul, as the reference's is an XLA
+dot outside any kernel.
 
 `apply_id` runs the int8 GEMM kernel (kernels/int8_matmul.py).  With
 no requant tree it returns the int32 accumulator `x @ w_q + b_q`, as
@@ -37,6 +40,12 @@ class QLinear:
         if self.use_bias:
             p["b"] = np.zeros((self.d_out,), np.float32)
         return p
+
+    def apply_fp(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        y = x @ p["w"].to(x.dtype)
+        if self.use_bias:
+            y = y + p["b"].to(x.dtype)
+        return y
 
     def deploy(self, p_np: dict, eps_x: float, zp_x: int) -> Tuple[
         dict, np.ndarray

@@ -1,5 +1,8 @@
-"""Gated feed-forward block (SwiGLU), ID path (port of
-`repro.layers.mlp.QMLP`, gated: `deploy` and `apply_id`).
+"""Gated feed-forward block (SwiGLU) (port of `repro.layers.mlp.QMLP`,
+gated: the float forward `apply_float`, `deploy` and `apply_id`).
+
+Float: h = act(x @ wg) * (x @ wu), out = h @ wd, observing the gate's
+input and output, up and h.  Integer:
 
     s_x --wg GEMM + g_tab.rqt epilogue--> int8 --SiLU LUT--> s_g (asym)
         --wu GEMM + u_rqt epilogue-----> s_u (sym)
@@ -18,7 +21,7 @@ import torch
 
 from repro_torch.kernels.requant_kernel import requant_gate
 from repro_torch.layers.act_quant import QAct
-from repro_torch.layers.common import ActKind, DeployCtx
+from repro_torch.layers.common import ActKind, DeployCtx, act_fn
 from repro_torch.layers.linear import QLinear
 
 
@@ -44,6 +47,22 @@ class QMLP:
 
     def init_np(self, rng: np.random.Generator) -> dict:
         return {n: lay.init_np(rng) for n, lay in self._sub().items()}
+
+    def apply_float(self, p: dict, x: torch.Tensor, calib=None,
+                    scope: str = "") -> torch.Tensor:
+        subs = self._sub()
+        u = subs["wu"].apply_fp(p["wu"], x)
+        g_pre = subs["wg"].apply_fp(p["wg"], x)
+        g = act_fn(self.act, g_pre)
+        h = g * u
+        if calib is not None:
+            # the reference writes wg's product out again for these
+            # two (the same value); here it is computed once
+            calib.observe(f"{scope}{self.name}.gate.pre", g_pre)
+            calib.observe(f"{scope}{self.name}.gate", g)
+            calib.observe(f"{scope}{self.name}.up", u)
+            calib.observe(f"{scope}{self.name}.h", h)
+        return subs["wd"].apply_fp(p["wd"], h)
 
     def deploy(
         self, ctx: DeployCtx, scope: str, p_np: dict, eps_x: float, zp_x: int

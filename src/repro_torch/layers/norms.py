@@ -1,5 +1,5 @@
-"""Integer RMSNorm, ID path (port of `repro.layers.norms.QNorm`, the
-rms kind: `deploy` and `apply_id`).
+"""RMSNorm (port of `repro.layers.norms.QNorm`, the rms kind: the
+float forward `apply_fp`, `deploy` and the integer `apply_id`).
 
 The per-token normalizer enters as a dynamic fixed-point reciprocal
 (see the reference's module doc).  Every step is int32 and mirrors the
@@ -35,6 +35,15 @@ class QNorm:
 
     def init_np(self) -> dict:
         return {"g": np.ones((self.d,), np.float32)}
+
+    def apply_fp(self, p: dict, x: torch.Tensor, calib=None,
+                 scope: str = "") -> torch.Tensor:
+        xf = x.to(torch.float32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = (xf * torch.rsqrt(var + self.eps) * p["g"]).to(x.dtype)
+        if calib is not None:
+            calib.observe(f"{scope}{self.name}", y)
+        return y
 
     def deploy(
         self, ctx: DeployCtx, scope: str, p_np: dict, eps_in: float

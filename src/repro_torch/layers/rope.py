@@ -1,5 +1,6 @@
-"""Integer rotary position embeddings (port of `repro.layers.rope`:
-`rope_tables_int` and `apply_rope_int`).
+"""Rotary position embeddings (port of `repro.layers.rope`: the float
+`rope_tables_fp` / `apply_rope_fp` of the FullPrecision forward, and
+the integer `rope_tables_int` / `apply_rope_int`).
 
 cos/sin become int16 images with quantum 2^-TRIG_BITS; the rotation
 is int8 x int16 -> int32 and an exact power-of-two requant with
@@ -32,6 +33,31 @@ def _angles(head_dim: int, max_pos: int, base: float, fraction: float):
     return rot, np.cos(ang), np.sin(ang)
 
 
+def rope_tables_fp(head_dim: int, max_pos: int, base: float = 10000.0,
+                   fraction: float = 1.0, device="cuda"):
+    """-> (rot, cos, sin): float32 (max_pos, rot/2) tables on device,
+    rounded once from the float64 angles."""
+    rot, cos, sin = _angles(head_dim, max_pos, base, fraction)
+
+    def enc(v):
+        return torch.from_numpy(v.astype(np.float32)).to(device)
+
+    return rot, enc(cos), enc(sin)
+
+
+def apply_rope_fp(x, cos, sin, positions, rot: int):
+    """x (..., S, head_dim) float, positions (S,) int -> x rotated (the
+    leading `rot` channels, in (even, odd) pairs; the rest pass)."""
+    c = cos[positions].to(x.dtype)
+    s = sin[positions].to(x.dtype)
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    y1 = x1 * c - x2 * s
+    y2 = x1 * s + x2 * c
+    y = torch.stack([y1, y2], dim=-1).reshape(*y1.shape[:-1], -1)
+    return torch.cat([y, x_pass], dim=-1) if x_pass.shape[-1] else y
+
+
 def rope_tables_int(head_dim: int, max_pos: int, base: float = 10000.0,
                     fraction: float = 1.0, device="cuda"):
     """-> (rot, cos_q, sin_q): int16 (max_pos, rot/2) tables on device."""
@@ -52,9 +78,9 @@ def gather_trig(cos_q, sin_q, positions):
     pos = positions.to(torch.int64)
     ok = (pos >= 0) & (pos < n)
     idx = torch.where(ok, pos, torch.zeros_like(pos))
-    fill = torch.tensor(_INT16_FILL, dtype=torch.int32, device=pos.device)
-    c = torch.where(ok[..., None], cos_q[idx].to(torch.int32), fill)
-    s = torch.where(ok[..., None], sin_q[idx].to(torch.int32), fill)
+    bad = ~ok[..., None]
+    c = cos_q[idx].to(torch.int32).masked_fill_(bad, _INT16_FILL)
+    s = sin_q[idx].to(torch.int32).masked_fill_(bad, _INT16_FILL)
     return c[:, None], s[:, None]
 
 

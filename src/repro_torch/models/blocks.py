@@ -1,8 +1,10 @@
-"""Dense transformer block, ID path (port of
-`repro.models.blocks.DenseBlock`: `deploy` and `apply_id`).
+"""Dense transformer block (port of `repro.models.blocks.DenseBlock`:
+the float forward `apply_float`, `deploy` and `apply_id`).
 
-norm1 -> attention -> add1 -> norm2 -> gated MLP -> add2, with the
-residual stream a symmetric int8 image between blocks.
+norm1 -> attention -> add1 -> norm2 -> gated MLP -> add2.  In the ID
+path the residual stream is a symmetric int8 image between blocks; in
+the float forward it is float32, and each sublayer observes its
+output under the block's scope (the names `deploy` reads back).
 """
 from __future__ import annotations
 
@@ -58,6 +60,17 @@ class DenseBlock:
             "norm2": subs["norm2"].init_np(),
             "mlp": subs["mlp"].init_np(rng),
         }
+
+    def apply_float(self, p: dict, x: torch.Tensor, calib=None,
+                    scope: str = "") -> torch.Tensor:
+        """FullPrecision forward of one block (no cache, no experts)."""
+        subs = self._subs()
+        h = subs["norm1"].apply_fp(p["norm1"], x, calib, scope + "n1.")
+        a = subs["attn"].apply_float(p["attn"], h, calib, scope)
+        x = subs["add1"].apply_fp(x, a, calib, scope)
+        h = subs["norm2"].apply_fp(p["norm2"], x, calib, scope + "n2.")
+        m = subs["mlp"].apply_float(p["mlp"], h, calib, scope)
+        return subs["add2"].apply_fp(x, m, calib, scope)
 
     def deploy(
         self, ctx: DeployCtx, scope: str, p_np: dict, eps_in: float

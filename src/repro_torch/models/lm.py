@@ -1,11 +1,17 @@
-"""The dense decoder LM, integer serving path (port of
-`repro.models.lm.DecoderLM`, dense family only).
+"""The dense decoder LM (port of `repro.models.lm.DecoderLM`, dense
+family only).
 
-Lifecycle: numpy init (`init_np`, the reference's shapes and scales)
--> host-side deploy (`deploy`, the reference's integer tables leaf for
-leaf, minus the `sm_tabs` tables no ported path reads) -> torch
-state (`tables_from_numpy`) -> ID apply (`prefill_chunk`, a Python
-loop over the layers where the reference runs `lax.scan`).
+Lifecycle, as the reference's: numpy init (`init_np`, the reference's
+shapes and scales) -> calibrate (`calibrate`: the FullPrecision
+forward `embed_in` -> `apply` -> `logits` in float32 on the device,
+observing every activation range under the reference's names) ->
+host-side deploy (`deploy(p, calib)`, the reference's integer tables
+leaf for leaf, minus the `sm_tabs` tables no ported path reads;
+`deploy(p, None)` is the calibration-free deploy on DEFAULT_RANGES)
+-> torch state (`tables_from_numpy`) -> ID apply (`prefill_chunk`, a
+Python loop over the layers where the reference runs `lax.scan`).
+The float forward is the reference's eager per-layer walk (scopes
+`S0.L{i}.`); it has no cache branch.
 
 Port state layout (what `tables_from_numpy` returns):
 
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.calibrate import Calibrator
 from repro_torch.layers.attention import kv4_load
 from repro_torch.layers.common import ActKind, DeployCtx, stack_trees
 from repro_torch.layers.embedding import QEmbed
@@ -44,6 +51,7 @@ from repro_torch.models.blocks import DenseBlock
 
 ACT_MAP = {"silu": ActKind.SILU, "gelu": ActKind.GELU}
 LOGIT_PAD = -(2 ** 30)  # integer mask for padded vocab slots
+LOGIT_PAD_FP = -1e9  # the float forward's mask for padded vocab slots
 
 
 def _leaf_to_torch(key: str, a, device) -> torch.Tensor:
@@ -62,6 +70,29 @@ def tree_to_torch(tree: dict, device, key: str = "") -> Any:
     if isinstance(tree, dict):
         return {k: tree_to_torch(v, device, k) for k, v in tree.items()}
     return _leaf_to_torch(key, tree, device)
+
+
+def params_to_torch(tree, device="cuda"):
+    """A numpy float param tree (`init_np`'s, or a reference tree carried
+    across) -> float32 torch tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: params_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to_torch(v, device) for v in tree]
+    return _leaf_to_torch("", np.asarray(tree, np.float32), device)
+
+
+def tables_to(tables, device):
+    """A torch table tree (as `tables_from_numpy` or
+    `launch.serve.deploy_model` return it) -> the same tree on
+    `device`, strides kept (the GEMM's (N, K) weight layout)."""
+    if isinstance(tables, dict):
+        return {k: tables_to(v, device) for k, v in tables.items()}
+    if isinstance(tables, list):
+        return [tables_to(v, device) for v in tables]
+    if isinstance(tables, torch.Tensor):
+        return tables.to(device)
+    return tables
 
 
 def _index(tree, i: int):
@@ -206,6 +237,49 @@ class DecoderLM:
         t["norm_f"], t["head"], t["meta"]["eps_logits"] = self.deploy_head(
             ctx, p["norm_f"], p["head"], eps_x)
         return t
+
+    # -- float forward (FullPrecision, torch) -------------------------------
+    # p: a float param tree already on the device (`params_to_torch`).
+    def embed_in(self, p: dict, batch: torch.Tensor, calib=None):
+        """tokens (B, S) -> (B, S, d) float32, observing "embed"."""
+        return self.embed_layer().apply_fp(p["embed"], batch, calib, "")
+
+    def apply_layer(self, p_layer: dict, i: int, x: torch.Tensor,
+                    calib=None) -> torch.Tensor:
+        """Layer i's float forward under its scope ``S0.L{i}.``."""
+        return self.block().apply_float(p_layer, x, calib, f"S0.L{i}.")
+
+    def apply(self, p: dict, x: torch.Tensor, calib=None) -> torch.Tensor:
+        """(B, S, d) float -> the last layer's output, layer by layer."""
+        seg = p["segments"][0]
+        for i in range(self.cfg.n_layers):
+            x = self.apply_layer(_index(seg, i), i, x, calib)
+        return x
+
+    def logits(self, p: dict, x: torch.Tensor, calib=None) -> torch.Tensor:
+        """Final norm + float head; observes "final.norm" and
+        "final.head_in"; padded vocab slots masked to -1e9."""
+        c = self.cfg
+        h = self.norm_f_layer().apply_fp(p["norm_f"], x, calib, "final.")
+        if calib is not None:
+            calib.observe("final.head_in", h)
+        logits = self.head_layer().apply_fp(p["head"], h)
+        if c.vocab_padded != c.vocab:
+            pad = torch.arange(c.vocab_padded, device=logits.device) >= c.vocab
+            logits = logits.masked_fill(pad, LOGIT_PAD_FP)
+        return logits
+
+    def calibrate(self, p, sample, *, device="cuda") -> Calibrator:
+        """The FullPrecision forward of `sample` (B, S) tokens with
+        every activation observed; `p` is the whole numpy float param
+        tree, moved to `device` in float32."""
+        calib = Calibrator()
+        p = params_to_torch(p, device)
+        tok = torch.from_numpy(np.array(sample)).to(device)
+        x = self.embed_in(p, tok, calib)
+        x = self.apply(p, x, calib)
+        self.logits(p, x, calib)
+        return calib
 
     # -- integer serving path (torch) --------------------------------------
     def init_pools(self, n_pages: int, page_size: int, device="cuda",

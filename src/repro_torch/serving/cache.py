@@ -473,6 +473,15 @@ class PagedArena:
         return out
 
     # -- device view ----------------------------------------------------
+    def to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor on the arena's device.  On the card
+        the copy is non-blocking from pinned memory, so enqueueing it
+        never waits for the device; on the CPU it is the array itself."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     def decode_view(self) -> dict:
         """The pools plus the current page table on the device — the
         paged-attention kernel's layout contract (int8 pools (L,
@@ -480,7 +489,7 @@ class PagedArena:
         the trash page, an int32
         (n_slots, pages_per_slot) table with PAGE_NULL for unallocated
         blocks)."""
-        table = torch.from_numpy(self.page_table.copy()).to(self.device)
+        table = self.to_device(self.page_table.copy())
         return {"k": self.caches["k"], "v": self.caches["v"], "table": table}
 
     def stats(self) -> dict:

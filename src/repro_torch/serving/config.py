@@ -1,7 +1,8 @@
 """`ServingConfig`: the engine's validated construction record (port of
 `repro.serving.config`, cut to the port's path: the paged arena, a
-scheduling policy, synchronous chunked dispatch, int8 or int4-packed
-KV, the prefix cache, and the telemetry sink).
+scheduling policy, chunked dispatch synchronous or one step deep
+(`dispatch_depth` 0 or 1), int8 or int4-packed KV, the prefix cache,
+and the telemetry sink).
 
 `kv_bits` is the KV storage width: 8 keeps the int8 KV images, 4 packs
 two int4 nibbles per pool cell (half the pool bytes, per-kv-head
@@ -23,6 +24,10 @@ preemption's resume reuses them without recompute (0: evict at once).
 The reference also requires the paged arena for both; the port has
 only that arena.
 
+`dispatch_depth` is the engine's pipeline depth: 0 harvests every
+step before the next is planned; 1 leaves one step in flight on the
+device while the host plans the next (`engine.DispatchQueue`).
+
 `telemetry` is the engine's observability sink
 (`serving.telemetry.Telemetry`); None gives the no-op `NULL`.
 """
@@ -38,6 +43,17 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.serving.policy import SchedulingPolicy
 
 
+def check_dispatch_depth(depth: int) -> int:
+    """0 (synchronous) or 1 (one step in flight): step t+1's input is
+    step t's argmax, so no deeper pipeline is exact."""
+    if depth not in (0, 1):
+        raise ValueError(
+            "dispatch_depth must be 0 (synchronous) or 1 (the "
+            "autoregressive token feedback bounds the pipeline at "
+            f"one in-flight step), got {depth}")
+    return depth
+
+
 @dataclasses.dataclass
 class ServingConfig:
     n_slots: int = 8
@@ -48,6 +64,7 @@ class ServingConfig:
     policy: Optional["SchedulingPolicy"] = None  # None -> FCFSPolicy()
     device: str = "cuda"
     kv_bits: int = 8
+    dispatch_depth: int = 0  # 0 synchronous, 1 one step in flight
     telemetry: Any = None  # None -> serving.telemetry.NULL
     prefix_cache: bool = False
     cache_keep_pages: int = 0  # warm-page budget (needs prefix_cache)
@@ -60,6 +77,7 @@ class ServingConfig:
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
         check_kv_bits(self.kv_bits)
+        check_dispatch_depth(self.dispatch_depth)
         if self.n_pages is None:
             self.n_pages = -(-(self.n_slots * self.max_len) // self.page_size)
         if self.n_pages < 1:

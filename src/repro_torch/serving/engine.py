@@ -1,8 +1,8 @@
 """`ServingEngine`: continuous batching over the integer-only model
-(port of `repro.serving.engine.ServingEngine`: synchronous steps over
-the paged arena, chunked prefill, int8 or int4-packed KV
-(`ServingConfig.kv_bits`), a scheduling policy with preemption, the
-prefix cache, telemetry).
+(port of `repro.serving.engine.ServingEngine`: steps over the paged
+arena, synchronous or one step deep (`ServingConfig.dispatch_depth`),
+chunked prefill, int8 or int4-packed KV (`ServingConfig.kv_bits`), a
+scheduling policy with preemption, the prefix cache, telemetry).
 
 Each `step()`:
 
@@ -27,6 +27,22 @@ Each `step()`:
      With the prefix cache on, every page a chunk or a decode just
      filled is registered.
 
+Async dispatch (`dispatch_depth=1`, the `DispatchQueue`): a one step
+deep pipeline.  While step t's dispatch runs on the device, the host
+already plans step t+1 (policy, preemption, admission); then it
+harvests step t, materializes the chunk rows and dispatches step t+1,
+which stays in flight.  The harvest precedes the next dispatch because
+that dispatch's decode rows need step t's tokens and the chunk cursors
+advance at harvest: the token feedback bounds the pipeline at one step
+in flight.  A plan that preempts first drains the in-flight step (the
+victim's token from it is real output), then evicts.  Depth 1 gives
+depth 0's tokens request by request; a request's timing may shift by
+a step (admission sees slot releases one harvest later).  On the card
+the dispatch enqueues the token vector's copy into pinned host memory
+and records a CUDA event; the harvest waits on that event, the one
+point where a step waits for the device (every host-to-device copy of
+a step is non-blocking from pinned memory).
+
 Preemption is exact: a preempted decode re-prefills `prompt +
 tokens[:-1]` and resumes from `tokens[-1]` without emitting anything;
 the re-prefill's last row must regenerate `tokens[-1]`, else
@@ -46,28 +62,32 @@ only, so telemetry cannot change a token.  On the card the kernels run
 asynchronously to the host, so `unified_dispatch` times the host's
 work to build and enqueue a step (Python, torch dispatch and kernel
 launches) and `harvest` times the wait for the device to finish it
-(the `nxt.cpu()` sync) plus the host bookkeeping after it.  Per-token
+(the token copy's event) plus the host bookkeeping after it; at depth
+1 the `admission` span runs while the previous step is on the device,
+and `harvest` waits only for what of it is left.  Per-token
 emit stamps always accrue on the completions, and `stats()` rolls
 them up into TTFT / ITL percentiles and the queued / prefill / decode
 breakdown.
 
-Left out of the port so far (later slices port them): the async
-depth-1 dispatch queue, mesh and kv-head sharding, `SlotArena` and the
-whole-prompt prefill modes.  Their `stats()` keys read as the
-reference's do without them: `dispatch_depth` 0, `mesh_devices` 1,
-`kv_shard` False.
+Left out of the port so far (later slices port them): mesh and
+kv-head sharding, `SlotArena` and the whole-prompt prefill modes
+(with them the separate decode dispatch that depth 1 also pipelines
+in the reference).  Their `stats()` keys read as the reference's do
+without them: `mesh_devices` 1, `kv_shard` False.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.layers.attention import INACTIVE_POS
 from repro_torch.serving.cache import PagedArena
-from repro_torch.serving.config import ServingConfig
+from repro_torch.serving.config import ServingConfig, check_dispatch_depth
 from repro_torch.serving.policy import (
     DecodeSnap, EngineView, FCFSPolicy, PendingSnap, PrefillSnap, StepPlan,
 )
@@ -79,6 +99,47 @@ from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.telemetry import NULL
 
 ChunkRow = Tuple[PrefillState, int, int]  # (state, offset, n_tokens)
+
+
+@dataclasses.dataclass
+class _InFlightStep:
+    """One dispatched-but-unharvested unified step."""
+
+    # (n_slots,) per-row argmax on the device, held until the harvest
+    tokens: torch.Tensor
+    host: torch.Tensor  # its host copy (pinned, in flight on the card)
+    done: Any  # the copy's CUDA event on the card; None on the CPU
+    chunk_plan: List[ChunkRow]  # the chunk rows dispatched
+    decode_slots: List[int]  # the slots decoded by this dispatch
+
+
+class DispatchQueue:
+    """The host / device pipeline of the engine's step dispatches.
+
+    depth 0: synchronous, every dispatch harvested in its own engine
+    step (the token-parity oracle for depth 1).  depth 1: one step left
+    in flight while the next step's host work runs.  Deeper pipelines
+    are refused: step t+1's input is step t's argmax, so a second step
+    in flight would have to guess tokens."""
+
+    def __init__(self, depth: int = 0):
+        check_dispatch_depth(depth)
+        self.depth = depth
+        self._inflight: Deque[Any] = collections.deque()
+
+    @property
+    def pending(self) -> int:
+        return len(self._inflight)
+
+    def push(self, rec):
+        if len(self._inflight) >= max(self.depth, 1):
+            raise RuntimeError("dispatch queue overfilled")
+        self._inflight.append(rec)
+
+    def drain(self, harvest: Callable[[Any], None]):
+        """Harvest every in-flight record (oldest first)."""
+        while self._inflight:
+            harvest(self._inflight.popleft())
 
 
 class ServingEngine:
@@ -94,6 +155,7 @@ class ServingEngine:
             device=self.device, kv_bits=cfg.kv_bits,
             prefix_cache=cfg.prefix_cache, keep_pages=cfg.cache_keep_pages)
         self.sched = Scheduler(cfg.scheduler, cfg.max_len)
+        self.queue = DispatchQueue(cfg.dispatch_depth)
         self.on_token = on_token
         self.tel = cfg.telemetry if cfg.telemetry is not None else NULL
         self.active: Dict[int, RequestState] = {}  # slot -> decode state
@@ -140,10 +202,18 @@ class ServingEngine:
     # -- one engine step ------------------------------------------------
     def step(self) -> bool:
         """Plan, admit, dispatch and harvest once.  False when idle.
-        Telemetry spans time each phase (the reference's `_step_sync`);
-        with the Null sink each span is a shared no-op context."""
+        With `dispatch_depth=1` the step dispatched here is harvested
+        by the NEXT step."""
         if self._t_first is None:
             self._t_first = time.perf_counter()
+        if self.queue.depth > 0:
+            return self._step_async()
+        return self._step_sync()
+
+    def _step_sync(self) -> bool:
+        """The synchronous step (depth 0): its dispatch is harvested
+        before it returns.  Telemetry spans time each phase; with the
+        Null sink each span is a shared no-op context."""
         tel = self.tel
         tel.begin_step(self._steps)
         with tel.span("admission"):
@@ -159,10 +229,45 @@ class ServingEngine:
             rec = self._dispatch(chunk_plan, do_decode)
             self._tick_stats()
             with tel.span("harvest"):
-                self._harvest(*rec)
+                self._harvest(rec)
             progressed = True
         else:
             self._tick_stats()
+        self._t_last = time.perf_counter()
+        self._end_step()
+        return progressed
+
+    def _step_async(self) -> bool:
+        """The one step deep step (depth 1): planning, preemption and
+        admission overlap the step the previous call dispatched; then
+        its harvest (the one wait for the device), chunk
+        materialization against the advanced cursors, and this step's
+        dispatch, left in flight.  A plan that preempts drains the
+        in-flight step first: the victim's token from it is real
+        output, and its pages must not be reclaimed under a dispatch
+        that still writes them (slots that finish in that drain are
+        skipped by the eviction)."""
+        tel = self.tel
+        tel.begin_step(self._steps)
+        progressed = self.queue.pending > 0
+        with tel.span("admission"):
+            plan = self.policy.plan(self._view())
+            if plan.preempt and self.queue.pending:
+                with tel.span("harvest"):
+                    self.queue.drain(self._harvest)
+            progressed |= self._execute_preemptions(plan)
+            progressed |= self._execute_admissions(plan)
+        with tel.span("harvest"):
+            self.queue.drain(self._harvest)
+        chunk_plan: List[ChunkRow] = []
+        if plan.chunks:
+            with tel.span("plan_chunks"):
+                chunk_plan = self._materialize_chunks(plan)
+        self._tick_stats()
+        do_decode = bool(plan.decode and self.active)
+        if chunk_plan or do_decode:
+            self.queue.push(self._dispatch(chunk_plan, do_decode))
+            progressed = True
         self._t_last = time.perf_counter()
         self._end_step()
         return progressed
@@ -354,12 +459,12 @@ class ServingEngine:
         self._steps += 1
 
     def _end_step(self):
-        """Close the telemetry step record, folding in the gauges (host
-        counters only; no dispatch queue yet, so its depth is 0)."""
+        """Close the telemetry step record, folding in the queue depth
+        and the gauges (host counters only)."""
         if not self.tel.enabled:
             return
         self.tel.end_step(
-            queue_depth=0,
+            queue_depth=self.queue.pending,
             n_pending=self.sched.n_pending,
             n_active=len(self.active),
             n_prefilling=len(self.prefilling),
@@ -371,17 +476,14 @@ class ServingEngine:
                  last: np.ndarray) -> torch.Tensor:
         """Enqueue one prefill_chunk over every row and the greedy
         argmax; -> the (n_slots,) next-token vector on the device."""
-        dev = self.device
         logits = self.lm.prefill_chunk(
-            self.tables,
-            torch.from_numpy(toks).to(dev),
-            self.arena.decode_view(),
-            torch.from_numpy(start).to(dev),
-            torch.from_numpy(last).to(dev),
-        )
+            self.tables, self.arena.to_device(toks),
+            self.arena.decode_view(), self.arena.to_device(start),
+            self.arena.to_device(last))
         return torch.argmax(logits[:, 0, :], dim=-1)
 
-    def _dispatch(self, chunk_plan: List[ChunkRow], do_decode: bool):
+    def _dispatch(self, chunk_plan: List[ChunkRow],
+                  do_decode: bool) -> _InFlightStep:
         """THE unified dispatch over every arena row (row = slot)."""
         tel = self.tel
         with tel.span("unified_dispatch"):
@@ -411,14 +513,29 @@ class ServingEngine:
             tel.dispatch("unified", (B, W))
             with tel.annotate("repro_torch.serving/unified"):
                 nxt = self._unified(toks, start, last)
-        return nxt, chunk_plan, decode_slots
+            host, done = nxt, None
+            if nxt.is_cuda:
+                # the token vector's copy to the host, enqueued behind
+                # the step; the harvest waits on its event
+                host = torch.empty(nxt.shape, dtype=nxt.dtype,
+                                   pin_memory=True)
+                host.copy_(nxt, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+        return _InFlightStep(tokens=nxt, host=host, done=done,
+                             chunk_plan=chunk_plan,
+                             decode_slots=decode_slots)
 
-    def _harvest(self, nxt: torch.Tensor, chunk_plan: List[ChunkRow],
-                 decode_slots: List[int]):
-        """Block on the step's token vector and advance host state."""
-        nxt = nxt.cpu().numpy()
+    def _harvest(self, rec: _InFlightStep):
+        """Wait for the step's token vector (the pipeline's one
+        blocking point) and advance host state.  Decode slots in
+        `rec.decode_slots` cannot have been released in between: the
+        only release site is a harvest."""
+        if rec.done is not None:
+            rec.done.synchronize()
+        nxt = rec.host.numpy()
         now = time.perf_counter()
-        for slot in decode_slots:
+        for slot in rec.decode_slots:
             st = self.active[slot]
             tok = int(nxt[slot])
             st.tokens.append(tok)
@@ -435,7 +552,7 @@ class ServingEngine:
                     st.pos)
             self._emit(st.request, tok, slot)
             self._maybe_finish(st, now)
-        for st, off, n in chunk_plan:
+        for st, off, n in rec.chunk_plan:
             self.arena.advance(st.slot, n)
             if self._prefix_on:
                 # every position below off + n is final: publish the
@@ -529,7 +646,8 @@ class ServingEngine:
 
     # -- warmup -------------------------------------------------------
     def _busy(self) -> bool:
-        return bool(self.sched.n_pending or self.prefilling or self.active)
+        return bool(self.sched.n_pending or self.prefilling or self.active
+                    or self.queue.pending)
 
     def warmup(self):
         """Run both dispatch shapes once, (n_slots, 1) and (n_slots, C),
@@ -611,7 +729,7 @@ class ServingEngine:
             "mean_occupancy": (
                 self._occupancy_sum / self._steps if self._steps else 0.0),
             "max_active": self._max_active,
-            "dispatch_depth": 0,
+            "dispatch_depth": self.queue.depth,
             "mesh_devices": 1,
             "kv_shard": False,
             "device": str(self.device),

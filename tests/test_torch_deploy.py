@@ -6,8 +6,9 @@ value), the per-kv-head `kv4` tables included, apart from the `sm_tabs`
 tables only the integer-softmax variant reads.  `tables_from_numpy`
 must keep every dtype (int32 stays int32 — torch would promote int32 x
 int64 to int64 and hide the wraps — int8 stays int8, the f32
-score_scale stays f32), and the layer-by-layer `deploy_model` must
-equal the whole-tree deploy.
+score_scale stays f32), and the layer-by-layer `deploy_model` (which
+calibrates each layer just before it deploys it) must equal the
+whole-tree calibrate -> deploy at tolerance 0.
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +21,7 @@ from repro.data.synthetic import SyntheticConfig, SyntheticStream
 from repro.models.lm import DecoderLM as JLM
 from repro_torch.configs.base import get_config
 from repro_torch.core.calibrate import Calibrator
-from repro_torch.launch.serve import deploy_model
+from repro_torch.launch.serve import calibration_sample, deploy_model
 from repro_torch.models.lm import DecoderLM, tables_from_numpy
 
 OMITTED = ("sm_tabs",)
@@ -115,7 +116,10 @@ def test_tables_from_numpy_keeps_every_dtype(reference):
 
 def test_layer_by_layer_deploy_model_equals_whole_tree():
     lm = _port_lm()
-    whole = tables_from_numpy(lm.deploy(lm.init_np(5)), device="cpu")
+    p = lm.init_np(5)
+    calib = lm.calibrate(p, calibration_sample(lm.cfg.vocab, 64),
+                         device="cpu")
+    whole = tables_from_numpy(lm.deploy(p, calib), device="cpu")
     _, streamed = deploy_model("granite_3_2b", reduced=True, max_seq=64,
                                seed=5, device="cpu")
 

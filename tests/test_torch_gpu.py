@@ -43,6 +43,12 @@ copy on the CPU and leaves every other page untouched, and a 2-layer
 engine on the card with the prefix cache and a scripted preemption
 gives the CPU engine's tokens, counters and pools; the paged
 attention's exp (`island_exp`) gives the CPU's bits on the card.
+Engines on both devices get one table set, calibrated and deployed on
+the card (`deploy_model`) and moved to the CPU; the two devices'
+calibrations are compared on their own (each range within 1e-4 of
+its span), and the float forward is shown to run on the card.  At
+dispatch depth 1 the card's tokens equal depth 0's and the CPU's, and
+under torch's sync debug mode a step waits only at its harvest.
 """
 import sys
 
@@ -67,6 +73,7 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.kernels.quant_attention import qfa_plan
 from repro_torch.layers.attention import INACTIVE_POS, PAGE_NULL
+from repro_torch.models.lm import params_to_torch, tables_to
 
 # the module (the package exports its function under the same name)
 _gemm_module = sys.modules["repro_torch.kernels.int8_matmul"]
@@ -404,8 +411,7 @@ def test_engine_requant_launches_by_form_on_card():
 
     lm, t_gpu = deploy_model("granite_3_2b", reduced=True, max_seq=64,
                              seed=0, device="cuda")
-    _, t_cpu = deploy_model("granite_3_2b", reduced=True, max_seq=64,
-                            seed=0, device="cpu")
+    t_cpu = tables_to(t_gpu, "cpu")  # one calibrated table set
     reqs = ragged_requests(5, lm.cfg.vocab, np.random.default_rng(1),
                            prompt_lo=5, prompt_hi=40, gen=5)
 
@@ -866,23 +872,24 @@ def test_requant_form_gate_config_widths_on_card(shape):
     assert torch.equal(got, requant_gate_plain(s_pre, s_u, lut, zp_g, rq))
 
 
-def _engines_on_card_and_cpu(arch, kv_bits, telemetry=None):
-    """A 2-layer reduced `arch` deployed on the card and on the CPU, one
-    engine on each."""
+def _engines_on_card_and_cpu(arch, kv_bits, telemetry=None,
+                             dispatch_depth=0):
+    """A 2-layer reduced `arch` deployed (calibrated) on the card, its
+    one table set moved to the CPU, and one engine on each."""
     from repro_torch.launch.serve import deploy_model
     from repro_torch.serving import (
         SchedulerConfig, ServingConfig, ServingEngine,
     )
 
-    out = []
-    for device in ("cuda", "cpu"):
-        lm, t = deploy_model(arch, reduced=True, max_seq=64, seed=0,
-                             device=device)
-        out.append(ServingEngine(lm, t, ServingConfig(
-            n_slots=4, max_len=64, page_size=8, n_pages=40, device=device,
-            kv_bits=kv_bits, telemetry=telemetry if device == "cuda"
-            else None, scheduler=SchedulerConfig(prefill_chunk=8))))
-    return out
+    lm, t_gpu = deploy_model(arch, reduced=True, max_seq=64, seed=0,
+                             device="cuda")
+    tables = {"cuda": t_gpu, "cpu": tables_to(t_gpu, "cpu")}
+    return [ServingEngine(lm, tables[device], ServingConfig(
+        n_slots=4, max_len=64, page_size=8, n_pages=40, device=device,
+        kv_bits=kv_bits, dispatch_depth=dispatch_depth,
+        telemetry=telemetry if device == "cuda" else None,
+        scheduler=SchedulerConfig(prefill_chunk=8)))
+        for device in ("cuda", "cpu")]
 
 
 def _serve_all(eng, reqs):
@@ -1025,10 +1032,12 @@ def test_prefix_cache_and_preemption_on_card(kv_bits):
     pre = rng.integers(0, 256, size=(16,))
     reqs = [Request(np.concatenate([pre, rng.integers(0, 256, size=(n,))]),
                     8) for n in (5, 11, 3)] + [Request(pre.copy(), 8)]
+    lm, t_gpu = deploy_model("granite_3_2b", reduced=True, max_seq=64,
+                             seed=0, device="cuda")
+    tables = {"cuda": t_gpu, "cpu": tables_to(t_gpu, "cpu")}
     out = []
     for device in ("cuda", "cpu"):
-        lm, t = deploy_model("granite_3_2b", reduced=True, max_seq=64,
-                             seed=0, device=device)
+        t = tables[device]
         pol = _EvictNewestDecode(5)
         eng = ServingEngine(lm, t, ServingConfig(
             n_slots=4, max_len=64, page_size=8, n_pages=40, device=device,
@@ -1066,3 +1075,135 @@ def test_island_exp_card_equals_cpu():
     edge = torch.tensor([-104.0, -103.99999, -104.00001, -87.33655, 0.0])
     assert torch.equal(island_exp(edge.cuda()).cpu(), island_exp(edge))
 
+
+
+CALIB_TOL = 1e-4  # of the span: the card's f32 GEMMs against the CPU's
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite_3_2b", "llama3_2_3b",
+                                  "chatglm3_6b"])
+def test_calibrate_card_equals_cpu_on_card(arch):
+    """The FullPrecision forward of the entry point's calibration sample
+    on the card and on the CPU, from the same init_np params: the same
+    names in the same order, each lo / hi within CALIB_TOL of the CPU's
+    span (their float32 matmuls sum in different orders)."""
+    _need_card()
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import calibration_sample
+    from repro_torch.models.lm import DecoderLM
+
+    lm = DecoderLM(get_config(arch).reduced(), max_seq=64)
+    p = lm.init_np(0)
+    sample = calibration_sample(lm.cfg.vocab, 64)
+    card = lm.calibrate(p, sample, device="cuda")
+    cpu = lm.calibrate(p, sample, device="cpu")
+    assert list(card.hi) == list(cpu.hi) and len(cpu.hi) > 30
+    for name in cpu.hi:
+        span = max(cpu.hi[name] - cpu.lo[name], 1e-6)
+        assert abs(card.hi[name] - cpu.hi[name]) <= CALIB_TOL * span, name
+        assert abs(card.lo[name] - cpu.lo[name]) <= CALIB_TOL * span, name
+
+
+@pytest.mark.gpu
+def test_calibrate_runs_on_the_card_on_card():
+    """deploy_model's float forward runs where it was asked to: its
+    observations read tensors on the card (none of them moves to the
+    CPU first), and the calibrated tables differ from DEFAULT_RANGES'."""
+    _need_card()
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.calibrate import Calibrator
+    from repro_torch.launch.serve import calibration_sample
+    from repro_torch.models.lm import DecoderLM
+
+    seen = set()
+
+    class Spy(Calibrator):
+        def observe(self, name, x):
+            seen.add(x.device.type)
+            super().observe(name, x)
+
+    lm = DecoderLM(get_config("granite_3_2b").reduced(), max_seq=64)
+    p = lm.init_np(0)
+    p_card = params_to_torch(p, "cuda")
+    calib = Spy()
+    x = lm.embed_in(p_card, torch.from_numpy(
+        calibration_sample(lm.cfg.vocab, 64)).cuda(), calib)
+    x = lm.apply(p_card, x, calib)
+    assert seen == {"cuda"} and x.is_cuda
+    cal = lm.deploy(p, calib)
+    free = lm.deploy(p, None)
+    assert not np.array_equal(cal["segments"][0]["mlp"]["u_rqt"]["m"],
+                              free["segments"][0]["mlp"]["u_rqt"]["m"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_async_depth1_tokens_equal_depth0_on_card(kv_bits):
+    """A 2-layer calibrated granite engine at dispatch_depth 1 on the
+    card: tokens equal depth 0's on the card and depth 1's on the CPU
+    (one table set), the queue empty after the drain, and the step
+    records' queue depth 1 while a step is in flight."""
+    _need_card()
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.serving import Telemetry
+
+    tel = Telemetry()
+    card1, cpu1 = _engines_on_card_and_cpu("granite_3_2b", kv_bits, tel,
+                                           dispatch_depth=1)
+    card0, _ = _engines_on_card_and_cpu("granite_3_2b", kv_bits)
+    reqs = ragged_requests(6, card1.lm.cfg.vocab, np.random.default_rng(4),
+                           prompt_lo=5, prompt_hi=40, gen=6)
+    tok = _serve_all(card1, reqs)
+    assert tok == _serve_all(card0, reqs) == _serve_all(cpu1, reqs)
+    assert card1.queue.pending == 0
+    assert card1.stats()["dispatch_depth"] == 1
+    assert {s["queue_depth"] for s in tel.steps} == {0, 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [0, 1])
+def test_async_step_waits_only_at_the_harvest_on_card(depth):
+    """With torch's sync debug mode at "error" (it raises on a blocking
+    copy, .item() and a stream or device synchronize; torch calls the
+    mode a prototype that does not see every sync), a warmed 2-layer
+    engine on the card serves a workload with the prefix cache and a
+    scripted preemption to the drain: the only wait in a step is the
+    harvest's CUDA event on the token vector's pinned copy."""
+    _need_card()
+    from repro_torch.launch.serve import deploy_model
+    from repro_torch.serving import (
+        Request, SchedulerConfig, ServingConfig, ServingEngine,
+    )
+
+    lm, t = deploy_model("granite_3_2b", reduced=True, max_seq=64, seed=0,
+                         device="cuda")
+    rng = np.random.default_rng(5)
+    pre = rng.integers(0, 256, size=(16,))
+    reqs = [Request(np.concatenate([pre, rng.integers(0, 256, size=(n,))]),
+                    8) for n in (5, 11, 3)] + [Request(pre.copy(), 8)]
+    pol = _EvictNewestDecode(5)
+    eng = ServingEngine(lm, t, ServingConfig(
+        n_slots=4, max_len=64, page_size=8, n_pages=40, device="cuda",
+        dispatch_depth=depth, policy=pol, prefix_cache=True,
+        cache_keep_pages=8, scheduler=SchedulerConfig(prefill_chunk=16)))
+    eng.warmup()
+    torch.cuda.synchronize()
+    waits = []
+    harvest = eng._harvest
+
+    def counted(rec):
+        waits.append(rec.done is not None)
+        harvest(rec)
+
+    eng._harvest = counted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.zeros(1, device="cuda").cpu()  # the mode is on
+        tok = _serve_all(eng, reqs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(tok) == len(reqs) and pol.fired == 1
+    assert eng.stats()["n_preempts"] == 1
+    assert waits and all(waits)
