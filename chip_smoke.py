@@ -11,17 +11,21 @@ Phases (any failure raises and the script exits non-zero):
   kernels   each kernel against its plain PyTorch version on the card,
             at its path's shapes: the int8 GEMM (both modes) exactly,
             at granite_3_2b's sites and at every site of llama3_2_3b and
-            chatglm3_6b (M 8 and 256), with the plan `gemm_plan` took;
-            the requant's three forms (apply_rqt, heads-to-rows for
-            ctx_rqt; the whole QAdd; the MLP's LUT, gate product and
-            h_rqt) exactly at the chunk and decode shapes, per-channel,
-            scalar-path and wrapping tables; the paged attention in both
+            chatglm3_6b, musicgen_medium and nemotron_4_340b (M 8 and
+            256), with the plan `gemm_plan` took; the requant's four forms
+            (apply_rqt, heads-to-rows for ctx_rqt; the whole QAdd; the
+            gated MLP's LUT, gate product and h_rqt; the ungated MLP's
+            GELU LUT or squared ReLU) exactly at the chunk and decode
+            shapes, per-channel, scalar-path and wrapping tables; the
+            paged attention in both
             pool modes
             (int8, and int4-packed with per-head unpack operands) at S
             32 and 1, T 512 and 4096, on its tensor-core kernel (with
             the launch `paged_plan` took and its registers and spills),
             and at the new configs' heads (hd 128; group 3 with 8 kv
-            heads, group 16 with 2; S 32 and 1 at T 512), equal to its
+            heads, group 16 with 2; musicgen_medium's group 1 with 24
+            at hd 64; nemotron_4_340b's group 12 with 8 at hd 192; S 32
+            and 1 at T 512), equal to its
             plain version: 0 quanta moved and max |diff| 0; the
             quantized flash
             attention at full granite geometry (S 8192 x 8192 with bkv
@@ -103,6 +107,25 @@ Phases (any failure raises and the script exits non-zero):
             `warmup()`): deploy time, device memory, launches by kernel
             (counts set to 0 just before the run), GEMM launches by site
             and path, the full `stats()`
+  musicgen  musicgen_medium (LayerNorm with bias, ungated GELU MLP, MHA
+            24/24 at hd 64): the 2-layer full-width card-vs-CPU parity
+            at kv_bits 8 and 4 (as the parity phase), then the whole
+            model at full width and depth (48 layers) calibrated and
+            deployed by `deploy_model` and served as the main phase's
+            8-request cell at kv_bits 8 and 4: tokens, launches by
+            kernel, by GEMM site and by requant form (the act form once
+            a layer and step), tok/s, TTFT, ITL and the host's ms per
+            step phase
+  nemotron  one nemotron_4_340b decoder layer at full width (d 18432,
+            96/8 heads at hd 192, ungated squared-ReLU MLP at d_ff
+            73728, about 3.45 B parameters; the whole model fits no
+            card): its float weights drawn, calibrated on the card on
+            its own float input (the embedding's init scale, 4 x 64
+            tokens), deployed, and its ID `apply_id` run on the card
+            and on the CPU over a paged arena: one chunk dispatch (2
+            slots x 16 tokens of its int8 input) and one decode
+            dispatch after it, outputs and K/V pools equal byte for
+            byte, at kv_bits 8 and 4
 
 Then a `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -143,12 +166,14 @@ SOURCES = {
 # the __global__ functions of csrc/*.cu
 KERNEL_NAMES = ("gemm_gemv_kernel", "gemm_wgmma_kernel", "requant_kernel",
                 "requant_add_kernel", "requant_gate_kernel",
+                "requant_act_kernel",
                 "paged_attn_mma_kernel", "paged_attn_mma_packed_kernel",
                 "quant_attn_mma_kernel", "quant_attn_kernel")
 # the requant kernel's __global__ functions -> the call forms each serves
 REQUANT_KERNELS = {"requant_kernel": "rqt, rqt_heads",
                    "requant_add_kernel": "add",
-                   "requant_gate_kernel": "gate"}
+                   "requant_gate_kernel": "gate",
+                   "requant_act_kernel": "act"}
 # the kernels each serving path launches
 PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                 4: ("int8_matmul", "requant", "paged_attention_kv4")}
@@ -161,7 +186,16 @@ PAGED_SHAPES = ((CHUNK, MAX_LEN), (1, MAX_LEN), (CHUNK, 4096), (1, 4096))
 # the configs served beside granite_3_2b, and the geometry each gives
 # the paged attention: (H, K, hd), GQA group 3 and group 16
 CONFIGS = ("llama3_2_3b", "chatglm3_6b")
-CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128)}
+# the dense configs with LayerNorm and an ungated MLP: musicgen_medium
+# served at full width and depth, nemotron_4_340b one layer at full
+# width; MHA (group 1) at hd 64, and group 12 at hd 192
+VARIANTS = ("musicgen_medium", "nemotron_4_340b")
+CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128),
+                "musicgen_medium": (24, 24, 64),
+                "nemotron_4_340b": (96, 8, 192)}
+# the nemotron layer's dispatches: slots and chunk tokens (the CPU side's
+# float32 products, about 12 s a chunk and decode pair, bound them)
+NEMO_SLOTS, NEMO_CHUNK = 2, 16
 # the served depth of CONFIGS' full-width runs (both have 28 layers)
 CONFIG_LAYERS = 4
 # open-loop phase: requests, their arrival rate over the closed loop's
@@ -327,11 +361,12 @@ def check_int8_matmul(torch, np, timer, rng, report):
 
 def check_config_gemms(torch, np, timer, rng, report):
     """The GEMM at every QLinear site of the configs served beside
-    granite_3_2b (`gemm_sites`), decode (M 8) and chunk (M 256)."""
+    granite_3_2b and of VARIANTS (`gemm_sites`), decode (M 8) and chunk
+    (M 256)."""
     from repro_torch.configs.base import get_config
 
     worst = 0
-    for arch in CONFIGS:
+    for arch in CONFIGS + VARIANTS:
         for (K, N, mode), site in gemm_sites(get_config(arch)).items():
             for M in (N_SLOTS, N_SLOTS * CHUNK):
                 worst = max(worst, gemm_case(torch, np, timer, rng, report,
@@ -401,8 +436,8 @@ def requant_cases(torch, np, rng):
     and int32-a variants, shapes that take the scalar path (numel or N
     not a multiple of 16) and tables whose staged product wraps."""
     from repro_torch.kernels import (
-        requant, requant_add, requant_add_plain, requant_gate,
-        requant_gate_plain, requant_plain,
+        requant, requant_act, requant_act_plain, requant_add,
+        requant_add_plain, requant_gate, requant_gate_plain, requant_plain,
     )
 
     B, H, hd, d, ff = N_SLOTS, 32, 64, 2048, 8192
@@ -457,6 +492,23 @@ def requant_cases(torch, np, rng):
                 lambda: requant_gate_plain(s_pre, s_u, lut, zp_g, rq),
                 3 * n + 256 + tab_bytes(rq), 13.0 * n)
 
+    def act(name, shape, kind=None):
+        """The ungated MLP's activation: GELU's LUT (kind None) or
+        squared ReLU with `kind` rqt2 tables (zp -128, its deploy's)."""
+        s = i8(shape)
+        if kind is None:
+            t = {"lut": i8((256,))}
+        else:
+            t = {"rqt2": requant_tables(torch, np, rng, shape[-1], kind,
+                                        1 / 255, zp=-128,
+                                        acc_bound=float(255 ** 2))}
+        n = s.numel()
+        return ("act", name, lambda: requant_act(s, t),
+                lambda: requant_act_plain(s, t),
+                2 * n + (256 if kind is None else tab_bytes(t["rqt2"])),
+                (3.0 if kind is None else 12.0) * n)
+
+    mg, nm = 6144, 73728  # musicgen_medium's and nemotron_4_340b's d_ff
     return [
         rqt("ctx_rqt chunk", (B, H, CHUNK, hd), "scalar", heads=True),
         rqt("ctx_rqt decode", (B, H, 1, hd), "scalar", heads=True),
@@ -474,6 +526,14 @@ def requant_cases(torch, np, rng):
         rqt("wrap", (B * CHUNK, d), "wrap"),
         add("QAdd wrap", (B, 1, d), "wrap", "wrap", a32=True),
         gate("gate wrap", (B, ff), "wrap"),
+        act("GELU LUT chunk", (B * CHUNK, mg)),
+        act("GELU LUT decode", (B, mg)),
+        act("ReLU^2 chunk", (B * CHUNK, nm), "scalar"),
+        act("ReLU^2 decode", (B, nm), "scalar"),
+        act("ReLU^2 per-channel rqt2", (B * CHUNK, mg), "channel"),
+        act("act tail", (7, 333), "channel"),
+        act("GELU tail", (3, 5, 40)),
+        act("ReLU^2 wrap", (B, mg), "wrap"),
     ]
 
 
@@ -540,7 +600,8 @@ def paged_inputs(torch, np, S, T, seed, packed=False, heads=(32, 8, 64)):
 def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
     """Kernel vs plain version, int8 pools or int4-packed ones (per-head
     unpack operands from `staged_unpack_rq`), at `PAGED_SHAPES` and at
-    the heads of `CONFIGS` (S 32 and 1 at T 512).  Tolerance (`check_kernel`): the kernel's int8 probability image may
+    the heads of `CONFIGS` and `VARIANTS` (S 32 and 1 at T 512).
+    Tolerance (`check_kernel`): the kernel's int8 probability image may
     differ from the plain one by one quantum at no more than max(8, 1e-5
     of) its entries, and none by more; the int32 output must equal the
     plain P.V over the kernel's own image and the (unpacked) V view
@@ -560,7 +621,7 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
              for i, (S, T) in enumerate(PAGED_SHAPES)]
     cases += [(arch + " ", S, MAX_LEN, CONFIG_HEADS[arch], SEED + 40 + i)
               for i, (arch, S) in enumerate(
-                  (a, S) for a in CONFIGS for S in (CHUNK, 1))]
+                  (a, S) for a in CONFIGS + VARIANTS for S in (CHUNK, 1))]
     worst = 0
     for label, S, T, heads, seed in cases:
         args, kw = paged_inputs(torch, np, S, T, seed, packed, heads)
@@ -1416,23 +1477,158 @@ def phase_configs(torch, np, kernels):
     return out
 
 
+def phase_musicgen(torch, np, kernels):
+    """musicgen_medium: the 2-layer full-width card-vs-CPU parity at
+    kv_bits 8 and 4, then the whole model at full width and depth
+    calibrated and deployed by `deploy_model` and served as the main
+    phase's 8-request cell (`serve_twice`: run 1 counted, run 2 warmed
+    with telemetry on) at kv_bits 8 and 4.  -> run 1's launches at
+    kv_bits 8."""
+    from repro_torch.launch.serve import deploy_model, ragged_requests
+
+    config_parity(torch, np, "musicgen_medium")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm, tables = deploy_model("musicgen_medium", reduced=False,
+                              max_seq=MAX_LEN, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    cfg = lm.cfg
+    print(f"  calibrated and deployed musicgen_medium ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}, norm "
+          f"{cfg.norm}, act {cfg.act}, gated {cfg.gated}) layer by layer "
+          f"in {time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    reqs = ragged_requests(8, cfg.vocab, np.random.default_rng(SEED + 2),
+                           prompt_lo=17, prompt_hi=300, gen=16)
+    launches, tok8, _ = serve_twice(torch, kernels, lm, tables, reqs, 8)
+    print("  the same requests and tables over int4-packed pools:")
+    tok4 = serve_twice(torch, kernels, lm, tables, reqs, 4)[1]
+    same = sum(a == b for r in tok8 for a, b in zip(tok8[r], tok4[r]))
+    total = sum(len(v) for v in tok8.values())
+    print(f"  kv_bits 4 tokens equal to the int8 run's at {same} of "
+          f"{total} positions")
+    print(f"  peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_nemotron(torch, np):
+    """One nemotron_4_340b decoder layer at full width, card against
+    CPU: its float weights (`init_layer_np`), calibrated on the card on
+    its own float input (CALIB_BATCH x 64 rows at the embedding's init
+    scale), deployed, then `DenseBlock.apply_id` on both devices over a
+    paged arena: a chunk dispatch (NEMO_SLOTS slots x NEMO_CHUNK tokens
+    of the input's int8 image, at positions 0 and 5) and a decode
+    dispatch after it (one more token each); outputs and both pools
+    equal byte for byte, at kv_bits 8 and 4."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.calibrate import Calibrator
+    from repro_torch.layers.common import DeployCtx
+    from repro_torch.models.lm import (
+        DecoderLM, load_layer, params_to_torch, tree_to_torch,
+    )
+
+    print("  host memory (free -g):\n" + subprocess.run(
+        ["free", "-g"], capture_output=True, text=True,
+        timeout=60).stdout.rstrip())
+    cfg = dataclasses.replace(get_config("nemotron_4_340b"), n_layers=1)
+    lm = DecoderLM(cfg, max_seq=MAX_LEN)
+    blk = lm.block()
+    t0 = time.perf_counter()
+    p = lm.init_layer_np(SEED, 0)
+    n_par = sum(v.size for sub in p.values() for leaf in sub.values()
+                for v in (leaf.values() if isinstance(leaf, dict)
+                          else [leaf]))
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    x = rng.standard_normal((4, 64, cfg.d_model), dtype=np.float32)
+    x *= np.float32(0.02)  # the embedding's init scale
+    eps_in = 2.0 * max(float(np.max(np.abs(x))), 1e-8) / 255.0
+    calib = Calibrator()
+    p_card = params_to_torch(p, "cuda")
+    blk.apply_float(p_card, torch.from_numpy(x).cuda(), calib, "S0.L0.")
+    torch.cuda.synchronize()
+    del p_card
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    t_np, _ = blk.deploy(DeployCtx(calib=calib), "S0.L0.", p, eps_in)
+    del p
+    t3 = time.perf_counter()
+    print(f"  one layer: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads at hd {cfg.hd}, d_ff {cfg.d_ff} ({cfg.act}, gated "
+          f"{cfg.gated}, norm {cfg.norm}), {n_par} parameters; float draw "
+          f"{t1 - t0:.1f} s, params to the card and calibration there "
+          f"{t2 - t1:.1f} s "
+          f"({len(calib.hi)} ranges), host deploy {t3 - t2:.1f} s")
+    tabs = {dev: load_layer(tree_to_torch(t_np, dev))
+            for dev in ("cuda", "cpu")}
+    del t_np
+    s_in = np.clip(np.floor(x / eps_in), -128, 127).astype(np.int8)
+    chunk = np.ascontiguousarray(s_in[:NEMO_SLOTS, :NEMO_CHUNK])
+    step = np.ascontiguousarray(s_in[:NEMO_SLOTS, NEMO_CHUNK:NEMO_CHUNK + 1])
+    pos0 = np.array([0, 5][:NEMO_SLOTS], np.int32)
+    pps = -(-(5 + NEMO_CHUNK + 1) // PAGE)
+    table = (np.arange(NEMO_SLOTS * pps, dtype=np.int32)[::-1] + 1).reshape(
+        NEMO_SLOTS, pps).copy()
+    for kv_bits in (8, 4):
+        hd = cfg.hd // 2 if kv_bits == 4 else cfg.hd
+        shape = (NEMO_SLOTS * pps + 1, cfg.n_kv_heads, PAGE, hd)
+        stale = rng.integers(-128, 128, size=shape).astype(np.int8)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            cache = {"k": torch.from_numpy(stale.copy()).to(dev),
+                     "v": torch.from_numpy(stale[::-1].copy()).to(dev),
+                     "table": torch.from_numpy(table).to(dev)}
+            pos = torch.from_numpy(pos0).to(dev)
+            y1 = blk.apply_id(tabs[dev], torch.from_numpy(chunk).to(dev),
+                              cache, pos)
+            y2 = blk.apply_id(tabs[dev], torch.from_numpy(step).to(dev),
+                              cache, pos + NEMO_CHUNK)
+            out[dev] = [y1.cpu(), y2.cpu(), cache["k"].cpu(),
+                        cache["v"].cpu()]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            print(f"  kv_bits {kv_bits} {dev}: chunk {tuple(chunk.shape)} "
+                  f"and decode {tuple(step.shape)} dispatches in "
+                  f"{time.perf_counter() - t0:.2f} s")
+        for name, a, b in zip(("chunk output", "decode output", "K pool",
+                               "V pool"), out["cuda"], out["cpu"]):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"nemotron layer kv_bits {kv_bits} "
+                                     f"{name}: card != CPU")
+        y1 = out["cuda"][0]
+        print(f"  kv_bits {kv_bits}: chunk and decode outputs "
+              f"{tuple(y1.shape)} {y1.dtype} (int8 values "
+              f"{int(y1.min())}..{int(y1.max())}) and both pools "
+              f"{tuple(out['cuda'][2].shape)} equal byte for byte")
+    del tabs
+
+
 def gemm_sites(cfg) -> dict:
     """(K, N, output type) of each QLinear site of the serving path ->
-    its name (wk and wv, gate and up share a shape)."""
+    its name (sites of one shape share it: wk and wv, gate and up, and
+    MHA's wq with them)."""
     d, hd = cfg.d_model, cfg.hd
-    return {(d, cfg.n_heads * hd, "int8"): "wq",
-            (d, cfg.n_kv_heads * hd, "int8"): "wk+wv",
-            (cfg.n_heads * hd, d, "int32"): "wo",
-            (d, cfg.d_ff, "int8"): "gate+up",
-            (cfg.d_ff, d, "int32"): "down",
-            (d, cfg.vocab_padded, "int32"): "head"}
+    sites = {}
+    for key, name in (((d, cfg.n_heads * hd, "int8"), "wq"),
+                      ((d, cfg.n_kv_heads * hd, "int8"), "wk+wv"),
+                      ((cfg.n_heads * hd, d, "int32"), "wo"),
+                      ((d, cfg.d_ff, "int8"),
+                       "gate+up" if cfg.gated else "up"),
+                      ((cfg.d_ff, d, "int32"), "down"),
+                      ((d, cfg.vocab_padded, "int32"), "head")):
+        sites[key] = sites[key] + "+" + name if key in sites else name
+    return sites
 
 
 def gemm_site_launches(kernels, cfg, steps: int, total: int) -> None:
     """Print the main run's GEMM launches by site and path (M <= 16:
     decode GEMV; larger M: chunk wgmma) from `int8_matmul.by_shape`;
-    they must add up to the GEMM's count, 7 per layer and 1 for the
-    head in every step."""
+    they must add up to the GEMM's count, 7 per layer (6 ungated) and 1
+    for the head in every step."""
     sites = gemm_sites(cfg)
     by = kernels.int8_matmul.by_shape
     parts = []
@@ -1440,7 +1636,7 @@ def gemm_site_launches(kernels, cfg, steps: int, total: int) -> None:
         path = "decode" if M <= 16 else "chunk"
         parts.append(f"{sites.get((K, N, mode), f'K{K} N{N} {mode}')} "
                      f"M{M} ({path}) {n}")
-    per_step = 7 * cfg.n_layers + 1
+    per_step = (7 if cfg.gated else 6) * cfg.n_layers + 1
     print(f"  int8_matmul launches by site and path: {', '.join(parts)}; "
           f"sum {sum(by.values())} = {sum(by.values()) / steps:.0f} per "
           f"step")
@@ -1454,10 +1650,15 @@ def gemm_site_launches(kernels, cfg, steps: int, total: int) -> None:
 def requant_form_launches(kernels, cfg, steps: int, total: int) -> None:
     """Print the main run's requant launches by form
     (`requant.by_form`): per layer and step one heads-to-rows ctx_rqt,
-    one gate and two QAdds, and nothing else."""
+    one gate (the ungated MLP: one act, none for ReLU) and two QAdds,
+    and nothing else."""
     by = kernels.requant.by_form
     L = cfg.n_layers * steps
-    want = {"rqt_heads": L, "gate": L, "add": 2 * L}
+    want = {"rqt_heads": L, "add": 2 * L}
+    if cfg.gated:
+        want["gate"] = L
+    elif cfg.act != "relu":
+        want["act"] = L
     print("  requant launches by form: " + ", ".join(
         f"{k} {n}" for k, n in sorted(by.items()))
         + f"; sum {sum(by.values())} = {sum(by.values()) / steps:.0f} per "
@@ -1684,7 +1885,14 @@ def main() -> int:
     print("[configs] " + " and ".join(CONFIGS) + f" at full width, "
           f"{CONFIG_LAYERS} layers")
     phase_configs(torch, np, kernels)
-    phase_done("configs", t0)
+    t0 = phase_done("configs", t0)
+    print("[musicgen] musicgen_medium: 2-layer parity, then full width and "
+          "depth on the card")
+    phase_musicgen(torch, np, kernels)
+    t0 = phase_done("musicgen", t0)
+    print("[nemotron] one nemotron_4_340b layer at full width, card vs CPU")
+    phase_nemotron(torch, np)
+    phase_done("nemotron", t0)
     launches["quant_flash_attention"] = entry["quant_flash_attention"]
     rep_shape = {"int8_matmul": 8, "requant": 4, "paged_attention": 0,
                  "paged_attention_kv4": 0, "quant_flash_attention": 0}

@@ -1,9 +1,11 @@
 """Architecture configuration schema + registry (port of
 `repro.configs.base`, cut to what the dense serving path reads).
 
-Registered: the dense configs the port serves with its layers as they
-are, `granite_3_2b`, `llama3_2_3b` and `chatglm3_6b` (the reference's
-values, one file each).
+Registered: the dense token configs of the reference, one file each
+with its values: `granite_3_2b`, `llama3_2_3b` and `chatglm3_6b`
+(RMSNorm, gated SiLU MLP), `musicgen_medium` (LayerNorm with bias,
+ungated GELU MLP, MHA) and `nemotron_4_340b` (LayerNorm with bias,
+ungated squared-ReLU MLP, head_dim 192).
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Dict
 
 _REGISTRY: Dict[str, "ArchConfig"] = {}
 
-ARCH_IDS = ["granite_3_2b", "llama3_2_3b", "chatglm3_6b"]
+ARCH_IDS = ["granite_3_2b", "llama3_2_3b", "chatglm3_6b", "musicgen_medium",
+            "nemotron_4_340b"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -44,10 +44,12 @@ SIGNATURES = {
     "requant_add": [_P, _I] + [_P] * 7 + [_I] + [_P] * 8 + [_I, _P]
     + [_I] * 5 + [_P],
     "requant_gate": [_P] * 10 + [_I, _P] + [_I] * 5 + [_P],
+    "requant_act": [_P] * 8 + [_I, _I, _P] + [_I] * 5 + [_P],
     "paged_attention": [_P] * 10 + [_I] * 9 + [_LL] + [_I] * 3 + [_P],
     "quant_attention": [_P] * 4 + [_F] * 3 + [_I] * 14 + [_LL, _P],
 }
-ENTRIES = {"requant_add": "requant", "requant_gate": "requant"}
+ENTRIES = {"requant_add": "requant", "requant_gate": "requant",
+           "requant_act": "requant"}
 
 _LOCK = threading.Lock()
 _LAUNCHERS: Dict[str, ctypes._CFuncPtr] = {}

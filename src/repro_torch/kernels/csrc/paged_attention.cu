@@ -97,7 +97,7 @@
 // 4j..4j+3: exactly the selector of a byte permute, so 4 elements take
 // two permutes over the table's halves and a per-byte select on each
 // nibble's top bit (`unpack4`, 6 steps).  The ring holds the packed
-// rows (hd/2 bytes: 16, 32 or 64, whole 16-byte vectors), half the
+// rows (hd/2 bytes: 16, 32, 64 or 96, whole 16-byte vectors), half the
 // bytes of an int8 tile.  K needs no int8 tile: the dot over hd is an
 // integer sum, so any order of hd inside a 32-wide k-step is exact as
 // long as Q and K agree.  Packed, lane t's k-columns 4t..4t+3 and
@@ -836,6 +836,7 @@ extern "C" int paged_attention_launch(
     PA_MMA_CASE(32)
     PA_MMA_CASE(64)
     PA_MMA_CASE(128)
+    PA_MMA_CASE(192)
     default:
       return (int)cudaErrorInvalidValue;
   }

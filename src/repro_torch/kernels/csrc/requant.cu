@@ -9,9 +9,9 @@
 //
 // with m/s0/lo/hi per channel c (the last axis) or scalar, d and zp read
 // from device memory (one build serves every layer, and no host sync
-// reads them), the product and the sum wrapping in int32.  Three call
-// forms share that transform (`rq`), one launch per site of the serving
-// path:
+// reads them), the product and the sum wrapping in int32.  Four call
+// forms, one launch per site of the serving path; all but the act form's
+// LUT branch are built on that transform (`rq`):
 //
 //   requant_kernel       apply_rqt, int8 or int32 out; with heads-to-
 //                        rows, input (B, H, S, hd) and output laid out
@@ -22,6 +22,11 @@
 //   requant_gate_kernel  the MLP's gate: s_g = lut[s_pre + 128] (the
 //                        256-entry LUT staged in shared memory once a
 //                        block), (s_g - zp_g) * s_u, then h_rqt to int8
+//   requant_act_kernel   the ungated MLP's activation on the up GEMM's
+//                        int8 image s: lut[s + 128] (GELU, SiLU), or
+//                        rqt2 of max(s + 128, 0)^2 (squared ReLU: the
+//                        exact square of the image, at most 255^2,
+//                        between two requants) to int8
 //
 // What bounds it on the H100: each form is one elementwise pass of 2-6
 // bytes per element and a dozen integer operations, so memory bandwidth,
@@ -258,6 +263,49 @@ __global__ void requant_gate_kernel(const int8_t* __restrict__ s_pre,
   }
 }
 
+template <bool PC, bool SQUARE>
+__global__ void requant_act_kernel(const int8_t* __restrict__ s,
+                                   const int8_t* __restrict__ lut, Rq r,
+                                   int8_t* __restrict__ out, unsigned numel,
+                                   unsigned N, int vec) {
+  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned step = gridDim.x * blockDim.x;
+  const unsigned end = vec_end(numel, vec);
+  if constexpr (SQUARE) {
+    const Site<PC> site(r, -128, 127);
+    for (unsigned e = tid * kVec; e < end; e += step * kVec) {
+      int v[kVec];
+      load16(s + e, v);
+#pragma unroll
+      for (unsigned k = 0; k < kVec; ++k) {
+        const int img = max(v[k] + 128, 0);
+        v[k] = img * img;  // <= 255^2
+      }
+      const unsigned c = PC ? e % N : 0u;
+#pragma unroll
+      for (unsigned g = 0; g < kVec; g += 4) site.apply4(v + g, c + g);
+      store16(out + e, v);
+    }
+    for (unsigned e = end + tid; e < numel; e += step) {
+      const int img = max((int)s[e] + 128, 0);
+      out[e] = (int8_t)site.apply1(img * img, PC ? e % N : 0u);
+    }
+  } else {
+    __shared__ int tab[256];
+    for (unsigned k = threadIdx.x; k < 256; k += blockDim.x) tab[k] = lut[k];
+    __syncthreads();
+    for (unsigned e = tid * kVec; e < end; e += step * kVec) {
+      int v[kVec];
+      load16(s + e, v);
+#pragma unroll
+      for (unsigned k = 0; k < kVec; ++k) v[k] = tab[v[k] + 128];
+      store16(out + e, v);
+    }
+    for (unsigned e = end + tid; e < numel; e += step)
+      out[e] = (int8_t)tab[s[e] + 128];
+  }
+}
+
 template <bool PC, typename TO>
 void launch_rqt(dim3 grid, dim3 block, cudaStream_t stream,
                 const int32_t* q, const Rq& r, int qmin, int qmax, void* out,
@@ -356,5 +404,27 @@ extern "C" int requant_gate_launch(
   else
     requant_gate_kernel<false><<<grid, block, 0, stream>>>(
         s_pre, lut, zpg, s_u, r, out, numel, N, vec);
+  return (int)cudaGetLastError();
+}
+
+// the ungated MLP's activation: square 0, lut[s + 128]; square 1, rqt2 of
+// max(s + 128, 0)^2 (the tables m..zp, per channel when pc)
+extern "C" int requant_act_launch(
+    const int8_t* s, const int8_t* lut, const int32_t* m, const int32_t* s0,
+    const int32_t* lo, const int32_t* hi, const int32_t* d,
+    const int32_t* zp, int pc, int square, int8_t* out, int numel, int N,
+    int vec, int threads, int blocks, cudaStream_t stream) {
+  if (numel <= 0) return 0;
+  const Rq r{m, s0, lo, hi, d, zp};
+  const dim3 grid(blocks), block(threads);
+  if (!square)
+    requant_act_kernel<false, false><<<grid, block, 0, stream>>>(
+        s, lut, r, out, numel, N, vec);
+  else if (pc)
+    requant_act_kernel<true, true><<<grid, block, 0, stream>>>(
+        s, lut, r, out, numel, N, vec);
+  else
+    requant_act_kernel<false, true><<<grid, block, 0, stream>>>(
+        s, lut, r, out, numel, N, vec);
   return (int)cudaGetLastError();
 }

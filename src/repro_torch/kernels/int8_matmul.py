@@ -31,7 +31,9 @@ import torch
 from repro_torch.core.requant import apply_rqt
 from repro_torch.kernels import build
 
-_F64_EXACT_K = 1 << 37  # |int8 * int8| <= 2^14, so sums stay below 2^53
+# K per float32 product: |int8 * int8| <= 2^14, so every partial sum of
+# 1024 terms is an integer of at most 2^24, which float32 holds exactly
+_F32_EXACT_K = 1 << 10
 
 
 def _wrap_int32(a: torch.Tensor) -> torch.Tensor:
@@ -43,17 +45,24 @@ def _wrap_int32(a: torch.Tensor) -> torch.Tensor:
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                       rqt: Optional[dict] = None, *, qmin: int = -128,
                       qmax: int = 127) -> torch.Tensor:
-    """Plain PyTorch version.  The product runs in float64, which is
-    exact here: every int8*int8 term is at most 2^14 in magnitude, so
-    for K < 2^37 every partial sum is an integer below 2^53 (torch has
-    no integer matmul on CUDA, and its CPU int8 matmul returns int8).
-    The sum is then taken to int64, the bias added, and the result
+    """Plain PyTorch version.  The product runs in float32 over slices
+    of _F32_EXACT_K along K, each exact in any summation order (every
+    partial sum is an integer of at most 2^24; at full float32
+    precision, torch's default, which the function checks), the slices
+    added in int64 (torch has no integer matmul on CUDA, and its
+    CPU int8 matmul returns int8).  The bias is added and the result
     wrapped to int32 like the reference's int32 accumulator."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise ValueError("the plain int8 GEMM needs full float32 "
+                         "matmuls (float32_matmul_precision 'highest')")
     K = x.shape[-1]
-    if K >= _F64_EXACT_K:
-        raise ValueError(f"K={K} too large for an exact float64 product")
-    acc = torch.matmul(x.to(torch.float64), w.to(torch.float64))
-    acc = _wrap_int32(acc.to(torch.int64) + bias.to(torch.int64))
+    xf = x.to(torch.float32)
+    acc = bias.to(torch.int64).expand(x.shape[0], -1).clone()
+    for k0 in range(0, K, _F32_EXACT_K):
+        k1 = min(k0 + _F32_EXACT_K, K)
+        acc += torch.matmul(xf[:, k0:k1],
+                            w[k0:k1].to(torch.float32)).to(torch.int64)
+    acc = _wrap_int32(acc)
     if rqt is None:
         return acc
     return apply_rqt(acc, rqt, qmin=qmin, qmax=qmax, out_dtype=torch.int8)

@@ -148,6 +148,9 @@ class PagedPlan(NamedTuple):
                   # three passes)
 
 
+# the head widths the mma kernel is compiled for (PA_MMA_CASE in the
+# CUDA source); any other raises on the card
+HEAD_DIMS = (32, 64, 128, 192)
 # the (warps, rows) launch shapes the mma kernel is compiled for: 8 warps
 # over the keys of one 16-row tile, or 4 over each of two
 MMA_SHAPES = ((8, 16), (8, 32))
@@ -188,21 +191,26 @@ def paged_plan(B: int, K: int, group: int, S: int, hd: int, ps: int,
     per slot, kv head and 16 or 32 of the group * S stacked rows.
     Where 16-row blocks would leave SMs idle (decode), 16 rows, 8 warps
     over their keys (256 a staged tile) and the deepest ring of 4, 3 or
-    2 tiles that fits; else 32 rows (two tiles, 4 warps over each, K/V
-    staged once for both) and a ring of 2.  The logits stay in shared
-    memory while they take at most KEEP_LOGITS_BYTES, else each pass
-    recomputes the scores.  `packed` (int4-packed pools) only shrinks
-    the ring's rows and adds the two unpack tables to the layout.
-    (`tools/attn_ab.py --sweep [--packed]` times every such plan.)"""
+    2 tiles that fits; else, and where no such ring fits (hd 192 over
+    int8 pools with the scores recomputed), 32 rows (two tiles, 4 warps
+    over each, K/V staged once for both) and a ring of 2.  The logits
+    stay in shared memory while they take at most KEEP_LOGITS_BYTES,
+    else each pass recomputes the scores.  `packed` (int4-packed pools)
+    only shrinks the ring's rows and adds the two unpack tables to the
+    layout.  (`tools/attn_ab.py --sweep [--packed]` times every such
+    plan.)"""
     T = pps * ps
     M = group * S
+    shapes = [(8, 32, (2,))]
     if B * K * -(-M // 16) < SMS:
-        warps, rows, depths = 8, 16, (4, 3, 2)
-    else:
-        warps, rows, depths = 8, 32, (2,)
-    keep = _logit_bytes(warps, rows, M, T) <= KEEP_LOGITS_BYTES
-    for stages in depths:
-        smem = _mma_smem(hd, warps, rows, stages, M, T, pps, keep, packed)
+        shapes.insert(0, (8, 16, (4, 3, 2)))
+    for warps, rows, depths in shapes:
+        keep = _logit_bytes(warps, rows, M, T) <= KEEP_LOGITS_BYTES
+        for stages in depths:
+            smem = _mma_smem(hd, warps, rows, stages, M, T, pps, keep,
+                             packed)
+            if smem <= _SMEM_LIMIT:
+                break
         if smem <= _SMEM_LIMIT:
             break
     return PagedPlan("mma", rows, warps, 32 * warps * 16 // rows, stages,
@@ -378,8 +386,8 @@ def paged_attention(q, k_pool, v_pool, table, pos, score_scale, *,
     for t in (q, k_pool, v_pool, table, pos, score_scale, *rqs):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("all operands must be contiguous on one device")
-    if hd not in (32, 64, 128):
-        raise ValueError(f"head_dim {hd} not in (32, 64, 128)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     # pool rows are hd_store bytes, read as 16-byte vectors
     if hd_store % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("pool rows must be 16-byte multiples, 16-byte "

@@ -1,7 +1,7 @@
-"""Standalone requantization and the two sites built on it (port of
+"""Standalone requantization and the sites built on it (port of
 `repro.kernels.requant_kernel`; CUDA source csrc/requant.cu).
 
-Three call forms, one launch each, every one equal bit for bit to the
+Four call forms, one launch each, every one equal bit for bit to the
 plain PyTorch version beside it:
 
   requant(q, rqt, heads_to_rows=False)
@@ -16,11 +16,16 @@ plain PyTorch version beside it:
   requant_gate(s_pre, s_u, lut, zp_g, h_rqt)
       the gated MLP's tail: the SiLU LUT, (s_g - zp_g) * s_u in int32,
       then h_rqt to int8.
+  requant_act(s, t)
+      the ungated MLP's activation after its up requant, from the
+      `QAct` tables t: t["lut"] read at s + 128 (GELU, SiLU), or
+      t["rqt2"] applied to the exact square max(s + 128, 0)^2 (squared
+      ReLU; `apply_rqt` whole, its pre-clip included).
 
 On a CPU tensor each runs its plain version; on a CUDA tensor it
 launches its kernel or raises.  Every launch counts on
 `requant.launches`, split by form on `requant.by_form` ("rqt",
-"rqt_heads", "add", "gate").  Where H or S is 1 the heads-to-rows
+"rqt_heads", "add", "gate", "act").  Where H or S is 1 the heads-to-rows
 layout is q's own, and the launch skips the address map.
 
 Launch plan: the kernel takes 16-element vectors where `vector_ok`
@@ -235,6 +240,49 @@ def requant_gate(s_pre: torch.Tensor, s_u: torch.Tensor, lut: torch.Tensor,
         plan.threads, plan.blocks, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "requant_gate")
     _count("gate")
+    return out
+
+
+def requant_act_plain(s: torch.Tensor, t: dict) -> torch.Tensor:
+    """`QAct.apply_id` after its first requant: squared ReLU where t
+    holds "rqt2", else the LUT."""
+    if "rqt2" in t:
+        img = torch.clamp(s.to(torch.int32) + 128, min=0)
+        return apply_rqt(img * img, t["rqt2"])
+    return apply_lut(s, t["lut"], qmin=-128)
+
+
+def requant_act(s: torch.Tensor, t: dict) -> torch.Tensor:
+    """s (the up GEMM's int8 image) -> the activation's int8 image:
+    rqt2 of max(s + 128, 0)^2 where t holds "rqt2" (squared ReLU), else
+    t["lut"][s + 128] (GELU, SiLU)."""
+    if s.dtype != torch.int8:
+        raise ValueError("requant_act takes an int8 s")
+    square = "rqt2" in t
+    if not square and (t["lut"].dtype != torch.int8
+                       or t["lut"].shape != (256,)):
+        raise ValueError("the LUT must be int8 (256,)")
+    if s.device.type == "cpu":
+        return requant_act_plain(s, t)
+    dev = _on_card(s, *(() if square else (t["lut"],)))
+    N = s.shape[-1] if s.dim() else 1
+    if square:
+        tabs, pc, tab_ptrs = _tables(t["rqt2"], N, dev)
+        lut = None
+    else:
+        tabs, pc, tab_ptrs = [None] * 6, 0, []
+        lut = t["lut"].data_ptr()
+    out = torch.empty(s.shape, dtype=torch.int8, device=dev)
+    if s.numel() == 0:
+        return out
+    plan = requant_plan(s.numel(), vector_ok(
+        [s.data_ptr(), out.data_ptr()], tab_ptrs, N, bool(pc)))
+    err = build.launcher("requant_act")(
+        s.data_ptr(), lut, *tabs, pc, int(square), out.data_ptr(), s.numel(),
+        N, int(plan.vec), plan.threads, plan.blocks,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "requant_act")
+    _count("act")
     return out
 
 

@@ -1,22 +1,32 @@
 """The Quantization/Activation operator, ID path (port of
-`repro.layers.act_quant.QAct`: `deploy` and `apply_id` for IDENTITY
-and the LUT kinds SILU/GELU).
+`repro.layers.act_quant.QAct`: `deploy` and `apply_id` for every kind).
 
-IDENTITY is a pure requantization (Eq. 11); SILU requantizes into a
-symmetric pre-activation int8 space and reads a 256-entry LUT.  On the
-dense path both requants run fused into the producing GEMM's epilogue
-(`QLinear.apply_id(..., rqt)`); `apply_id` here is the unfused form.
+  IDENTITY, RELU  a pure requantization (Eq. 11); ReLU's output clip
+                  floor sits at the zero level.
+  RELU2           requant into an int8 mid space (zp = ACT_QMIN, the
+                  square root of the range), the exact integer square of
+                  the image s - ACT_QMIN (at most 255^2), then a second
+                  requant (`rqt2`).
+  SILU, GELU      requant into a symmetric pre-activation int8 space,
+                  then a 256-entry LUT.
+
+On the dense path the first requant runs fused into the producing
+GEMM's epilogue (`QLinear.apply_id(..., rqt)`); what follows it (the
+LUT, or the square and `rqt2`) is one launch of the requant kernel's
+act form (`requant_act`), or part of the gated MLP's `requant_gate`.
+`apply_id` here is the unfused form.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.intmath import apply_lut, build_lut
+from repro_torch.core.intmath import build_lut
 from repro_torch.core.requant import make_rqt
-from repro_torch.kernels.requant_kernel import requant
+from repro_torch.kernels.requant_kernel import requant, requant_act
 from repro_torch.layers.common import (
     ACT_QMAX, ACT_QMIN, ActKind, DeployCtx, act_fn_np,
 )
@@ -40,23 +50,37 @@ class QAct:
     ) -> Tuple[dict, float, int]:
         """-> (tables, eps_out, zp_out)."""
         full = f"{scope}{self.name}"
-        if self.kind is ActKind.IDENTITY:
-            lo, hi = ctx.range(full, "resid")
+        zero_lo = self.kind.zero_lo
+        if zero_lo or self.kind is ActKind.IDENTITY:
+            lo, hi = ctx.range(full, "act" if zero_lo else "resid")
             lo, hi = lo * self.range_scale, hi * self.range_scale
-            if self.sym:
+            if zero_lo:
+                lo = 0.0
+            sym = self.sym and not zero_lo
+            if sym:
                 amax = max(abs(lo), abs(hi), 1e-6)
                 lo, hi = -amax, amax
             hi = max(hi, lo + 1e-6)
             eps_y = (hi - lo) / (2 ** self.n_bits - 1)
-            zp = 0 if self.sym else ACT_QMIN - int(round(lo / eps_y))
-            rqt = make_rqt(
-                eps_in, eps_y, zp_out=zp, qmin=ACT_QMIN, qmax=ACT_QMAX,
-                requant_factor=ctx.factor, acc_bound=acc_bound,
+            zp = 0 if sym else ACT_QMIN - int(round(lo / eps_y))
+            if self.kind is not ActKind.RELU2:
+                rqt = make_rqt(
+                    eps_in, eps_y, zp_out=zp, qmin=ACT_QMIN, qmax=ACT_QMAX,
+                    requant_factor=ctx.factor, acc_bound=acc_bound,
+                )
+                return {"rqt": rqt}, eps_y, zp
+            eps_mid = np.sqrt(hi) / (2 ** self.n_bits - 1)
+            rqt1 = make_rqt(
+                eps_in, eps_mid, zp_out=ACT_QMIN, qmin=ACT_QMIN,
+                qmax=ACT_QMAX, requant_factor=ctx.factor,
+                acc_bound=acc_bound,
             )
-            return {"rqt": rqt}, eps_y, zp
-        if self.kind not in (ActKind.SILU, ActKind.GELU):
-            raise NotImplementedError(
-                f"{self.kind} is outside the dense serving slice")
+            rqt2 = make_rqt(
+                eps_mid * eps_mid, eps_y, zp_out=zp, qmin=ACT_QMIN,
+                qmax=ACT_QMAX, requant_factor=ctx.factor,
+                acc_bound=float(255 ** 2),
+            )
+            return {"rqt": rqt1, "rqt2": rqt2}, eps_y, zp
         lo_in, hi_in = ctx.range(f"{full}.pre", "attn")
         amax = max(abs(lo_in), abs(hi_in), 1e-6)
         eps_pre = 2.0 * amax / (2 ** self.n_bits - 1)
@@ -74,12 +98,8 @@ class QAct:
         )
         return {"rqt": rqt, "lut": lut}, eps_y, zp
 
-    def apply_lut(self, tables: dict, s: torch.Tensor) -> torch.Tensor:
-        """The LUT half of a SILU/GELU site (after its requant)."""
-        return apply_lut(s, tables["lut"], qmin=ACT_QMIN)
-
     def apply_id(self, tables: dict, acc: torch.Tensor) -> torch.Tensor:
         s = requant(acc.to(torch.int32).contiguous(), tables["rqt"])
-        if self.kind is ActKind.IDENTITY:
+        if self.kind in (ActKind.IDENTITY, ActKind.RELU):
             return s
-        return self.apply_lut(tables, s)
+        return requant_act(s, tables)

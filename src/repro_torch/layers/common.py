@@ -12,9 +12,11 @@ into a static bias.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import enum
-from typing import Optional
+import os
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,18 +31,29 @@ class ActKind(enum.Enum):
     SILU = "silu"
     GELU = "gelu"
 
+    @property
+    def zero_lo(self) -> bool:
+        """Activations clipped at 0 from below (ReLU, squared ReLU)."""
+        return self in (ActKind.RELU, ActKind.RELU2)
+
 
 def act_fn(kind: ActKind, x: torch.Tensor) -> torch.Tensor:
     """Full-precision activation of the float forward, written as the
-    reference's `act_fn` is, operation for operation, for the kinds the
-    dense configs use."""
+    reference's `act_fn` is, operation for operation."""
+    if kind is ActKind.IDENTITY:
+        return x
+    if kind is ActKind.RELU:
+        return torch.clamp(x, min=0.0)
+    if kind is ActKind.RELU2:
+        r = torch.clamp(x, min=0.0)
+        return r * r
     if kind is ActKind.SILU:
         return x * (1.0 / (1.0 + torch.exp(-x)))
     if kind is ActKind.GELU:
         # tanh approximation (the reference's, jax.nn.gelu approximate)
         c = float(np.sqrt(2.0 / np.pi))
         return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3)))
-    raise NotImplementedError(f"{kind} is outside the dense slice")
+    raise ValueError(kind)
 
 
 def act_fn_np(kind: ActKind, x: np.ndarray) -> np.ndarray:
@@ -91,6 +104,46 @@ class DeployCtx:
         if self.calib is not None and name in getattr(self.calib, "hi", {}):
             return self.calib.range(name)
         return DEFAULT_RANGES.get(kind, DEFAULT_RANGES["resid"])
+
+
+ROW_BLOCK_ELEMENTS = 1 << 24  # elements of one host row block
+
+
+def row_spans(n_rows: int, row_elements: int) -> List[Tuple[int, int]]:
+    """Blocks [r0, r1) of whole rows, at most ROW_BLOCK_ELEMENTS
+    elements each."""
+    rows = max(1, ROW_BLOCK_ELEMENTS // max(row_elements, 1))
+    return [(r0, min(r0 + rows, n_rows)) for r0 in range(0, n_rows, rows)]
+
+
+def run_blocks(fn: Callable, items: List[tuple]) -> List:
+    """[fn(*item) for item in items], in order, on a thread each where
+    there are several (numpy releases the GIL in its array loops and
+    while a generator fills an array)."""
+    if len(items) == 1:
+        return [fn(*items[0])]
+    with concurrent.futures.ThreadPoolExecutor(
+            max_workers=min(len(items), os.cpu_count() or 1)) as pool:
+        return list(pool.map(lambda it: fn(*it), items))
+
+
+def normal_np(rng: np.random.Generator, shape, scale: float) -> np.ndarray:
+    """float32 standard normals times `scale`, each block of rows
+    (`row_spans`) drawn from its own generator seeded from `rng`: the
+    same array for the same `rng` state on any host, the blocks of a
+    large matrix drawn in parallel."""
+    out = np.empty(shape, np.float32)
+    spans = row_spans(shape[0], int(np.prod(shape[1:])))
+    seeds = rng.integers(0, 2 ** 63 - 1, size=len(spans), dtype=np.int64)
+
+    def fill(r0, r1, seed):
+        np.random.default_rng(seed).standard_normal(
+            out=out[r0:r1], dtype=np.float32)
+
+    run_blocks(fill, [(r0, r1, int(sd)) for (r0, r1), sd in zip(spans,
+                                                                 seeds)])
+    out *= np.float32(scale)
+    return out
 
 
 def stack_trees(trees):

@@ -12,7 +12,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.layers.common import DeployCtx
+from repro_torch.layers.common import DeployCtx, normal_np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,8 +22,7 @@ class QEmbed:
     name: str = "embed"
 
     def init_np(self, rng: np.random.Generator) -> dict:
-        table = rng.standard_normal((self.vocab, self.d), dtype=np.float32)
-        return {"table": table * np.float32(0.02)}
+        return {"table": normal_np(rng, (self.vocab, self.d), 0.02)}
 
     def apply_fp(self, p: dict, tok: torch.Tensor, calib=None,
                  scope: str = "") -> torch.Tensor:

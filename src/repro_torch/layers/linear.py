@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.layers.common import normal_np, row_spans, run_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,10 +34,9 @@ class QLinear:
 
     def init_np(self, rng: np.random.Generator) -> dict:
         """Float params with the reference's shapes and scales
-        (normal * init_scale / sqrt(d_in), zero bias)."""
+        (normal * init_scale / sqrt(d_in), zero bias; `normal_np`)."""
         std = self.init_scale / np.sqrt(self.d_in)
-        w = rng.standard_normal((self.d_in, self.d_out), dtype=np.float32)
-        p = {"w": w * np.float32(std)}
+        p = {"w": normal_np(rng, (self.d_in, self.d_out), std)}
         if self.use_bias:
             p["b"] = np.zeros((self.d_out,), np.float32)
         return p
@@ -50,21 +50,38 @@ class QLinear:
     def deploy(self, p_np: dict, eps_x: float, zp_x: int) -> Tuple[
         dict, np.ndarray
     ]:
-        """-> (int params {w_q, b_q}, eps_acc per out-channel)."""
-        w = np.asarray(p_np["w"], np.float64)
+        """-> (int params {w_q, b_q}, eps_acc per out-channel).
+
+        The reference's float64 arithmetic, taken over blocks of rows
+        (`row_spans`, `run_blocks`), so that the host holds a few
+        blocks' float64 images at a time and not the whole matrix's
+        (10.9 GB at nemotron_4_340b's up and down), and the blocks run
+        in parallel: every step is elementwise, or a max or an integer
+        sum over rows, so the blocks give the same bits."""
+        w = np.asarray(p_np["w"])
+        spans = row_spans(self.d_in, self.d_out)
+        lim = 2 ** (self.n_bits_w - 1)
+        # |w| and its maximum are exact in w's own dtype
+        amax = np.max(run_blocks(
+            lambda r0, r1: np.max(np.abs(w[r0:r1]), axis=0), spans),
+            axis=0).astype(np.float64)
         if self.per_channel:
-            beta = np.maximum(np.max(np.abs(w), axis=0), 1e-8)
+            beta = np.maximum(amax, 1e-8)
         else:
             beta = np.broadcast_to(
-                np.maximum(np.max(np.abs(w)), 1e-8), (self.d_out,)).copy()
+                np.maximum(np.max(amax), 1e-8), (self.d_out,)).copy()
         eps_w = 2.0 * beta / (2 ** self.n_bits_w - 1)
-        q_w = np.clip(
-            np.floor(w / eps_w[None, :]),
-            -(2 ** (self.n_bits_w - 1)),
-            2 ** (self.n_bits_w - 1) - 1,
-        ).astype(np.int8)
+        q_w = np.empty((self.d_in, self.d_out), np.int8)
+
+        def quantize(r0, r1):
+            q = np.floor(np.asarray(w[r0:r1], np.float64) / eps_w[None, :])
+            np.clip(q, -lim, lim - 1, out=q)
+            q_w[r0:r1] = q
+            return q.sum(axis=0).astype(np.int64)
+
+        colsum = np.sum(run_blocks(quantize, spans), axis=0,
+                        dtype=np.int64)
         eps_acc = eps_w * float(eps_x)
-        colsum = q_w.astype(np.int64).sum(axis=0)
         b_eff = -int(zp_x) * colsum
         if self.use_bias:
             b_eff = b_eff + np.round(

@@ -1,8 +1,9 @@
-"""Gated feed-forward block (SwiGLU) (port of `repro.layers.mlp.QMLP`,
-gated: the float forward `apply_float`, `deploy` and `apply_id`).
+"""Feed-forward blocks, gated (SwiGLU) and plain (GELU, squared ReLU)
+(port of `repro.layers.mlp.QMLP`: the float forward `apply_float`,
+`deploy` and `apply_id`).
 
-Float: h = act(x @ wg) * (x @ wu), out = h @ wd, observing the gate's
-input and output, up and h.  Integer:
+Gated.  Float: h = act(x @ wg) * (x @ wu), out = h @ wd, observing the
+gate's input and output, up and h.  Integer:
 
     s_x --wg GEMM + g_tab.rqt epilogue--> int8 --SiLU LUT--> s_g (asym)
         --wu GEMM + u_rqt epilogue-----> s_u (sym)
@@ -10,6 +11,19 @@ input and output, up and h.  Integer:
         --requant h_rqt--> s_h --wd GEMM--> int32 (the block's Add)
 
 The LUT, the product and h_rqt are one launch (`requant_gate`).
+
+Ungated.  Float: h = act(x @ wu), out = h @ wd, observing the
+activation's input and output, then h.  Integer:
+
+    s_x --wu GEMM + u_tab.rqt epilogue--> int8
+        --LUT (GELU), or rqt2 of the exact square (ReLU^2)--> s_h (asym)
+        --wd GEMM--> int32 (the block's Add)
+
+The activation is one launch (`requant_act`; ReLU and IDENTITY need
+none: their requant is the epilogue).  wd deploys with s_h's zero point, folded
+into its int32 bias as -zp_h * colsum; where that and the products
+pass 2^31 (K 73728) the accumulator wraps in int32 as the reference's
+does, on the card and on the CPU alike.
 """
 from __future__ import annotations
 
@@ -19,7 +33,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.requant_kernel import requant_gate
+from repro_torch.kernels.requant_kernel import requant_act, requant_gate
 from repro_torch.layers.act_quant import QAct
 from repro_torch.layers.common import ActKind, DeployCtx, act_fn
 from repro_torch.layers.linear import QLinear
@@ -33,17 +47,14 @@ class QMLP:
     gated: bool = True
     name: str = "mlp"
 
-    def __post_init__(self):
-        if not self.gated:
-            raise NotImplementedError(
-                "only the gated MLP is in the dense serving slice")
-
     def _sub(self):
-        return {
+        subs = {
             "wu": QLinear(self.d_model, self.d_ff),
             "wd": QLinear(self.d_ff, self.d_model),
-            "wg": QLinear(self.d_model, self.d_ff),
         }
+        if self.gated:
+            subs["wg"] = QLinear(self.d_model, self.d_ff)
+        return subs
 
     def init_np(self, rng: np.random.Generator) -> dict:
         return {n: lay.init_np(rng) for n, lay in self._sub().items()}
@@ -52,6 +63,13 @@ class QMLP:
                     scope: str = "") -> torch.Tensor:
         subs = self._sub()
         u = subs["wu"].apply_fp(p["wu"], x)
+        if not self.gated:
+            h = act_fn(self.act, u)
+            if calib is not None:
+                calib.observe(f"{scope}{self.name}.act.pre", u)
+                calib.observe(f"{scope}{self.name}.act", h)
+                calib.observe(f"{scope}{self.name}.h", h)
+            return subs["wd"].apply_fp(p["wd"], h)
         g_pre = subs["wg"].apply_fp(p["wg"], x)
         g = act_fn(self.act, g_pre)
         h = g * u
@@ -68,6 +86,13 @@ class QMLP:
         self, ctx: DeployCtx, scope: str, p_np: dict, eps_x: float, zp_x: int
     ) -> Tuple[dict, np.ndarray]:
         subs = self._sub()
+        if not self.gated:
+            act_u = QAct(self.act, name=f"{self.name}.act")
+            ip_u, eps_acc_u = subs["wu"].deploy(p_np["wu"], eps_x, zp_x)
+            tu, eps_h, zp_h = act_u.deploy(
+                ctx, scope, eps_acc_u, 0, subs["wu"].acc_bound())
+            ip_d, eps_acc_d = subs["wd"].deploy(p_np["wd"], eps_h, zp_h)
+            return {"wu": ip_u, "u_tab": tu, "wd": ip_d}, eps_acc_d
         act_g = QAct(self.act, name=f"{self.name}.gate")
         ip_g, eps_acc_g = subs["wg"].deploy(p_np["wg"], eps_x, zp_x)
         tg, eps_g, zp_g = act_g.deploy(
@@ -88,6 +113,11 @@ class QMLP:
 
     def apply_id(self, t: dict, s_x: torch.Tensor) -> torch.Tensor:
         subs = self._sub()
+        if not self.gated:
+            s_h = subs["wu"].apply_id(t["wu"], s_x, t["u_tab"]["rqt"])
+            if self.act not in (ActKind.IDENTITY, ActKind.RELU):
+                s_h = requant_act(s_h, t["u_tab"])
+            return subs["wd"].apply_id(t["wd"], s_h)
         s_pre = subs["wg"].apply_id(t["wg"], s_x, t["g_tab"]["rqt"])
         s_u = subs["wu"].apply_id(t["wu"], s_x, t["u_rqt"])
         s_h = requant_gate(s_pre, s_u, t["g_tab"]["lut"], t["zp_g"],

@@ -49,20 +49,23 @@ from repro_torch.layers.linear import QLinear
 from repro_torch.layers.norms import QNorm
 from repro_torch.models.blocks import DenseBlock
 
-ACT_MAP = {"silu": ActKind.SILU, "gelu": ActKind.GELU}
+ACT_MAP = {"silu": ActKind.SILU, "gelu": ActKind.GELU, "relu": ActKind.RELU,
+           "relu2": ActKind.RELU2}
 LOGIT_PAD = -(2 ** 30)  # integer mask for padded vocab slots
 LOGIT_PAD_FP = -1e9  # the float forward's mask for padded vocab slots
 
 
 def _leaf_to_torch(key: str, a, device) -> torch.Tensor:
     a = np.asarray(a)
-    if key == "w_q":
-        # (.., K, N) values, stored (.., N, K) contiguous for the kernel
-        t = torch.from_numpy(np.swapaxes(a, -1, -2).copy())
-        return t.to(device).transpose(-1, -2)
     if not (a.flags.c_contiguous and a.flags.writeable):
         a = a.copy()  # e.g. a read-only view of a JAX array; keeps 0-d
-    return torch.from_numpy(a).to(device)
+    t = torch.from_numpy(a).to(device)
+    if key == "w_q":
+        # (.., K, N) values, stored (.., N, K) contiguous for the kernel
+        # (transposed by torch: numpy's transposing copy is several
+        # times slower, and on the card it runs on the device)
+        return t.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return t
 
 
 def tree_to_torch(tree: dict, device, key: str = "") -> Any:

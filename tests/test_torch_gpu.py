@@ -49,6 +49,13 @@ calibrations are compared on their own (each range within 1e-4 of
 its span), and the float forward is shown to run on the card.  At
 dispatch depth 1 the card's tokens equal depth 0's and the CPU's, and
 under torch's sync debug mode a step waits only at its harvest.
+musicgen_medium's and nemotron_4_340b's shapes: the paged attention at
+hd 192 with GQA group 12 over 8 kv heads (S 1/32, T 512/4096, both pool
+modes) and at group 1 over 24 kv heads (hd 64), an unsupported head
+width raising on the card, the requant kernel's act form (GELU's LUT,
+squared ReLU's square and rqt2, per-channel and wrapping) at d_ff 6144
+and 73728, the GEMM at their sites up to K 73728, and 2-layer engines
+of both on the card equal to the CPU's with their launches by form.
 """
 import sys
 
@@ -1207,3 +1214,134 @@ def test_async_step_waits_only_at_the_harvest_on_card(depth):
     assert len(tok) == len(reqs) and pol.fired == 1
     assert eng.stats()["n_preempts"] == 1
     assert waits and all(waits)
+
+
+# -- musicgen_medium and nemotron_4_340b: LayerNorm, the ungated MLP, MHA
+# and hd 192 -------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("T", [512, 4096])
+@pytest.mark.parametrize("S", [1, 32])
+def test_paged_attention_mma_hd192_group12_on_card(S, T, packed):
+    """nemotron_4_340b's attention heads: hd 192, GQA group 12 over 8 kv
+    heads (96/8), both pool modes, the decode plan that falls back to
+    32-row blocks (int8 pools, T 4096) included: 0 quanta moved, the
+    plain output, one launch on the pool mode's counter."""
+    _need_card()
+    from repro_torch.kernels.paged_attention import paged_plan
+
+    args, kw = _mma_inputs(9000 + S + T, 192, 12, S, T, K=8, packed=packed)
+    scale = torch.tensor(1.0 / 4096.0, device="cuda")
+    assert horizon_stop(1.0 / 4096.0, 192)
+    plan = paged_plan(4, 8, 12, S, 192, 16, T // 16, packed)
+    _mma_launch(args, scale, 12, kw,
+                f"hd=192 group=12 S={S} T={T} packed={packed} {plan}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("S", [1, 32])
+def test_paged_attention_mma_group1_on_card(S, packed):
+    """musicgen_medium's MHA: group 1 at hd 64 over 24 kv heads (a
+    decode block fills 1 of its 16 rows), both pool modes."""
+    _need_card()
+    args, kw = _mma_inputs(9100 + S, 64, 1, S, 512, K=24, packed=packed)
+    scale = torch.tensor(1.0 / 2048.0, device="cuda")
+    _mma_launch(args, scale, 1, kw, f"hd=64 group=1 K=24 S={S} "
+                f"packed={packed}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [96, 256])
+def test_paged_attention_unsupported_head_dim_raises_on_card(hd):
+    """No fallback: a head width the kernel is not compiled for raises
+    on the card, and nothing is launched."""
+    _need_card()
+    args, _ = _mma_inputs(9200, hd, 2, 1, 512)
+    n = paged_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention(*args, torch.tensor(1.0 / 1024.0, device="cuda"),
+                        group=2)
+    assert paged_attention.launches == n
+
+
+# (shape, form, rqt2 tables): GELU's LUT at musicgen's d_ff 6144,
+# squared ReLU at nemotron's 73728, chunk (256 rows) and decode (8);
+# shapes off 16-element vectors, per-channel and wrapping rqt2
+ACT_CARD_CASES = [((256, 6144), "lut", None), ((8, 6144), "lut", None),
+                  ((256, 73728), "square", "scalar"),
+                  ((8, 73728), "square", "scalar"),
+                  ((7, 333), "lut", None), ((7, 333), "square", "channel"),
+                  ((256, 6144), "square", "channel"),
+                  ((8, 6144), "square", "wrap"),
+                  ((3, 5, 40), "square", "scalar")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,form,kind", ACT_CARD_CASES)
+def test_requant_form_act_on_card(shape, form, kind):
+    """The ungated MLP's activation (`requant_act`) against its plain
+    version, exactly, one launch on the act form."""
+    _need_card()
+    from repro_torch.kernels import requant_act, requant_act_plain
+
+    rng = np.random.default_rng(shape[0] + shape[-1] + len(form))
+    s = torch.from_numpy(rng.integers(-128, 128, size=shape)
+                         .astype(np.int8)).cuda()
+    if form == "lut":
+        t = {"lut": torch.from_numpy(rng.integers(-128, 128, size=256)
+                                     .astype(np.int8)).cuda()}
+    else:
+        t = {"rqt2": _card_rqt(rng, shape[-1], kind, 1 / 255, zp=-128,
+                               acc_bound=float(255 ** 2))}
+    got = _counted("act", lambda: requant_act(s, t))
+    assert got.dtype == torch.int8
+    assert torch.equal(got, requant_act_plain(s, t))
+
+
+# (K, N) of the new configs' GEMM sites: musicgen_medium's wq/wk/wv/wo,
+# up, down and head; nemotron_4_340b's wq/wo and wk/wv and its down
+# (K 73728; its up and head are held by chip_smoke.py, in column
+# slices)
+VARIANT_KN = [(1536, 1536), (1536, 6144), (6144, 1536), (1536, 2048),
+              (18432, 18432), (18432, 1536), (73728, 18432)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("K,N", VARIANT_KN)
+def test_int8_matmul_dense_variant_sites_on_card(K, N, M):
+    _need_card()
+    rng = np.random.default_rng(K + N + M)
+    x, w, b = _gemm_operands(rng, M, K, N)
+    for r in _gemm_tables(rng, K, N):
+        got = int8_matmul(x, w, b, r)
+        want = int8_matmul_plain(x, w, b, r)
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want), (gemm_plan(M, N, K), r is None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("arch", ["musicgen_medium", "nemotron_4_340b"])
+def test_engine_dense_variants_on_card(arch, kv_bits):
+    """A 2-layer reduced musicgen_medium (LayerNorm, GELU) or
+    nemotron_4_340b (LayerNorm, squared ReLU) deployed on the card:
+    the card's tokens equal the CPU's on one table set, and each layer
+    and step launches the requant kernel once heads-to-rows, once on
+    the act form and twice for the QAdds, and the GEMM 6 times."""
+    _need_card()
+    from repro_torch import kernels
+    from repro_torch.launch.serve import ragged_requests
+
+    gpu, cpu = _engines_on_card_and_cpu(arch, kv_bits)
+    reqs = ragged_requests(5, gpu.lm.cfg.vocab, np.random.default_rng(3),
+                           prompt_lo=5, prompt_hi=40, gen=5)
+    kernels.reset_launch_counts()
+    tok = _serve_all(gpu, reqs)
+    L = gpu.lm.cfg.n_layers * gpu.stats()["steps"]
+    assert requant.by_form == {"rqt_heads": L, "act": L, "add": 2 * L}
+    assert int8_matmul.launches == 6 * L + gpu.stats()["steps"]
+    assert (paged_attention_kv4 if kv_bits == 4 else
+            paged_attention).launches == L
+    assert tok == _serve_all(cpu, reqs)
