@@ -35,6 +35,10 @@ Phases (any failure raises and the script exits non-zero):
             quanta moved), with the kernel path `qfa_plan` took and its
             registers and spills; times beside bounds and the island
             floor
+            the grouped int8 GEMM (the MoE's expert GEMMs, one launch
+            over 64 experts) at olmoe_1b_7b's gate/up (K 2048, N 1024)
+            and down (K 1024, N 2048) sites at C 4, 40 and 80 with
+            per-(expert, channel) tables, exactly, with its plan
   entry     `quant_flash_attention` driven through its entry point (no
             serving path calls it), counts read around it
   calibrate granite_3_2b at full width cut to 2 layers: the
@@ -116,6 +120,28 @@ Phases (any failure raises and the script exits non-zero):
             kernel, by GEMM site and by requant form (the act form once
             a layer and step), tok/s, TTFT, ITL and the host's ms per
             step phase
+  whole_prompt
+            the reference's default arena and whole-prompt serving on
+            granite_3_2b: the calibrate phase's 2-layer table set over
+            `SlotArena` on the card and the CPU (chunked and bucketed:
+            tokens, and both slot pools byte for byte); the main
+            phase's 40-layer tables over `SlotArena`, chunked and
+            bucketed (`prefill_chunk` 0, bucket 16), tokens equal to
+            main run 1's (paged) request by request, the path's kernels
+            launched; `serve_batch` (8 prompts of 64 tokens in lockstep)
+            equal to the engine on the same requests
+  olmoe     olmoe_1b_7b (64 experts, top-8, d_ff 1024 an expert; the MoE
+            family, exact-length whole-prompt prefill): 2 layers at full
+            width card vs CPU (a 200-token prefill's logits and slot
+            pools, layer 0's gate images and expert picks at a prefill
+            group and a decode group, the engine's tokens and pools
+            after the drain), then the whole model at full width and
+            MOE_LAYERS depth calibrated and deployed by `deploy_model`
+            and served as the 8-request cell over `SlotArena` (run 1
+            counted: launches a step by kernel, the grouped GEMM's by
+            site; run 2 warmed with telemetry on: tok/s, TTFT, ITL, the
+            host's ms per step phase) and over the paged arena (tokens
+            equal)
   nemotron  one nemotron_4_340b decoder layer at full width (d 18432,
             96/8 heads at hd 192, ungated squared-ReLU MLP at d_ff
             73728, about 3.45 B parameters; the whole model fits no
@@ -130,6 +156,9 @@ Phases (any failure raises and the script exits non-zero):
 Then a `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout (no src/repro_torch beside it), it exits non-zero at once.
+`--skip PHASE,...` leaves phases out (for a short development run; it
+then prints no result line), the build, kernels and main phases
+excepted.
 """
 from __future__ import annotations
 
@@ -150,6 +179,7 @@ INT8_OPS_S = 1979e12
 INT32_OPS_S = 33.5e12  # non-tensor int32 / f32 lanes (67 TFLOP/s FMA)
 REPLACES = {
     "int8_matmul": "src/repro/kernels/int8_matmul.py:72",
+    "int8_matmul_grouped": "src/repro/kernels/int8_matmul.py:72",
     "requant": "src/repro/kernels/requant_kernel.py:47",
     "paged_attention": "src/repro/kernels/paged_attention.py:238",
     "paged_attention_kv4": "src/repro/kernels/paged_attention.py:238",
@@ -157,6 +187,7 @@ REPLACES = {
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+    "int8_matmul_grouped": "src/repro_torch/kernels/csrc/int8_matmul.cu",
     "requant": "src/repro_torch/kernels/csrc/requant.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_attention_kv4": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -176,7 +207,9 @@ REQUANT_KERNELS = {"requant_kernel": "rqt, rqt_heads",
                    "requant_act_kernel": "act"}
 # the kernels each serving path launches
 PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
-                4: ("int8_matmul", "requant", "paged_attention_kv4")}
+                4: ("int8_matmul", "requant", "paged_attention_kv4"),
+                "moe": ("int8_matmul", "int8_matmul_grouped", "requant",
+                        "paged_attention")}
 # main-path engine settings
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
 # paged attention at full granite geometry (B 8, H 32, K 8, hd 64,
@@ -198,6 +231,15 @@ CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128),
 NEMO_SLOTS, NEMO_CHUNK = 2, 16
 # the served depth of CONFIGS' full-width runs (both have 28 layers)
 CONFIG_LAYERS = 4
+# the MoE config, its served depth (None: all 16 layers), and the grouped
+# GEMM's shapes at its expert sites: (C, K, N) for gate/up and down at
+# decode (8 slots: groups of 8 tokens, C 4) and whole-prompt prefills
+# of 254 and 512 tokens (C 40, 80)
+MOE_ARCH, MOE_LAYERS, MOE_EXPERTS = "olmoe_1b_7b", None, 64
+GROUPED_SHAPES = tuple((C, K, N) for C in (4, 40, 80)
+                       for K, N in ((2048, 1024), (1024, 2048)))
+# whole_prompt phase: the bucketed mode's bucket; serve_batch's cell
+BUCKET, BATCH_PROMPT = 16, 64
 # open-loop phase: requests, their arrival rate over the closed loop's
 # requests per second, and the SLOs of the goodput roll-up (seconds)
 OPEN_LOOP_N, OPEN_LOOP_RATE, SLO_TTFT_S, SLO_ITL_S = 16, 2.0, 2.0, 0.25
@@ -372,6 +414,63 @@ def check_config_gemms(torch, np, timer, rng, report):
                 worst = max(worst, gemm_case(torch, np, timer, rng, report,
                                              M, K, N, mode,
                                              f"{arch} {site}"))
+    return worst
+
+
+def check_grouped_gemm(torch, np, timer, rng, report):
+    """The grouped form at GROUPED_SHAPES, G 1 over MOE_EXPERTS experts
+    with per-(expert, channel) requant tables, against its plain
+    version exactly; its time beside its bound and plain time (no one
+    PyTorch call computes it: library null), and, at C > 16, the time
+    of MOE_EXPERTS `torch._int_mm` calls (int32 out, no requant) as a
+    note.  -> max |diff| (0)."""
+    from repro_torch.core.requant import make_rqt
+    from repro_torch.kernels import (
+        int8_matmul_grouped, int8_matmul_grouped_plain,
+    )
+    from repro_torch.kernels.int8_matmul import gemm_plan
+
+    E, worst = MOE_EXPERTS, 0
+    for C, K, N in GROUPED_SHAPES:
+        x = torch.randint(-128, 128, (1, E, C, K), dtype=torch.int8,
+                          device="cuda")
+        w = torch.randint(-128, 128, (E, N, K), dtype=torch.int8,
+                          device="cuda").transpose(1, 2)
+        rqt = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+               for k, v in make_rqt(rng.uniform(1e-5, 4e-5, size=(E, N)),
+                                    0.05, acc_bound=K * 127.0 * 127.0
+                                    ).items()}
+        got = int8_matmul_grouped(x, w, rqt)
+        want = int8_matmul_grouped_plain(x, w, rqt)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if got.dtype != torch.int8 or err != 0:
+            raise AssertionError(f"int8_matmul_grouped C={C} K={K} N={N}: "
+                                 f"max err {err}")
+        del want
+        worst = max(worst, err)
+        ms = timer(lambda: int8_matmul_grouped(x, w, rqt))
+        plain = timer(lambda: int8_matmul_grouped_plain(x, w, rqt), 3)
+        n_bytes = E * C * K + E * K * N + 4 * 4 * E * N + 8 + E * C * N
+        bms, by = bound_ms(n_bytes, 2.0 * E * C * N * K, INT8_OPS_S)
+        p = gemm_plan(C, N, K, E)
+        site = "gate/up" if N == 1024 else "down"
+        row = dict(shape=f"G=1 E={E} C={C} K={K} N={N} int8-out ({site})",
+                   ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=None, max_abs_err=err,
+                   plan=f"{p.path} {p.bm}x{p.bn}, {p.splits} split(s), "
+                   f"{p.blocks} blocks")
+        report.setdefault("int8_matmul_grouped", []).append(row)
+        note = ""
+        if C > 16:
+            xs = [x[0, e] for e in range(E)]
+            ws = [w[e] for e in range(E)]
+            lib = timer(lambda: [torch._int_mm(a, b) for a, b in zip(xs, ws)])
+            note = f"; {E} torch._int_mm calls (int32 out) {lib:.4f} ms"
+        print(f"  int8_matmul_grouped {row['shape']}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), library "
+              f"null, exact; {row['plan']}, one launch, "
+              f"{n_bytes / ms / 1e6:.0f} GB/s{note}")
     return worst
 
 
@@ -791,7 +890,7 @@ def make_engine(lm, tables, device, kv_bits=8, *, max_prefills=2,
         SchedulerConfig, ServingConfig, ServingEngine,
     )
 
-    kw = dict(n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE,
+    kw = dict(n_slots=N_SLOTS, max_len=MAX_LEN, paged=True, page_size=PAGE,
               n_pages=N_PAGES, device=device, kv_bits=kv_bits,
               scheduler=SchedulerConfig(prefill_chunk=CHUNK,
                                         max_prefills_per_step=max_prefills))
@@ -992,6 +1091,7 @@ def phase_calibrate(torch, np):
               f"{agree:.4f}")
     del p_card
     config_parity(torch, np, "granite_3_2b", lm=lm, t_np=t_np)
+    return lm, t_np
 
 
 def phase_parity(torch, np):
@@ -1381,6 +1481,210 @@ def phase_async(torch, np, kernels, lm, tables, reqs, run1, preempt0):
                              "depth 0's")
     print(f"  preempt cell depth 1 tokens equal depth 0's for all "
           f"{len(tok)} requests")
+
+
+def slot_parity(torch, np, lm, t_np, what, reqs, **config):
+    """One table set on both devices over `SlotArena` (`config` picks
+    the mode): the engine's tokens, and both slot pools after the drain
+    (every page, the trash page included), equal byte for byte.  -> the
+    tokens."""
+    from repro_torch.models.lm import tables_from_numpy
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = tables_from_numpy(t_np, dev)
+        tok, _, eng = serve(lm, t, reqs, dev, engine=make_engine(
+            lm, t, dev, paged=False, **config))
+        out[dev] = (tok, eng.arena.caches["k"].cpu(),
+                    eng.arena.caches["v"].cpu())
+        del eng, t
+    if out["cuda"][0] != out["cpu"][0]:
+        raise AssertionError(f"{what}: card tokens {out['cuda'][0]} != CPU "
+                             f"{out['cpu'][0]}")
+    for name, a, b in zip(("K", "V"), out["cuda"][1:], out["cpu"][1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} slot pool card != CPU")
+    print(f"  {what}: {len(reqs)} requests, "
+          f"{sum(len(v) for v in out['cuda'][0].values())} tokens equal on "
+          f"the card and the CPU; slot pools {tuple(out['cuda'][1].shape)} "
+          "equal byte for byte")
+    return out["cuda"][0]
+
+
+def phase_whole_prompt(torch, np, kernels, lm, tables, reqs, run1, lm2,
+                       t2_np):
+    """The reference's default arena (`SlotArena`) and whole-prompt
+    serving on granite_3_2b: the calibrate phase's 2-layer tables card
+    vs CPU (chunked and bucketed), the main tables over `SlotArena`
+    chunked and bucketed with tokens equal to main run 1's (paged), and
+    `serve_batch` equal to the engine."""
+    from repro_torch.launch.serve import ragged_requests, serve_batch
+    from repro_torch.serving import SchedulerConfig
+
+    small = ragged_requests(4, lm2.cfg.vocab, np.random.default_rng(SEED + 1),
+                            prompt_lo=17, prompt_hi=80, gen=6)
+    for chunk in (CHUNK, 0):
+        slot_parity(torch, np, lm2, t2_np,
+                    f"granite 2-layer SlotArena prefill_chunk {chunk}", small,
+                    scheduler=SchedulerConfig(prefill_chunk=chunk,
+                                              prefill_bucket=BUCKET))
+    for chunk in (CHUNK, 0):
+        what = f"SlotArena prefill_chunk {chunk}"
+        eng = make_engine(lm, tables, "cuda", paged=False,
+                          scheduler=SchedulerConfig(prefill_chunk=chunk,
+                                                    prefill_bucket=BUCKET))
+        kernels.reset_launch_counts()
+        tok, s, _ = serve(lm, tables, reqs, "cuda", engine=eng)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        check_path_launches(launches, 8, what)
+        if tok != run1:
+            raise AssertionError(f"{what}: tokens differ from main run 1's")
+        print(f"  {what} ({eng._prefill_mode}): {s['steps']} steps, "
+              f"{s['throughput_tok_s']:.2f} tok/s, p50 TTFT "
+              f"{s['p50_ttft_s'] * 1e3:.1f} ms, p50 ITL "
+              f"{s['p50_itl_s'] * 1e3:.1f} ms, arena {s['arena']} "
+              f"({s['arena_positions']} positions); launches {launches}; "
+              "tokens equal main run 1's (paged)")
+        del eng
+    n, gen = N_SLOTS, 16
+    prompts = np.random.default_rng(SEED + 8).integers(
+        0, lm.cfg.vocab, size=(n, BATCH_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    want = serve_batch(lm, tables, prompts, gen).cpu()
+    t_batch = time.perf_counter() - t0
+    eng = make_engine(lm, tables, "cuda", paged=False,
+                      max_len=BATCH_PROMPT + gen, max_prefills=n)
+    ids = [eng.submit(prompts[i], max_new_tokens=gen) for i in range(n)]
+    done = {c.req_id: c.tokens for c in eng.run_until_drained()}
+    for i, rid in enumerate(ids):
+        if done[rid] != want[i].tolist():
+            raise AssertionError(f"serve_batch row {i} != the engine's")
+    print(f"  serve_batch ({n} x {BATCH_PROMPT} prompts, {gen} tokens in "
+          f"lockstep, {t_batch:.2f} s) equals the engine's tokens")
+
+
+def phase_olmoe(torch, np, kernels):
+    """olmoe_1b_7b: 2 layers at full width card vs CPU, then the model
+    at full width over MOE_LAYERS layers served as the 8-request cell
+    over `SlotArena` (run 1 counted, run 2 warmed with telemetry on)
+    and over the paged arena.  -> run 1's launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import (
+        calibration_sample, deploy_model, ragged_requests,
+    )
+    from repro_torch.models.lm import DecoderLM, tables_from_numpy
+    from repro_torch.serving import Telemetry
+
+    t0 = time.perf_counter()
+    lm2 = DecoderLM(dataclasses.replace(get_config(MOE_ARCH), n_layers=2),
+                    max_seq=MAX_LEN)
+    p = lm2.init_np(SEED)
+    t_np = lm2.deploy(p, lm2.calibrate(
+        p, calibration_sample(lm2.cfg.vocab, MAX_LEN), device="cuda"))
+    del p
+    cfg = lm2.cfg
+    print(f"  2 layers at full width (d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, hd {cfg.hd}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}) "
+          f"calibrated on the card and deployed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 9)
+    prompt = rng.integers(0, cfg.vocab, size=(1, 200)).astype(np.int32)
+    xs = {"prefill group": rng.integers(-128, 128, size=(1, 254, cfg.d_model)),
+          "decode group": rng.integers(-128, 128, size=(1, N_SLOTS,
+                                                        cfg.d_model))}
+    moe = lm2.block()._subs()["moe"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = tables_from_numpy(t_np, dev)
+        caches = lm2.init_caches(1, MAX_LEN, device=dev)
+        logits = lm2.prefill(t, torch.from_numpy(prompt).to(dev), caches)
+        routes = [moe.route_id(t["layers"][0]["moe"], torch.from_numpy(
+            x.astype(np.int8)).to(dev))[:2] for x in xs.values()]
+        out[dev] = ([logits.cpu(), caches["k"].cpu(), caches["v"].cpu()]
+                    + [r.cpu() for pair in routes for r in pair])
+    names = ["prefill logits", "K pool", "V pool"] + [
+        f"{g} {w}" for g in xs for w in ("gate images", "expert picks")]
+    for name, a, b in zip(names, out["cuda"], out["cpu"]):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"olmoe 2-layer {name}: card != CPU")
+    print(f"  olmoe 2-layer: a 200-token exact prefill's int32 logits and "
+          f"slot pools, and layer 0's gate images and expert picks at a "
+          f"254-token and an {N_SLOTS}-token group, equal on the card and "
+          "the CPU")
+    small = ragged_requests(4, cfg.vocab, np.random.default_rng(SEED + 1),
+                            prompt_lo=17, prompt_hi=200, gen=6)
+    slot_parity(torch, np, lm2, t_np, "olmoe 2-layer exact mode", small)
+    del t_np, lm2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm, tables = deploy_model(MOE_ARCH, reduced=False, max_seq=MAX_LEN,
+                              seed=SEED, device="cuda", n_layers=MOE_LAYERS)
+    torch.cuda.synchronize()
+    cfg = lm.cfg
+    print(f"  calibrated and deployed {MOE_ARCH} ({cfg.n_layers} layers, "
+          f"{cfg.param_count()} parameters of which "
+          f"{cfg.active_param_count()} active a token) layer by layer in "
+          f"{time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    reqs = ragged_requests(8, cfg.vocab, np.random.default_rng(SEED + 2),
+                           prompt_lo=17, prompt_hi=300, gen=16)
+    kernels.reset_launch_counts()
+    tok1, s1, eng = serve(lm, tables, reqs, "cuda",
+                          engine=make_engine(lm, tables, "cuda", paged=False))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if len(tok1) != len(reqs) or any(len(v) != 16 for v in tok1.values()):
+        raise AssertionError(f"olmoe: not every request finished: {tok1}")
+    if not all(0 <= t < cfg.vocab for v in tok1.values() for t in v):
+        raise AssertionError("olmoe: a token outside the vocab")
+    check_path_launches(launches, "moe", "olmoe run 1")
+    # every dispatch (a decode, or a B=1 prefill) runs the head GEMM once
+    # and each layer's three expert GEMMs once each
+    dispatches = sum(n for (_, _, N, _), n in
+                     kernels.int8_matmul.by_shape.items()
+                     if N == cfg.vocab_padded)
+    if launches["int8_matmul_grouped"] != 3 * cfg.n_layers * dispatches:
+        raise AssertionError(f"grouped launches {launches} are not 3 a "
+                             f"layer in each of {dispatches} dispatches")
+    print(f"  olmoe run 1 (SlotArena, exact prefill): prompts "
+          f"{[r.prompt_len for r in reqs]}, {s1['steps']} steps, "
+          f"launches {launches} = " + ", ".join(
+              f"{k} {v / s1['steps']:.1f}" for k, v in launches.items() if v)
+          + " a step; grouped GEMM launches by (groups, C, K, N): "
+          + json.dumps({str(k): v for k, v in sorted(
+              kernels.int8_matmul_grouped.by_shape.items())})
+          + f"; {dispatches} dispatches")
+    print(f"  olmoe run 1: {s1['n_generated']} tokens in {s1['wall_s']:.3f} s"
+          f" = {s1['throughput_tok_s']:.2f} tok/s, p50 TTFT "
+          f"{s1['p50_ttft_s'] * 1e3:.1f} ms, p50 ITL "
+          f"{s1['p50_itl_s'] * 1e3:.1f} ms")
+    del eng
+    tel = Telemetry()
+    tok2, s2, _ = serve(lm, tables, reqs, "cuda", warm=True, engine=make_engine(
+        lm, tables, "cuda", paged=False, telemetry=tel))
+    if tok2 != tok1:
+        raise AssertionError("olmoe run 2 (telemetry on) gave other tokens")
+    m = tel.metrics()
+    print_stats("olmoe run 2 (warmed, telemetry on)", s2)
+    print("  olmoe run 2 host ms per step phase (mean over the steps it ran "
+          "in; total): " + ", ".join(
+              f"{ph} {m['phase_mean_s'][ph] * 1e3:.2f} "
+              f"({m['phase_total_s'][ph] * 1e3:.1f})"
+              for ph in m["phase_mean_s"])
+          + f"; step wall {sum(st['wall_s'] for st in m['steps']) * 1e3:.1f} "
+          f"over {m['n_steps']} steps")
+    tok3, s3, _ = serve(lm, tables, reqs, "cuda")
+    if tok3 != tok1:
+        raise AssertionError("olmoe over the paged arena gave other tokens")
+    print(f"  olmoe over the paged arena (exact prefill): {s3['steps']} "
+          f"steps, {s3['throughput_tok_s']:.2f} tok/s, tokens equal "
+          f"SlotArena's; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  olmoe tokens: {tok1}")
+    return launches
 
 
 def phase_overload(torch, np, kernels, lm, tables, reqs, closed, rps):
@@ -1809,8 +2113,20 @@ def phase_done(name: str, t0: float) -> float:
     return t
 
 
+SKIPPABLE = ("entry", "calibrate", "parity", "open-loop", "prefix",
+             "preempt", "async", "whole_prompt", "configs", "musicgen",
+             "olmoe", "nemotron")
+
+
 def main() -> int:
-    argparse.ArgumentParser(description="smoke run on one GPU").parse_args()
+    ap = argparse.ArgumentParser(description="smoke run on one GPU")
+    ap.add_argument("--skip", default="",
+                    help="comma-separated phases to leave out (a short "
+                    "development run; no result line): "
+                    + ", ".join(SKIPPABLE))
+    skip = set(filter(None, ap.parse_args().skip.split(",")))
+    if skip - set(SKIPPABLE):
+        ap.error(f"unknown phases {sorted(skip - set(SKIPPABLE))}")
     import numpy as np
     import torch
 
@@ -1844,6 +2160,8 @@ def main() -> int:
     errs["int8_matmul"] = max(
         check_int8_matmul(torch, np, timer, rng, report),
         check_config_gemms(torch, np, timer, rng, report))
+    errs["int8_matmul_grouped"] = check_grouped_gemm(torch, np, timer, rng,
+                                                     report)
     errs["requant"] = check_requant(torch, np, timer, rng, report)
     errs["paged_attention"] = check_paged_attention(
         torch, np, timer, report, ptxas["paged_attention"])
@@ -1852,50 +2170,91 @@ def main() -> int:
     errs["quant_flash_attention"] = check_quant_flash_attention(
         torch, np, timer, report, ptxas["quant_attention"])
     t0 = phase_done("kernels", t0)
-    print("[entry] quant_flash_attention through its entry point")
-    entry = phase_entry(torch, kernels)
-    t0 = phase_done("entry", t0)
-    print("[calibrate] granite_3_2b at full width, 2 layers: calibrate on "
-          "the card and the CPU, deploy once, card vs CPU")
-    phase_calibrate(torch, np)
-    t0 = phase_done("calibrate", t0)
-    print("[parity] 2-layer full width, calibrated, card vs CPU: "
-          + ", ".join(CONFIGS))
-    phase_parity(torch, np)
-    t0 = phase_done("parity", t0)
+    entry = {}
+    if "entry" not in skip:
+        print("[entry] quant_flash_attention through its entry point")
+        entry = phase_entry(torch, kernels)
+        t0 = phase_done("entry", t0)
+    lm2 = t2_np = None
+    if "calibrate" not in skip:
+        print("[calibrate] granite_3_2b at full width, 2 layers: calibrate "
+              "on the card and the CPU, deploy once, card vs CPU")
+        lm2, t2_np = phase_calibrate(torch, np)
+        t0 = phase_done("calibrate", t0)
+    if "parity" not in skip:
+        print("[parity] 2-layer full width, calibrated, card vs CPU: "
+              + ", ".join(CONFIGS))
+        phase_parity(torch, np)
+        t0 = phase_done("parity", t0)
     print("[main] full granite_3_2b on the card")
     launches, lm, tables, reqs, run1 = phase_main(torch, np, kernels)
     t0 = phase_done("main", t0)
-    print("[open-loop] granite_3_2b under Poisson arrivals")
-    ol_reqs, closed, rps = phase_open_loop(torch, np, kernels, lm, tables)
-    t0 = phase_done("open-loop", t0)
-    print("[prefix] granite_3_2b system-prompt workload, cold vs shared")
-    phase_prefix(torch, np, kernels, lm, tables)
-    t0 = phase_done("prefix", t0)
-    print("[preempt] granite_3_2b under PrioritySLOPolicy")
-    preempt0 = {kv_bits: phase_preempt(torch, np, kernels, lm, tables, reqs,
-                                       run1[kv_bits], kv_bits)[0]
-                for kv_bits in (8, 4)}
-    phase_overload(torch, np, kernels, lm, tables, ol_reqs, closed, rps)
-    t0 = phase_done("preempt", t0)
-    print("[async] granite_3_2b at dispatch depth 1")
-    phase_async(torch, np, kernels, lm, tables, reqs, run1, preempt0[8])
-    del lm, tables
-    t0 = phase_done("async", t0)
-    print("[configs] " + " and ".join(CONFIGS) + f" at full width, "
-          f"{CONFIG_LAYERS} layers")
-    phase_configs(torch, np, kernels)
-    t0 = phase_done("configs", t0)
-    print("[musicgen] musicgen_medium: 2-layer parity, then full width and "
-          "depth on the card")
-    phase_musicgen(torch, np, kernels)
-    t0 = phase_done("musicgen", t0)
-    print("[nemotron] one nemotron_4_340b layer at full width, card vs CPU")
-    phase_nemotron(torch, np)
-    phase_done("nemotron", t0)
+    if "open-loop" not in skip:
+        print("[open-loop] granite_3_2b under Poisson arrivals")
+        ol_reqs, closed, rps = phase_open_loop(torch, np, kernels, lm,
+                                               tables)
+        t0 = phase_done("open-loop", t0)
+    if "prefix" not in skip:
+        print("[prefix] granite_3_2b system-prompt workload, cold vs "
+              "shared")
+        phase_prefix(torch, np, kernels, lm, tables)
+        t0 = phase_done("prefix", t0)
+    if "preempt" not in skip:
+        print("[preempt] granite_3_2b under PrioritySLOPolicy")
+        preempt0 = {kv_bits: phase_preempt(torch, np, kernels, lm, tables,
+                                           reqs, run1[kv_bits], kv_bits)[0]
+                    for kv_bits in (8, 4)}
+        if "open-loop" not in skip:
+            phase_overload(torch, np, kernels, lm, tables, ol_reqs, closed,
+                           rps)
+        t0 = phase_done("preempt", t0)
+        if "async" not in skip:
+            print("[async] granite_3_2b at dispatch depth 1")
+            phase_async(torch, np, kernels, lm, tables, reqs, run1,
+                        preempt0[8])
+            t0 = phase_done("async", t0)
+    if "whole_prompt" not in skip:
+        print("[whole_prompt] granite_3_2b over SlotArena (the reference's "
+              "default arena), chunked and bucketed; serve_batch")
+        if lm2 is None:
+            from repro_torch.launch.serve import calibration_sample
+
+            lm2 = calibrated_2_layers("granite_3_2b")[0]
+            p = lm2.init_np(SEED)
+            t2_np = lm2.deploy(p, lm2.calibrate(p, calibration_sample(
+                lm2.cfg.vocab, MAX_LEN), device="cuda"))
+        phase_whole_prompt(torch, np, kernels, lm, tables, reqs, run1[8],
+                           lm2, t2_np)
+        t0 = phase_done("whole_prompt", t0)
+    del lm, tables, lm2, t2_np
+    if "configs" not in skip:
+        print("[configs] " + " and ".join(CONFIGS) + f" at full width, "
+              f"{CONFIG_LAYERS} layers")
+        phase_configs(torch, np, kernels)
+        t0 = phase_done("configs", t0)
+    if "musicgen" not in skip:
+        print("[musicgen] musicgen_medium: 2-layer parity, then full width "
+              "and depth on the card")
+        phase_musicgen(torch, np, kernels)
+        t0 = phase_done("musicgen", t0)
+    if "olmoe" not in skip:
+        print(f"[olmoe] {MOE_ARCH}: 2-layer parity, then full width on the "
+              "card")
+        launches["int8_matmul_grouped"] = phase_olmoe(
+            torch, np, kernels)["int8_matmul_grouped"]
+        t0 = phase_done("olmoe", t0)
+    if "nemotron" not in skip:
+        print("[nemotron] one nemotron_4_340b layer at full width, card vs "
+              "CPU")
+        phase_nemotron(torch, np)
+        phase_done("nemotron", t0)
+    if skip:
+        print(f"skipped phases {sorted(skip)}: no result line")
+        return 0
     launches["quant_flash_attention"] = entry["quant_flash_attention"]
-    rep_shape = {"int8_matmul": 8, "requant": 4, "paged_attention": 0,
-                 "paged_attention_kv4": 0, "quant_flash_attention": 0}
+    rep_shape = {"int8_matmul": 8, "int8_matmul_grouped": 0, "requant": 4,
+                 "paged_attention": 0, "paged_attention_kv4": 0,
+                 "quant_flash_attention": 0}
     rows = []
     for name in kernels.KERNELS:
         r = report[name][rep_shape[name]]

@@ -1,11 +1,13 @@
 """Architecture configuration schema + registry (port of
-`repro.configs.base`, cut to what the dense serving path reads).
+`repro.configs.base`, cut to what the dense and MoE serving paths
+read).
 
-Registered: the dense token configs of the reference, one file each
-with its values: `granite_3_2b`, `llama3_2_3b` and `chatglm3_6b`
-(RMSNorm, gated SiLU MLP), `musicgen_medium` (LayerNorm with bias,
-ungated GELU MLP, MHA) and `nemotron_4_340b` (LayerNorm with bias,
-ungated squared-ReLU MLP, head_dim 192).
+Registered: the token configs of the reference that the port serves,
+one file each with its values: `granite_3_2b`, `llama3_2_3b` and
+`chatglm3_6b` (RMSNorm, gated SiLU MLP), `musicgen_medium` (LayerNorm
+with bias, ungated GELU MLP, MHA), `nemotron_4_340b` (LayerNorm with
+bias, ungated squared-ReLU MLP, head_dim 192) and `olmoe_1b_7b` (the
+MoE family: 64 experts, top-8, an expert layer in every block).
 """
 from __future__ import annotations
 
@@ -16,13 +18,13 @@ from typing import Dict
 _REGISTRY: Dict[str, "ArchConfig"] = {}
 
 ARCH_IDS = ["granite_3_2b", "llama3_2_3b", "chatglm3_6b", "musicgen_medium",
-            "nemotron_4_340b"]
+            "nemotron_4_340b", "olmoe_1b_7b"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense (the only family the port serves)
+    family: str                 # dense | moe (the families the port serves)
     n_layers: int
     d_model: int
     vocab: int
@@ -36,6 +38,12 @@ class ArchConfig:
     norm_bias: bool = False
     rope_base: float = 10000.0
     rope_fraction: float = 1.0
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 1
+    moe_every: int = 1          # 2 = MoE on every other layer (llama4)
+    shared_expert: bool = False
+    moe_group: int = 512
     input_mode: str = "tokens"
     notes: str = ""
 
@@ -50,7 +58,7 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU tests (the reference's
-        `reduced()` for a dense config)."""
+        `reduced()` for a dense or MoE config)."""
         kw = dataclasses.asdict(self)
         kw.update(
             n_layers=min(self.n_layers, 2),
@@ -60,9 +68,43 @@ class ArchConfig:
             n_heads=4 if self.n_heads else 0,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
             head_dim=32 if self.n_heads else 0,
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2),
+            moe_group=64,
             name=self.name + "_reduced",
         )
         return ArchConfig(**kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's, for the dense and
+        MoE families)."""
+        if self.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"param_count of the {self.family} family (ROADMAP item 10)")
+        d, V, hd = self.d_model, self.vocab, self.hd
+        ff_mats = 3 if self.gated else 2
+        n = 2 * V * d  # embed + head
+        for i in range(self.n_layers):
+            n += (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                  + self.n_heads * hd * d) + 2 * d  # attention, norms
+            if self.n_experts > 0 and (
+                    i % self.moe_every == self.moe_every - 1):
+                n += self.n_experts * ff_mats * d * self.d_ff
+                n += d * self.n_experts  # router
+                if self.shared_expert:
+                    n += ff_mats * d * self.d_ff
+            else:
+                n += ff_mats * d * self.d_ff
+        return int(n)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        ff_mats = 3 if self.gated else 2
+        L_moe = self.n_layers // self.moe_every
+        return int(self.param_count() - (self.n_experts - self.top_k)
+                   * ff_mats * self.d_model * self.d_ff * L_moe)
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

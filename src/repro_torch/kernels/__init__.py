@@ -2,6 +2,8 @@
 beside it (see build.py for how they are built).
 
   int8_matmul          csrc/int8_matmul.cu      every QLinear (int8/int32 out)
+  int8_matmul_grouped  csrc/int8_matmul.cu      the MoE's expert GEMMs: all
+                                                G x E groups in one launch
   requant              csrc/requant.cu          the standalone requant sites:
                                                 ctx_rqt (heads to rows), each
                                                 QAdd, the gated MLP's LUT,
@@ -20,11 +22,16 @@ tensor it launches its kernel or raises.  Each wrapper counts its
 launches in a plain integer attribute (`int8_matmul.launches`, ...);
 `paged_attention` counts a launch over packed pools on the counter
 `paged_attention_kv4.launches` instead; `int8_matmul.by_shape` splits
-the GEMM's count by (M, K, N, output type), and `requant.by_form` the
+the GEMM's count by (M, K, N, output type), `int8_matmul_grouped.by_shape`
+the grouped form's by (groups, C, K, N, output type), and
+`requant.by_form` the
 requant's by call form (`requant`, `requant_add`, `requant_gate` and
 `requant_act` all count on `requant.launches`).
 """
-from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+from repro_torch.kernels.int8_matmul import (
+    int8_matmul, int8_matmul_grouped, int8_matmul_grouped_plain,
+    int8_matmul_plain,
+)
 from repro_torch.kernels.paged_attention import (
     paged_attention, paged_attention_kv4, paged_attention_plain,
 )
@@ -38,6 +45,7 @@ from repro_torch.kernels.requant_kernel import (
 
 KERNELS = {
     "int8_matmul": int8_matmul,
+    "int8_matmul_grouped": int8_matmul_grouped,
     "requant": requant,
     "paged_attention": paged_attention,
     "paged_attention_kv4": paged_attention_kv4,
@@ -49,6 +57,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     int8_matmul.by_shape = {}
+    int8_matmul_grouped.by_shape = {}
     requant.by_form = {}
 
 

@@ -39,7 +39,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # names
 SIGNATURES = {
     "int8_matmul": [_P] * 9 + [_I] * 3 + [_P] + [_I] * 4 + [_LL]
-    + [_I] * 5 + [_P] * 3,
+    + [_I] * 8 + [_P] * 3,
     "requant": [_P] * 7 + [_I] * 3 + [_P] + [_I] * 8 + [_P],
     "requant_add": [_P, _I] + [_P] * 7 + [_I] + [_P] * 8 + [_I, _P]
     + [_I] * 5 + [_P],

@@ -15,7 +15,15 @@
 // are stored transposed, wt (N, K) row-major (the port transposes them
 // once when the tables are loaded), so both operands are K-major.  Any
 // M and N; K a multiple of 16 and the rows of both operands 16-byte
-// aligned (the wrapper checks).  Every int32 add and multiply that can
+// aligned (the wrapper checks).
+//
+// Grouped form (the MoE's expert GEMMs, which the reference leaves to
+// jnp.einsum "gecd,edf->gecf"): `groups` independent products in one
+// launch, group q = g * E + e multiplying its M = C rows of x (rows
+// q * C ..) by expert e = q % E's weights (wt + e * N * K) into its own
+// M x N block of the output; the requant tables of expert e start
+// e * rq_gstride entries in (per-(expert, channel) multipliers, shifts
+// shared).  The dense GEMM is the case groups = 1.  Every int32 add and multiply that can
 // wrap is done in unsigned arithmetic or by the hardware's wrapping
 // integer units, so it wraps like XLA's int32.
 //
@@ -81,7 +89,24 @@ struct Epi {
   int rq_stride, qmin, qmax;
   void* out;
   int out_int8, M, N;
+  int n_experts, rq_gstride;  // grouped form: experts, table stride
 };
+
+// The epilogue of group q: its block of the output and its expert's
+// requant tables.
+__device__ __forceinline__ Epi group_epi(Epi e, int q) {
+  const long long o = (long long)q * e.M * e.N;
+  e.out = e.out_int8 ? (void*)(static_cast<int8_t*>(e.out) + o)
+                     : (void*)(static_cast<int32_t*>(e.out) + o);
+  if (e.mul != nullptr) {
+    const int t = (q % e.n_experts) * e.rq_gstride;
+    e.mul += t;
+    e.s0 += t;
+    e.lo += t;
+    e.hi += t;
+  }
+  return e;
+}
 
 // one output column's bias and requant table entries
 struct Col {
@@ -89,7 +114,7 @@ struct Col {
 };
 
 __device__ __forceinline__ Col load_col(const Epi& e, int c) {
-  Col k{e.bias[c], 0, 0, 0, 0};
+  Col k{e.bias != nullptr ? e.bias[c] : 0, 0, 0, 0, 0};
   if (e.mul != nullptr) {
     const int cc = c * e.rq_stride;
     k.mul = e.mul[cc];
@@ -227,6 +252,7 @@ __device__ __forceinline__ int4 ld_weight(const int4* p) {
 // they cost no registers
 struct XRows {
   long long off[16];
+  long long group;  // bytes from one group's rows to the next's
 };
 
 // acc[m][j] += x[m, 16 ch .. 16 ch + 16) . w[j] for the MT rows; x
@@ -253,21 +279,33 @@ __device__ __forceinline__ void gemv_dot(int (&acc)[MT * kGemvCols],
 }
 
 // One block of kGemvWarps warps: bn columns (4 per warp along N, so
-// bn / 4 warp columns) over one split of K (blockIdx.y); the 8 * 4 / bn
-// warps of a column share its K, each taking every kw-th 512-byte step.
-template <int MT>
+// bn / 4 warp columns) over one split of K (blockIdx.y, and in the
+// grouped form group blockIdx.y / splits, split blockIdx.y % splits);
+// the 8 * 4 / bn warps of a column share its K, each taking every kw-th
+// 512-byte step.  The dense form (GROUPED false) is compiled apart so
+// that it keeps its registers: the group offsets cost the GEMV at 8 rows
+// a spill.
+template <int MT, bool GROUPED>
 __global__ void __launch_bounds__(32 * kGemvWarps)
 gemm_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
                  Epi e, const __grid_constant__ XRows rows, int K,
-                 int k_split, int bn, int32_t* __restrict__ ws,
+                 int k_split, int bn, int splits, int32_t* __restrict__ ws,
                  unsigned* __restrict__ counters) {
   constexpr int V = MT * kGemvCols;
   __shared__ int part[kGemvWarps * V];
   __shared__ int last_flag;
+  int q = 0, split = blockIdx.y;
+  if constexpr (GROUPED) {
+    q = blockIdx.y / splits;
+    split = blockIdx.y % splits;
+    e = group_epi(e, q);
+    x += (long long)q * rows.group;
+    wt += (long long)(q % e.n_experts) * e.N * K;
+  }
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int cw = bn / kGemvCols, kw = kGemvWarps / cw;
   const int wc = warp % cw, wk = warp / cw;
-  const int k0 = blockIdx.y * k_split;
+  const int k0 = split * k_split;
   const int nchunk = min(k_split, K - k0) / 16;
   const int c0 = blockIdx.x * bn + kGemvCols * wc;
   const int8_t* xk = x + k0;
@@ -324,8 +362,9 @@ gemm_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
   // thread i of the block's bn * MT outputs sums value i over the kw
   // warps; split K stores the sum in the block's workspace slot, and the
   // tile's last block adds the other slots
-  const int splits = gridDim.y, n_out = cw * V;
-  int32_t* slot = ws + (long long)blockIdx.x * splits * n_out;
+  const int n_out = cw * V;
+  const long long tile = (long long)q * gridDim.x + blockIdx.x;
+  int32_t* slot = ws + tile * splits * n_out;
   constexpr int kThreads = 32 * kGemvWarps;  // n_out <= 2 kThreads
   int sum[2];
 #pragma unroll
@@ -337,12 +376,12 @@ gemm_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
       for (int k = 0; k < kw; ++k)
         v = wrap_add(v, part[(k * cw + pc) * V + idx]);
       sum[r] = v;
-      if (splits > 1) __stcg(slot + blockIdx.y * n_out + i, v);
+      if (splits > 1) __stcg(slot + split * n_out + i, v);
     }
   }
   if (splits > 1 &&
-      !last_arrival(counters + blockIdx.x, splits, threadIdx.x == 0,
-                    kThreads, &last_flag))
+      !last_arrival(counters + tile, splits, threadIdx.x == 0, kThreads,
+                    &last_flag))
     return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -350,8 +389,7 @@ gemm_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
     if (i < n_out) {
       int v = sum[r];
       for (int k = 0; k < splits; ++k)
-        if (k != (int)blockIdx.y)
-          v = wrap_add(v, __ldcg(slot + k * n_out + i));
+        if (k != split) v = wrap_add(v, __ldcg(slot + k * n_out + i));
       const int pc = i / V, idx = i % V;
       const int m = idx / kGemvCols;
       const int c = blockIdx.x * bn + kGemvCols * pc + idx % kGemvCols;
@@ -403,13 +441,16 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
       : "memory");
 }
 
-// box (kBK bytes of K, rows) at (k, row) -> shared dst, completion on bar
+// box (kBK bytes of K, rows, 1) at (k, row, group) -> shared dst,
+// completion on bar
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int k, int row, uint32_t bar) {
+                                         int k, int row, int group,
+                                         uint32_t bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(group),
+      "r"(bar)
       : "memory");
 }
 
@@ -467,14 +508,14 @@ __device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t da,
     wgmma_n64(d, da, db);
 }
 
-// One block: a (64 * WG) x BN output tile over one split of K
-// (blockIdx.z).  Warps 0 .. 4 WG - 1 are the consumer warpgroups (rows
-// 64 wg ..), warp 4 WG the producer.
+// One block: a (64 * WG) x BN output tile of group blockIdx.z / splits
+// over one split of K (blockIdx.z % splits).  Warps 0 .. 4 WG - 1 are
+// the consumer warpgroups (rows 64 wg ..), warp 4 WG the producer.
 template <int WG, int BN>
 __global__ void __launch_bounds__(128 * WG + 32)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                   const __grid_constant__ CUtensorMap tw, Epi e, int K,
-                  int k_split, int32_t* __restrict__ ws,
+                  int k_split, int splits, int32_t* __restrict__ ws,
                   unsigned* __restrict__ counters) {
   constexpr int BM = 64 * WG;
   constexpr int A_BYTES = BM * kBK, STAGE = (BM + BN) * kBK;
@@ -485,9 +526,12 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1 KB
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int expert = q % e.n_experts;
+  e = group_epi(e, q);
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int kb0 = blockIdx.z * (k_split / kBK);
-  const int steps = (min(k_split, K - blockIdx.z * k_split) + kBK - 1) / kBK;
+  const int kb0 = split * (k_split / kBK);
+  const int steps = (min(k_split, K - split * k_split) + kBK - 1) / kBK;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(smem_u32(&full[s]), 1);
@@ -505,8 +549,8 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         const uint32_t bar = smem_u32(&full[s]);
         mbar_expect_tx(bar, STAGE);
         const uint32_t a = base + s * STAGE;
-        tma_load(a, &tx, (kb0 + i) * kBK, m0, bar);
-        tma_load(a + A_BYTES, &tw, (kb0 + i) * kBK, n0, bar);
+        tma_load(a, &tx, (kb0 + i) * kBK, m0, q, bar);
+        tma_load(a + A_BYTES, &tw, (kb0 + i) * kBK, n0, expert, bar);
       }
     }
     return;
@@ -543,24 +587,24 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   // 16 w + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t + i % 2
   const int g = lane / 4, t = lane % 4;
   const int lr0 = 64 * wg + 16 * (warp % 4) + g;
-  const int splits = gridDim.z;
   if (splits > 1) {
     // split K: this block's partial goes to its slot of the tile; the
     // tile's last block adds the others
-    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-    int32_t* slots = ws + (long long)tile * splits * BM * BN;
+    const long long tile =
+        ((long long)q * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    int32_t* slots = ws + tile * splits * BM * BN;
 #pragma unroll
     for (int i = 0; i < BN / 2; i += 2) {
       const int lr = lr0 + 8 * ((i / 2) % 2), lc = 8 * (i / 4) + 2 * t;
-      __stcg(reinterpret_cast<int2*>(slots + blockIdx.z * BM * BN +
-                                     lr * BN + lc),
+      __stcg(reinterpret_cast<int2*>(slots + split * BM * BN + lr * BN +
+                                     lc),
              make_int2(acc[i], acc[i + 1]));
     }
     if (!last_arrival(counters + tile, splits, tid == 0, 128 * WG,
                       &last_flag))
       return;
     for (int k = 0; k < splits; ++k) {
-      if (k == (int)blockIdx.z) continue;
+      if (k == split) continue;
 #pragma unroll
       for (int i = 0; i < BN / 2; i += 2) {
         const int lr = lr0 + 8 * ((i / 2) % 2), lc = 8 * (i / 4) + 2 * t;
@@ -609,17 +653,20 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// (rows, K) int8, row pitch `ld` bytes, boxes of kBK x box_rows,
-// 128-byte swizzle, zero fill out of bounds
+// (groups, rows, K) int8, row pitch `ld` bytes, groups `gstride` bytes
+// apart, boxes of kBK x box_rows x 1, 128-byte swizzle, zero fill out of
+// bounds (past a group's rows too)
 bool encode_kmajor(CUtensorMap* map, const void* ptr, long long rows,
-                   long long K, long long ld, int box_rows) {
+                   long long K, long long ld, int box_rows, long long groups,
+                   long long gstride) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows,
+                              (cuuint64_t)groups};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld, (cuuint64_t)gstride};
+  const cuuint32_t box[3] = {(cuuint32_t)kBK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -644,27 +691,33 @@ cudaError_t allow_smem(const void* kernel, int bytes, int (&limit)[64]) {
 
 template <int MT>
 cudaError_t launch_gemv(const int8_t* x, const int8_t* wt, const Epi& e,
-                        int K, long long ldx, int bn, int splits,
-                        int k_split, int32_t* ws, unsigned* counters,
-                        cudaStream_t stream) {
+                        int K, long long ldx, int groups, int bn,
+                        int splits, int k_split, int32_t* ws,
+                        unsigned* counters, cudaStream_t stream) {
   XRows rows;
   for (int m = 0; m < 16; ++m)
     rows.off[m] = (long long)(m < e.M ? m : e.M - 1) * ldx;
-  const dim3 grid((e.N + bn - 1) / bn, splits);
-  gemm_gemv_kernel<MT><<<grid, 32 * kGemvWarps, 0, stream>>>(
-      x, wt, e, rows, K, k_split, bn, ws, counters);
+  rows.group = (long long)e.M * ldx;
+  const dim3 grid((e.N + bn - 1) / bn, splits * groups);
+  if (groups > 1)
+    gemm_gemv_kernel<MT, true><<<grid, 32 * kGemvWarps, 0, stream>>>(
+        x, wt, e, rows, K, k_split, bn, splits, ws, counters);
+  else
+    gemm_gemv_kernel<MT, false><<<grid, 32 * kGemvWarps, 0, stream>>>(
+        x, wt, e, rows, K, k_split, bn, splits, ws, counters);
   return cudaGetLastError();
 }
 
 template <int WG, int BN>
 cudaError_t launch_wgmma(const int8_t* x, const int8_t* wt, const Epi& e,
-                         int K, long long ldx, int splits, int k_split,
-                         int32_t* ws, unsigned* counters,
+                         int K, long long ldx, int groups, int splits,
+                         int k_split, int32_t* ws, unsigned* counters,
                          cudaStream_t stream) {
   constexpr int BM = 64 * WG;
   CUtensorMap tx, tw;
-  if (!encode_kmajor(&tx, x, e.M, K, ldx, BM) ||
-      !encode_kmajor(&tw, wt, e.N, K, K, BN))
+  if (!encode_kmajor(&tx, x, e.M, K, ldx, BM, groups, (long long)e.M * ldx) ||
+      !encode_kmajor(&tw, wt, e.N, K, K, BN, e.n_experts,
+                     (long long)e.N * K))
     return cudaErrorInvalidValue;
   static int limit[64] = {};
   auto* kernel = gemm_wgmma_kernel<WG, BN>;
@@ -673,9 +726,9 @@ cudaError_t launch_wgmma(const int8_t* x, const int8_t* wt, const Epi& e,
   if (err != cudaSuccess) return err;
   // row tiles innermost: the blocks that read one weight tile run
   // together, so it comes from HBM once
-  const dim3 grid((e.M + BM - 1) / BM, (e.N + BN - 1) / BN, splits);
-  kernel<<<grid, 128 * WG + 32, smem, stream>>>(tx, tw, e, K, k_split, ws,
-                                                counters);
+  const dim3 grid((e.M + BM - 1) / BM, (e.N + BN - 1) / BN, splits * groups);
+  kernel<<<grid, 128 * WG + 32, smem, stream>>>(tx, tw, e, K, k_split,
+                                                splits, ws, counters);
   return cudaGetLastError();
 }
 
@@ -686,44 +739,50 @@ cudaError_t launch_wgmma(const int8_t* x, const int8_t* wt, const Epi& e,
 // path 1: wgmma, tiles of bm x bn = 64 x 32 or 128 x 64.
 // splits blocks share K, k_split bytes each (a whole number of the
 // path's K step); with splits > 1, ws holds a slot of bm x bn int32 per
-// tile and split, and counters one zero per tile.
+// tile, group and split, and counters one zero per tile and group.
+// groups products of M rows each, group q with expert q % n_experts
+// (wt holds n_experts (N, K) blocks; rq_gstride the table entries of
+// one expert); bias may be null (0).
 extern "C" int int8_matmul_launch(
     const int8_t* x, const int8_t* wt, const int32_t* bias,
     const int32_t* mul, const int32_t* s0, const int32_t* lo,
     const int32_t* hi, const int32_t* d, const int32_t* zp, int rq_stride,
     int qmin, int qmax, void* out, int out_int8, int M, int N, int K,
-    long long ldx, int path, int bm, int bn, int splits, int k_split,
-    int32_t* ws, unsigned* counters, cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return 0;
+    long long ldx, int groups, int n_experts, int rq_gstride, int path,
+    int bm, int bn, int splits, int k_split, int32_t* ws,
+    unsigned* counters, cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || groups <= 0) return 0;
   const int bk = path == 0 ? kGemvBK : kBK;
   if (K % 16 != 0 || ldx % 16 != 0 || splits < 1 || k_split % bk != 0 ||
       (long long)splits * k_split < K ||
-      (long long)(splits - 1) * k_split >= K)
+      (long long)(splits - 1) * k_split >= K || n_experts < 1 ||
+      groups % n_experts != 0 || (groups > 1 && ldx != K) ||
+      (long long)splits * groups > 65535)
     return (int)cudaErrorInvalidValue;
   const Epi e{bias, mul, s0, lo, hi, d, zp, rq_stride, qmin, qmax,
-              out, out_int8, M, N};
+              out, out_int8, M, N, n_experts, rq_gstride};
   if (path == 0) {
     if (M > bm || (bn != 4 && bn != 8 && bn != 16 && bn != 32))
       return (int)cudaErrorInvalidValue;
     switch (bm) {
-      case 1: return launch_gemv<1>(x, wt, e, K, ldx, bn, splits, k_split,
-                                    ws, counters, stream);
-      case 2: return launch_gemv<2>(x, wt, e, K, ldx, bn, splits, k_split,
-                                    ws, counters, stream);
-      case 4: return launch_gemv<4>(x, wt, e, K, ldx, bn, splits, k_split,
-                                    ws, counters, stream);
-      case 8: return launch_gemv<8>(x, wt, e, K, ldx, bn, splits, k_split,
-                                    ws, counters, stream);
-      case 16: return launch_gemv<16>(x, wt, e, K, ldx, bn, splits,
+      case 1: return launch_gemv<1>(x, wt, e, K, ldx, groups, bn, splits,
+                                    k_split, ws, counters, stream);
+      case 2: return launch_gemv<2>(x, wt, e, K, ldx, groups, bn, splits,
+                                    k_split, ws, counters, stream);
+      case 4: return launch_gemv<4>(x, wt, e, K, ldx, groups, bn, splits,
+                                    k_split, ws, counters, stream);
+      case 8: return launch_gemv<8>(x, wt, e, K, ldx, groups, bn, splits,
+                                    k_split, ws, counters, stream);
+      case 16: return launch_gemv<16>(x, wt, e, K, ldx, groups, bn, splits,
                                       k_split, ws, counters, stream);
     }
     return (int)cudaErrorInvalidValue;
   }
   if (bm == 64 && bn == 32)
-    return launch_wgmma<1, 32>(x, wt, e, K, ldx, splits, k_split, ws,
-                               counters, stream);
+    return launch_wgmma<1, 32>(x, wt, e, K, ldx, groups, splits, k_split,
+                               ws, counters, stream);
   if (bm == 128 && bn == 64)
-    return launch_wgmma<2, 64>(x, wt, e, K, ldx, splits, k_split, ws,
-                               counters, stream);
+    return launch_wgmma<2, 64>(x, wt, e, K, ldx, groups, splits, k_split,
+                               ws, counters, stream);
   return (int)cudaErrorInvalidValue;
 }

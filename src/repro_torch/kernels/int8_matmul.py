@@ -13,9 +13,18 @@ moment its tables are loaded (`models.lm.tables_from_numpy`), as a
 (K, N) tensor with strides (1, K), so the logical shape, dtype and
 values stay those of the reference's `w_q`.
 
-Launch plan: `gemm_plan(M, N, K)` picks the kernel's path (the GEMV for
-M <= 16, the wgmma pipeline above), its tile and how many blocks split
-K, so that every shape of the serving path fills the card.  Split K
+Grouped form (the MoE's expert GEMMs): `int8_matmul_grouped(x, w, rqt)`
+multiplies x (G, E, C, K) by w (E, K, N) expert by expert, ``x[g, e] @
+w[e]``, with the requant tables per (expert, channel), in ONE launch
+over all G x E groups; `int8_matmul_grouped_plain` beside it.  The
+reference leaves these products to jnp.einsum (`layers/moe.py`); torch
+has no int8 x int8 -> int32 batched product on CUDA, so the GEMM kernel
+carries them, each group through the same path as a dense product of C
+rows.
+
+Launch plan: `gemm_plan(M, N, K, groups)` picks the kernel's path (the
+GEMV for M <= 16, the wgmma pipeline above), its tile and how many
+blocks split K, so that every shape of the serving path fills the card.  Split K
 keeps each block's partial tile in a workspace slot, which the tile's
 last block sums; the wrapper allocates the workspace and the tile
 counters once per device and stream, and the kernel leaves the
@@ -106,7 +115,7 @@ def _split_k(tiles: int, ksteps: int, cap: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=1024)
-def gemm_plan(M: int, N: int, K: int) -> GemmPlan:
+def gemm_plan(M: int, N: int, K: int, groups: int = 1) -> GemmPlan:
     """Path, tile and split of K for an (M, K) @ (K, N) product.
 
     M <= 16 takes the GEMV, compiled for 1, 2, 4, 8 or 16 rows of x.
@@ -114,16 +123,18 @@ def gemm_plan(M: int, N: int, K: int) -> GemmPlan:
     only for M > 64), each block over at most WGMMA_K_MAX bytes of K.
     Of the plans that put at least SMS blocks on the card, the one with
     the fewest splits wins, then the widest GEMV block or the first
-    wgmma tile; where none reaches SMS blocks, the one with the most."""
+    wgmma tile; where none reaches SMS blocks, the one with the most.
+    `groups` products of M rows each (the grouped form) count as that
+    many times the tiles."""
     if M <= 16:
         path, bk = "gemv", GEMV_BK
         rows = next(t for t in GEMV_ROWS if t >= M)
         cap = _cdiv(K, bk)
-        tiles = [(rows, bn, _cdiv(N, bn)) for bn in GEMV_COLS]
+        tiles = [(rows, bn, groups * _cdiv(N, bn)) for bn in GEMV_COLS]
     else:
         path, bk = "wgmma", WGMMA_BK
         cap = WGMMA_K_MAX // bk
-        tiles = [(bm, bn, _cdiv(M, bm) * _cdiv(N, bn))
+        tiles = [(bm, bn, groups * _cdiv(M, bm) * _cdiv(N, bn))
                  for bm, bn in WGMMA_TILES if bm == 64 or M > 64]
     ksteps = _cdiv(K, bk)
     plans = []
@@ -157,11 +168,15 @@ def _workspace(device, stream: int, plan: GemmPlan):
     return ws.data_ptr(), count.data_ptr()
 
 
-def _rq_operands(rqt: dict, N: int, device):
+def _rq_operands(rqt: dict, N: int, device, experts: int = 1):
+    """-> (the m, s0, lo, hi tables, per-channel flag); with `experts`
+    (the grouped form) the tables may also be (experts, N)."""
     tabs = [rqt[k] for k in ("m", "s0", "lo", "hi")]
     n = tabs[0].numel()
-    if n not in (1, N) or any(t.numel() != n for t in tabs):
-        raise ValueError(f"requant tables must be scalar or ({N},)")
+    if (n not in (1, N, experts * N) or any(t.numel() != n for t in tabs)
+            or (n == experts * N > N and tabs[0].shape != (experts, N))):
+        raise ValueError(f"requant tables must be scalar, ({N},) or "
+                         f"({experts}, {N})")
     for t in tabs + [rqt["d"], rqt["zp"]]:
         if (t.device != device or t.dtype != torch.int32
                 or not t.is_contiguous()):
@@ -169,7 +184,7 @@ def _rq_operands(rqt: dict, N: int, device):
                              "tensors on the input's device")
     if rqt["d"].numel() != 1 or rqt["zp"].numel() != 1:
         raise ValueError("requant d and zp must be scalars")
-    return tabs, int(n == N and N > 1)
+    return tabs, int(n >= N and N > 1)
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -224,7 +239,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     err = build.launcher("int8_matmul")(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), *ptrs, stride, qmin,
         qmax, out.data_ptr(), int(rqt is not None), M, N, K, x.stride(0),
-        int(plan.path == "wgmma"), plan.bm, plan.bn, plan.splits,
+        1, 1, 0, int(plan.path == "wgmma"), plan.bm, plan.bn, plan.splits,
         plan.k_split, ws, count, stream)
     build.check(err, "int8_matmul")
     int8_matmul.launches += 1
@@ -236,3 +251,93 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 int8_matmul.launches = 0
 # launches by (M, K, N, output type), counted beside `launches`
 int8_matmul.by_shape = {}
+
+
+def int8_matmul_grouped_plain(x: torch.Tensor, w: torch.Tensor,
+                              rqt: Optional[dict] = None, *,
+                              qmin: int = -128,
+                              qmax: int = 127) -> torch.Tensor:
+    """Plain PyTorch version of the grouped form: for every group,
+    ``x[g, e] @ w[e]`` in the float32 slices of _F32_EXACT_K along K that
+    `int8_matmul_plain` uses (each exact), added in int64 and wrapped to
+    int32; then the requant with (E, N) tables broadcast over G and C."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise ValueError("the plain int8 GEMM needs full float32 "
+                         "matmuls (float32_matmul_precision 'highest')")
+    G, E, C, K = x.shape
+    N = w.shape[-1]
+    xf = x.to(torch.float32)
+    acc = torch.zeros((G, E, C, N), dtype=torch.int64, device=x.device)
+    for k0 in range(0, K, _F32_EXACT_K):
+        k1 = min(k0 + _F32_EXACT_K, K)
+        acc += torch.matmul(xf[..., k0:k1],
+                            w[:, k0:k1].to(torch.float32)).to(torch.int64)
+    acc = _wrap_int32(acc)
+    if rqt is None:
+        return acc
+    rq = {k: (v[:, None, :] if v.dim() == 2 else v) for k, v in rqt.items()}
+    return apply_rqt(acc, rq, qmin=qmin, qmax=qmax, out_dtype=torch.int8)
+
+
+def int8_matmul_grouped(x: torch.Tensor, w: torch.Tensor,
+                        rqt: Optional[dict] = None, *, qmin: int = -128,
+                        qmax: int = 127) -> torch.Tensor:
+    """x (G, E, C, K) int8 contiguous, w (E, K, N) int8 stored (E, N, K)
+    -> (G, E, C, N): ``x[g, e] @ w[e]`` in int32 (``rqt`` None), else
+    int8 after the requant (m/s0/lo/hi scalar, (N,) or (E, N); d and zp
+    scalar).  One launch over all G x E groups; runs the plain version
+    only for CPU tensors."""
+    if x.dim() != 4 or w.dim() != 3 or x.shape[1] != w.shape[0] or (
+            x.shape[3] != w.shape[1]):
+        raise ValueError(f"shapes {tuple(x.shape)} x {tuple(w.shape)}")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise ValueError("x and w must be int8")
+    G, E, C, K = x.shape
+    N = w.shape[2]
+    if x.device.type == "cpu":
+        return int8_matmul_grouped_plain(x, w, rqt, qmin=qmin, qmax=qmax)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if w.device != x.device:
+        raise ValueError("x and w must share a device")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (G, E, C, K)")
+    if w.stride() != (N * K, 1, K):
+        raise ValueError(
+            "w must be stored transposed per expert ((E, K, N) with strides "
+            "(N K, 1, K)); models.lm.tables_from_numpy lays weights out so")
+    if K % 16 or x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"K={K} must be a multiple of 16 and x and w "
+                         "16-byte aligned")
+    out_dtype = torch.int32 if rqt is None else torch.int8
+    out = torch.empty((G, E, C, N), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if rqt is None:
+        ptrs, stride, gstride = [None] * 6, 0, 0
+    else:
+        tabs, stride = _rq_operands(rqt, N, x.device, experts=E)
+        gstride = N if tabs[0].numel() == E * N and E > 1 else 0
+        ptrs = [t.data_ptr() for t in tabs] + [
+            rqt["d"].data_ptr(), rqt["zp"].data_ptr()]
+    plan = gemm_plan(C, N, K, G * E)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = count = None
+    if plan.splits > 1:
+        ws, count = _workspace(x.device, stream, plan)
+    err = build.launcher("int8_matmul")(
+        x.data_ptr(), w.data_ptr(), None, *ptrs, stride, qmin, qmax,
+        out.data_ptr(), int(rqt is not None), C, N, K, K, G * E, E, gstride,
+        int(plan.path == "wgmma"), plan.bm, plan.bn, plan.splits,
+        plan.k_split, ws, count, stream)
+    build.check(err, "int8_matmul_grouped")
+    int8_matmul_grouped.launches += 1
+    key = (G * E, C, K, N, "int32" if rqt is None else "int8")
+    int8_matmul_grouped.by_shape[key] = (
+        int8_matmul_grouped.by_shape.get(key, 0) + 1)
+    return out
+
+
+int8_matmul_grouped.launches = 0
+# launches by (groups, C, K, N, output type)
+int8_matmul_grouped.by_shape = {}

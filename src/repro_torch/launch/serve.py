@@ -1,6 +1,6 @@
 """Integer-only serving entry point of the port (port of
-`repro.launch.serve`: `deploy_model` and the CLI, cut to the flags of
-the dense paged/chunked/FCFS path).
+`repro.launch.serve`: `deploy_model`, `serve_batch` and the CLI, without
+the mesh flags).
 
 `deploy_model` does what the reference's does: init -> calibrate ->
 deploy.  It draws the float params from numpy (seeded), runs the
@@ -35,11 +35,23 @@ priority` serves by `Request.priority` with preemption
 than S jump the order).  `--dispatch-depth 1` leaves one step in
 flight on the device while the host plans the next (same tokens).
 
+The arena is the reference's default, `SlotArena`, unless `--paged`
+asks for the paged one (`--page-size`, `--pages`; kv_bits 4 and the
+prefix cache need it).  `--prefill-chunk 0` prefills each prompt whole
+at batch 1, padded to a `--prefill-bucket` multiple; the MoE family
+(`--arch olmoe_1b_7b`) always prefills whole prompts at their exact
+length.
+
+`serve_batch` is the reference's lockstep loop, kept as the parity
+oracle: B prompts prefilled together at position 0, then decoded at
+one shared position over contiguous caches.
+
 Example (on the card; add --reduced --device cpu for a CPU smoke run,
---kv-bits 4 for int4-packed KV pools):
+--paged --kv-bits 4 for int4-packed KV pools):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
-      --requests 8 --slots 8 --prompt-len 300 --gen 16 --max-len 512 \\
-      --ragged --arrival-rate 4 --slo-ttft-p99 2 --slo-itl-p99 0.2
+      --paged --requests 8 --slots 8 --prompt-len 300 --gen 16 \\
+      --max-len 512 --ragged --arrival-rate 4 --slo-ttft-p99 2 \\
+      --slo-itl-p99 0.2
 """
 from __future__ import annotations
 
@@ -130,6 +142,27 @@ def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
     return lm, tables
 
 
+def serve_batch(lm, tables, prompts, gen_len: int) -> torch.Tensor:
+    """Lockstep reference: prompts (B, P) int32 -> (B, gen_len) int32.
+
+    All rows prefill together at position 0 and advance in lockstep at
+    one shared position over contiguous caches of P + gen_len positions
+    (`DecoderLM.init_caches`), on the tables' device."""
+    device = tables["head"]["w_q"].device
+    prompts = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
+    B, P = prompts.shape
+    caches = lm.init_caches(B, P + gen_len, device=device)
+    logits = lm.prefill(tables, prompts, caches)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    out = [tok]
+    for i in range(gen_len - 1):
+        pos = torch.full((B,), P + i, dtype=torch.int32, device=device)
+        logits = lm.decode_step(tables, tok, caches, pos)
+        tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
 def ragged_requests(n: int, vocab: int, rng: np.random.Generator, *,
                     prompt_lo: int, prompt_hi: int, gen: int):
     """n requests with prompt lengths uniform in [prompt_lo, prompt_hi]
@@ -156,17 +189,24 @@ def main(argv=None):
     ap.add_argument("--ragged", action="store_true",
                     help="prompt lengths uniform in [prompt-len/16, "
                     "prompt-len]")
-    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--prefill-bucket", type=int, default=16,
+                    help="whole-prompt shape bucket (--prefill-chunk 0)")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="chunked-prefill chunk size (dense family); 0: "
+                    "whole-prompt bucketed prefill")
+    ap.add_argument("--paged", action="store_true",
+                    help="the paged KV arena (page budgets instead of "
+                    "worst-case slot rows)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=0,
                     help="page pool size (0: slots*max_len/page_size)")
     ap.add_argument("--kv-bits", type=int, default=8, choices=(8, 4),
                     help="KV storage width: 8 = int8 KV images; 4 = two "
                     "int4 nibbles per pool cell (half the pool bytes, "
-                    "lossy against int8 KV)")
+                    "lossy against int8 KV; needs --paged)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="refcounted prefix caching with copy-on-write "
-                    "page sharing")
+                    "page sharing (needs --paged)")
     ap.add_argument("--cache-keep-pages", type=int, default=0,
                     help="warm-page budget: registered pages kept after "
                     "their last reference drops, evicted LRU under "
@@ -216,7 +256,8 @@ def main(argv=None):
     if args.trace_out or args.metrics_out or args.profile_annotations:
         tel = Telemetry(profile_annotations=args.profile_annotations)
     engine = ServingEngine(lm, tables, ServingConfig(
-        n_slots=args.slots, max_len=max_len, page_size=args.page_size,
+        n_slots=args.slots, max_len=max_len, paged=args.paged,
+        page_size=args.page_size,
         n_pages=args.pages or None, device=args.device,
         kv_bits=args.kv_bits, dispatch_depth=args.dispatch_depth,
         telemetry=tel,
@@ -226,8 +267,9 @@ def main(argv=None):
             args.policy,
             **({"slo_ttft_s": args.slo_ttft_p99}
                if args.policy == "priority" and args.slo_ttft_p99 else {})),
-        scheduler=SchedulerConfig(prefill_chunk=args.prefill_chunk)))
-    engine.warmup()  # both dispatch widths, before the measured window
+        scheduler=SchedulerConfig(prefill_bucket=args.prefill_bucket,
+                                  prefill_chunk=args.prefill_chunk)))
+    engine.warmup()  # every step shape, before the measured window
     rng = np.random.default_rng(args.seed)
     if args.shared_prefix:
         requests = shared_prefix_workload(
@@ -253,11 +295,13 @@ def main(argv=None):
             engine.submit(req)
         completions = engine.run_until_drained()
     s = engine.stats()
+    arena = (f"peak {s['max_pages_in_use']}/{s['n_pages']} pages, "
+             f"kv_bits {s['kv_bits']}, {s['pool_bytes']} pool bytes"
+             if s["arena"] == "paged" else
+             f"slot arena of {s['arena_positions']} positions")
     print(f"drained {s['n_completed']} requests / {s['n_generated']} tokens "
           f"in {s['wall_s']:.2f} s ({s['throughput_tok_s']:.1f} tok/s, "
-          f"peak {s['max_pages_in_use']}/{s['n_pages']} pages, "
-          f"peak concurrency {s['max_active']}, "
-          f"kv_bits {s['kv_bits']}, {s['pool_bytes']} pool bytes, "
+          f"{arena}, peak concurrency {s['max_active']}, "
           f"dispatch_depth {s['dispatch_depth']})")
     print(f"  TTFT mean/p50/p95/p99/max {s['mean_ttft_s'] * 1e3:.0f}/"
           f"{s['p50_ttft_s'] * 1e3:.0f}/{s['p95_ttft_s'] * 1e3:.0f}/"

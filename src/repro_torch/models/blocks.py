@@ -1,10 +1,14 @@
-"""Dense transformer block (port of `repro.models.blocks.DenseBlock`:
-the float forward `apply_float`, `deploy` and `apply_id`).
+"""Transformer block (port of `repro.models.blocks.DenseBlock`: the
+float forward `apply_float`, `deploy` and `apply_id`).
 
-norm1 -> attention -> add1 -> norm2 -> gated MLP -> add2.  In the ID
-path the residual stream is a symmetric int8 image between blocks; in
-the float forward it is float32, and each sublayer observes its
-output under the block's scope (the names `deploy` reads back).
+norm1 -> attention -> add1 -> norm2 -> MLP (or MoE) -> add2.  With
+`n_experts > 0` a `QMoE` replaces the MLP over the block's B * S
+tokens, and its int32 combine accumulator goes into the second `QAdd`.
+The reference's shared-expert branch (an MLP beside the MoE,
+llama4_maverick) is not ported: asking for it raises.  In the ID path
+the residual stream is a symmetric int8 image between blocks; in the
+float forward it is float32, and each sublayer observes its output
+under the block's scope (the names `deploy` reads back).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from repro_torch.layers.add import QAdd
 from repro_torch.layers.attention import QAttention
 from repro_torch.layers.common import ActKind, DeployCtx
 from repro_torch.layers.mlp import QMLP
+from repro_torch.layers.moe import QMoE
 from repro_torch.layers.norms import QNorm
 
 
@@ -35,8 +40,28 @@ class DenseBlock:
     rope_base: float = 10000.0
     rope_fraction: float = 1.0
     max_seq: int = 4096
+    # MoE (n_experts > 0 replaces the MLP)
+    n_experts: int = 0
+    top_k: int = 1
+    moe_group: int = 512
+    shared_expert: bool = False
+
+    def __post_init__(self):
+        if self.shared_expert:
+            raise NotImplementedError(
+                "the shared-expert branch (an MLP beside the MoE, "
+                "llama4_maverick) is not ported yet (ROADMAP item 10)")
+
+    @property
+    def ffn(self) -> str:
+        """The sublayer after norm2: "moe" or "mlp"."""
+        return "moe" if self.n_experts > 0 else "mlp"
 
     def _subs(self):
+        ffn = (QMoE(self.d_model, self.d_ff, self.n_experts, self.top_k,
+                    group_size=self.moe_group, act=self.act)
+               if self.n_experts > 0 else
+               QMLP(self.d_model, self.d_ff, act=self.act, gated=self.gated))
         return {
             "norm1": QNorm(self.d_model, kind=self.norm,
                            use_bias=self.norm_bias, name="norm1"),
@@ -47,8 +72,7 @@ class DenseBlock:
             "add1": QAdd(name="add1"),
             "norm2": QNorm(self.d_model, kind=self.norm,
                            use_bias=self.norm_bias, name="norm2"),
-            "mlp": QMLP(self.d_model, self.d_ff, act=self.act,
-                        gated=self.gated),
+            self.ffn: ffn,
             "add2": QAdd(name="add2"),
         }
 
@@ -58,18 +82,25 @@ class DenseBlock:
             "norm1": subs["norm1"].init_np(),
             "attn": subs["attn"].init_np(rng),
             "norm2": subs["norm2"].init_np(),
-            "mlp": subs["mlp"].init_np(rng),
+            self.ffn: subs[self.ffn].init_np(rng),
         }
+
+    def _ffn_float(self, sub, p, h, calib, scope):
+        if self.n_experts == 0:
+            return sub.apply_float(p, h, calib, scope)
+        B, S, D = h.shape
+        return sub.apply_float(p, h.reshape(B * S, D), calib,
+                               scope).reshape(B, S, D)
 
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
                     scope: str = "") -> torch.Tensor:
-        """FullPrecision forward of one block (no cache, no experts)."""
+        """FullPrecision forward of one block (no cache)."""
         subs = self._subs()
         h = subs["norm1"].apply_fp(p["norm1"], x, calib, scope + "n1.")
         a = subs["attn"].apply_float(p["attn"], h, calib, scope)
         x = subs["add1"].apply_fp(x, a, calib, scope)
         h = subs["norm2"].apply_fp(p["norm2"], x, calib, scope + "n2.")
-        m = subs["mlp"].apply_float(p["mlp"], h, calib, scope)
+        m = self._ffn_float(subs[self.ffn], p[self.ffn], h, calib, scope)
         return subs["add2"].apply_fp(x, m, calib, scope)
 
     def deploy(
@@ -85,8 +116,8 @@ class DenseBlock:
             ctx, scope, eps_in, 0, eps_attn_acc, 0)
         t["norm2"], eps_n2, _ = subs["norm2"].deploy(
             ctx, scope + "n2.", p_np["norm2"], eps_r1)
-        t["mlp"], eps_m_acc = subs["mlp"].deploy(
-            ctx, scope, p_np["mlp"], eps_n2, 0)
+        t[self.ffn], eps_m_acc = subs[self.ffn].deploy(
+            ctx, scope, p_np[self.ffn], eps_n2, 0)
         t["add2"], eps_r2, _ = subs["add2"].deploy(
             ctx, scope, eps_r1, 0, eps_m_acc, 0)
         return t, eps_r2
@@ -100,5 +131,10 @@ class DenseBlock:
         a_acc = subs["attn"].apply_id(t["attn"], h, cache, pos)
         s_r = subs["add1"].apply_id(t["add1"], s_x, a_acc)
         h = subs["norm2"].apply_id(t["norm2"], s_r)
-        m_acc = subs["mlp"].apply_id(t["mlp"], h)
+        if self.n_experts > 0:
+            B, S, D = h.shape
+            m_acc = subs["moe"].apply_id(t["moe"], h.reshape(B * S, D))
+            m_acc = m_acc.reshape(B, S, D)
+        else:
+            m_acc = subs["mlp"].apply_id(t["mlp"], h)
         return subs["add2"].apply_id(t["add2"], s_r, m_acc)

@@ -1,5 +1,6 @@
-"""The dense decoder LM (port of `repro.models.lm.DecoderLM`, dense
-family only).
+"""The decoder LM (port of `repro.models.lm.DecoderLM`, the dense and
+MoE families: `plan()` is one segment of `DenseBlock`s, with a `QMoE`
+in every block for MoE at `moe_every` 1).
 
 Lifecycle, as the reference's: numpy init (`init_np`, the reference's
 shapes and scales) -> calibrate (`calibrate`: the FullPrecision
@@ -22,11 +23,16 @@ i.e. the reference tree with its layer-stacked `segments[0]` split into
 a per-layer list (views into the stacked tensors when converted from a
 stacked tree).  Every dtype is the reference's; every QLinear weight
 `w_q` keeps its (K, N) shape and values but is stored transposed (N,
-K) contiguous, the layout the int8 GEMM kernel reads.
+K) contiguous, the layout the int8 GEMM kernel reads, and so are the
+MoE's expert weights `wg_q`/`wu_q`/`wd_q`, (E, K, N) stored (E, N, K).
 
 KV pools: {"k", "v": (n_layers, n_pages + 1, K, page_size, hd) int8,
 "table": (n_slots, pages_per_slot) int32}; the layer loop hands layer
-i the views ["k"][i] / ["v"][i] and the shared table.  At kv_bits 4
+i the views ["k"][i] / ["v"][i] and the shared table.  The reference's
+contiguous cache (B, K, T, hd) is the same layout read as B pages of T
+positions, slot b on page b + 1 (`init_caches`): the attention and the
+paged kernel serve both.  Page 0, the trash page, takes the writes of
+parked rows.  At kv_bits 4
 the pools' trailing axis is hd/2 (two int4 nibbles per cell) and each
 layer's `kv4` tables (int32, like every requant table) carry the
 per-kv-head pack and unpack images, plus what `load_layer` derives from
@@ -46,6 +52,7 @@ from repro_torch.layers.attention import kv4_load
 from repro_torch.layers.common import ActKind, DeployCtx, stack_trees
 from repro_torch.layers.embedding import QEmbed
 from repro_torch.layers.linear import QLinear
+from repro_torch.layers.moe import EXPERT_WEIGHTS
 from repro_torch.layers.norms import QNorm
 from repro_torch.models.blocks import DenseBlock
 
@@ -53,6 +60,21 @@ ACT_MAP = {"silu": ActKind.SILU, "gelu": ActKind.GELU, "relu": ActKind.RELU,
            "relu2": ActKind.RELU2}
 LOGIT_PAD = -(2 ** 30)  # integer mask for padded vocab slots
 LOGIT_PAD_FP = -1e9  # the float forward's mask for padded vocab slots
+# above this many query rows the reference's contiguous-cache attention
+# takes its blockwise path (`QAttention.BLOCKWISE_THRESHOLD`), which
+# rounds otherwise and is not ported
+BLOCKWISE_THRESHOLD = 4096
+
+
+def check_contiguous_width(S: int) -> int:
+    """Query rows of one dispatch over contiguous caches: at most
+    BLOCKWISE_THRESHOLD, where the reference changes its rounding."""
+    if S > BLOCKWISE_THRESHOLD:
+        raise NotImplementedError(
+            f"{S} query rows over a contiguous cache: the reference's "
+            f"blockwise attention (S > {BLOCKWISE_THRESHOLD}, "
+            "`_blockwise_id`) is not ported yet (ROADMAP item 9)")
+    return S
 
 
 def _leaf_to_torch(key: str, a, device) -> torch.Tensor:
@@ -60,7 +82,7 @@ def _leaf_to_torch(key: str, a, device) -> torch.Tensor:
     if not (a.flags.c_contiguous and a.flags.writeable):
         a = a.copy()  # e.g. a read-only view of a JAX array; keeps 0-d
     t = torch.from_numpy(a).to(device)
-    if key == "w_q":
+    if key == "w_q" or key in EXPERT_WEIGHTS:
         # (.., K, N) values, stored (.., N, K) contiguous for the kernel
         # (transposed by torch: numpy's transposing copy is several
         # times slower, and on the card it runs on the device)
@@ -130,7 +152,8 @@ def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
     score_scale stays f32; `segments[0]` becomes the per-layer list,
     each layer through `load_layer`."""
     if len(tables_np["segments"]) != 1:
-        raise ValueError("the dense family has exactly one segment")
+        raise ValueError("the dense and MoE (moe_every 1) families have "
+                         "exactly one segment")
     stacked = tree_to_torch(tables_np["segments"][0], device)
     n = len(next(iter(_leaves(stacked))))
     return {
@@ -157,19 +180,41 @@ class DecoderLM:
     max_seq: int = 4096
 
     def __post_init__(self):
-        if self.cfg.family != "dense" or self.cfg.input_mode != "tokens":
+        c = self.cfg
+        if c.input_mode != "tokens":
             raise NotImplementedError(
-                "this slice of the port serves the dense token family")
+                f"input_mode {c.input_mode!r}: the port serves token LMs "
+                "(the embeds frontends are ROADMAP item 10)")
+        if c.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"the {c.family} family is not ported yet (ROADMAP item 10)")
+        if c.family == "moe" and c.moe_every != 1:
+            raise NotImplementedError(
+                f"moe_every {c.moe_every} (the reference's pair segments, "
+                "llama4_maverick) is not ported yet (ROADMAP item 10)")
+        if c.family == "moe" and c.shared_expert:
+            raise NotImplementedError(
+                "the shared expert (llama4_maverick) is not ported yet "
+                "(ROADMAP item 10)")
 
     # -- structure -------------------------------------------------------
     def block(self) -> DenseBlock:
         c = self.cfg
+        moe = c.family == "moe"
         return DenseBlock(
             d_model=c.d_model, n_heads=c.n_heads, n_kv_heads=c.n_kv_heads,
             head_dim=c.hd, d_ff=c.d_ff, act=ACT_MAP[c.act], gated=c.gated,
             norm=c.norm, norm_bias=c.norm_bias, rope_base=c.rope_base,
             rope_fraction=c.rope_fraction, max_seq=self.max_seq,
+            n_experts=c.n_experts if moe else 0, top_k=c.top_k,
+            moe_group=c.moe_group,
         )
+
+    def plan(self):
+        """-> the segments (kind, template, n_steps): one segment of
+        blocks, for dense and for MoE at moe_every 1 (the reference's
+        `plan()` for those)."""
+        return [("dense", self.block(), self.cfg.n_layers)]
 
     def embed_layer(self) -> QEmbed:
         return QEmbed(self.cfg.vocab_padded, self.cfg.d_model)
@@ -314,10 +359,40 @@ class DecoderLM:
             logits = logits.masked_fill(pad, LOGIT_PAD)
         return logits
 
+    def init_caches(self, B: int, max_len: int, device="cuda") -> dict:
+        """The reference's contiguous ID cache of `B` slots of `max_len`
+        positions, zeroed, as a pool of B pages of max_len positions plus
+        the trash page, with the fixed table slot b -> page b + 1."""
+        caches = self.init_pools(B, max_len, device=device)
+        caches["table"] = torch.arange(1, B + 1, dtype=torch.int32,
+                                       device=device)[:, None]
+        return caches
+
+    def prefill(self, t: dict, batch: torch.Tensor, caches: dict,
+                last_index=None) -> torch.Tensor:
+        """ID prefill at position 0 of every row (the reference's
+        `prefill`): fills `caches` in place; -> (B, 1, vocab_padded)
+        int32 logits at column `last_index` (an int, or None: the last
+        column)."""
+        B, S = batch.shape
+        check_contiguous_width(S)
+        start = torch.zeros(B, dtype=torch.int32, device=batch.device)
+        last = torch.full_like(start, S - 1 if last_index is None
+                               else int(last_index))
+        return self.prefill_chunk(t, batch, caches, start, last)
+
+    def decode_step(self, t: dict, token: torch.Tensor, caches: dict,
+                    pos: torch.Tensor) -> torch.Tensor:
+        """ID single-token decode (the reference's `decode_step`): token
+        (B, 1) at per-row positions pos (B,) int32; -> (B, 1,
+        vocab_padded) int32 logits."""
+        return self.prefill_chunk(t, token, caches, pos, torch.zeros_like(pos))
+
     def prefill_chunk(self, t: dict, batch: torch.Tensor, caches: dict,
                       start_pos: torch.Tensor,
                       last_index: torch.Tensor) -> torch.Tensor:
-        """ID batched + chunked prefill over the paged arena.
+        """ID batched + chunked prefill over the paged arena (or the
+        contiguous caches, read as pages).
 
         batch (B, C) int32 tokens (one chunk per slot row; decode rows
         are width-1 chunks); start_pos (B,) int32 position of each

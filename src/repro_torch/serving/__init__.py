@@ -1,11 +1,12 @@
-"""Continuous-batching integer serving over the paged arena (port of
-`repro.serving`: the chunked path, synchronous or one step deep
-(`DispatchQueue`), int8 or int4-packed KV,
+"""Continuous-batching integer serving (port of `repro.serving`:
+`SlotArena` and `PagedArena`, the chunked, bucketed and exact prefill
+modes, synchronous or one step deep (`DispatchQueue`), int8 or
+int4-packed KV,
 the prefix cache with copy-on-write and warm pages, FCFS and
 `PrioritySLOPolicy` with bit-exact preemption, telemetry and the
 open-loop load generator)."""
 from repro_torch.layers.attention import INACTIVE_POS, PAGE_NULL
-from repro_torch.serving.cache import PagedArena
+from repro_torch.serving.cache import PagedArena, SlotArena, make_arena
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import DispatchQueue, ServingEngine
 from repro_torch.serving.loadgen import (

@@ -1,6 +1,25 @@
-"""Paged KV arena (port of `repro.serving.cache.PagedArena` with its
-prefix cache; without sharding).
+"""KV arenas (port of `repro.serving.cache`: `make_arena`, `SlotArena`
+and `PagedArena` with its prefix cache; without sharding).
 
+Both keep the engine's protocol: slot leases and their page budget
+(`can_admit`, `alloc`, `release`, `pages_needed`, `committed_for`,
+`budget_left`), on-demand growth (`touch`, `touch_range`), the dispatch
+view (`decode_view`), a finished B=1 prefill scattered into a slot
+(`write_slot`), and the telemetry surface (`reject_reason`,
+`span_pages`, `gauges`, `stats`, `reset_peaks`).  The prefix cache's
+methods are the paged arena's alone: the cache needs it.
+
+`SlotArena` (the reference's default, `ServingConfig.paged` False):
+`n_slots` rows of `max_len` positions allocated once; a slot is leased
+whole and its stale contents stay masked until the next tenant writes
+over them.  Its storage is the paged layout with one page a slot:
+pools (n_layers, n_slots + 1, K, max_len, hd), slot s on page s + 1 by
+the fixed table (n_slots, 1), page 0 the trash page that parked rows
+write (`models.lm.DecoderLM.init_caches`).  So the attention and the
+paged kernel serve it unchanged, and its rows hold the bytes the
+reference's (B, K, T, hd) cache does.
+
+PagedArena:
 At kv_bits 4 the pools are int4-packed: each K/V leaf's trailing
 head_dim axis is halved (two nibbles per int8 cell, both of one
 position), so the page and table arithmetic is the int8 arena's.
@@ -39,6 +58,140 @@ import numpy as np
 import torch
 
 from repro_torch.layers.attention import PAGE_NULL
+
+
+def make_arena(lm, cfg):
+    """The arena a `ServingConfig` describes (the one construction site
+    of both)."""
+    if cfg.paged:
+        return PagedArena(
+            lm, cfg.n_slots, cfg.max_len, cfg.page_size, cfg.n_pages,
+            device=cfg.device, kv_bits=cfg.kv_bits,
+            prefix_cache=cfg.prefix_cache, keep_pages=cfg.cache_keep_pages)
+    return SlotArena(lm, cfg.n_slots, cfg.max_len, device=cfg.device)
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device`.  On the card the copy is
+    non-blocking from pinned memory, so enqueueing it never waits for
+    the device; on the CPU it is the array itself."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+class SlotArena:
+    """Slot rows of `max_len` positions, leased whole (free -> leased ->
+    free); see the module docstring for the storage."""
+
+    def __init__(self, lm, n_slots: int, max_len: int, *, device="cuda"):
+        if max_len > lm.max_seq:
+            raise ValueError(
+                f"max_len {max_len} exceeds model max_seq {lm.max_seq}")
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.device = torch.device(device)
+        self.caches = lm.init_caches(n_slots, max_len, device=self.device)
+        self._free = list(range(n_slots - 1, -1, -1))  # pop() -> slot 0
+        self.lengths = np.zeros(n_slots, np.int32)  # written positions
+        self.owner: List[Optional[int]] = [None] * n_slots
+
+    # -- lifecycle ------------------------------------------------------
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_leased(self) -> int:
+        return self.n_slots - len(self._free)
+
+    @property
+    def budget_left(self) -> Optional[int]:
+        """No page dimension: slots are the only admission gate."""
+        return None
+
+    def can_admit(self, prompt_len: int, total_len: int,
+                  tokens=None) -> bool:
+        """A free slot holds any request the scheduler lets in."""
+        return bool(self._free)
+
+    def check_request(self, prompt_len: int, total_len: int):
+        """Slot capacity is length-gated by the scheduler; no-op."""
+
+    def pages_needed(self, total_len: int) -> int:
+        return 0
+
+    def committed_for(self, slot: int) -> int:
+        return 0
+
+    def alloc(self, req_id: int, prompt_len: int,
+              total_len: Optional[int] = None, written: Optional[int] = None,
+              tokens=None) -> int:
+        """Lease a free slot; `written` positions are materialized at
+        admission (None: the whole prompt, the one-shot prefill; 0: the
+        chunked path's)."""
+        if not self._free:
+            raise RuntimeError("no free slots")
+        slot = self._free.pop()
+        self.owner[slot] = req_id
+        self.lengths[slot] = prompt_len if written is None else written
+        return slot
+
+    def release(self, slot: int):
+        """Recycle a slot; its contents stay, masked until overwritten."""
+        if self.owner[slot] is None:
+            raise RuntimeError(f"slot {slot} is not leased")
+        self.owner[slot] = None
+        self.lengths[slot] = 0
+        self._free.append(slot)
+
+    def touch(self, slot: int, pos: int):
+        """Contiguous rows need no on-demand growth; no-op."""
+
+    def touch_range(self, slot: int, start: int, end: int):
+        """Contiguous rows need no on-demand growth; no-op."""
+
+    def advance(self, slot: int, n: int = 1):
+        self.lengths[slot] += n
+
+    def reset_peaks(self):
+        """No high-water marks to reset."""
+
+    # -- device view ----------------------------------------------------
+    def to_device(self, a: np.ndarray) -> torch.Tensor:
+        return _to_device(a, self.device)
+
+    def write_slot(self, slot: int, single: dict):
+        """Copy a B=1 cache (`init_caches(1, max_len)`, a finished
+        prefill) into `slot`'s row, every layer at once."""
+        for kv in ("k", "v"):
+            self.caches[kv][:, slot + 1] = single[kv][:, 1]
+
+    def decode_view(self) -> dict:
+        """The pools and the fixed slot table, already on the device."""
+        return self.caches
+
+    # -- telemetry ------------------------------------------------------
+    def reject_reason(self, prompt_len: int, total_len: int) -> str:
+        return "no_slot"
+
+    def span_pages(self, slot: int, start: int, end: int) -> list:
+        """Contiguous rows have no pages."""
+        return []
+
+    def gauges(self) -> dict:
+        return {
+            "n_leased": self.n_leased,
+            "n_free": self.n_free,
+            "occupancy": self.n_leased / self.n_slots,
+        }
+
+    def stats(self) -> dict:
+        return {
+            "arena": "slot",
+            "arena_positions": self.n_slots * self.max_len,
+        }
 
 
 class _PrefixNode:
@@ -252,11 +405,13 @@ class PagedArena:
             self._evict_warm(next(iter(self._warm)))
 
     def alloc(self, req_id: int, prompt_len: int,
-              total_len: Optional[int] = None, written: int = 0,
+              total_len: Optional[int] = None, written: Optional[int] = None,
               tokens=None) -> int:
         """Lease a slot + commit the page budget; allocate pages for the
-        `written` positions materialized at admission (0 on the chunked
-        path, whose pages arrive chunk by chunk via touch_range).
+        positions materialized at admission: the whole prompt for the
+        one-shot prefill (`written` None), none on the chunked path
+        (`written` 0), whose pages arrive chunk by chunk via
+        touch_range.
 
         `tokens` (prefix cache, `written` 0): the request's source.  The
         longest registered full-page prefix is installed into the slot's
@@ -296,8 +451,10 @@ class PagedArena:
                     self.prefix_hit_pages += len(shared)
                 else:
                     self.prefix_misses += 1
-        materialized = (min(len(shared) * self.page_size, prompt_len - 1)
-                        if shared else written)
+        if shared:
+            materialized = min(len(shared) * self.page_size, prompt_len - 1)
+        else:
+            materialized = prompt_len if written is None else written
         self.lengths[slot] = materialized
         for blk in range(len(shared), -(-materialized // self.page_size)):
             page = self._pop_page()
@@ -474,13 +631,28 @@ class PagedArena:
 
     # -- device view ----------------------------------------------------
     def to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array as a tensor on the arena's device.  On the card
-        the copy is non-blocking from pinned memory, so enqueueing it
-        never waits for the device; on the CPU it is the array itself."""
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return _to_device(a, self.device)
+
+    def write_slot(self, slot: int, single: dict):
+        """Scatter a B=1 cache (`init_caches(1, max_len)`, a finished
+        prefill) through `slot`'s table row: logical block b to page
+        table[slot, b].  Blocks with no page land on the trash page, the
+        last of them winning, as in the reference's scatter."""
+        ps, pps = self.page_size, self.pages_per_slot
+        row = self.page_table[slot]
+        real = [b for b in range(pps) if row[b] != PAGE_NULL]
+        null = [b for b in range(pps) if row[b] == PAGE_NULL]
+        blocks = real + null[-1:]
+        pages = self.to_device(np.ascontiguousarray(row[blocks]).astype(
+            np.int64))
+        idx = self.to_device(np.asarray(blocks, np.int64))
+        for kv in ("k", "v"):
+            z = single[kv][:, 1]                   # (L, K, max_len, hd)
+            L, K, T, hd = z.shape
+            if T < pps * ps:
+                z = torch.nn.functional.pad(z, (0, 0, 0, pps * ps - T))
+            z = z.reshape(L, K, pps, ps, hd).permute(0, 2, 1, 3, 4)
+            self.caches[kv][:, pages] = z[:, idx]
 
     def decode_view(self) -> dict:
         """The pools plus the current page table on the device — the

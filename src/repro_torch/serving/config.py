@@ -1,15 +1,18 @@
 """`ServingConfig`: the engine's validated construction record (port of
-`repro.serving.config`, cut to the port's path: the paged arena, a
-scheduling policy, chunked dispatch synchronous or one step deep
+`repro.serving.config`, without the mesh: the arena (`paged`), a
+scheduling policy, dispatch synchronous or one step deep
 (`dispatch_depth` 0 or 1), int8 or int4-packed KV, the prefix cache,
 and the telemetry sink).
 
+`paged` picks the arena, as in the reference, whose default it keeps:
+False is `SlotArena` (every slot leases `max_len` contiguous
+positions), True is `PagedArena` (`page_size`, `n_pages`: a pool of
+pages leased on demand against a per-request budget).
+
 `kv_bits` is the KV storage width: 8 keeps the int8 KV images, 4 packs
 two int4 nibbles per pool cell (half the pool bytes, per-kv-head
-requant tables, lossy against int8 KV).  The reference also requires
-the paged arena and the chunked prefill path for 4; the port's engine
-has only those, so the one check left is the value
-(`models.lm.check_kv_bits`, which `init_pools` applies too).
+requant tables, lossy against int8 KV).  4 needs the paged arena (and
+the engine, the chunked prefill path).
 
 `device` places the KV pools and every dispatch; it defaults to
 ``"cuda"``.  Tables handed to the engine must already live there
@@ -21,8 +24,7 @@ copy-on-write); `cache_keep_pages` is its warm-page budget: registered
 pages kept resident (refcount 0, evicted LRU on demand) after their
 last holder releases them, so a later shared-prefix admission or a
 preemption's resume reuses them without recompute (0: evict at once).
-The reference also requires the paged arena for both; the port has
-only that arena.
+Both need the paged arena (and the engine, the chunked prefill path).
 
 `dispatch_depth` is the engine's pipeline depth: 0 harvests every
 step before the next is planned; 1 leaves one step in flight on the
@@ -58,6 +60,7 @@ def check_dispatch_depth(depth: int) -> int:
 class ServingConfig:
     n_slots: int = 8
     max_len: int = 256
+    paged: bool = False
     page_size: int = 16
     n_pages: Optional[int] = None  # None: n_slots * max_len positions
     scheduler: Optional[SchedulerConfig] = None
@@ -78,6 +81,12 @@ class ServingConfig:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
         check_kv_bits(self.kv_bits)
         check_dispatch_depth(self.dispatch_depth)
+        if self.kv_bits == 4 and not self.paged:
+            raise ValueError("kv_bits=4 needs the paged arena (paged=True): "
+                             "nibble packing is a page-pool layout")
+        if self.prefix_cache and not self.paged:
+            raise ValueError("prefix_cache=True needs the paged arena "
+                             "(paged=True): sharing is page-granular")
         if self.n_pages is None:
             self.n_pages = -(-(self.n_slots * self.max_len) // self.page_size)
         if self.n_pages < 1:

@@ -1,10 +1,19 @@
 """`ServingEngine`: continuous batching over the integer-only model
-(port of `repro.serving.engine.ServingEngine`: steps over the paged
-arena, synchronous or one step deep (`ServingConfig.dispatch_depth`),
-chunked prefill, int8 or int4-packed KV (`ServingConfig.kv_bits`), a
-scheduling policy with preemption, the prefix cache, telemetry).
+(port of `repro.serving.engine.ServingEngine`: steps over either arena
+(`ServingConfig.paged`), synchronous or one step deep
+(`ServingConfig.dispatch_depth`), the three prefill modes, int8 or
+int4-packed KV (`ServingConfig.kv_bits`), a scheduling policy with
+preemption, the prefix cache, telemetry).
 
-Each `step()`:
+The prefill dispatch is decided in one place, `_prefill_mode`:
+"chunked" (dense family, `prefill_chunk` > 0, the default), "bucketed"
+(dense, `prefill_chunk` 0: the whole prompt at batch 1, right-padded to
+a `prefill_bucket` multiple) or "exact" (MoE: the whole prompt at its
+exact length, since capacity routing integrates every position, so
+neither padding nor a chunk's garbage rows are admissible).  kv_bits 4
+and the prefix cache need the chunked mode.
+
+Chunked mode.  Each `step()`:
 
   1. samples a read-only `EngineView` and asks the policy for a
      `StepPlan`;
@@ -52,10 +61,23 @@ warm through its release, so the resume re-prefills at most the
 unregistered tail.  A copy-on-write split happens in the `touch` loop
 of the dispatch, before the step's `prefill_chunk` is enqueued.
 
+Whole-prompt modes (bucketed, exact): admission prefills the source at
+batch 1 into a scratch cache of one slot (`DecoderLM.prefill` over
+`init_caches(1, max_len)`), reads the first token at the true last
+position, and scatters the scratch row into the slot (`write_slot`);
+each step then issues one fused decode (`decode_step`) over every slot
+row, rows without an active decode parked at INACTIVE_POS with token
+0.  Under MoE those parked rows route and compete for expert capacity,
+as the reference's do.  The decode's token vector is harvested as the
+chunked step's is (depth 1 leaves it in flight); a resumed request
+re-prefills prompt + tokens[:-1] at admission and must regenerate
+tokens[-1].
+
 Telemetry (`ServingConfig.telemetry`, DESIGN.md §Observability): the
 engine threads an off-by-default, bit-neutral sink through every
 lifecycle transition (the reference's trace events), every step phase
-(spans `admission`, `plan_chunks`, `unified_dispatch`, `harvest`) and
+(spans `admission`, `plan_chunks`, `unified_dispatch`, and in the
+whole-prompt modes `decode_dispatch`, then `harvest`) and
 every dispatch (shape counters, and `torch.profiler.record_function`
 ranges when `profile_annotations` is on).  The hooks read host state
 only, so telemetry cannot change a token.  On the card the kernels run
@@ -69,11 +91,9 @@ emit stamps always accrue on the completions, and `stats()` rolls
 them up into TTFT / ITL percentiles and the queued / prefill / decode
 breakdown.
 
-Left out of the port so far (later slices port them): mesh and
-kv-head sharding, `SlotArena` and the whole-prompt prefill modes
-(with them the separate decode dispatch that depth 1 also pipelines
-in the reference).  Their `stats()` keys read as the reference's do
-without them: `mesh_devices` 1, `kv_shard` False.
+Left out of the port so far (a later slice ports it): mesh and
+kv-head sharding.  Its `stats()` keys read as the reference's do
+without it: `mesh_devices` 1, `kv_shard` False.
 """
 from __future__ import annotations
 
@@ -86,7 +106,8 @@ import numpy as np
 import torch
 
 from repro_torch.layers.attention import INACTIVE_POS
-from repro_torch.serving.cache import PagedArena
+from repro_torch.models.lm import check_contiguous_width
+from repro_torch.serving.cache import make_arena
 from repro_torch.serving.config import ServingConfig, check_dispatch_depth
 from repro_torch.serving.policy import (
     DecodeSnap, EngineView, FCFSPolicy, PendingSnap, PrefillSnap, StepPlan,
@@ -103,7 +124,8 @@ ChunkRow = Tuple[PrefillState, int, int]  # (state, offset, n_tokens)
 
 @dataclasses.dataclass
 class _InFlightStep:
-    """One dispatched-but-unharvested unified step."""
+    """One dispatched-but-unharvested step: a unified step, or the
+    whole-prompt modes' decode (no chunk rows)."""
 
     # (n_slots,) per-row argmax on the device, held until the harvest
     tokens: torch.Tensor
@@ -150,11 +172,28 @@ class ServingEngine:
         self.tables = tables
         self.device = torch.device(cfg.device)
         self.policy = cfg.policy if cfg.policy is not None else FCFSPolicy()
-        self.arena = PagedArena(
-            lm, cfg.n_slots, cfg.max_len, cfg.page_size, cfg.n_pages,
-            device=self.device, kv_bits=cfg.kv_bits,
-            prefix_cache=cfg.prefix_cache, keep_pages=cfg.cache_keep_pages)
+        self.arena = make_arena(lm, cfg)
         self.sched = Scheduler(cfg.scheduler, cfg.max_len)
+        # THE prefill dispatch decision (see the module docstring)
+        if lm.cfg.family != "dense":
+            self._prefill_mode = "exact"
+        elif self.sched.cfg.prefill_chunk > 0:
+            self._prefill_mode = "chunked"
+        else:
+            self._prefill_mode = "bucketed"
+        if cfg.kv_bits == 4 and self._prefill_mode != "chunked":
+            raise ValueError(
+                "kv_bits=4 requires the chunked prefill path "
+                "(prefill_chunk > 0, dense family); this engine is in "
+                f"{self._prefill_mode!r} mode")
+        if cfg.prefix_cache and self._prefill_mode != "chunked":
+            raise ValueError(
+                "prefix_cache=True requires the chunked prefill path "
+                "(prefill_chunk > 0, dense family); this engine is in "
+                f"{self._prefill_mode!r} mode")
+        if self._prefill_mode == "chunked" and not cfg.paged:
+            check_contiguous_width(self.sched.cfg.prefill_chunk)
+        self._scratch = None  # the whole-prompt prefill's B=1 cache
         self.queue = DispatchQueue(cfg.dispatch_depth)
         self.on_token = on_token
         self.tel = cfg.telemetry if cfg.telemetry is not None else NULL
@@ -213,26 +252,35 @@ class ServingEngine:
     def _step_sync(self) -> bool:
         """The synchronous step (depth 0): its dispatch is harvested
         before it returns.  Telemetry spans time each phase; with the
-        Null sink each span is a shared no-op context."""
+        Null sink each span is a shared no-op context.  The whole-prompt
+        modes prefill at admission and keep the separate fused decode."""
         tel = self.tel
         tel.begin_step(self._steps)
         with tel.span("admission"):
             plan = self.policy.plan(self._view())
             progressed = self._execute_preemptions(plan)
             progressed |= self._execute_admissions(plan)
-        chunk_plan: List[ChunkRow] = []
-        if plan.chunks:
-            with tel.span("plan_chunks"):
-                chunk_plan = self._materialize_chunks(plan)
-        do_decode = bool(plan.decode and self.active)
-        if chunk_plan or do_decode:
-            rec = self._dispatch(chunk_plan, do_decode)
-            self._tick_stats()
-            with tel.span("harvest"):
-                self._harvest(rec)
-            progressed = True
+        if self._prefill_mode == "chunked":
+            chunk_plan: List[ChunkRow] = []
+            if plan.chunks:
+                with tel.span("plan_chunks"):
+                    chunk_plan = self._materialize_chunks(plan)
+            do_decode = bool(plan.decode and self.active)
+            if chunk_plan or do_decode:
+                rec = self._dispatch(chunk_plan, do_decode)
+                self._tick_stats()
+                with tel.span("harvest"):
+                    self._harvest(rec)
+                progressed = True
+            else:
+                self._tick_stats()
         else:
             self._tick_stats()
+            if plan.decode and self.active:
+                rec = self._dispatch_decode()
+                with tel.span("harvest"):
+                    self._harvest(rec)
+                progressed = True
         self._t_last = time.perf_counter()
         self._end_step()
         return progressed
@@ -259,15 +307,21 @@ class ServingEngine:
             progressed |= self._execute_admissions(plan)
         with tel.span("harvest"):
             self.queue.drain(self._harvest)
-        chunk_plan: List[ChunkRow] = []
-        if plan.chunks:
-            with tel.span("plan_chunks"):
-                chunk_plan = self._materialize_chunks(plan)
-        self._tick_stats()
-        do_decode = bool(plan.decode and self.active)
-        if chunk_plan or do_decode:
-            self.queue.push(self._dispatch(chunk_plan, do_decode))
-            progressed = True
+        if self._prefill_mode == "chunked":
+            chunk_plan: List[ChunkRow] = []
+            if plan.chunks:
+                with tel.span("plan_chunks"):
+                    chunk_plan = self._materialize_chunks(plan)
+            self._tick_stats()
+            do_decode = bool(plan.decode and self.active)
+            if chunk_plan or do_decode:
+                self.queue.push(self._dispatch(chunk_plan, do_decode))
+                progressed = True
+        else:
+            self._tick_stats()
+            if plan.decode and self.active:
+                self.queue.push(self._dispatch_decode())
+                progressed = True
         self._t_last = time.perf_counter()
         self._end_step()
         return progressed
@@ -330,7 +384,7 @@ class ServingEngine:
             free_slots=arena.n_free,
             budget_left=arena.budget_left,
             gauges=arena.gauges(),
-            prefill_mode="chunked",
+            prefill_mode=self._prefill_mode,
             prefill_chunk=cfg.prefill_chunk,
             max_chunks_per_step=cfg.max_chunks_per_step,
             max_prefills_per_step=cfg.max_prefills_per_step,
@@ -411,10 +465,15 @@ class ServingEngine:
             [req.prompt, np.asarray(resume.tokens[:-1], np.int32)])
 
     def _admit(self, req: Request):
-        """Lease a slot and start the request's chunked prefill.  The
-        chunk cursor starts where the arena's installed shared prefix
-        ends; a resumed request keeps its original stamps."""
+        """Lease a slot and start the request's prefill: the chunked mode
+        only enqueues it (the chunk cursor starts where the arena's
+        installed shared prefix ends), the whole-prompt modes prefill
+        now (`_admit_whole`).  A resumed request keeps its original
+        stamps."""
         resume = self._resume.pop(req.req_id, None)
+        if self._prefill_mode != "chunked":
+            self._admit_whole(req, resume)
+            return
         source = self._resume_source(req, resume)
         slot = self.arena.alloc(
             req.req_id, int(source.size), req.prompt_len + req.max_new_tokens,
@@ -435,6 +494,47 @@ class ServingEngine:
                 else:
                     self.tel.event("prefix_miss", req_id=req.req_id,
                                    slot=slot)
+
+    def _admit_whole(self, req: Request, resume: Optional[ResumeState]):
+        """Prefill the source at batch 1 (bucket-padded or exact length)
+        and lease a slot: the one-shot path.  On resume the source is
+        prompt + tokens[:-1] and the prefill's last-position argmax must
+        equal tokens[-1]."""
+        source = self._resume_source(req, resume)
+        L = int(source.size)
+        slot = self.arena.alloc(req.req_id, L,
+                                req.prompt_len + req.max_new_tokens)
+        admit_t = (resume.admit_time if resume is not None
+                   else time.perf_counter())
+        if self.tel.enabled:
+            self.tel.event("admit", req_id=req.req_id, slot=slot)
+        Pb = (self.sched.bucket_len(L) if self._prefill_mode == "bucketed"
+              else L)
+        padded = np.zeros((1, Pb), np.int32)
+        padded[0, :L] = source
+        self.tel.dispatch("prefill", (Pb,))
+        # first token: greedy at the TRUE last source position (the
+        # padded positions after it are causally invisible to it)
+        with self.tel.annotate("repro_torch.serving/prefill"):
+            first = self._prefill_one(padded, L - 1)
+        self.arena.write_slot(slot, self._scratch)
+        now = time.perf_counter()
+        if resume is not None:
+            self._resume_decoding(req, slot, first, resume)
+        else:
+            self._start_decoding(req, slot, first, now, admit_t)
+
+    def _prefill_one(self, padded: np.ndarray, last: int) -> int:
+        """The B=1 prefill into the zeroed scratch cache; -> the first
+        token (the one host sync of an admission)."""
+        if self._scratch is None:
+            self._scratch = self.lm.init_caches(1, self.arena.max_len,
+                                                device=self.device)
+        for kv in ("k", "v"):
+            self._scratch[kv].zero_()
+        logits = self.lm.prefill(self.tables, self.arena.to_device(padded),
+                                 self._scratch, last_index=last)
+        return int(torch.argmax(logits[0, 0]))
 
     def _materialize_chunks(self, plan: StepPlan) -> List[ChunkRow]:
         """Resolve the plan's (req_id, n) rows against live prefill
@@ -471,6 +571,46 @@ class ServingEngine:
             admit_rejects=self._n_admit_rejects,
             **self.arena.gauges(),
         )
+
+    @staticmethod
+    def _to_host(nxt: torch.Tensor):
+        """-> (host tensor, CUDA event or None): on the card the token
+        vector's copy into pinned host memory, enqueued behind the step;
+        the harvest waits on its event."""
+        if not nxt.is_cuda:
+            return nxt, None
+        host = torch.empty(nxt.shape, dtype=nxt.dtype, pin_memory=True)
+        host.copy_(nxt, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _decode(self, toks: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        """Enqueue one decode_step over every slot row and the greedy
+        argmax; -> the (n_slots,) next-token vector on the device."""
+        logits = self.lm.decode_step(
+            self.tables, self.arena.to_device(toks), self.arena.decode_view(),
+            self.arena.to_device(pos))
+        return torch.argmax(logits[:, 0, :], dim=-1)
+
+    def _dispatch_decode(self) -> _InFlightStep:
+        """The whole-prompt modes' fused decode over every slot row;
+        rows without an active decode park at INACTIVE_POS, token 0."""
+        tel = self.tel
+        with tel.span("decode_dispatch"):
+            B = self.arena.n_slots
+            toks = np.zeros((B, 1), np.int32)
+            pos = np.full((B,), INACTIVE_POS, np.int32)
+            for slot, st in self.active.items():
+                toks[slot, 0] = st.last_token
+                pos[slot] = st.pos
+                self.arena.touch(slot, st.pos)
+            tel.dispatch("decode", (B,))
+            with tel.annotate("repro_torch.serving/decode"):
+                nxt = self._decode(toks, pos)
+            host, done = self._to_host(nxt)
+        return _InFlightStep(tokens=nxt, host=host, done=done, chunk_plan=[],
+                             decode_slots=list(self.active))
 
     def _unified(self, toks: np.ndarray, start: np.ndarray,
                  last: np.ndarray) -> torch.Tensor:
@@ -513,15 +653,7 @@ class ServingEngine:
             tel.dispatch("unified", (B, W))
             with tel.annotate("repro_torch.serving/unified"):
                 nxt = self._unified(toks, start, last)
-            host, done = nxt, None
-            if nxt.is_cuda:
-                # the token vector's copy to the host, enqueued behind
-                # the step; the harvest waits on its event
-                host = torch.empty(nxt.shape, dtype=nxt.dtype,
-                                   pin_memory=True)
-                host.copy_(nxt, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
+            host, done = self._to_host(nxt)
         return _InFlightStep(tokens=nxt, host=host, done=done,
                              chunk_plan=chunk_plan,
                              decode_slots=decode_slots)
@@ -563,36 +695,38 @@ class ServingEngine:
                 continue
             del self.prefilling[st.slot]  # final chunk completed
             if st.resume is not None:
-                self._resume_decoding(st, int(nxt[st.slot]))
+                self._resume_decoding(st.request, st.slot, int(nxt[st.slot]),
+                                      st.resume)
             else:
-                self._start_decoding(st, int(nxt[st.slot]), now)
+                self._start_decoding(st.request, st.slot, int(nxt[st.slot]),
+                                     now, st.admit_time)
 
-    def _start_decoding(self, pst: PrefillState, first: int, now: float):
+    def _start_decoding(self, req: Request, slot: int, first: int,
+                        now: float, admit_time: float):
         """Graduate a prefilled request to decode; TTFT stops here."""
-        req = pst.request
         st = RequestState(
-            request=req, slot=pst.slot, tokens=[first], last_token=first,
+            request=req, slot=slot, tokens=[first], last_token=first,
             pos=req.prompt_len, first_token_time=now,
-            admit_time=pst.admit_time, emit_times=[now])
-        self.active[pst.slot] = st
+            admit_time=admit_time, emit_times=[now])
+        self.active[slot] = st
         if self.tel.enabled:
-            self.tel.event("first_token", req_id=req.req_id, slot=pst.slot,
+            self.tel.event("first_token", req_id=req.req_id, slot=slot,
                            token=first)
-        self._emit(req, first, pst.slot)
+        self._emit(req, first, slot)
         self._maybe_finish(st, now)
 
-    def _resume_decoding(self, pst: PrefillState, predicted: int):
+    def _resume_decoding(self, req: Request, slot: int, predicted: int,
+                         resume: ResumeState):
         """Re-enter decode after a preemption's re-prefill, emitting
         nothing.  The source was prompt + tokens[:-1], so its last row
         must regenerate tokens[-1]: the resume-parity oracle."""
-        req, resume = pst.request, pst.resume
         if predicted != resume.tokens[-1]:
             raise RuntimeError(
                 "resume parity violated: re-prefill regenerated token "
                 f"{predicted} but the preempted request had emitted "
                 f"{resume.tokens[-1]} (req {req.req_id})")
-        self.active[pst.slot] = RequestState(
-            request=req, slot=pst.slot, tokens=list(resume.tokens),
+        self.active[slot] = RequestState(
+            request=req, slot=slot, tokens=list(resume.tokens),
             last_token=resume.tokens[-1],
             pos=req.prompt_len + len(resume.tokens) - 1,
             first_token_time=resume.first_token_time,
@@ -600,7 +734,7 @@ class ServingEngine:
             emit_times=list(resume.emit_times),
             n_preempts=resume.n_preempts)
         if self.tel.enabled:
-            self.tel.event("resume", req_id=req.req_id, slot=pst.slot,
+            self.tel.event("resume", req_id=req.req_id, slot=slot,
                            n_preempts=resume.n_preempts)
 
     def _on_cow(self, slot: int, old_page: int, new_page: int):
@@ -650,18 +784,25 @@ class ServingEngine:
                     or self.queue.pending)
 
     def warmup(self):
-        """Run both dispatch shapes once, (n_slots, 1) and (n_slots, C),
-        with every row parked at INACTIVE_POS, so the first step of a
-        measured window meets no first-use cost (the kernels' build,
-        the GEMM workspace, torch's caches).  Parked rows write only
-        the PAGE_NULL trash page, so every page a request can hold is
-        left byte-equal; the results are dropped.  Both shapes are
-        registered with the telemetry's dispatch counters, so a warmed
-        window reads all hits.  Requires an idle engine."""
+        """Run every step dispatch shape once with every row parked at
+        INACTIVE_POS, so the first step of a measured window meets no
+        first-use cost (the kernels' build, the GEMM workspace, torch's
+        caches): in the chunked mode both unified widths, (n_slots, 1)
+        and (n_slots, C), else the fused decode.  Parked rows write only
+        the trash page, so every page a request can hold is left
+        byte-equal; the results are dropped.  The shapes are registered
+        with the telemetry's dispatch counters, so a warmed window reads
+        all hits.  The whole-prompt prefill is not warmed: its shapes
+        follow the workload's prompt lengths.  Requires an idle
+        engine."""
         if self._busy():
             raise RuntimeError("warmup on a non-idle engine")
         B = self.arena.n_slots
         parked = np.full((B,), INACTIVE_POS, np.int32)
+        if self._prefill_mode != "chunked":
+            self.tel.dispatch("decode", (B,))
+            self._decode(np.zeros((B, 1), np.int32), parked).cpu()
+            return
         for W in (1, self.sched.cfg.prefill_chunk):
             self.tel.dispatch("unified", (B, W))
             self._unified(np.zeros((B, W), np.int32), parked,

@@ -89,7 +89,7 @@ class EngineView:
     free_slots: int
     budget_left: Optional[int]  # uncommitted pages (None: unpaged)
     gauges: dict  # the arena's instantaneous gauges
-    prefill_mode: str  # always "chunked" in the port
+    prefill_mode: str  # "chunked" | "bucketed" | "exact"
     prefill_chunk: int
     max_chunks_per_step: Optional[int]
     max_prefills_per_step: int
@@ -178,12 +178,13 @@ class FCFSPolicy:
                 plan.rejects.append((head.req_id, sim.reject_reason(head)))
                 break
             plan.admit.append(queue.pop(0).req)
-        rows = [(s.req_id, s.offset, s.total) for s in view.prefilling]
-        admitted = {r.req_id for r in plan.admit}
-        rows += [(p.req_id, 0, p.source_len) for p in view.pending
-                 if p.req_id in admitted]
-        plan.chunks = _pack_chunks(
-            rows, view.prefill_chunk, view.max_chunks_per_step)
+        if view.prefill_mode == "chunked":
+            rows = [(s.req_id, s.offset, s.total) for s in view.prefilling]
+            admitted = {r.req_id for r in plan.admit}
+            rows += [(p.req_id, 0, p.source_len) for p in view.pending
+                     if p.req_id in admitted]
+            plan.chunks = _pack_chunks(
+                rows, view.prefill_chunk, view.max_chunks_per_step)
         return plan
 
 
@@ -240,14 +241,16 @@ class PrioritySLOPolicy:
                 # roll the hypothetical evictions back
                 sim.free_slots, sim.budget = saved
                 plan.rejects.append((cand.req_id, sim.reject_reason(cand)))
-        live = sorted((s for s in view.prefilling if s.slot not in evicted),
-                      key=lambda s: (-s.priority, s.admit_time))
-        rows = [(s.req_id, s.offset, s.total) for s in live]
-        admitted = {r.req_id for r in plan.admit}
-        rows += [(p.req_id, 0, p.source_len) for p in self._order(view)
-                 if p.req_id in admitted]
-        plan.chunks = _pack_chunks(
-            rows, view.prefill_chunk, view.max_chunks_per_step)
+        if view.prefill_mode == "chunked":
+            live = sorted(
+                (s for s in view.prefilling if s.slot not in evicted),
+                key=lambda s: (-s.priority, s.admit_time))
+            rows = [(s.req_id, s.offset, s.total) for s in live]
+            admitted = {r.req_id for r in plan.admit}
+            rows += [(p.req_id, 0, p.source_len) for p in self._order(view)
+                     if p.req_id in admitted]
+            plan.chunks = _pack_chunks(
+                rows, view.prefill_chunk, view.max_chunks_per_step)
         return plan
 
 

@@ -56,7 +56,8 @@ def _engine(models, port: bool, depth=1, *, policy=None, telemetry=None,
               **kw)
     if port:
         return ServingEngine(tlm, tt, ServingConfig(
-            device="cpu", scheduler=SchedulerConfig(prefill_chunk=4), **kw))
+            device="cpu", paged=True,
+            scheduler=SchedulerConfig(prefill_chunk=4), **kw))
     return JServingEngine(jlm, jt, JServingConfig(
         paged=True, paged_kernel=False,
         scheduler=JSchedulerConfig(prefill_chunk=4), **kw))
@@ -244,8 +245,8 @@ def test_no_step_left_in_flight(models):
 def test_cli_dispatch_depth_1(capsys):
     serve_main(["--reduced", "--device", "cpu", "--requests", "3",
                 "--slots", "2", "--prompt-len", "12", "--gen", "3",
-                "--max-len", "16", "--page-size", "4", "--prefill-chunk",
-                "4", "--dispatch-depth", "1"])
+                "--max-len", "16", "--paged", "--page-size", "4",
+                "--prefill-chunk", "4", "--dispatch-depth", "1"])
     out = capsys.readouterr().out
     assert "drained 3 requests / 9 tokens" in out
     assert '"dispatch_depth": 1' in out

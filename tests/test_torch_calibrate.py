@@ -469,7 +469,8 @@ def test_calibrated_deploy_serves_the_reference_tokens(arch, kv_bits):
         paged=True, paged_kernel=False,
         scheduler=JSchedulerConfig(prefill_chunk=8), **kw))
     t = ServingEngine(tlm, tt, ServingConfig(
-        device="cpu", scheduler=SchedulerConfig(prefill_chunk=8), **kw))
+        device="cpu", paged=True, scheduler=SchedulerConfig(prefill_chunk=8),
+        **kw))
     work = _work(tlm.cfg.vocab, kv_bits)
     got = _drain(t, work)
     assert got == _drain(j, work)

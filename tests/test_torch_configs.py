@@ -133,7 +133,7 @@ def _engines(models, *, kv_bits=8, n_slots=3, page_size=8, n_pages=None,
         n_pages=n_pages, paged_kernel=False, kv_bits=kv_bits,
         scheduler=JSchedulerConfig(**sched)))
     t = ServingEngine(tlm, tt, ServingConfig(
-        n_slots=n_slots, max_len=MAX_LEN, page_size=page_size,
+        n_slots=n_slots, max_len=MAX_LEN, paged=True, page_size=page_size,
         n_pages=n_pages, device="cpu", kv_bits=kv_bits,
         scheduler=SchedulerConfig(**sched)))
     return j, t

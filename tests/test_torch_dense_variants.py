@@ -425,7 +425,8 @@ def _engines(jlm, jt, tlm, tt, kv_bits, chunk=8):
         paged=True, paged_kernel=False,
         scheduler=JSchedulerConfig(prefill_chunk=chunk), **kw))
     t = ServingEngine(tlm, tt, ServingConfig(
-        device="cpu", scheduler=SchedulerConfig(prefill_chunk=chunk), **kw))
+        device="cpu", paged=True,
+        scheduler=SchedulerConfig(prefill_chunk=chunk), **kw))
     return j, t
 
 
@@ -601,8 +602,8 @@ def test_head_dims_are_the_compiled_cases():
 def test_cli_serves_reduced_config_on_cpu(arch, capsys):
     t_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                   "--requests", "3", "--slots", "2", "--prompt-len", "12",
-                  "--gen", "3", "--max-len", "24", "--page-size", "8",
-                  "--prefill-chunk", "8"])
+                  "--gen", "3", "--max-len", "24", "--paged",
+                  "--page-size", "8", "--prefill-chunk", "8"])
     out = capsys.readouterr().out
     assert f"deployed {arch}_reduced (2 layers)" in out
     assert "drained 3 requests / 9 tokens" in out

@@ -56,6 +56,12 @@ width raising on the card, the requant kernel's act form (GELU's LUT,
 squared ReLU's square and rqt2, per-channel and wrapping) at d_ff 6144
 and 73728, the GEMM at their sites up to K 73728, and 2-layer engines
 of both on the card equal to the CPU's with their launches by form.
+The MoE family's shapes: the grouped int8 GEMM at olmoe_1b_7b's expert
+sites (C 4, 40 and 80 over 64 experts) and ragged and split-K ones,
+every table form, exact and one launch a call; the paged attention over
+the slot arena's pools (pages of 512 keys, one a slot) at decode and at
+B=1 whole-prompt prefills up to 512 rows; and a reduced olmoe engine in
+exact mode over both arenas, the card equal to the CPU.
 """
 import sys
 
@@ -424,8 +430,8 @@ def test_engine_requant_launches_by_form_on_card():
 
     def serve(tables, device):
         eng = ServingEngine(lm, tables, ServingConfig(
-            n_slots=4, max_len=64, page_size=8, n_pages=40, device=device,
-            scheduler=SchedulerConfig(prefill_chunk=8)))
+            n_slots=4, max_len=64, paged=True, page_size=8, n_pages=40,
+            device=device, scheduler=SchedulerConfig(prefill_chunk=8)))
         for r in reqs:
             eng.submit(copy.deepcopy(r))
         done = eng.run_until_drained()
@@ -892,7 +898,8 @@ def _engines_on_card_and_cpu(arch, kv_bits, telemetry=None,
                              device="cuda")
     tables = {"cuda": t_gpu, "cpu": tables_to(t_gpu, "cpu")}
     return [ServingEngine(lm, tables[device], ServingConfig(
-        n_slots=4, max_len=64, page_size=8, n_pages=40, device=device,
+        n_slots=4, max_len=64, paged=True, page_size=8, n_pages=40,
+        device=device,
         kv_bits=kv_bits, dispatch_depth=dispatch_depth,
         telemetry=telemetry if device == "cuda" else None,
         scheduler=SchedulerConfig(prefill_chunk=8)))
@@ -982,11 +989,12 @@ def test_cow_page_copy_on_card(kv_bits):
     for a in arenas:
         for kv in ("k", "v"):
             a.caches[kv].copy_(init[kv])
-        s0 = a.alloc(0, 24, 30, tokens=toks)
+        # chunked admissions (written 0): the prefix cache's path
+        s0 = a.alloc(0, 24, 30, written=0, tokens=toks)
         a.touch_range(s0, 0, 24)
         a.advance(s0, 24)
         a.register_prefix(s0, toks, 24)
-        s1 = a.alloc(1, 24, 30, tokens=toks)
+        s1 = a.alloc(1, 24, 30, written=0, tokens=toks)
         assert int(a.lengths[s1]) == 23
         old = int(a.page_table[s1, 2])
         a.touch(s1, 23)
@@ -1047,7 +1055,8 @@ def test_prefix_cache_and_preemption_on_card(kv_bits):
         t = tables[device]
         pol = _EvictNewestDecode(5)
         eng = ServingEngine(lm, t, ServingConfig(
-            n_slots=4, max_len=64, page_size=8, n_pages=40, device=device,
+            n_slots=4, max_len=64, paged=True, page_size=8, n_pages=40,
+            device=device,
             kv_bits=kv_bits, policy=pol, prefix_cache=True,
             cache_keep_pages=8, scheduler=SchedulerConfig(prefill_chunk=16)))
         tok = _serve_all(eng, reqs)
@@ -1191,7 +1200,8 @@ def test_async_step_waits_only_at_the_harvest_on_card(depth):
                     8) for n in (5, 11, 3)] + [Request(pre.copy(), 8)]
     pol = _EvictNewestDecode(5)
     eng = ServingEngine(lm, t, ServingConfig(
-        n_slots=4, max_len=64, page_size=8, n_pages=40, device="cuda",
+        n_slots=4, max_len=64, paged=True, page_size=8, n_pages=40,
+        device="cuda",
         dispatch_depth=depth, policy=pol, prefix_cache=True,
         cache_keep_pages=8, scheduler=SchedulerConfig(prefill_chunk=16)))
     eng.warmup()
@@ -1345,3 +1355,134 @@ def test_engine_dense_variants_on_card(arch, kv_bits):
     assert (paged_attention_kv4 if kv_bits == 4 else
             paged_attention).launches == L
     assert tok == _serve_all(cpu, reqs)
+
+
+# -- the grouped int8 GEMM (the MoE's expert GEMMs) and the slot pools --------
+# (G, E, C, K, N): olmoe_1b_7b's gate/up and down sites at decode (C 4,
+# the GEMV), prefill of a 254-token prompt (C 40) and of 512 (C 80, the
+# wgmma path), then ragged shapes and one whose K splits over blocks
+GROUPED_CASES = (
+    [(1, 64, C, K, N) for C in (4, 40, 80)
+     for K, N in ((2048, 1024), (1024, 2048))]
+    + [(2, 3, 5, 48, 40), (1, 4, 17, 96, 136), (3, 2, 1, 160, 66),
+       (1, 1, 2, 16384, 32), (1, 2, 70, 8192, 64)])
+
+
+def _grouped_tables(rng, E, K, N):
+    """int32 out, and int8 out through scalar, per-column and
+    per-(expert, column) tables."""
+    bound = float(K * 127 * 127)
+    return [None,
+            _rq(make_rqt(float(rng.uniform(1e-5, 4e-5)), 0.05,
+                         acc_bound=bound)),
+            _rq(make_rqt(rng.uniform(1e-5, 4e-5, size=N), 0.05,
+                         acc_bound=bound)),
+            _rq(make_rqt(rng.uniform(1e-5, 4e-5, size=(E, N)), 0.05,
+                         acc_bound=bound))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,E,C,K,N", GROUPED_CASES)
+def test_int8_matmul_grouped_on_card(G, E, C, K, N):
+    """Every group's x[g, e] @ w[e] exactly as the plain version, with
+    every table form, in one launch a call, on the path and split
+    `gemm_plan(C, N, K, G * E)` takes."""
+    _need_card()
+    from repro_torch.kernels import (
+        int8_matmul_grouped, int8_matmul_grouped_plain,
+    )
+
+    rng = np.random.default_rng(G * 1000 + E * 100 + C)
+    g = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    x = torch.randint(-128, 128, (G, E, C, K), dtype=torch.int8,
+                      device="cuda", generator=g)
+    w = torch.randint(-128, 128, (E, N, K), dtype=torch.int8, device="cuda",
+                      generator=g).transpose(1, 2)
+    for rqt in _grouped_tables(rng, E, K, N):
+        n = int8_matmul_grouped.launches
+        got = int8_matmul_grouped(x, w, rqt)
+        assert int8_matmul_grouped.launches == n + 1
+        want = int8_matmul_grouped_plain(x, w, rqt)
+        assert got.dtype == want.dtype and torch.equal(got, want), (
+            G, E, C, K, N, rqt is None)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_grouped_refuses_a_dense_weight_layout():
+    _need_card()
+    from repro_torch.kernels import int8_matmul_grouped
+
+    x = torch.zeros((1, 2, 4, 64), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="stored transposed"):
+        int8_matmul_grouped(x, torch.zeros((2, 64, 32), dtype=torch.int8,
+                                           device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,pos0", [(8, 1, 300), (1, 254, 0), (1, 512, 0),
+                                      (2, 31, 0)])
+def test_paged_attention_over_slot_pools_on_card(B, S, pos0):
+    """The slot arena's storage through the paged kernel: pages of
+    max_len 512 keys, one page a slot (pps 1), olmoe_1b_7b's heads (16 kv
+    heads, group 1, hd 128): the decode at 8 slots (one parked) and
+    whole-prompt prefills at B=1 up to 512 rows; 0 quanta moved."""
+    _need_card()
+    rng = np.random.default_rng(B * 1000 + S)
+    K, group, hd, ps = 16, 1, 128, 512
+    q = torch.from_numpy(rng.integers(-40, 41, size=(B, K * group, S, hd))
+                         .astype(np.int8)).cuda()
+    kp = torch.from_numpy(rng.integers(-40, 41, size=(B + 1, K, ps, hd))
+                          .astype(np.int8)).cuda()
+    vp = torch.from_numpy(rng.integers(-128, 128, size=(B + 1, K, ps, hd))
+                          .astype(np.int8)).cuda()
+    table = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")[:, None]
+    pos = torch.full((B,), pos0, dtype=torch.int32, device="cuda")
+    if B > 1 and S == 1:
+        pos[-1] = INACTIVE_POS
+    scale = torch.tensor(1.0 / 512.0, device="cuda")
+    qp = torch.empty((B, K * group, S, ps), dtype=torch.int8, device="cuda")
+    got = paged_attention(q, kp, vp, table, pos, scale, group=group,
+                          qp_out=qp)
+    assert check_kernel(got, qp, q, kp, vp, table, pos, scale, group=group,
+                        what=f"slot pools B={B} S={S}") == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_moe_engine_card_equals_cpu(paged):
+    """A reduced olmoe_1b_7b (calibrated and deployed on the card) served
+    in exact mode over the slot arena and over the paged one: the card's
+    tokens, and the slot pools after the drain, equal the CPU's; every
+    expert GEMM of the card run is one grouped launch."""
+    _need_card()
+    import copy
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import deploy_model, ragged_requests
+    from repro_torch.serving import (
+        SchedulerConfig, ServingConfig, ServingEngine,
+    )
+
+    lm, t_gpu = deploy_model("olmoe_1b_7b", reduced=True, max_seq=128,
+                             seed=0, device="cuda")
+    tables = {"cuda": t_gpu, "cpu": tables_to(t_gpu, "cpu")}
+    reqs = ragged_requests(5, lm.cfg.vocab, np.random.default_rng(3),
+                           prompt_lo=3, prompt_hi=60, gen=5)
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = ServingEngine(lm, tables[device], ServingConfig(
+            n_slots=3, max_len=128, paged=paged, page_size=8, device=device,
+            scheduler=SchedulerConfig(prefill_chunk=8)))
+        kernels.reset_launch_counts()
+        for r in reqs:
+            eng.submit(copy.deepcopy(r))
+        done = eng.run_until_drained()
+        counts = kernels.launch_counts()
+        out[device] = ({c.req_id: c.tokens for c in done},
+                       eng.arena.caches["k"].cpu(), counts)
+    assert out["cuda"][0] == out["cpu"][0]
+    if not paged:
+        assert torch.equal(out["cuda"][1][:, 1:], out["cpu"][1][:, 1:])
+    counts = out["cuda"][2]
+    assert counts["int8_matmul_grouped"] > 0
+    assert counts["int8_matmul_grouped"] % (3 * lm.cfg.n_layers) == 0

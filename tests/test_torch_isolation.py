@@ -60,12 +60,13 @@ def test_public_entry_points_default_to_cuda():
     from repro_torch.launch import serve
     from repro_torch.layers import rope
     from repro_torch.models import lm
-    from repro_torch.serving import PagedArena, ServingConfig
+    from repro_torch.serving import PagedArena, ServingConfig, SlotArena
 
     assert ServingConfig().device == "cuda"
     for fn in (serve.deploy_model, lm.tables_from_numpy,
-               lm.DecoderLM.init_pools, rope.rope_tables_int,
-               PagedArena.__init__):
+               lm.DecoderLM.init_pools, lm.DecoderLM.init_caches,
+               rope.rope_tables_int, PagedArena.__init__,
+               SlotArena.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     src = inspect.getsource(serve.main)
     assert 'add_argument("--device", default="cuda")' in src

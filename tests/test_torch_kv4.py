@@ -537,7 +537,8 @@ def test_engine_kv4_tokens_match_reference(models):
         paged_kernel=False, kv_bits=4,
         scheduler=JSchedulerConfig(prefill_bucket=PS, prefill_chunk=4))))
     eng = ServingEngine(tlm, tt, ServingConfig(
-        n_slots=2, max_len=MAX_LEN, page_size=PS, kv_bits=4, device="cpu",
+        n_slots=2, max_len=MAX_LEN, paged=True, page_size=PS, kv_bits=4,
+        device="cpu",
         scheduler=SchedulerConfig(prefill_chunk=4)))
     got = drain(eng)
     assert got == want
@@ -562,13 +563,14 @@ def test_arena_packed_geometry_and_validation(models):
         PagedArena(tlm, 2, MAX_LEN, PS, 6, device="cpu", kv_bits=3)
     with pytest.raises(ValueError, match="kv_bits"):
         ServingConfig(kv_bits=5)
-    assert ServingConfig(kv_bits=4).kv_bits == 4
+    assert ServingConfig(paged=True, kv_bits=4).kv_bits == 4
 
 
 def test_cli_kv4_smoke(capsys):
     serve_main(["--reduced", "--device", "cpu", "--requests", "3",
                 "--slots", "2", "--prompt-len", "12", "--gen", "3",
-                "--max-len", "16", "--ragged", "--kv-bits", "4"])
+                "--max-len", "16", "--ragged", "--paged", "--kv-bits",
+                "4"])
     out = capsys.readouterr().out
     assert "drained 3 requests / 9 tokens" in out
     assert "kv_bits 4" in out

@@ -113,7 +113,8 @@ def _engines(models):
         n_slots=3, max_len=MAX_LEN, paged=True, page_size=8, n_pages=12,
         paged_kernel=False, scheduler=JSchedulerConfig(prefill_chunk=8)))
     t_eng = ServingEngine(tlm, tt, ServingConfig(
-        n_slots=3, max_len=MAX_LEN, page_size=8, n_pages=12, device="cpu",
+        n_slots=3, max_len=MAX_LEN, paged=True, page_size=8, n_pages=12,
+        device="cpu",
         scheduler=SchedulerConfig(prefill_chunk=8)))
     return j_eng, t_eng
 

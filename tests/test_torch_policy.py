@@ -66,7 +66,8 @@ def _engine(models, port: bool, *, chunk=4, max_len=MAX_LEN, policy=None,
     jlm, jt, tlm, tt = models
     if port:
         return ServingEngine(tlm, tt, ServingConfig(
-            max_len=max_len, page_size=PS, device="cpu", policy=policy,
+            max_len=max_len, paged=True, page_size=PS, device="cpu",
+            policy=policy,
             telemetry=telemetry,
             scheduler=SchedulerConfig(prefill_chunk=chunk), **kw))
     return JServingEngine(jlm, jt, JServingConfig(

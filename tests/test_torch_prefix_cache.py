@@ -64,7 +64,7 @@ def _pair(models, *, chunk=PS, policy=None, telemetry=None, **kw):
         policy=policy() if policy else None, telemetry=tel[0],
         scheduler=JSchedulerConfig(prefill_chunk=chunk), **kw))
     t = ServingEngine(tlm, tt, ServingConfig(
-        max_len=MAX_LEN, page_size=PS, device="cpu",
+        max_len=MAX_LEN, paged=True, page_size=PS, device="cpu",
         policy=policy() if policy else None, telemetry=tel[1],
         scheduler=SchedulerConfig(prefill_chunk=chunk), **kw))
     return j, t
@@ -74,7 +74,7 @@ def _port(models, *, chunk=PS, **kw):
     """A port engine alone (the cache-off runs whose tokens the cache-on
     runs must equal)."""
     return ServingEngine(models[2], models[3], ServingConfig(
-        max_len=MAX_LEN, page_size=PS, device="cpu",
+        max_len=MAX_LEN, paged=True, page_size=PS, device="cpu",
         scheduler=SchedulerConfig(prefill_chunk=chunk), **kw))
 
 
@@ -456,9 +456,9 @@ def test_prefix_cache_config_validation():
     with pytest.raises(ValueError, match="cache_keep_pages"):
         ServingConfig(cache_keep_pages=4)
     with pytest.raises(ValueError, match="cache_keep_pages"):
-        ServingConfig(prefix_cache=True, cache_keep_pages=-1)
+        ServingConfig(paged=True, prefix_cache=True, cache_keep_pages=-1)
     with pytest.raises(ValueError):
         JServingConfig(cache_keep_pages=4)
-    cfg = ServingConfig(prefix_cache=True, cache_keep_pages=3)
+    cfg = ServingConfig(paged=True, prefix_cache=True, cache_keep_pages=3)
     assert cfg.prefix_cache and cfg.cache_keep_pages == 3
     assert not ServingConfig().prefix_cache

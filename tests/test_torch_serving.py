@@ -55,7 +55,7 @@ def _run_both(models, prompts, gens, *, n_slots, page_size, n_pages, chunk,
         n_pages=n_pages, paged_kernel=False,
         scheduler=JSchedulerConfig(prefill_chunk=chunk)))
     t_eng = ServingEngine(tlm, tt, ServingConfig(
-        n_slots=n_slots, max_len=MAX_LEN, page_size=page_size,
+        n_slots=n_slots, max_len=MAX_LEN, paged=True, page_size=page_size,
         n_pages=n_pages, device="cpu",
         scheduler=SchedulerConfig(prefill_chunk=chunk)))
     j_tok, j_order = _drive(j_eng, prompts, gens, stagger)
@@ -115,7 +115,8 @@ def test_req_ids_after_a_rejected_submit_match(models):
         n_slots=2, max_len=MAX_LEN, paged=True, page_size=8, n_pages=64,
         paged_kernel=False, scheduler=JSchedulerConfig(prefill_chunk=16)))
     t_eng = ServingEngine(tlm, tt, ServingConfig(
-        n_slots=2, max_len=MAX_LEN, page_size=8, n_pages=64, device="cpu",
+        n_slots=2, max_len=MAX_LEN, paged=True, page_size=8, n_pages=64,
+        device="cpu",
         scheduler=SchedulerConfig(prefill_chunk=16)))
     rng = np.random.default_rng(4)
     long_prompt = rng.integers(0, 256, size=(60,))

@@ -63,7 +63,8 @@ def _engine(models, port: bool, *, telemetry=None, kv_bits=8,
     jlm, jt, tlm, tt = models
     if port:
         return ServingEngine(tlm, tt, ServingConfig(
-            n_slots=N_SLOTS, max_len=MAX_LEN, page_size=8, n_pages=n_pages,
+            n_slots=N_SLOTS, max_len=MAX_LEN, paged=True, page_size=8,
+            n_pages=n_pages,
             device="cpu", kv_bits=kv_bits, telemetry=telemetry,
             scheduler=SchedulerConfig(prefill_chunk=4)))
     return JServingEngine(jlm, jt, JServingConfig(
