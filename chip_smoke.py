@@ -39,8 +39,26 @@ Phases (any failure raises and the script exits non-zero):
             over 64 experts) at olmoe_1b_7b's gate/up (K 2048, N 1024)
             and down (K 1024, N 2048) sites at C 4, 40 and 80 with
             per-(expert, channel) tables, exactly, with its plan
+            the int8 GEMM at the NemoCNN's conv and head shapes (K 32,
+            144, 288, 1024; N 16, 32, 64, 10; B 256 and the head at B
+            8), both modes, and the requant per channel at its N 16, 32
+            and 64
   entry     `quant_flash_attention` driven through its entry point (no
             serving path calls it), counts read around it
+  cnn       the paper's NemoCNN at full width (channels 16/32/64, 32 x
+            32 x 3 images, 10 classes; seeded init_np weights and BN
+            statistics): the FullPrecision forward calibrated on 256
+            seeded images on the card and on the CPU (every range within
+            1e-4 of its span), then for each (bn_mode, act_bits) of
+            CNN_CELLS one deploy from the card's ranges and the ID
+            forward of the 256 images on the card (counts set to 0 just
+            before and read just after: every conv and the head on the
+            GEMM kernel, intbn's requant on the requant kernel; no op
+            with a floating output) and on the CPU (plain versions):
+            int32 logits and every block's and pool's int8 activations
+            equal byte for byte; the FP-vs-ID logit correlation; images
+            per second of apply_id on 4096 images by CUDA events, peak
+            device memory
   calibrate granite_3_2b at full width cut to 2 layers: the
             FullPrecision forward of the entry point's calibration
             sample (`DecoderLM.calibrate`) on the card and on the CPU
@@ -251,6 +269,15 @@ N_URGENT = 4
 CALIB_TOL = 1e-4
 # the engine's record_function range around each dispatch
 ANNOTATION = "repro_torch.serving/"
+# cnn phase: the NemoCNN's (bn_mode, act_bits) cells, the images it is
+# calibrated on and compared on, the images a timed forward takes and
+# how many forwards are timed; its GEMMs at B 256, (M, K, N): conv1
+# (K 27 padded to 32), conv2, conv3, the head, then the head at B 8
+CNN_CELLS = (("fold", 8), ("intbn", 8), ("thresh", 8), ("thresh", 4),
+             ("intbn", 4))
+CNN_IMAGES, CNN_TIMED, CNN_TIMED_RUNS = 256, 4096, 5
+CNN_GEMMS = ((256 * 1024, 32, 16), (256 * 256, 144, 32),
+             (256 * 64, 288, 64), (256, 1024, 10), (8, 1024, 10))
 # quantized flash attention at full granite geometry (B 1, H 32, K 8):
 # (S_q, S_kv, hd, causal, q_offset, bkv); the first two are its entry
 # phase; bkv 256, the last, takes the CUDA-core kernel (`qfa_plan`)
@@ -370,7 +397,8 @@ def gemm_case(torch, np, timer, rng, report, M, K, N, mode, site=""):
     ms = timer(lambda: int8_matmul(x, w, bias, rqt))
     plain = timer(lambda: int8_matmul_plain(x, w, bias, rqt), 3)
     lib = None
-    if mode == "int32" and M > 16:
+    # torch._int_mm takes M > 16 and K, N multiples of 8
+    if mode == "int32" and M > 16 and K % 8 == 0 and N % 8 == 0:
         lib = timer(lambda: torch._int_mm(x, w))
     out_b = M * N * (1 if mode == "int8" else 4)
     n_bytes = M * K + K * N + 4 * N * (5 if mode == "int8" else 1)
@@ -414,6 +442,18 @@ def check_config_gemms(torch, np, timer, rng, report):
                 worst = max(worst, gemm_case(torch, np, timer, rng, report,
                                              M, K, N, mode,
                                              f"{arch} {site}"))
+    return worst
+
+
+def check_cnn_gemms(torch, np, timer, rng, report):
+    """The GEMM at the NemoCNN's shapes (CNN_GEMMS): the convs in both
+    modes (fold's int8 epilogue, intbn's and thresh's int32), the head
+    int32."""
+    worst = 0
+    for M, K, N in CNN_GEMMS:
+        for mode in (("int32",) if N == 10 else ("int8", "int32")):
+            worst = max(worst, gemm_case(torch, np, timer, rng, report, M,
+                                         K, N, mode, "nemo_cnn"))
     return worst
 
 
@@ -633,6 +673,10 @@ def requant_cases(torch, np, rng):
         act("act tail", (7, 333), "channel"),
         act("GELU tail", (3, 5, 40)),
         act("ReLU^2 wrap", (B, mg), "wrap"),
+        # the NemoCNN's intbn requant at B 256, one per block
+        rqt("nemo_cnn b0", (256, 32, 32, 16), "channel"),
+        rqt("nemo_cnn b1", (256, 16, 16, 32), "channel"),
+        rqt("nemo_cnn b2", (256, 8, 8, 64), "channel"),
     ]
 
 
@@ -880,6 +924,151 @@ def phase_entry(torch, kernels):
         raise AssertionError(f"entry point launches: {launches}")
     print(f"  {len(inputs)} calls, launches {launches}")
     return launches
+
+
+def phase_cnn(torch, np, kernels):
+    """The paper's NemoCNN at full width: calibration card vs CPU, then
+    each CNN_CELLS deploy's ID forward card vs CPU and its throughput."""
+    from torch.utils import _pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core.rep import Rep
+    from repro_torch.models.cnn import (
+        NemoCNN, image_inputs, perturb_bn_np, tables_from_numpy,
+    )
+    from repro_torch.models.lm import params_to_torch
+
+    class FloatOutputs(TorchDispatchMode):
+        """The ops whose output is floating."""
+
+        def __init__(self):
+            super().__init__()
+            self.ops, self.seen = [], 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.seen += 1
+            if any(isinstance(o, torch.Tensor) and o.is_floating_point()
+                   for o in _pytree.tree_leaves(out)):
+                self.ops.append(str(func))
+            return out
+
+    rng = np.random.default_rng(SEED + 26)
+    cnn = NemoCNN()
+    p = perturb_bn_np(cnn.init_np(SEED), rng)
+    shape = (cnn.img, cnn.img, cnn.in_channels)
+    img = rng.integers(0, 256, size=(CNN_IMAGES,) + shape, dtype=np.uint8)
+    x = {dev: image_inputs(img, dev) for dev in ("cuda", "cpu")}
+    calibs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        calibs[dev] = cnn.calibrate(p, x[dev][0], device=dev)
+        secs[dev] = time.perf_counter() - t0
+    card, cpu = calibs["cuda"], calibs["cpu"]
+    share = {n: max(abs(card.hi[n] - cpu.hi[n]), abs(card.lo[n] - cpu.lo[n]))
+             / max(cpu.hi[n] - cpu.lo[n], 1e-6) for n in cpu.hi}
+    worst = max(share, key=share.get)
+    print(f"  calibration on {CNN_IMAGES} images: card {secs['cuda']:.2f} s,"
+          f" CPU {secs['cpu']:.2f} s; largest card-vs-CPU range difference "
+          f"{share[worst]:.3e} of the span ({worst}), limit {CALIB_TOL:g}; "
+          "ranges " + json.dumps({n: round(card.hi[n], 4) for n in card.hi}))
+    if list(card.hi) != list(cpu.hi) or share[worst] > CALIB_TOL:
+        raise AssertionError(f"cnn calibration: card != CPU at {worst}")
+    with torch.no_grad():
+        fp = cnn.apply_float(params_to_torch(p, "cuda"), x["cuda"][0],
+                             Rep.FP).double()
+    timed = torch.from_numpy(rng.integers(
+        0, 256, size=(CNN_TIMED,) + shape, dtype=np.int16) - 128).to(
+        torch.int8).cuda()
+    n_conv = len(cnn.channels)
+    for mode, bits in CNN_CELLS:
+        m = NemoCNN(act_bits=bits)
+        t0 = time.perf_counter()
+        t_np = m.deploy(p, card, bn_mode=mode)
+        deploy_s = time.perf_counter() - t0
+        tables = {dev: tables_from_numpy(t_np, dev) for dev in x}
+        want_trace, got_trace = [], []
+        want = m.apply_id(tables["cpu"], x["cpu"][1], want_trace)
+        torch.cuda.synchronize()
+        floats = FloatOutputs()
+        kernels.reset_launch_counts()
+        with floats:
+            got = m.apply_id(tables["cuda"], x["cuda"][1], got_trace)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        by_shape = dict(kernels.int8_matmul.by_shape)
+        what = f"{mode} at act_bits {bits}"
+        if floats.ops:
+            raise AssertionError(f"cnn {what}: floating outputs on the "
+                                 f"card: {sorted(set(floats.ops))}")
+        if counts["int8_matmul"] != n_conv + 1 or counts["requant"] != (
+                n_conv if mode == "intbn" else 0) or any(
+                counts[k] for k in counts
+                if k not in ("int8_matmul", "requant")):
+            raise AssertionError(f"cnn {what}: launches {counts}")
+        if not torch.equal(got.cpu(), want) or len(got_trace) != len(
+                want_trace) or not all(
+                torch.equal(a.cpu(), b)
+                for a, b in zip(got_trace, want_trace)):
+            raise AssertionError(f"cnn {what}: card != CPU")
+        idl = got.double() * t_np["meta"]["eps_logits"]
+        corr = float(torch.corrcoef(torch.stack([fp.flatten(),
+                                                 idl.flatten()]))[0, 1])
+        agree = float((fp.argmax(-1) == idl.argmax(-1)).double().mean())
+        m.apply_id(tables["cuda"], timed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(CNN_TIMED_RUNS):
+            m.apply_id(tables["cuda"], timed)
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b) / CNN_TIMED_RUNS
+        peak = torch.cuda.max_memory_allocated() - base
+        split = cnn_profile(torch, lambda: m.apply_id(tables["cuda"], timed))
+        print(f"  {what}: deploy {deploy_s:.2f} s; card == CPU on "
+              f"{CNN_IMAGES} images (int32 logits, {len(got_trace)} block "
+              f"and pool int8 activations), no floating output in "
+              f"{floats.seen} ops; launches {json.dumps(counts)}, GEMM by "
+              f"(M, K, N, out) {json.dumps({str(k): v for k, v in by_shape.items()})}"
+              f"; FP vs ID logits correlation {corr:.6f}, argmax agreement "
+              f"{agree:.4f}; {CNN_TIMED} images a forward: {ms:.3f} ms, "
+              f"{CNN_TIMED / ms * 1e3:.1f} images/s, peak device memory "
+              f"over the inputs {peak / 2**20:.1f} MiB")
+        busy = sum(v[0] for v in split.values())
+        print(f"    profiled forward: device busy {busy:.3f} ms of "
+              f"{ms:.3f} (idle share {1 - busy / ms:.3f}); by owner " +
+              ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in sorted(
+                  split.items(), key=lambda kv: -kv[1][0])))
+
+
+def cnn_profile(torch, fn) -> dict:
+    """One call of `fn` under torch.profiler, device activity only: ->
+    {owner: (device ms, kernels)}, the owners the port's GEMM and
+    requant kernels and torch's kernels by name (namespaces and template
+    arguments cut)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        name = re.split(r"[<(]", e.key.replace("void ", "").replace(
+            "at::native::", "").replace("(anonymous namespace)::", ""))[0]
+        who = ("int8_matmul" if "gemm_" in e.key else "requant"
+               if "requant_" in e.key else "torch " + name[:40])
+        ms, n = split.get(who, (0.0, 0))
+        split[who] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if not split:
+        raise AssertionError("the profiler recorded no device time")
+    return split
 
 
 def make_engine(lm, tables, device, kv_bits=8, *, max_prefills=2,
@@ -2113,7 +2302,7 @@ def phase_done(name: str, t0: float) -> float:
     return t
 
 
-SKIPPABLE = ("entry", "calibrate", "parity", "open-loop", "prefix",
+SKIPPABLE = ("entry", "cnn", "calibrate", "parity", "open-loop", "prefix",
              "preempt", "async", "whole_prompt", "configs", "musicgen",
              "olmoe", "nemotron")
 
@@ -2159,7 +2348,8 @@ def main() -> int:
     print("[kernels] each kernel vs its plain version on the card")
     errs["int8_matmul"] = max(
         check_int8_matmul(torch, np, timer, rng, report),
-        check_config_gemms(torch, np, timer, rng, report))
+        check_config_gemms(torch, np, timer, rng, report),
+        check_cnn_gemms(torch, np, timer, rng, report))
     errs["int8_matmul_grouped"] = check_grouped_gemm(torch, np, timer, rng,
                                                      report)
     errs["requant"] = check_requant(torch, np, timer, rng, report)
@@ -2175,6 +2365,11 @@ def main() -> int:
         print("[entry] quant_flash_attention through its entry point")
         entry = phase_entry(torch, kernels)
         t0 = phase_done("entry", t0)
+    if "cnn" not in skip:
+        print("[cnn] NemoCNN at full width: calibrate on the card and the "
+              "CPU, the ID forward in every BN mode, card vs CPU")
+        phase_cnn(torch, np, kernels)
+        t0 = phase_done("cnn", t0)
     lm2 = t2_np = None
     if "calibrate" not in skip:
         print("[calibrate] granite_3_2b at full width, 2 layers: calibrate "

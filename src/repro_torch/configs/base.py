@@ -7,7 +7,10 @@ one file each with its values: `granite_3_2b`, `llama3_2_3b` and
 `chatglm3_6b` (RMSNorm, gated SiLU MLP), `musicgen_medium` (LayerNorm
 with bias, ungated GELU MLP, MHA), `nemotron_4_340b` (LayerNorm with
 bias, ungated squared-ReLU MLP, head_dim 192) and `olmoe_1b_7b` (the
-MoE family: 64 experts, top-8, an expert layer in every block).
+MoE family: 64 experts, top-8, an expert layer in every block); and
+`nemo_cnn`, the paper's CNN (family "cnn", served by
+`models.cnn.NemoCNN`; `LM_ARCH_IDS` leaves it out, as the reference's
+dry run does).
 """
 from __future__ import annotations
 
@@ -18,13 +21,15 @@ from typing import Dict
 _REGISTRY: Dict[str, "ArchConfig"] = {}
 
 ARCH_IDS = ["granite_3_2b", "llama3_2_3b", "chatglm3_6b", "musicgen_medium",
-            "nemotron_4_340b", "olmoe_1b_7b"]
+            "nemotron_4_340b", "olmoe_1b_7b", "nemo_cnn"]
+# the configs `DecoderLM` serves (the CLI's --arch)
+LM_ARCH_IDS = [a for a in ARCH_IDS if a != "nemo_cnn"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | moe (the families the port serves)
+    family: str                 # dense | moe | cnn
     n_layers: int
     d_model: int
     vocab: int

@@ -1,6 +1,7 @@
 """Integer-only math primitives for the ID path (port of
 `repro.core.intmath`: `int_isqrt`, `build_lut`, `apply_lut`,
-`pack_int4`, `unpack_int4`).
+`pack_int4`, `unpack_int4`, and the integer average pool's
+`avgpool_requant_params` / `int_avgpool_combine`).
 
 torch has no count-leading-zeros, so the bit length that seeds the
 isqrt Newton iteration (and the integer norm's reciprocal) is read off
@@ -91,3 +92,17 @@ def unpack_int4(p: torch.Tensor) -> torch.Tensor:
     hi = torch.bitwise_right_shift(c, 4)
     out = torch.stack([lo, hi], dim=-1).to(torch.int8)
     return out.reshape(*p.shape[:-1], 2 * p.shape[-1])
+
+
+def avgpool_requant_params(k_total: int, d: int = 15):
+    """Eq. 25: 1/(K1*K2) ~= floor(2^d / (K1*K2)) >> d  (integer tables)."""
+    m = int((1 << d) // k_total)
+    return m, d
+
+
+def int_avgpool_combine(acc: torch.Tensor, m: int, d: int) -> torch.Tensor:
+    """(m * sum + 2^(d-1)) >> d on an int32 pooled sum (Eq. 25), in
+    int32 with an arithmetic shift: a fixed-point divide that rounds to
+    nearest (the 2^(d-1) bias), negative sums included."""
+    acc = acc.to(torch.int32) * m + (1 << (d - 1))
+    return torch.bitwise_right_shift(acc, d)

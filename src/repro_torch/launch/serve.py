@@ -65,7 +65,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.configs.base import LM_ARCH_IDS, get_config
 from repro_torch.core.calibrate import Calibrator
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticStream
 from repro_torch.layers.common import DeployCtx
@@ -176,7 +176,7 @@ def ragged_requests(n: int, vocab: int, rng: np.random.Generator, *,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="granite_3_2b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="granite_3_2b", choices=LM_ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)

@@ -1,8 +1,12 @@
 """Quantizable Linear (port of `repro.layers.linear.QLinear`: the
-float forward `apply_fp`, `deploy` and `apply_id`).
+float forwards `apply_fp` and `apply_fq`, `deploy`, `apply_id`, and
+`harden_weights_np`).
 
 `apply_fp` is a plain float32 matmul, as the reference's is an XLA
-dot outside any kernel.
+dot outside any kernel; `apply_fq` is the same product over the
+PACT-restricted weights (`core.pact`, forward only), and `apply(p, x,
+rep)` picks the path by representation as the reference's does (QD
+runs `apply_fp` on weights `harden_weights_np` has put on the grid).
 
 `apply_id` runs the int8 GEMM kernel (kernels/int8_matmul.py).  With
 no requant tree it returns the int32 accumulator `x @ w_q + b_q`, as
@@ -18,6 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.pact import default_weight_beta, pact_weight
+from repro_torch.core.rep import Rep
 from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.layers.common import normal_np, row_spans, run_blocks
 
@@ -46,6 +52,21 @@ class QLinear:
         if self.use_bias:
             y = y + p["b"].to(x.dtype)
         return y
+
+    def apply_fq(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        beta_w = default_weight_beta(p["w"], channel_axis=-1)
+        w_hat = pact_weight(p["w"], beta_w, self.n_bits_w, -1)
+        y = x @ w_hat.to(x.dtype)
+        if self.use_bias:
+            y = y + p["b"].to(x.dtype)
+        return y
+
+    def apply(self, p: dict, x: torch.Tensor, rep: Rep) -> torch.Tensor:
+        if rep is Rep.ID:
+            return self.apply_id(p, x)
+        if rep is Rep.FQ:
+            return self.apply_fq(p, x)
+        return self.apply_fp(p, x)  # FP and QD (weights pre-hardened)
 
     def deploy(self, p_np: dict, eps_x: float, zp_x: int) -> Tuple[
         dict, np.ndarray
@@ -103,3 +124,16 @@ class QLinear:
         x2 = s_x.reshape(-1, self.d_in)
         out = int8_matmul(x2, ip["w_q"], ip["b_q"], rqt)
         return out.reshape(*lead, self.d_out)
+
+
+def harden_weights_np(p_np: dict, n_bits: int = 8) -> dict:
+    """FQ -> QD: replace w by its quantized version (net.harden_weights()),
+    float64 on the host as the reference's."""
+    w = np.asarray(p_np["w"], np.float64)
+    beta = np.maximum(np.max(np.abs(w), axis=0), 1e-8)
+    eps_w = 2.0 * beta / (2 ** n_bits - 1)
+    q = np.clip(np.floor(w / eps_w[None, :]), -(2 ** (n_bits - 1)),
+                2 ** (n_bits - 1) - 1)
+    out = dict(p_np)
+    out["w"] = (q * eps_w[None, :]).astype(np.float32)
+    return out

@@ -185,6 +185,10 @@ class DecoderLM:
             raise NotImplementedError(
                 f"input_mode {c.input_mode!r}: the port serves token LMs "
                 "(the embeds frontends are ROADMAP item 10)")
+        if c.family == "cnn":
+            raise NotImplementedError(
+                "the cnn family is not a decoder LM: its model is "
+                "repro_torch.models.cnn.NemoCNN")
         if c.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"the {c.family} family is not ported yet (ROADMAP item 10)")

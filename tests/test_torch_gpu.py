@@ -61,7 +61,14 @@ sites (C 4, 40 and 80 over 64 experts) and ragged and split-K ones,
 every table form, exact and one launch a call; the paged attention over
 the slot arena's pools (pages of 512 keys, one a slot) at decode and at
 B=1 whole-prompt prefills up to 512 rows; and a reduced olmoe engine in
-exact mode over both arenas, the card equal to the CPU.
+exact mode over both arenas, the card equal to the CPU.  The paper's
+CNN (`NemoCNN`): the GEMM at its conv and head shapes (K 32, 144, 288
+and 1024; N 16, 32, 64 and 10; GEMV and wgmma), the requant kernel
+per channel at N 16, 32 and 64, the threshold count by binary search
+against the comparison count (repeated thresholds), and the full-width
+model's ID forward in its three BN modes on 32 images, the card equal
+to the CPU block by block with every conv and the head on the GEMM
+kernel.
 """
 import sys
 
@@ -1486,3 +1493,113 @@ def test_moe_engine_card_equals_cpu(paged):
     counts = out["cuda"][2]
     assert counts["int8_matmul_grouped"] > 0
     assert counts["int8_matmul_grouped"] % (3 * lm.cfg.n_layers) == 0
+
+
+# the NemoCNN's GEMMs at full width (channels 16/32/64, 32 x 32 images):
+# (M, K, N) of conv1 (K 27 padded to 32), conv2, conv3 at B 2 and 64,
+# the head at B 8 (the GEMV) and 256
+CNN_GEMM_CASES = [(B * hw, K, N) for B in (2, 64)
+                  for hw, K, N in ((1024, 32, 16), (256, 144, 32),
+                                   (64, 288, 64))] + [
+    (8, 1024, 10), (256, 1024, 10), (17, 32, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", CNN_GEMM_CASES)
+def test_int8_matmul_cnn_shapes_on_card(M, K, N):
+    """Both paths at the CNN's shapes (N 10, 16, 32, 64 below every
+    serving N), int32 out and int8 out through scalar and per-column
+    tables, exactly as the plain version."""
+    _need_card()
+    rng = np.random.default_rng(M * 7 + K + N)
+    x, w, b = _gemm_operands(rng, M, K, N)
+    for r in _gemm_tables(rng, K, N):
+        got = int8_matmul(x, w, b, r)
+        want = int8_matmul_plain(x, w, b, r)
+        assert got.dtype == want.dtype and torch.equal(got, want), (
+            gemm_plan(M, N, K), r is None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 32, 32, 16), (64, 16, 16, 32),
+                                   (64, 8, 8, 64), (3, 5, 7, 16)])
+def test_requant_cnn_per_channel_on_card(shape):
+    """The integer BN's requant (apply_rqt per channel, the NemoCNN's
+    intbn mode) at N 16, 32 and 64: one launch, the plain version's
+    bytes."""
+    _need_card()
+    rng = np.random.default_rng(shape[-1] + shape[0])
+    q = torch.from_numpy(rng.integers(-(1 << 28), 1 << 28, size=shape)
+                         .astype(np.int32)).cuda()
+    rq = _rq(make_rqt(rng.uniform(1e-6, 4e-6, size=shape[-1]), 0.02,
+                      zp_out=-128, acc_bound=2.0 ** 28))
+    n = requant.launches
+    got = requant(q, rq)
+    assert requant.launches == n + 1
+    assert torch.equal(got, requant_plain(q, rq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [16, 256])
+def test_threshold_search_equals_count_on_card(levels):
+    """The thresh mode's count by binary search equals the comparison
+    count on the card and on the CPU, repeated thresholds, values on
+    them and past both ends included."""
+    _need_card()
+    from repro_torch.core.bn import (
+        apply_thresholds, threshold_count, thresholds_to_torch,
+    )
+
+    rng = np.random.default_rng(levels)
+    C = 16
+    th = np.sort(rng.integers(-5000, 5000, size=(C, levels - 1)), axis=1)
+    th[0] = 3
+    th[1, 2:9] = th[1, 2]
+    q = rng.integers(-6000, 6000, size=(8, 32, 32, C)).astype(np.int32)
+    q[0, 0, 0] = th[:, 0]
+    q[0, 0, 1] = th[:, -1]
+    tt = thresholds_to_torch(th, "cuda")
+    qc = torch.from_numpy(q).cuda()
+    want = threshold_count(torch.from_numpy(q), tt.cpu())
+    for got in (apply_thresholds(qc, tt), threshold_count(qc, tt)):
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fold", "intbn", "thresh"])
+def test_cnn_id_card_equals_cpu(mode):
+    """The full-width NemoCNN calibrated on the card (ranges within 1e-4
+    of the CPU's span), deployed once, its ID forward on 32 images: the
+    card's logits and every block's and pool's int8 activations equal
+    the CPU's; each conv and the head one GEMM launch, intbn's requant
+    one launch a block."""
+    _need_card()
+    from repro_torch import kernels
+    from repro_torch.models.cnn import (
+        NemoCNN, image_inputs, perturb_bn_np, tables_from_numpy,
+    )
+
+    rng = np.random.default_rng(26)
+    cnn = NemoCNN()
+    p = perturb_bn_np(cnn.init_np(0), rng)
+    img = rng.integers(0, 256, size=(32, 32, 32, 3), dtype=np.uint8)
+    x, s_x = image_inputs(img, "cuda")
+    calib = cnn.calibrate(p, x, device="cuda")
+    ref = cnn.calibrate(p, x.cpu(), device="cpu")
+    for n in ref.hi:
+        span = ref.hi[n] - ref.lo[n]
+        assert abs(calib.hi[n] - ref.hi[n]) <= 1e-4 * span, n
+        assert abs(calib.lo[n] - ref.lo[n]) <= 1e-4 * span, n
+    t_np = cnn.deploy(p, calib, bn_mode=mode)
+    want_trace, got_trace = [], []
+    want = cnn.apply_id(tables_from_numpy(t_np, "cpu"), s_x.cpu(),
+                        want_trace)
+    kernels.reset_launch_counts()
+    got = cnn.apply_id(tables_from_numpy(t_np, "cuda"), s_x, got_trace)
+    counts = kernels.launch_counts()
+    assert torch.equal(got.cpu(), want)
+    for a, b in zip(got_trace, want_trace):
+        assert torch.equal(a.cpu(), b)
+    assert counts["int8_matmul"] == len(cnn.channels) + 1
+    assert counts["requant"] == (len(cnn.channels) if mode == "intbn" else 0)

@@ -57,16 +57,19 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def test_public_entry_points_default_to_cuda():
+    from repro_torch.core import bn
     from repro_torch.launch import serve
-    from repro_torch.layers import rope
-    from repro_torch.models import lm
+    from repro_torch.layers import conv, rope
+    from repro_torch.models import cnn, lm
     from repro_torch.serving import PagedArena, ServingConfig, SlotArena
 
     assert ServingConfig().device == "cuda"
     for fn in (serve.deploy_model, lm.tables_from_numpy,
                lm.DecoderLM.init_pools, lm.DecoderLM.init_caches,
                rope.rope_tables_int, PagedArena.__init__,
-               SlotArena.__init__):
+               SlotArena.__init__, cnn.tables_from_numpy,
+               cnn.NemoCNN.calibrate, cnn.image_inputs, conv.QConv2d.load,
+               bn.integer_bn_to_torch, bn.thresholds_to_torch):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     src = inspect.getsource(serve.main)
     assert 'add_argument("--device", default="cuda")' in src
