@@ -38,7 +38,10 @@ Phases (any failure raises and the script exits non-zero):
             the grouped int8 GEMM (the MoE's expert GEMMs, one launch
             over 64 experts) at olmoe_1b_7b's gate/up (K 2048, N 1024)
             and down (K 1024, N 2048) sites at C 4, 40 and 80 with
-            per-(expert, channel) tables, exactly, with its plan
+            per-(expert, channel) tables, exactly, with its plan, and
+            at the write-then-gather attention's two products at
+            granite's geometry (64 groups, C 128 and 4, scores K 64 N
+            512, P.V K 512 N 64, int32 out)
             the int8 GEMM at the NemoCNN's conv and head shapes (K 32,
             144, 288, 1024; N 16, 32, 64, 10; B 256 and the head at B
             8), both modes, and the requant per channel at its N 16, 32
@@ -148,6 +151,23 @@ Phases (any failure raises and the script exits non-zero):
             main run 1's (paged) request by request, the path's kernels
             launched; `serve_batch` (8 prompts of 64 tokens in lockstep)
             equal to the engine on the same requests
+  int_softmax
+            integer-only attention (`attn_softmax="int"`) and the
+            write-then-gather path: `int_softmax` on the card against
+            the CPU byte for byte (the CPU test's int32-overflow cells
+            and one chunk's scores at granite's attention, timed); the
+            calibrate phase's 2-layer table set under the integer
+            softmax in five engine cells (SlotArena chunked and
+            bucketed, paged chunked and bucketed at kv_bits 8, paged
+            chunked at 4), tokens card == CPU; the main tables (40
+            layers) under it at kv_bits 8 and 4 on the 8-request cell
+            (counts set to 0 just before and read just after: no paged
+            attention launch, the grouped GEMM twice a layer and
+            dispatch, by shape; tok/s, TTFT, ITL), one dispatch under a
+            TorchDispatchMode with no floating output in the attention;
+            then the float island over the gather path
+            (`paged_kernel=False`), tokens equal to main run 1's (the
+            paged kernel)
   olmoe     olmoe_1b_7b (64 experts, top-8, d_ff 1024 an expert; the MoE
             family, exact-length whole-prompt prefill): 2 layers at full
             width card vs CPU (a 200-token prefill's logits and slot
@@ -227,7 +247,10 @@ REQUANT_KERNELS = {"requant_kernel": "rqt, rqt_heads",
 PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                 4: ("int8_matmul", "requant", "paged_attention_kv4"),
                 "moe": ("int8_matmul", "int8_matmul_grouped", "requant",
-                        "paged_attention")}
+                        "paged_attention"),
+                # the write-then-gather path (either pool width): both
+                # attention products on the grouped GEMM
+                "gather": ("int8_matmul", "int8_matmul_grouped", "requant")}
 # main-path engine settings
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
 # paged attention at full granite geometry (B 8, H 32, K 8, hd 64,
@@ -256,6 +279,15 @@ CONFIG_LAYERS = 4
 MOE_ARCH, MOE_LAYERS, MOE_EXPERTS = "olmoe_1b_7b", None, 64
 GROUPED_SHAPES = tuple((C, K, N) for C in (4, 40, 80)
                        for K, N in ((2048, 1024), (1024, 2048)))
+# the write-then-gather attention's two products on the grouped GEMM at
+# granite's attention (8 slots x 8 kv heads, group 4, hd 64, T 512): S,
+# a chunk and a decode row
+ATTN_GROUPED_S = (CHUNK, 1)
+# int_softmax phase: the CPU test's overflow cells (tests/
+# test_torch_int_softmax.py): eps_s, score amplitude, masked share, T
+INT_SOFTMAX_CASES = ((1e-6, 2 ** 22, 0.0, 64), (1e-5, 10 ** 4, 0.3, 37),
+                     (1e-4, 2 ** 22, 0.3, 37), (1e-3, 100, 0.5, 16),
+                     (1e-2, 10 ** 4, 0.3, 130), (3e-3, 2 ** 22, 0.0, 37))
 # whole_prompt phase: the bucketed mode's bucket; serve_batch's cell
 BUCKET, BATCH_PROMPT = 16, 64
 # open-loop phase: requests, their arrival rate over the closed loop's
@@ -511,6 +543,63 @@ def check_grouped_gemm(torch, np, timer, rng, report):
               f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), library "
               f"null, exact; {row['plan']}, one launch, "
               f"{n_bytes / ms / 1e6:.0f} GB/s{note}")
+    return worst
+
+
+def check_grouped_attention(torch, np, timer, report):
+    """The grouped form at the write-then-gather attention's two
+    products (int32 out, no requant) at granite's geometry, S in
+    ATTN_GROUPED_S: scores (E = B K = 64 groups, C = group S rows of q
+    against T = MAX_LEN keys, K = hd 64) and P.V (the int8 image, K = T,
+    against V stored (hd, T), N = hd), exactly as the plain version;
+    time beside its bytes bound and the plain time (library null: torch
+    has no batched int8 product on CUDA, `torch._int_mm` is 2-D).
+    -> max |diff| (0)."""
+    from repro_torch.kernels import (
+        int8_matmul_grouped, int8_matmul_grouped_plain,
+    )
+    from repro_torch.kernels.int8_matmul import gemm_plan
+
+    E, G, hd, T = N_SLOTS * 8, 4, 64, MAX_LEN
+    worst = 0
+    for S in ATTN_GROUPED_S:
+        C = G * S
+        q = torch.randint(-128, 128, (1, E, C, hd), dtype=torch.int8,
+                          device="cuda")
+        k = torch.randint(-128, 128, (E, T, hd), dtype=torch.int8,
+                          device="cuda")
+        img = torch.randint(0, 128, (1, E, C, T), dtype=torch.int8,
+                            device="cuda")
+        vt = torch.randint(-128, 128, (E, hd, T), dtype=torch.int8,
+                           device="cuda")
+        for what, x, w, K, N in (("scores", q, k.transpose(1, 2), hd, T),
+                                 ("P.V", img, vt.transpose(1, 2), T, hd)):
+            got = int8_matmul_grouped(x, w)
+            want = int8_matmul_grouped_plain(x, w)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                      .max())
+            if got.dtype != torch.int32 or err != 0:
+                raise AssertionError(f"int8_matmul_grouped attention {what} "
+                                     f"S={S}: max err {err}")
+            del want
+            worst = max(worst, err)
+            ms = timer(lambda: int8_matmul_grouped(x, w))
+            plain = timer(lambda: int8_matmul_grouped_plain(x, w), 3)
+            n_bytes = E * C * K + E * K * N + 4 * E * C * N
+            bms, by = bound_ms(n_bytes, 2.0 * E * C * N * K, INT8_OPS_S)
+            p = gemm_plan(C, N, K, E)
+            row = dict(shape=f"G=1 E={E} C={C} K={K} N={N} int32-out "
+                       f"(attention {what}, S {S})", ms=ms, plain_ms=plain,
+                       bound_ms=bms, bound_by=by, library_ms=None,
+                       max_abs_err=err,
+                       plan=f"{p.path} {p.bm}x{p.bn}, {p.splits} split(s), "
+                       f"{p.blocks} blocks")
+            report.setdefault("int8_matmul_grouped", []).append(row)
+            print(f"  int8_matmul_grouped {row['shape']}: kernel {ms:.4f} "
+                  f"ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
+                  f"library null, exact; {row['plan']}, one launch, "
+                  f"{n_bytes / ms / 1e6:.0f} GB/s")
     return worst
 
 
@@ -2296,6 +2385,278 @@ def profile_run(torch, lm, tables, reqs, wall_unprofiled, kv_bits=8):
               f"{e.count:6d} calls  {e.key[:90]}")
 
 
+def granite_2_layers():
+    """The calibrate phase's table set, made the same way when that
+    phase is skipped: -> (lm, its numpy tables)."""
+    from repro_torch.launch.serve import calibration_sample
+
+    lm2, p, _ = calibrated_2_layers("granite_3_2b")
+    return lm2, lm2.deploy(p, lm2.calibrate(p, calibration_sample(
+        lm2.cfg.vocab, MAX_LEN), device="cuda"))
+
+
+def int_softmax_card_vs_cpu(torch, np, timer, lm2, t2_np):
+    """`int_softmax` on the card against the CPU, byte for byte: the CPU
+    test's cells (int32 products that wrap, negative shifts, a fully
+    masked row), then one chunk's scores at granite's attention (8 x 32
+    x 32 x 512, amplitude 127 * 127 * 64, causal mask) with the 2-layer
+    table set's layer-0 tables; the latter timed."""
+    from repro_torch.core.intsoftmax import (
+        int_softmax, make_int_softmax_tables,
+    )
+    from repro_torch.layers.attention import _bool_mask
+
+    def overflow(s, mask, m_ln2):
+        s = np.where(mask, s, -(2 ** 30)).astype(np.int64)
+        t_c = np.maximum(s - s.max(-1, keepdims=True), -(2 ** 26))
+        prod = -t_c * int(m_ln2)
+        return int(((prod > 2 ** 31 - 1) | (prod < -(2 ** 31))).sum())
+
+    cases = []
+    for eps_s, amp, masked, T in INT_SOFTMAX_CASES:
+        rng = np.random.default_rng(int(eps_s * 1e7) + T)
+        s = rng.integers(-amp, amp, size=(2, 4, 5, T)).astype(np.int32)
+        mask = rng.random((2, 1, 5, T)) >= masked
+        mask[1, 0, 2, :] = False
+        tabs = {k: torch.from_numpy(np.array(v)) for k, v in
+                make_int_softmax_tables(eps_s).items()}
+        cases.append((f"eps_s {eps_s:g} T {T}", s, torch.from_numpy(mask),
+                      tabs))
+    sm = {k: torch.from_numpy(np.array(v[0])) for k, v in
+          t2_np["segments"][0]["attn"]["sm_tabs"].items()}
+    rng = np.random.default_rng(SEED + 27)
+    amp = 127 * 127 * 64
+    s = rng.integers(-amp, amp, size=(N_SLOTS, 32, CHUNK, MAX_LEN)).astype(
+        np.int32)
+    pos = torch.from_numpy(rng.integers(0, MAX_LEN - CHUNK, size=N_SLOTS)
+                           .astype(np.int32))
+    cases.append(("granite chunk 8x32x32x512", s,
+                  _bool_mask(CHUNK, MAX_LEN, pos), sm))
+    lanes = total = 0
+    for what, s, mask, tabs in cases:
+        card = {k: v.cuda() for k, v in tabs.items()}
+        sc, mc = torch.from_numpy(s).cuda(), mask.cuda()
+        got = int_softmax(sc, card, mask=mc).cpu()
+        want = int_softmax(torch.from_numpy(s), tabs, mask=mask)
+        if not torch.equal(got, want):
+            raise AssertionError(f"int_softmax {what}: card != CPU on "
+                                 f"{int((got != want).sum())} entries")
+        lanes += overflow(s, mask.numpy(), tabs["m_ln2"])
+        total += s.size
+    ms = timer(lambda: int_softmax(sc, card, mask=mc))
+    print(f"  int_softmax card == CPU byte for byte on {total} scores in "
+          f"{len(cases)} cells, {lanes} of them int32-overflow lanes; the "
+          f"granite chunk (m_ln2 {int(sm['m_ln2'])}, ln2_img "
+          f"{int(sm['ln2_img'])}) {ms:.4f} ms on the card")
+
+
+def int_engine_cells(torch, np, lm2, t2_np):
+    """The 2-layer full-width table set under `attn_softmax="int"` in
+    the CPU test's five engine cells (slot arena chunked and bucketed,
+    paged chunked and bucketed at kv_bits 8, paged chunked at 4): the
+    card's tokens equal the CPU's."""
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.launch.variants import use_variants
+    from repro_torch.models.lm import tables_from_numpy
+    from repro_torch.serving import SchedulerConfig
+
+    t0 = time.perf_counter()
+    reqs = ragged_requests(3, lm2.cfg.vocab, np.random.default_rng(SEED + 1),
+                           prompt_lo=9, prompt_hi=40, gen=3)
+    bucketed = SchedulerConfig(prefill_chunk=0, prefill_bucket=BUCKET)
+    cells = (("SlotArena chunked", dict(paged=False)),
+             ("SlotArena bucketed", dict(paged=False, scheduler=bucketed)),
+             ("paged chunked kv_bits 8", {}),
+             ("paged bucketed kv_bits 8", dict(scheduler=bucketed)),
+             ("paged chunked kv_bits 4", dict(kv_bits=4)))
+    tables = {dev: tables_from_numpy(t2_np, dev) for dev in ("cuda", "cpu")}
+    with use_variants(attn_softmax="int"):
+        for what, config in cells:
+            tok = {dev: serve(lm2, tables[dev], reqs, dev,
+                              engine=make_engine(lm2, tables[dev], dev,
+                                                 **config))[0]
+                   for dev in ("cuda", "cpu")}
+            if tok["cuda"] != tok["cpu"]:
+                raise AssertionError(f"int softmax {what}: card {tok['cuda']}"
+                                     f" != CPU {tok['cpu']}")
+    print(f"  granite 2-layer int softmax, {len(cells)} cells "
+          f"({', '.join(c for c, _ in cells)}): {len(reqs)} requests each, "
+          f"card == CPU token for token ({time.perf_counter() - t0:.1f} s)")
+
+
+def attention_float_ops(torch, np, lm, eng):
+    """One unified dispatch (8 rows x CHUNK tokens at offset 0 over the
+    drained engine's arena) under a TorchDispatchMode: -> ({op: count}
+    with a floating output inside `QAttention.apply_id`, the same
+    outside it, ops seen inside)."""
+    from torch.utils import _pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.layers.attention import QAttention
+
+    class Scoped(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.inside, self.outside, self.depth, self.seen = {}, {}, 0, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.seen += self.depth > 0
+            if any(isinstance(o, torch.Tensor) and o.is_floating_point()
+                   for o in _pytree.tree_leaves(out)):
+                d = self.inside if self.depth else self.outside
+                d[str(func)] = d.get(str(func), 0) + 1
+            return out
+
+    mode, apply_id = Scoped(), QAttention.apply_id
+
+    def scoped(self, *a, **kw):
+        mode.depth += 1
+        try:
+            return apply_id(self, *a, **kw)
+        finally:
+            mode.depth -= 1
+
+    toks = np.random.default_rng(SEED + 28).integers(
+        0, lm.cfg.vocab, size=(N_SLOTS, CHUNK)).astype(np.int32)
+    zeros = np.zeros((N_SLOTS,), np.int32)
+    QAttention.apply_id = scoped
+    try:
+        with mode:
+            eng._unified(toks, zeros, zeros + CHUNK - 1)
+            torch.cuda.synchronize()
+    finally:
+        QAttention.apply_id = apply_id
+    return mode.inside, mode.outside, mode.seen
+
+
+def gather_equals_kernel(torch, np, lm, tables):
+    """One unified prefill_chunk of the full model (8 rows x CHUNK over
+    stale random pools, rows at offsets 0-400 and a parked row), then
+    one decode dispatch after it, through the paged kernel and through
+    the gather path under the float island, each on its own copy of
+    the pools: int32 logits and both pools equal byte for byte."""
+    from repro_torch.launch.variants import use_variants
+    from repro_torch.layers.attention import INACTIVE_POS
+
+    t0 = time.perf_counter()
+    cfg = lm.cfg
+    rng = np.random.default_rng(SEED + 29)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    pools = lm.init_pools(N_PAGES, PAGE, "cuda")
+    for kv in ("k", "v"):
+        pools[kv].random_(-128, 128, generator=g)
+    table = torch.from_numpy(rng.permutation(np.arange(1, N_PAGES + 1))
+                             .reshape(N_SLOTS, -1).astype(np.int32)).cuda()
+    pos = np.array([0, 7, 16, 100, 255, 300, 400, INACTIVE_POS], np.int32)
+    toks = rng.integers(0, cfg.vocab, size=(N_SLOTS, CHUNK)).astype(np.int32)
+    last = rng.integers(0, CHUNK, size=N_SLOTS).astype(np.int32)
+    out = {}
+    for mode in ("kernel", "gather"):
+        caches = {"k": pools["k"].clone(), "v": pools["v"].clone(),
+                  "table": table}
+        with use_variants(paged_decode=mode):
+            a = lm.prefill_chunk(tables, torch.from_numpy(toks).cuda(),
+                                 caches, torch.from_numpy(pos).cuda(),
+                                 torch.from_numpy(last).cuda())
+            dpos = np.where(pos == INACTIVE_POS, pos, pos + CHUNK).astype(
+                np.int32)
+            b = lm.decode_step(tables, torch.from_numpy(toks[:, :1]).cuda(),
+                               caches, torch.from_numpy(dpos).cuda())
+        out[mode] = (a, b, caches["k"], caches["v"])
+    for name, x, y in zip(("chunk logits", "decode logits", "K pools",
+                           "V pools"), out["kernel"], out["gather"]):
+        if not torch.equal(x, y):
+            raise AssertionError(f"full-width {name}: the gather path != "
+                                 "the paged kernel")
+    picks = {int(t) for x in out["kernel"][:2] for t in x.argmax(-1).flatten()}
+    print(f"  granite {cfg.n_layers} layers, float island: one chunk "
+          f"({N_SLOTS} x {CHUNK}) and one decode dispatch through the "
+          f"gather path equal the paged kernel's int32 logits and pools "
+          f"byte for byte ({time.perf_counter() - t0:.1f} s; "
+          f"{len(picks)} distinct argmax tokens over the "
+          f"{2 * N_SLOTS} rows)")
+    del out, pools
+
+
+def int_full_width(torch, np, kernels, lm, tables, reqs, run1):
+    """The main tables (40 layers) under `attn_softmax="int"` on the
+    paged arena at kv_bits 8 and 4, the 8-request cell (counts set to 0
+    just before and read just after): no paged attention launch, the
+    grouped GEMM two launches a layer and dispatch (by shape); tok/s,
+    p50 TTFT and ITL; at kv_bits 8 the dispatch-mode check of one
+    dispatch (no floating output in the attention, asserted; the
+    step's others printed).  Then the float island with
+    `paged_kernel=False`: tokens equal main run 1's (the kernel)."""
+    from repro_torch.launch.variants import use_variants
+
+    L = lm.cfg.n_layers
+    gather_equals_kernel(torch, np, lm, tables)
+    for kv_bits in (8, 4):
+        with use_variants(attn_softmax="int"):
+            kernels.reset_launch_counts()
+            tok, s, eng = serve(lm, tables, reqs, "cuda", kv_bits)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            by = dict(kernels.int8_matmul_grouped.by_shape)
+            check_path_launches(launches, "gather", f"int kv_bits {kv_bits}")
+            n = launches["int8_matmul_grouped"]
+            if sum(by.values()) != n or n % (2 * L):
+                raise AssertionError(f"grouped GEMM launches {by}, {n}: "
+                                     f"not two a layer and dispatch")
+            same = sum(a == b for r in tok for a, b in zip(tok[r],
+                                                           run1[kv_bits][r]))
+            print(f"  int softmax kv_bits {kv_bits}: {s['n_generated']} "
+                  f"tokens in {s['wall_s']:.3f} s = "
+                  f"{s['throughput_tok_s']:.2f} tok/s, {s['steps']} steps, "
+                  f"p50 TTFT {s['p50_ttft_s'] * 1e3:.1f} ms, p50 ITL "
+                  f"{s['p50_itl_s'] * 1e3:.1f} ms; launches {launches}; "
+                  f"grouped GEMM (groups, C, K, N) " + ", ".join(
+                      f"{k[:4]} {v}" for k, v in sorted(by.items()))
+                  + f"; tokens equal the float island's (main run 1) at "
+                  f"{same} of {sum(len(v) for v in tok.values())} positions")
+            if any(len(v) != 16 or not all(0 <= t < lm.cfg.vocab for t in v)
+                   for v in tok.values()):
+                raise AssertionError(f"int softmax tokens: {tok}")
+            if kv_bits == 8:
+                inside, outside, seen = attention_float_ops(
+                    torch, np, lm, eng)
+                if inside or seen < L:
+                    raise AssertionError(f"floating outputs in the "
+                                         f"attention: {inside} ({seen} ops)")
+                print(f"  one dispatch under a TorchDispatchMode: {seen} ops "
+                      f"in the attention ({L} layers), none with a floating "
+                      f"output; outside it: {outside or 'none'}")
+        del eng
+    kernels.reset_launch_counts()
+    tok, s, _ = serve(lm, tables, reqs, "cuda", engine=make_engine(
+        lm, tables, "cuda", paged_kernel=False))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_path_launches(launches, "gather", "float paged_kernel=False")
+    if tok != run1[8]:
+        raise AssertionError("float island, paged_kernel=False: tokens "
+                             "differ from main run 1's (the kernel)")
+    print(f"  float island over the gather path (paged_kernel=False): "
+          f"{s['throughput_tok_s']:.2f} tok/s, p50 TTFT "
+          f"{s['p50_ttft_s'] * 1e3:.1f} ms, p50 ITL "
+          f"{s['p50_itl_s'] * 1e3:.1f} ms; tokens equal main run 1's (the "
+          f"paged kernel) for all {len(tok)} requests; launches {launches}")
+
+
+def phase_int_softmax(torch, np, kernels, timer, lm, tables, reqs, run1,
+                      lm2, t2_np):
+    """Integer-only attention (`attn_softmax="int"`) and the
+    write-then-gather path on the card."""
+    t0 = time.perf_counter()
+    int_softmax_card_vs_cpu(torch, np, timer, lm2, t2_np)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    int_engine_cells(torch, np, lm2, t2_np)
+    t0 = time.perf_counter()
+    int_full_width(torch, np, kernels, lm, tables, reqs, run1)
+    print(f"  (full width: {time.perf_counter() - t0:.1f} s)")
+
+
 def phase_done(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"  ({name}: {t - t0:.1f} s)")
@@ -2303,8 +2664,8 @@ def phase_done(name: str, t0: float) -> float:
 
 
 SKIPPABLE = ("entry", "cnn", "calibrate", "parity", "open-loop", "prefix",
-             "preempt", "async", "whole_prompt", "configs", "musicgen",
-             "olmoe", "nemotron")
+             "preempt", "async", "whole_prompt", "int_softmax", "configs",
+             "musicgen", "olmoe", "nemotron")
 
 
 def main() -> int:
@@ -2350,8 +2711,9 @@ def main() -> int:
         check_int8_matmul(torch, np, timer, rng, report),
         check_config_gemms(torch, np, timer, rng, report),
         check_cnn_gemms(torch, np, timer, rng, report))
-    errs["int8_matmul_grouped"] = check_grouped_gemm(torch, np, timer, rng,
-                                                     report)
+    errs["int8_matmul_grouped"] = max(
+        check_grouped_gemm(torch, np, timer, rng, report),
+        check_grouped_attention(torch, np, timer, report))
     errs["requant"] = check_requant(torch, np, timer, rng, report)
     errs["paged_attention"] = check_paged_attention(
         torch, np, timer, report, ptxas["paged_attention"])
@@ -2412,15 +2774,18 @@ def main() -> int:
         print("[whole_prompt] granite_3_2b over SlotArena (the reference's "
               "default arena), chunked and bucketed; serve_batch")
         if lm2 is None:
-            from repro_torch.launch.serve import calibration_sample
-
-            lm2 = calibrated_2_layers("granite_3_2b")[0]
-            p = lm2.init_np(SEED)
-            t2_np = lm2.deploy(p, lm2.calibrate(p, calibration_sample(
-                lm2.cfg.vocab, MAX_LEN), device="cuda"))
+            lm2, t2_np = granite_2_layers()
         phase_whole_prompt(torch, np, kernels, lm, tables, reqs, run1[8],
                            lm2, t2_np)
         t0 = phase_done("whole_prompt", t0)
+    if "int_softmax" not in skip:
+        print("[int_softmax] integer-only attention and the write-then-"
+              "gather path: card vs CPU, then granite_3_2b at full width")
+        if lm2 is None:
+            lm2, t2_np = granite_2_layers()
+        phase_int_softmax(torch, np, kernels, timer, lm, tables, reqs, run1,
+                          lm2, t2_np)
+        t0 = phase_done("int_softmax", t0)
     del lm, tables, lm2, t2_np
     if "configs" not in skip:
         print("[configs] " + " and ".join(CONFIGS) + f" at full width, "

@@ -3,7 +3,12 @@ beside it (see build.py for how they are built).
 
   int8_matmul          csrc/int8_matmul.cu      every QLinear (int8/int32 out)
   int8_matmul_grouped  csrc/int8_matmul.cu      the MoE's expert GEMMs: all
-                                                G x E groups in one launch
+                                                G x E groups in one launch;
+                                                the write-then-gather
+                                                attention's two products
+                                                (scores, P.V; int32 out,
+                                                one group a slot and kv
+                                                head)
   requant              csrc/requant.cu          the standalone requant sites:
                                                 ctx_rqt (heads to rows), each
                                                 QAdd, the gated MLP's LUT,
@@ -23,7 +28,9 @@ launches in a plain integer attribute (`int8_matmul.launches`, ...);
 `paged_attention` counts a launch over packed pools on the counter
 `paged_attention_kv4.launches` instead; `int8_matmul.by_shape` splits
 the GEMM's count by (M, K, N, output type), `int8_matmul_grouped.by_shape`
-the grouped form's by (groups, C, K, N, output type), and
+the grouped form's by (groups, C, K, N, output type) (the attention's
+products under (B * K, group * S, hd, T, "int32") and (B * K, group *
+S, T padded to 16, hd, "int32")), and
 `requant.by_form` the
 requant's by call form (`requant`, `requant_add`, `requant_gate` and
 `requant_act` all count on `requant.launches`).

@@ -238,26 +238,34 @@ def gathered_view(pool, table, group: int):
     _, K, ps, hd = pool.shape
     x = pool[table.to(torch.int64)]                      # (B, pps, K, ps, hd)
     x = x.permute(0, 2, 1, 3, 4).reshape(B, K, pps * ps, hd)
-    return x.repeat_interleave(group, dim=1)
+    return x if group == 1 else x.repeat_interleave(group, dim=1)
 
 
-def attention_probs(q, k_pool, table, pos, score_scale, *, group: int = 1):
-    """The float32 softmax (B, H, S, T) of the plain version, before the
-    int8 image."""
-    S = q.shape[2]
-    kh = gathered_view(k_pool, table, group)
-    T = kh.shape[2]
-    scores = torch.matmul(q.to(torch.float64),
-                          kh.to(torch.float64).transpose(-1, -2))
-    lg = scores.to(torch.int32).to(torch.float32) * score_scale.to(
-        torch.float32)
-    q_pos = pos.to(torch.int64)[:, None] + torch.arange(S, device=q.device)
-    k_pos = torch.arange(T, device=q.device)
+def island_probs(scores, pos, score_scale):
+    """The float island on int32 scores (B, H, S, T), query row s of
+    slot b at position pos[b] + s: logits scores * score_scale, -1e9
+    past each row's position, `island_exp` of the logits less the row
+    max over `_lane_sum` -> float32 probabilities.  The kernel computes
+    the same in the same order, so both paths give one image."""
+    S, T = scores.shape[2], scores.shape[3]
+    lg = scores.to(torch.float32) * score_scale.to(torch.float32)
+    q_pos = pos.to(torch.int64)[:, None] + torch.arange(
+        S, device=scores.device)
+    k_pos = torch.arange(T, device=scores.device)
     keep = k_pos[None, None, :] <= q_pos[:, :, None]     # (B, S, T)
     lg = lg + torch.where(keep, 0.0, NEG_INF)[:, None]
     m = lg.amax(dim=-1, keepdim=True)
     p = island_exp(lg - m)
     return p / _lane_sum(p)
+
+
+def attention_probs(q, k_pool, table, pos, score_scale, *, group: int = 1):
+    """The float32 softmax (B, H, S, T) of the plain version, before the
+    int8 image."""
+    kh = gathered_view(k_pool, table, group)
+    scores = torch.matmul(q.to(torch.float64),
+                          kh.to(torch.float64).transpose(-1, -2))
+    return island_probs(scores.to(torch.int32), pos, score_scale)
 
 
 def check_image(qp: torch.Tensor, want_qp: torch.Tensor, what: str = "",

@@ -34,6 +34,9 @@ priority` serves by `Request.priority` with preemption
 (`PrioritySLOPolicy`; with `--slo-ttft-p99 S` pending requests older
 than S jump the order).  `--dispatch-depth 1` leaves one step in
 flight on the device while the host plans the next (same tokens).
+`--paged-gather` serves through the write-then-gather attention path
+(`ServingConfig.paged_kernel` False), the reference's parity oracle,
+instead of the paged attention kernel (same tokens).
 
 The arena is the reference's default, `SlotArena`, unless `--paged`
 asks for the paged one (`--page-size`, `--pages`; kv_bits 4 and the
@@ -215,6 +218,10 @@ def main(argv=None):
                     help="give every request the SAME random prefix of "
                     "this many tokens (a system-prompt workload, what "
                     "--prefix-cache shares; 0: independent prompts)")
+    ap.add_argument("--paged-gather", action="store_true",
+                    help="attention through the write-then-gather path "
+                    "instead of the paged attention kernel (parity "
+                    "debugging)")
     ap.add_argument("--dispatch-depth", type=int, default=0, choices=(0, 1),
                     help="dispatch queue depth: 1 plans each step while "
                     "the previous one runs on the device (0: "
@@ -259,6 +266,7 @@ def main(argv=None):
         n_slots=args.slots, max_len=max_len, paged=args.paged,
         page_size=args.page_size,
         n_pages=args.pages or None, device=args.device,
+        paged_kernel=not args.paged_gather,
         kv_bits=args.kv_bits, dispatch_depth=args.dispatch_depth,
         telemetry=tel,
         prefix_cache=args.prefix_cache,

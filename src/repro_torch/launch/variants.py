@@ -1,0 +1,67 @@
+"""Process-wide variant switches (port of `repro.launch.variants`,
+with the two keys a port path reads).
+
+Layer code consults `get(key)` without plumbing; `use_variants(**kw)`
+overrides keys for the duration of a `with` block, and the serving
+engine runs each dispatch under `use_variants(paged_decode=...)`.
+The reference's other keys (layouts, sharding and microbatching of the
+TPU graph) steer nothing the port runs.
+
+  attn_softmax  "float" (the paper's §3.8 float island) | "int" (the
+                integer softmax, `core.intsoftmax`: no float
+                operation left in attention)
+  paged_decode  "kernel" (the paged attention kernel straight over the
+                pools) | "gather" (write-then-gather: the dense
+                logical view gathered through the table, the
+                reference's parity oracle)
+
+The attention takes the kernel only under "kernel" and the float
+island; every other setting takes the gather path.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict
+
+_ACTIVE: Dict[str, Any] = {}
+
+DEFAULTS = {
+    "attn_softmax": "float",
+    "paged_decode": "kernel",
+}
+
+
+def get(key: str):
+    """The active value of `key` (KeyError for an unknown key)."""
+    return _ACTIVE.get(key, DEFAULTS[key])
+
+
+@contextlib.contextmanager
+def use_variants(**kw):
+    global _ACTIVE
+    bad = set(kw) - set(DEFAULTS)
+    if bad:
+        raise KeyError(f"unknown variants: {bad}")
+    prev = dict(_ACTIVE)
+    _ACTIVE.update(kw)
+    try:
+        yield
+    finally:
+        _ACTIVE = prev
+
+
+def parse(spec: str) -> dict:
+    """'a=1,b=int' -> a dict typed by DEFAULTS."""
+    out = {}
+    if not spec:
+        return out
+    for item in spec.split(","):
+        k, v = item.split("=")
+        ref = DEFAULTS[k]
+        if isinstance(ref, bool):
+            out[k] = v.lower() in ("1", "true", "yes")
+        elif isinstance(ref, int):
+            out[k] = int(v)
+        else:
+            out[k] = v
+    return out

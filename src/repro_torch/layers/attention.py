@@ -1,6 +1,6 @@
 """Grouped-query attention (port of `repro.layers.attention.QAttention`:
 the float forward `apply_float` without a cache, `deploy` and the
-paged-kernel branch of `apply_id`).
+paged branch of `apply_id`, over both of its paths).
 
 The float forward (FullPrecision, calibration's pass) runs causal
 attention over the whole sequence in float32: q/k/v matmuls, float
@@ -18,6 +18,37 @@ ID dataflow per layer (B slot rows, S query rows each):
         --paged attention kernel--> int32 P.V accumulator
         --ctx_rqt (requant kernel)--> int8 ctx --wo GEMM--> int32
 
+The path is picked as the reference's `apply_id` picks it, from
+`launch.variants`: the paged attention kernel under
+``paged_decode="kernel"`` and the float island (``attn_softmax``
+"float"), the defaults; otherwise write-then-gather
+(`_paged_cache_update`): the same column write, then the dense logical
+(B, K, T, hd) view gathered through the table (T = pps * ps; at kv_bits
+4 unpacked per kv head by `kv4_unpack`, the reference's
+`apply_rqt(unpack_int4(view), k_unpack, channel_axis=1)`), and the
+dense branch (`_dense_attend`):
+
+    int32 scores q K^T       (grouped int8 GEMM, one group a slot and
+                              kv head: q's group * S rows against the
+                              kv head's T keys, no repeat of K)
+    == island ==             "int": `core.intsoftmax.int_softmax` under
+                             the causal bool mask -> int8 image, no
+                             float operation;  "float": the kernel's
+                             island (`island_probs`: score_scale, -1e9
+                             mask, `island_exp`, its row-sum order),
+                             round(127 p) -> int8 image
+    int32 P.V                (grouped int8 GEMM over the image, T
+                              padded with zero columns to a multiple of
+                              16, against V stored (hd, T) a group)
+
+then ctx_rqt and wo as on the kernel path.  Under the float island the
+gather path gives the kernel path's image, so both give one result on
+each device, as the reference states for its two paths.  torch has no
+int8 product on CUDA that takes these batched shapes (`torch._int_mm`
+is 2-D and needs more than 16 rows), and a float32 product would put
+float operations into the integer path, so both products run on the
+port's grouped GEMM kernel (`int8_matmul_grouped`, int32 out).
+
 Query row s of slot b sits at position pos[b] + s.  Rows parked at
 INACTIVE_POS write only to the PAGE_NULL trash page and compute
 garbage the engine never reads, exactly as in the reference.
@@ -31,15 +62,15 @@ holds two int4 nibbles per int8 cell.  The write requantizes each new
 int8 K/V column into [-8, 7] per kv head (`_kv4_pack_image`, rounding
 to nearest) and packs it (`pack_int4`); the kernel unpacks every page
 load back into the int8 image space with the per-head unpack tables,
-handed to it as (6, K) int32 operands (`_kv4_operand`).  `deploy`
-emits those tables as `kv4` (`_kv4_tables`); `kv4_load` adds the
-operands and the pack side's rounding term once, when the tables are
-loaded, so a step builds neither.
+handed to it as (6, K) int32 operands (`_kv4_operand`), and the gather
+path unpacks its view with the same operands.  `deploy` emits those
+tables as `kv4` (`_kv4_tables`); `kv4_load` adds the operands and the
+pack side's rounding term once, when the tables are loaded, so a step
+builds neither.  `deploy` also emits the integer softmax's `sm_tabs`
+(`core.intsoftmax.make_int_softmax_tables` at the score quantum).
 
 Left out of this slice: the contiguous cache, the blockwise path for
-S > 4096, the integer-softmax variant, sharding hints and the
-`launch.variants` switches; `deploy` omits the reference's `sm_tabs`,
-which only the integer-softmax variant reads.
+S > 4096 and sharding hints.
 """
 from __future__ import annotations
 
@@ -51,9 +82,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.intmath import pack_int4
+from repro_torch.core.intsoftmax import int_softmax, make_int_softmax_tables
 from repro_torch.core.requant import make_rqt
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.int8_matmul import int8_matmul_grouped
+from repro_torch.kernels.paged_attention import (
+    gathered_view, island_probs, kv4_unpack, paged_attention,
+)
 from repro_torch.kernels.requant_kernel import requant
+from repro_torch.launch import variants
 from repro_torch.layers.act_quant import QAct
 from repro_torch.layers.common import ActKind, DeployCtx
 from repro_torch.layers.linear import QLinear
@@ -183,6 +219,7 @@ class QAttention:
             eps[short] = a_eps
         eps_s = eps["q"] * eps["k"] / np.sqrt(self.head_dim)
         t["score_scale"] = np.float32(eps_s)
+        t["sm_tabs"] = make_int_softmax_tables(float(eps_s))
         ctx_t, ctx_eps, ctx_zp = acts["ctx"].deploy(
             ctx, scope, EPS_P * eps["v"], 0, acc_bound=260.0 * 127.0)
         assert ctx_zp == 0
@@ -245,13 +282,61 @@ class QAttention:
         q = rotate_int(q, c, s, rot).contiguous()
         k = rotate_int(k, c, s, rot)
         kv4 = t["kv4"] if cache["k"].shape[-1] != hd else None
-        _paged_write(cache, k, v, pos, kv4=kv4)
-        kw = {} if kv4 is None else dict(k_rq=kv4["k_rq"], v_rq=kv4["v_rq"])
-        acc = paged_attention(q, cache["k"], cache["v"], cache["table"], pos,
-                              t["score_scale"], group=self.group, **kw)
+        if (variants.get("paged_decode") == "kernel"
+                and variants.get("attn_softmax") != "int"):
+            _paged_write(cache, k, v, pos, kv4=kv4)
+            kw = ({} if kv4 is None
+                  else dict(k_rq=kv4["k_rq"], v_rq=kv4["v_rq"]))
+            acc = paged_attention(q, cache["k"], cache["v"], cache["table"],
+                                  pos, t["score_scale"], group=self.group,
+                                  **kw)
+        else:
+            k_view, v_view = _paged_cache_update(cache, k, v, pos, kv4=kv4)
+            acc = self._dense_attend(t, q, k_view, v_view, pos)
         s_ctx = requant(acc, t["ctx_rqt"], heads_to_rows=True)
         s_ctx = s_ctx.view(B, S, H * hd)
         return subs["wo"].apply_id(t["wo"], s_ctx)
+
+    def _dense_attend(self, t: dict, q: torch.Tensor, k_view: torch.Tensor,
+                      v_view: torch.Tensor, pos: torch.Tensor
+                      ) -> torch.Tensor:
+        """The reference's dense branch over the gathered views: q (B,
+        H, S, hd) int8 contiguous, k_view / v_view (B, K, T, hd) int8
+        contiguous -> the int32 P.V accumulator (B, H, S, hd).  Both
+        products are one grouped GEMM launch each, group b * K + kv
+        head; the island is the integer softmax under ``attn_softmax
+        "int"``, else the float island of the kernel."""
+        B, H, S, hd = q.shape
+        K, G = self.n_kv_heads, self.group
+        T = k_view.shape[2]
+        scores = int8_matmul_grouped(
+            q.view(1, B * K, G * S, hd),
+            k_view.view(B * K, T, hd).transpose(1, 2)).view(B, H, S, T)
+        if variants.get("attn_softmax") == "int" and "sm_tabs" in t:
+            s_p = int_softmax(scores, t["sm_tabs"],
+                              mask=_bool_mask(S, T, pos))
+        else:
+            s_p = torch.round(island_probs(scores, pos, t["score_scale"])
+                              * 127.0).to(torch.int8)
+        pad = (-T) % 16
+        vt = v_view.transpose(2, 3)                      # (B, K, hd, T)
+        if pad:
+            s_p = torch.nn.functional.pad(s_p, (0, pad))
+            vt = torch.nn.functional.pad(vt, (0, pad))
+        else:
+            vt = vt.contiguous()
+        acc = int8_matmul_grouped(
+            s_p.view(1, B * K, G * S, T + pad),
+            vt.view(B * K, hd, T + pad).transpose(1, 2))
+        return acc.view(B, H, S, hd)
+
+
+def _bool_mask(S: int, T: int, pos: torch.Tensor) -> torch.Tensor:
+    """Causal keep-mask (B, 1, S, T): key j is visible to query row s
+    of slot b where j <= pos[b] + s."""
+    i = pos.to(torch.int64)[:, None] + torch.arange(S, device=pos.device)
+    j = torch.arange(T, device=pos.device)
+    return (j[None, None, :] <= i[:, :, None])[:, None]
 
 
 def _write_plan(pos: torch.Tensor, table: torch.Tensor, S: int,
@@ -356,3 +441,21 @@ def _paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
     plan = _write_plan(pos, cache["table"], k.shape[2], n_pool, ps)
     _paged_column_write(cache["k"], k, plan)
     _paged_column_write(cache["v"], v, plan)
+
+
+def _paged_cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                        pos: torch.Tensor, kv4: Optional[dict] = None):
+    """Write-then-gather: the new column(s) written through the page
+    table as on the kernel path (`_paged_write`, in place), then the
+    dense views through the table, which include them (T = pps * ps;
+    PAGE_NULL entries surface the trash page, which the causal mask
+    hides).  With `kv4` the packed views are unpacked per kv head
+    through the kernel's unpack operands (`kv4_unpack`).  -> (k_view,
+    v_view), (B, K, T, hd) int8."""
+    _paged_write(cache, k, v, pos, kv4=kv4)
+    k_view = gathered_view(cache["k"], cache["table"], 1)
+    v_view = gathered_view(cache["v"], cache["table"], 1)
+    if kv4 is not None:
+        k_view = kv4_unpack(k_view, kv4["k_rq"])
+        v_view = kv4_unpack(v_view, kv4["v_rq"])
+    return k_view, v_view

@@ -7,7 +7,7 @@ shapes and scales) -> calibrate (`calibrate`: the FullPrecision
 forward `embed_in` -> `apply` -> `logits` in float32 on the device,
 observing every activation range under the reference's names) ->
 host-side deploy (`deploy(p, calib)`, the reference's integer tables
-leaf for leaf, minus the `sm_tabs` tables no ported path reads;
+leaf for leaf, the integer softmax's `sm_tabs` included;
 `deploy(p, None)` is the calibration-free deploy on DEFAULT_RANGES)
 -> torch state (`tables_from_numpy`) -> ID apply (`prefill_chunk`, a
 Python loop over the layers where the reference runs `lax.scan`).
@@ -37,6 +37,10 @@ the pools' trailing axis is hd/2 (two int4 nibbles per cell) and each
 layer's `kv4` tables (int32, like every requant table) carry the
 per-kv-head pack and unpack images, plus what `load_layer` derives from
 them once (the kernel's (6, K) operands and the pack rounding term).
+Each layer's `sm_tabs` (the integer softmax's m_ln2, d_ln2, ln2_img,
+r_step and (256,) exp_lut) stay int32 on the device, the scalars 0-d,
+as `core.intsoftmax.int_softmax` reads them: operands of its integer
+ops, never read on the host.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.calibrate import Calibrator
+from repro_torch.core.intsoftmax import int_softmax_load
 from repro_torch.layers.attention import kv4_load
 from repro_torch.layers.common import ActKind, DeployCtx, stack_trees
 from repro_torch.layers.embedding import QEmbed
@@ -140,8 +145,13 @@ def check_kv_bits(kv_bits: int) -> int:
 def load_layer(t: dict) -> dict:
     """One layer's torch tables -> its serving state: the attention's
     `kv4` tables gain what every step would otherwise rebuild
-    (`layers.attention.kv4_load`)."""
-    return {**t, "attn": {**t["attn"], "kv4": kv4_load(t["attn"]["kv4"])}}
+    (`layers.attention.kv4_load`), and its `sm_tabs` scalars become 0-d
+    int32 tensors of their own (`core.intsoftmax.int_softmax_load`), so
+    the integer softmax reads them as device operands."""
+    attn = {**t["attn"], "kv4": kv4_load(t["attn"]["kv4"])}
+    if "sm_tabs" in attn:
+        attn["sm_tabs"] = int_softmax_load(attn["sm_tabs"])
+    return {**t, "attn": attn}
 
 
 def tables_from_numpy(tables_np: dict, device="cuda") -> dict:

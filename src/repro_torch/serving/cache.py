@@ -81,6 +81,44 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def float_cache_leaves(caches) -> List[Tuple[str, torch.dtype]]:
+    """(path, dtype) of every floating-point tensor in a cache tree of
+    dicts, lists and tuples, paths spelled as the reference's
+    (``['k']``, ``[0]``).
+
+    The integer-only serving invariant: an ID run keeps its KV caches
+    as int8 images (and int32 page tables).  The one sanctioned
+    exception is the SSM recurrent ``h`` state, the scan's float
+    island, which the port does not serve yet."""
+    out = []
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}[{k!r}]")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(x, torch.Tensor) and x.is_floating_point():
+            out.append((path, x.dtype))
+
+    walk(caches, "")
+    return out
+
+
+def assert_integer_caches(caches, *, allow_ssm_state: bool = False):
+    """Raise if an ID cache tree holds a float leaf (see
+    `float_cache_leaves`); `allow_ssm_state` lets ``'h'`` leaves
+    pass."""
+    bad = float_cache_leaves(caches)
+    if allow_ssm_state:
+        bad = [(p, d) for p, d in bad if "'h'" not in p]
+    if bad:
+        raise AssertionError(
+            "float leaves in ID serving caches (integer-only invariant "
+            f"violated): {bad}")
+
+
 class SlotArena:
     """Slot rows of `max_len` positions, leased whole (free -> leased ->
     free); see the module docstring for the storage."""

@@ -26,6 +26,15 @@ last holder releases them, so a later shared-prefix admission or a
 preemption's resume reuses them without recompute (0: evict at once).
 Both need the paged arena (and the engine, the chunked prefill path).
 
+`paged_kernel` picks the attention's path: None or True keep the
+paged attention kernel (over either arena: the slot arena is stored
+as pages), False takes the write-then-gather path, the reference's
+parity oracle (`launch.variants` ``paged_decode="gather"``).  Under
+``attn_softmax="int"`` every path is the gather path, whatever this
+says.  The reference's engine takes `paged_kernel and paged`, since
+its slot arena has no kernel path; the port's has one, so only False
+leaves the kernel.
+
 `dispatch_depth` is the engine's pipeline depth: 0 harvests every
 step before the next is planned; 1 leaves one step in flight on the
 device while the host plans the next (`engine.DispatchQueue`).
@@ -63,6 +72,7 @@ class ServingConfig:
     paged: bool = False
     page_size: int = 16
     n_pages: Optional[int] = None  # None: n_slots * max_len positions
+    paged_kernel: Optional[bool] = None  # False: the write-then-gather path
     scheduler: Optional[SchedulerConfig] = None
     policy: Optional["SchedulingPolicy"] = None  # None -> FCFSPolicy()
     device: str = "cuda"

@@ -91,6 +91,16 @@ emit stamps always accrue on the completions, and `stats()` rolls
 them up into TTFT / ITL percentiles and the queued / prefill / decode
 breakdown.
 
+Attention path (`ServingConfig.paged_kernel`): every dispatch (the
+unified step, the fused decode, the whole-prompt prefill) runs under
+`launch.variants.use_variants(paged_decode=...)`, "kernel" unless
+`paged_kernel` is False, which takes the write-then-gather path; the
+caller's own `use_variants(attn_softmax="int")` around the engine's
+steps selects the integer softmax (always on the gather path), as in
+the reference, where it is not an engine field either.  The
+constructor checks that the arena's caches hold no float tensor
+(`serving.cache.assert_integer_caches`).
+
 Left out of the port so far (a later slice ports it): mesh and
 kv-head sharding.  Its `stats()` keys read as the reference's do
 without it: `mesh_devices` 1, `kv_shard` False.
@@ -105,9 +115,10 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch import variants
 from repro_torch.layers.attention import INACTIVE_POS
 from repro_torch.models.lm import check_contiguous_width
-from repro_torch.serving.cache import make_arena
+from repro_torch.serving.cache import assert_integer_caches, make_arena
 from repro_torch.serving.config import ServingConfig, check_dispatch_depth
 from repro_torch.serving.policy import (
     DecodeSnap, EngineView, FCFSPolicy, PendingSnap, PrefillSnap, StepPlan,
@@ -173,6 +184,9 @@ class ServingEngine:
         self.device = torch.device(cfg.device)
         self.policy = cfg.policy if cfg.policy is not None else FCFSPolicy()
         self.arena = make_arena(lm, cfg)
+        assert_integer_caches(self.arena.caches)
+        self.paged_kernel = cfg.paged_kernel is None or bool(cfg.paged_kernel)
+        self._paged_decode = "kernel" if self.paged_kernel else "gather"
         self.sched = Scheduler(cfg.scheduler, cfg.max_len)
         # THE prefill dispatch decision (see the module docstring)
         if lm.cfg.family != "dense":
@@ -532,8 +546,10 @@ class ServingEngine:
                                                 device=self.device)
         for kv in ("k", "v"):
             self._scratch[kv].zero_()
-        logits = self.lm.prefill(self.tables, self.arena.to_device(padded),
-                                 self._scratch, last_index=last)
+        with variants.use_variants(paged_decode=self._paged_decode):
+            logits = self.lm.prefill(self.tables,
+                                     self.arena.to_device(padded),
+                                     self._scratch, last_index=last)
         return int(torch.argmax(logits[0, 0]))
 
     def _materialize_chunks(self, plan: StepPlan) -> List[ChunkRow]:
@@ -588,9 +604,10 @@ class ServingEngine:
     def _decode(self, toks: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         """Enqueue one decode_step over every slot row and the greedy
         argmax; -> the (n_slots,) next-token vector on the device."""
-        logits = self.lm.decode_step(
-            self.tables, self.arena.to_device(toks), self.arena.decode_view(),
-            self.arena.to_device(pos))
+        with variants.use_variants(paged_decode=self._paged_decode):
+            logits = self.lm.decode_step(
+                self.tables, self.arena.to_device(toks),
+                self.arena.decode_view(), self.arena.to_device(pos))
         return torch.argmax(logits[:, 0, :], dim=-1)
 
     def _dispatch_decode(self) -> _InFlightStep:
@@ -616,10 +633,11 @@ class ServingEngine:
                  last: np.ndarray) -> torch.Tensor:
         """Enqueue one prefill_chunk over every row and the greedy
         argmax; -> the (n_slots,) next-token vector on the device."""
-        logits = self.lm.prefill_chunk(
-            self.tables, self.arena.to_device(toks),
-            self.arena.decode_view(), self.arena.to_device(start),
-            self.arena.to_device(last))
+        with variants.use_variants(paged_decode=self._paged_decode):
+            logits = self.lm.prefill_chunk(
+                self.tables, self.arena.to_device(toks),
+                self.arena.decode_view(), self.arena.to_device(start),
+                self.arena.to_device(last))
         return torch.argmax(logits[:, 0, :], dim=-1)
 
     def _dispatch(self, chunk_plan: List[ChunkRow],

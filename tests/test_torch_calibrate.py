@@ -79,7 +79,6 @@ from repro_torch.serving import SchedulerConfig, ServingConfig, ServingEngine
 TOL = 1e-5  # of max |ref| (outputs) and of the reference's span (ranges)
 ARCHS = ("granite_3_2b", "llama3_2_3b", "chatglm3_6b")
 MAX_LEN = 64
-OMITTED = ("sm_tabs",)  # read only by the integer-softmax variant
 
 
 def _x(seed, shape, scale=1.0):
@@ -369,6 +368,7 @@ _FEEDERS = {
     "norm1": ("n1.norm1",), "norm2": ("n2.norm2",),
     "attn/q_rqt": ("attn.q",), "attn/k_rqt": ("attn.k",),
     "attn/v_rqt": ("attn.v",), "attn/score_scale": ("attn.q", "attn.k"),
+    "attn/sm_tabs": ("attn.q", "attn.k"),
     "attn/ctx_rqt": ("attn.v", "attn.ctx"),
     "attn/kv4/k": ("attn.k", "attn.k.h"), "attn/kv4/v": ("attn.v", "attn.v.h"),
     "attn/wo": ("attn.ctx",),
@@ -397,8 +397,7 @@ def _compare_deploys(ref, got, jc, tc, path="", out=None):
     if isinstance(ref, dict):
         assert not set(got) - set(ref), path
         for k, v in ref.items():
-            if k not in OMITTED:
-                _compare_deploys(v, got[k], jc, tc, f"{path}/{k}", out)
+            _compare_deploys(v, got[k], jc, tc, f"{path}/{k}", out)
         return
     if isinstance(ref, list):
         for i, (a, b) in enumerate(zip(ref, got)):
@@ -433,7 +432,8 @@ def test_deploy_from_own_calibration_equals_reference(arch):
     _compare_deploys(_np(jlm.deploy(p, jc)), tlm.deploy(_np(p), tc), jc, tc,
                      out=boundary)
     # every entry that moved is named with the calibrator entries behind
-    # it (none has on these configs so far)
+    # it (so far one: an exp_lut entry of chatglm3_6b's layer-1 sm_tabs,
+    # from its q and k ranges)
     assert all(names for _, _, names in boundary), boundary
 
 
@@ -488,8 +488,7 @@ def test_calibration_free_deploy_stays_reachable():
     def walk(ref, got, path=""):
         if isinstance(ref, dict):
             for k, v in ref.items():
-                if k not in OMITTED:
-                    walk(v, got[k], f"{path}/{k}")
+                walk(v, got[k], f"{path}/{k}")
             return
         if isinstance(ref, list):
             for i, (a, b) in enumerate(zip(ref, got)):

@@ -82,7 +82,6 @@ from repro_torch.serving import SchedulerConfig, ServingConfig, ServingEngine
 ARCHS = ("musicgen_medium", "nemotron_4_340b")
 MAX_LEN = 64
 TOL = 1e-5  # of max |ref| (float outputs) and of the span (ranges)
-OMITTED = ("sm_tabs",)  # read only by the integer-softmax variant
 
 
 def _x(seed, shape, scale=1.0):
@@ -112,13 +111,10 @@ def _same_ranges(jc, tc):
 
 
 def _compare(want, got, path="", seen=None):
-    """Leaf for leaf: same keys (but OMITTED), dtypes, shapes, values."""
+    """Leaf for leaf: same keys, dtypes, shapes, values."""
     if isinstance(want, dict):
         assert not set(got) - set(want), f"{path}: port-only keys"
         for k, v in want.items():
-            if k in OMITTED:
-                assert k not in got
-                continue
             _compare(v, got[k], f"{path}/{k}", seen)
         return
     if isinstance(want, list):
@@ -390,11 +386,11 @@ def test_reduced_deploy_equals_reference_leaf_for_leaf(arch, calibrated):
     seen = []
     _compare(_np(want), got, seen=seen)
     # the layer-stacked leaves: norm1 and norm2 (4 each with b_q), the
-    # attention's 57, two Adds' 14 each, the ungated MLP's 11 (GELU) or
+    # attention's 62 (its sm_tabs' 5 included), two Adds' 14 each, the ungated MLP's 11 (GELU) or
     # 16 (ReLU^2); then the embedding, the final norm's 4, the head's 2
     # and the 2 meta leaves
     mlp = 11 if arch == "musicgen_medium" else 16
-    assert len(seen) == 8 + 57 + 28 + mlp + 1 + 4 + 2 + 2
+    assert len(seen) == 8 + 62 + 28 + mlp + 1 + 4 + 2 + 2
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -461,8 +457,7 @@ def _differences(want, got, path=""):
                 return [_on_rqt2_edge(want, got, path + "/")]
             return []
         for k, v in want.items():
-            if k not in OMITTED:
-                out += _differences(v, got[k], f"{path}/{k}")
+            out += _differences(v, got[k], f"{path}/{k}")
         return out
     if isinstance(want, list):
         for i, (a, b) in enumerate(zip(want, got)):

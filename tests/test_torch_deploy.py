@@ -2,8 +2,8 @@
 
 From the same float params and the same calibrator state, the port's
 `DecoderLM.deploy` must equal `repro`'s leaf for leaf (dtype, shape and
-value), the per-kv-head `kv4` tables included, apart from the `sm_tabs`
-tables only the integer-softmax variant reads.  `tables_from_numpy`
+value), the per-kv-head `kv4` and the integer softmax's `sm_tabs`
+tables included.  `tables_from_numpy`
 must keep every dtype (int32 stays int32 — torch would promote int32 x
 int64 to int64 and hide the wraps — int8 stays int8, the f32
 score_scale stays f32), and the layer-by-layer `deploy_model` (which
@@ -23,8 +23,6 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.calibrate import Calibrator
 from repro_torch.launch.serve import calibration_sample, deploy_model
 from repro_torch.models.lm import DecoderLM, tables_from_numpy
-
-OMITTED = ("sm_tabs",)
 
 
 @pytest.fixture(scope="module")
@@ -53,9 +51,6 @@ def _compare(ref, got, path="", seen=None):
         extra = set(got) - set(ref)
         assert not extra, f"{path}: port-only keys {extra}"
         for k, v in ref.items():
-            if k in OMITTED:
-                assert k not in got, f"{path}/{k} should be omitted"
-                continue
             _compare(v, got[k], f"{path}/{k}", seen)
         return
     if isinstance(ref, list):
@@ -94,8 +89,7 @@ def test_tables_from_numpy_keeps_every_dtype(reference):
     def walk(ref, got, path, layer=None):
         if isinstance(ref, dict):
             for k, v in ref.items():
-                if k not in OMITTED:
-                    walk(v, got[k], f"{path}/{k}", layer)
+                walk(v, got[k], f"{path}/{k}", layer)
             return
         want = np.asarray(ref) if layer is None else np.asarray(ref)[layer]
         assert isinstance(got, torch.Tensor), path

@@ -68,7 +68,12 @@ per channel at N 16, 32 and 64, the threshold count by binary search
 against the comparison count (repeated thresholds), and the full-width
 model's ID forward in its three BN modes on 32 images, the card equal
 to the CPU block by block with every conv and the head on the GEMM
-kernel.
+kernel.  The write-then-gather attention: its two products on the
+grouped GEMM at granite's attention shapes (S 32 and 1, T 512), a
+padded T and hd 192, exact and counted by shape; `int_softmax` the
+CPU's image byte for byte on wrapping inputs without a host sync; a
+2-layer engine under `attn_softmax="int"` equal to the CPU's with no
+paged-kernel launch, and `paged_kernel=False` equal to the default.
 """
 import sys
 
@@ -893,7 +898,7 @@ def test_requant_form_gate_config_widths_on_card(shape):
 
 
 def _engines_on_card_and_cpu(arch, kv_bits, telemetry=None,
-                             dispatch_depth=0):
+                             dispatch_depth=0, paged_kernel=None):
     """A 2-layer reduced `arch` deployed (calibrated) on the card, its
     one table set moved to the CPU, and one engine on each."""
     from repro_torch.launch.serve import deploy_model
@@ -908,6 +913,7 @@ def _engines_on_card_and_cpu(arch, kv_bits, telemetry=None,
         n_slots=4, max_len=64, paged=True, page_size=8, n_pages=40,
         device=device,
         kv_bits=kv_bits, dispatch_depth=dispatch_depth,
+        paged_kernel=paged_kernel,
         telemetry=telemetry if device == "cuda" else None,
         scheduler=SchedulerConfig(prefill_chunk=8)))
         for device in ("cuda", "cpu")]
@@ -1603,3 +1609,115 @@ def test_cnn_id_card_equals_cpu(mode):
         assert torch.equal(a.cpu(), b)
     assert counts["int8_matmul"] == len(cnn.channels) + 1
     assert counts["requant"] == (len(cnn.channels) if mode == "intbn" else 0)
+
+
+# -- the integer softmax and the write-then-gather attention --------------
+# (groups, S, group, hd, T): granite_3_2b's attention at the main cell
+# (8 slots x 8 kv heads, group 4, hd 64, T 512) for a chunk and a decode
+# row, and a T that P.V pads to a multiple of 16
+GATHER_CASES = [(64, 32, 4, 64, 512), (64, 1, 4, 64, 512),
+                (6, 5, 2, 32, 40), (16, 1, 12, 192, 520)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,S,group,hd,T", GATHER_CASES)
+def test_int8_matmul_grouped_attention_products_on_card(E, S, group, hd, T):
+    """The gather path's two products on the grouped GEMM, int32 out,
+    exactly as the plain version, one launch each, counted under their
+    (groups, C, K, N, "int32") keys: scores (q's group * S rows of each
+    slot and kv head against its T keys) and P.V (the image, T padded
+    to 16 with zero columns, against V stored (hd, T))."""
+    _need_card()
+    from repro_torch.kernels import (
+        int8_matmul_grouped, int8_matmul_grouped_plain,
+    )
+
+    C, Tp = group * S, -(-T // 16) * 16
+    g = torch.Generator(device="cuda").manual_seed(E * 1000 + T + S)
+    q = torch.randint(-128, 128, (1, E, C, hd), dtype=torch.int8,
+                      device="cuda", generator=g)
+    k = torch.randint(-128, 128, (E, T, hd), dtype=torch.int8,
+                      device="cuda", generator=g)
+    p = torch.randint(0, 128, (1, E, C, Tp), dtype=torch.int8,
+                      device="cuda", generator=g)
+    p[..., T:] = 0
+    vt = torch.randint(-128, 128, (E, hd, Tp), dtype=torch.int8,
+                       device="cuda", generator=g)
+    int8_matmul_grouped.by_shape = {}
+    for x, w, key in ((q, k.transpose(1, 2), (E, C, hd, T, "int32")),
+                      (p, vt.transpose(1, 2), (E, C, Tp, hd, "int32"))):
+        n = int8_matmul_grouped.launches
+        got = int8_matmul_grouped(x, w)
+        assert int8_matmul_grouped.launches == n + 1
+        assert int8_matmul_grouped.by_shape[key] == 1
+        want = int8_matmul_grouped_plain(x, w)
+        assert got.dtype == torch.int32 and torch.equal(got, want), key
+
+
+# the CPU test's overflow cells (tests/test_torch_int_softmax.py): eps_s,
+# score amplitude, masked share, T
+INT_SOFTMAX_CASES = [(1e-6, 2 ** 22, 0.0, 64), (1e-5, 10 ** 4, 0.3, 37),
+                     (1e-4, 2 ** 22, 0.3, 37), (1e-3, 100, 0.5, 16),
+                     (1e-2, 10 ** 4, 0.3, 130), (3e-3, 2 ** 22, 0.0, 37)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps_s,amp,masked,T", INT_SOFTMAX_CASES)
+def test_int_softmax_card_equals_cpu(eps_s, amp, masked, T):
+    """`int_softmax` on the card gives the CPU's image byte for byte on
+    inputs whose int32 products wrap and shift by negative amounts (a
+    fully masked row among them), and reads its tables without a host
+    sync (torch's sync debug mode at "error")."""
+    _need_card()
+    from repro_torch.core.intsoftmax import (
+        int_softmax, make_int_softmax_tables,
+    )
+
+    rng = np.random.default_rng(int(eps_s * 1e7) + T)
+    tabs = {k: torch.from_numpy(np.array(v))
+            for k, v in make_int_softmax_tables(eps_s).items()}
+    s = torch.from_numpy(rng.integers(-amp, amp, size=(2, 4, 5, T)).astype(
+        np.int32))
+    mask = torch.from_numpy(rng.random((2, 1, 5, T)) >= masked)
+    mask[1, 0, 2, :] = False
+    want = int_softmax(s, tabs, mask=mask)
+    card = {k: v.cuda() for k, v in tabs.items()}
+    sc, mc = s.cuda(), mask.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = int_softmax(sc, card, mask=mc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got.dtype == torch.int8 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_engine_int_softmax_card_equals_cpu(kv_bits):
+    """A 2-layer granite engine under `attn_softmax="int"`: the card's
+    tokens equal the CPU's, the attention on the grouped GEMM (two
+    launches a layer and dispatch) and never on the paged kernel; and
+    under the float island `paged_kernel=False` gives the default
+    engine's tokens on the card."""
+    _need_card()
+    from repro_torch import kernels
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.launch.variants import use_variants
+
+    card, cpu = _engines_on_card_and_cpu("granite_3_2b", kv_bits)
+    reqs = ragged_requests(5, card.lm.cfg.vocab, np.random.default_rng(8),
+                           prompt_lo=5, prompt_hi=40, gen=6)
+    kernels.reset_launch_counts()
+    with use_variants(attn_softmax="int"):
+        tok = _serve_all(card, reqs)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert tok == _serve_all(cpu, reqs)
+    assert counts["paged_attention"] == counts["paged_attention_kv4"] == 0
+    n = counts["int8_matmul_grouped"]
+    assert n > 0 and n % (2 * card.lm.cfg.n_layers) == 0
+    default, _ = _engines_on_card_and_cpu("granite_3_2b", kv_bits)
+    gather, _ = _engines_on_card_and_cpu("granite_3_2b", kv_bits,
+                                         paged_kernel=False)
+    assert _serve_all(gather, reqs) == _serve_all(default, reqs)

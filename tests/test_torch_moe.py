@@ -77,12 +77,9 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-OMITTED = ("sm_tabs",)  # read only by the integer-softmax variant
-
-
 def _same_tree(ref, got, path=""):
     if isinstance(ref, dict):
-        keys = set(ref) - set(OMITTED)
+        keys = set(ref)
         assert set(got) == keys, (path, set(got) ^ keys)
         for k in keys:
             _same_tree(ref[k], got[k], f"{path}/{k}")
@@ -283,7 +280,7 @@ def _deploy_diff(ref, got, path="", out=None):
             out.extend(f"{path}{tuple(map(int, i))}"
                        for i in np.argwhere(off))
             return out
-        keys = set(ref) - set(OMITTED)
+        keys = set(ref)
         assert set(got) == keys, path
         for k in sorted(keys):
             _deploy_diff(ref[k], got[k], f"{path}/{k}", out)
