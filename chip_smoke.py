@@ -42,6 +42,9 @@ Phases (any failure raises and the script exits non-zero):
             at the write-then-gather attention's two products at
             granite's geometry (64 groups, C 128 and 4, scores K 64 N
             512, P.V K 512 N 64, int32 out)
+            the int8 GEMM at falcon_mamba_7b's five sites (in_proj K
+            4096 N 16384, x_proj K 8192 N 288, dt_proj K 256 N 8192,
+            out_proj K 8192 N 4096, the head N 65024), M 8 and 256
             the int8 GEMM at the NemoCNN's conv and head shapes (K 32,
             144, 288, 1024; N 16, 32, 64, 10; B 256 and the head at B
             8), both modes, and the requant per channel at its N 16, 32
@@ -134,9 +137,10 @@ Phases (any failure raises and the script exits non-zero):
             and path, the full `stats()`
   musicgen  musicgen_medium (LayerNorm with bias, ungated GELU MLP, MHA
             24/24 at hd 64): the 2-layer full-width card-vs-CPU parity
-            at kv_bits 8 and 4 (as the parity phase), then the whole
-            model at full width and depth (48 layers) calibrated and
-            deployed by `deploy_model` and served as the main phase's
+            at kv_bits 8 and 4 (as the parity phase), then the model
+            at full width over its first MUSICGEN_LAYERS of 48 layers
+            calibrated and deployed by `deploy_model` and served as the
+            main phase's
             8-request cell at kv_bits 8 and 4: tokens, launches by
             kernel, by GEMM site and by requant form (the act form once
             a layer and step), tok/s, TTFT, ITL and the host's ms per
@@ -179,6 +183,24 @@ Phases (any failure raises and the script exits non-zero):
             counted: launches a step by kernel, the grouped GEMM's by
             site; run 2 warmed with telemetry on: tok/s, TTFT, ITL, the
             host's ms per step phase) and over the paged arena (tokens
+            equal)
+  ssm       falcon_mamba_7b (the ssm family: Mamba-1 blocks, the integer
+            causal conv1d, the softplus / exp(dt A) scan island as fixed
+            float32 sequences, exact-length whole-prompt prefill): 2
+            layers at full width (d 4096, d_inner 8192, state 16)
+            calibrated on the card, card vs CPU (a 128-token prefill,
+            one chunk of the scan, and a decode step after it: int32
+            logits and both state leaves, h bit for bit; then 3
+            requests, prompts 9-40, 4 new tokens, over `SlotArena` and
+            the paged arena: tokens and the arenas' conv and h state
+            after the drain), then the model at full width over its
+            first SSM_LAYERS of 64 layers calibrated and deployed by
+            `deploy_model` and served as the 8-request cell over
+            `SlotArena` (warmed, counted: launches by kernel, by GEMM
+            site and by requant form; tok/s, TTFT, ITL, device memory,
+            deploy time; a second run with telemetry on: host ms per
+            step phase; one decode dispatch's aten ops, the island's
+            apart, and its time) and over the paged arena (tokens
             equal)
   nemotron  one nemotron_4_340b decoder layer at full width (d 18432,
             96/8 heads at hd 192, ungated squared-ReLU MLP at d_ff
@@ -250,7 +272,10 @@ PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                         "paged_attention"),
                 # the write-then-gather path (either pool width): both
                 # attention products on the grouped GEMM
-                "gather": ("int8_matmul", "int8_matmul_grouped", "requant")}
+                "gather": ("int8_matmul", "int8_matmul_grouped", "requant"),
+                # the ssm family: projections on the GEMM, the conv's
+                # requant and LUT, the gate and the Add on the requant
+                "ssm": ("int8_matmul", "requant")}
 # main-path engine settings
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
 # paged attention at full granite geometry (B 8, H 32, K 8, hd 64,
@@ -261,8 +286,8 @@ PAGED_SHAPES = ((CHUNK, MAX_LEN), (1, MAX_LEN), (CHUNK, 4096), (1, 4096))
 # the paged attention: (H, K, hd), GQA group 3 and group 16
 CONFIGS = ("llama3_2_3b", "chatglm3_6b")
 # the dense configs with LayerNorm and an ungated MLP: musicgen_medium
-# served at full width and depth, nemotron_4_340b one layer at full
-# width; MHA (group 1) at hd 64, and group 12 at hd 192
+# served at full width (MUSICGEN_LAYERS deep), nemotron_4_340b one
+# layer at full width; MHA (group 1) at hd 64, and group 12 at hd 192
 VARIANTS = ("musicgen_medium", "nemotron_4_340b")
 CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128),
                 "musicgen_medium": (24, 24, 64),
@@ -270,8 +295,11 @@ CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128),
 # the nemotron layer's dispatches: slots and chunk tokens (the CPU side's
 # float32 products, about 12 s a chunk and decode pair, bound them)
 NEMO_SLOTS, NEMO_CHUNK = 2, 16
-# the served depth of CONFIGS' full-width runs (both have 28 layers)
+# the served depth of CONFIGS' full-width runs (both have 28 layers) and
+# of musicgen_medium's (its first 24 of 48): the whole script's 1,000 s
+# aim
 CONFIG_LAYERS = 4
+MUSICGEN_LAYERS = 24
 # the MoE config, its served depth (None: all 16 layers), and the grouped
 # GEMM's shapes at its expert sites: (C, K, N) for gate/up and down at
 # decode (8 slots: groups of 8 tokens, C 4) and whole-prompt prefills
@@ -279,6 +307,12 @@ CONFIG_LAYERS = 4
 MOE_ARCH, MOE_LAYERS, MOE_EXPERTS = "olmoe_1b_7b", None, 64
 GROUPED_SHAPES = tuple((C, K, N) for C in (4, 40, 80)
                        for K, N in ((2048, 1024), (1024, 2048)))
+# the ssm family's config and its served depth (the first SSM_LAYERS of
+# its 64 at full width; deploy and the exact prefills bound the phase)
+SSM_ARCH, SSM_LAYERS = "falcon_mamba_7b", 8
+# the ssm phase's 2-layer card-vs-CPU cell: a prefill of one scan chunk
+# (layers.ssm.CHUNK), then requests with prompts 9-40 and 4 new tokens
+SSM_PREFILL, SSM_PARITY_GEN = 128, 4
 # the write-then-gather attention's two products on the grouped GEMM at
 # granite's attention (8 slots x 8 kv heads, group 4, hd 64, T 512): S,
 # a chunk and a decode row
@@ -474,6 +508,29 @@ def check_config_gemms(torch, np, timer, rng, report):
                 worst = max(worst, gemm_case(torch, np, timer, rng, report,
                                              M, K, N, mode,
                                              f"{arch} {site}"))
+    return worst
+
+
+def ssm_gemm_sites(cfg) -> dict:
+    """(K, N, output type) of each QLinear site of an ssm model's
+    serving path -> its name."""
+    d, ds = cfg.d_model, cfg.ssm_state
+    di, r = cfg.ssm_expand * d, -(-d // 16)
+    return {(d, 2 * di, "int8"): "in_proj", (di, r + 2 * ds, "int8"):
+            "x_proj", (r, di, "int32"): "dt_proj", (di, d, "int32"):
+            "out_proj", (d, cfg.vocab_padded, "int32"): "head"}
+
+
+def check_ssm_gemms(torch, np, timer, rng, report):
+    """The GEMM at every site of SSM_ARCH (`ssm_gemm_sites`), decode (M
+    8) and prefill (M 256)."""
+    from repro_torch.configs.base import get_config
+
+    worst = 0
+    for (K, N, mode), site in ssm_gemm_sites(get_config(SSM_ARCH)).items():
+        for M in (N_SLOTS, N_SLOTS * CHUNK):
+            worst = max(worst, gemm_case(torch, np, timer, rng, report, M, K,
+                                         N, mode, f"{SSM_ARCH} {site}"))
     return worst
 
 
@@ -1965,6 +2022,249 @@ def phase_olmoe(torch, np, kernels):
     return launches
 
 
+def ssm_state_parity(torch, np, lm2, t_np):
+    """SSM_ARCH at 2 layers: one SSM_PREFILL-token prefill and a decode
+    step after it, card vs CPU: int32 logits and the conv and h state
+    leaves byte for byte."""
+    from repro_torch.models.lm import tables_from_numpy
+
+    rng = np.random.default_rng(SEED + 11)
+    prompt = rng.integers(0, lm2.cfg.vocab, size=(1, SSM_PREFILL))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = tables_from_numpy(t_np, dev)
+        caches = lm2.init_caches(1, MAX_LEN, device=dev)
+        tok = torch.from_numpy(prompt.astype(np.int32)).to(dev)
+        logits = lm2.prefill(t, tok, caches)
+        # copies: on the CPU .cpu() is the tensor itself, which the
+        # decode step then advances in place
+        state = [caches["conv"].cpu().clone(), caches["h"].cpu().clone()]
+        nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)[:, None]
+        logits2 = lm2.decode_step(t, nxt, caches, torch.full(
+            (1,), SSM_PREFILL, dtype=torch.int32, device=dev))
+        out[dev] = [logits.cpu(), *state, logits2.cpu(), caches["conv"].cpu(),
+                    caches["h"].cpu()]
+        del t, caches
+    names = ["prefill logits", "prefill conv", "prefill h", "decode logits",
+             "decode conv", "decode h"]
+    for name, a, b in zip(names, out["cuda"], out["cpu"]):
+        if a.dtype != b.dtype or not torch.equal(
+                a.view(torch.int32) if a.dtype == torch.float32 else a,
+                b.view(torch.int32) if b.dtype == torch.float32 else b):
+            raise AssertionError(f"ssm 2-layer {name}: card != CPU")
+    print(f"  ssm 2-layer: a {SSM_PREFILL}-token prefill (one scan chunk) "
+          "and a decode step after it: int32 logits, the conv state and "
+          f"the float32 h state {tuple(out['cpu'][2].shape)} equal on the "
+          "card and the CPU bit for bit")
+
+
+def ssm_engine_parity(torch, np, lm2, t_np, reqs):
+    """The 2-layer table set served on both devices over `SlotArena` and
+    the paged arena: tokens, and the arenas' conv and h state after the
+    drain, equal byte for byte.  -> the tokens."""
+    from repro_torch.models.lm import tables_from_numpy
+
+    toks = None
+    for paged in (False, True):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t = tables_from_numpy(t_np, dev)
+            tok, _, eng = serve(lm2, t, reqs, dev, engine=make_engine(
+                lm2, t, dev, paged=paged))
+            out[dev] = (tok, eng.arena.caches["conv"].cpu(),
+                        eng.arena.caches["h"].cpu().view(torch.int32))
+            del eng, t
+        what = f"ssm 2-layer over {'the paged arena' if paged else 'SlotArena'}"
+        if out["cuda"][0] != out["cpu"][0]:
+            raise AssertionError(f"{what}: card tokens {out['cuda'][0]} != "
+                                 f"CPU {out['cpu'][0]}")
+        for name, a, b in zip(("conv", "h"), out["cuda"][1:],
+                              out["cpu"][1:]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {name} state card != CPU")
+        if toks is not None and out["cuda"][0] != toks:
+            raise AssertionError(f"{what}: tokens differ from SlotArena's")
+        toks = out["cuda"][0]
+        print(f"  {what}: {len(reqs)} requests (prompts "
+              f"{[r.prompt_len for r in reqs]}), "
+              f"{sum(len(v) for v in toks.values())} tokens equal on the "
+              "card and the CPU; conv state "
+              f"{tuple(out['cpu'][1].shape)} and h state "
+              f"{tuple(out['cpu'][2].shape)} equal bit for bit")
+    return toks
+
+
+def requant_forms_ssm(kernels, cfg, dispatches: int, total: int) -> None:
+    """An ssm run's requant launches by form: per layer and dispatch the
+    conv's requant (rqt) and SiLU LUT (act), the gate and the Add."""
+    by = kernels.requant.by_form
+    n = cfg.n_layers * dispatches
+    want = {"rqt": n, "act": n, "gate": n, "add": n}
+    print("  requant launches by form: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(by.items())))
+    if by != want or total != 4 * n:
+        raise AssertionError(f"requant launches {by} (total {total}) are "
+                             f"not {want}")
+
+
+def ssm_decode_ops(torch, np, lm, eng):
+    """One fused decode dispatch of a drained ssm engine (every slot row
+    at token 0) under a TorchDispatchMode counting aten ops, those
+    inside `QMamba1.island` apart; then the same dispatch timed by CUDA
+    events (median of 5).  -> (ops, island ops, ms)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.layers.ssm import QMamba1
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = self.island = self.depth = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            self.island += self.depth > 0
+            return func(*args, **(kwargs or {}))
+
+    mode, island = Count(), QMamba1.island
+
+    def scoped(self, *a, **kw):
+        mode.depth += 1
+        try:
+            return island(self, *a, **kw)
+        finally:
+            mode.depth -= 1
+
+    toks = np.zeros((N_SLOTS, 1), np.int32)
+    pos = np.zeros((N_SLOTS,), np.int32)
+    QMamba1.island = scoped
+    try:
+        with mode:
+            eng._decode(toks, pos)
+            torch.cuda.synchronize()
+    finally:
+        QMamba1.island = island
+    times = []
+    for _ in range(5):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        eng._decode(toks, pos)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return mode.ops, mode.island, float(np.median(times))
+
+
+def phase_ssm(torch, np, kernels):
+    """SSM_ARCH: 2 layers at full width card vs CPU (a one-chunk prefill
+    and a decode step; the engine over both arenas), then the model at
+    full width over SSM_LAYERS layers served as the 8-request cell over
+    `SlotArena` (warmed; counts set to 0 just before and read just
+    after) and over the paged arena."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import (
+        calibration_sample, deploy_model, ragged_requests,
+    )
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.serving import Telemetry
+
+    t0 = time.perf_counter()
+    lm2 = DecoderLM(dataclasses.replace(get_config(SSM_ARCH), n_layers=2),
+                    max_seq=MAX_LEN)
+    p = lm2.init_np(SEED)
+    t_np = lm2.deploy(p, lm2.calibrate(
+        p, calibration_sample(lm2.cfg.vocab, MAX_LEN), device="cuda"))
+    del p
+    cfg = lm2.cfg
+    print(f"  2 layers at full width (d {cfg.d_model}, d_inner "
+          f"{cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, rank "
+          f"{-(-cfg.d_model // 16)}, vocab {cfg.vocab_padded}) calibrated on "
+          f"the card and deployed in {time.perf_counter() - t0:.1f} s")
+    ssm_state_parity(torch, np, lm2, t_np)
+    small = ragged_requests(3, cfg.vocab, np.random.default_rng(SEED + 1),
+                            prompt_lo=9, prompt_hi=40, gen=SSM_PARITY_GEN)
+    ssm_engine_parity(torch, np, lm2, t_np, small)
+    del t_np, lm2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm, tables = deploy_model(SSM_ARCH, reduced=False, max_seq=MAX_LEN,
+                              seed=SEED, device="cuda", n_layers=SSM_LAYERS)
+    torch.cuda.synchronize()
+    cfg = lm.cfg
+    full = get_config(SSM_ARCH)
+    print(f"  calibrated and deployed {SSM_ARCH} at full width, its first "
+          f"{cfg.n_layers} of {full.n_layers} layers ({cfg.param_count()} of "
+          f"{full.param_count()} parameters), layer by layer in "
+          f"{time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    reqs = ragged_requests(8, cfg.vocab, np.random.default_rng(SEED + 2),
+                           prompt_lo=17, prompt_hi=300, gen=16)
+    eng = make_engine(lm, tables, "cuda", paged=False)
+    eng.warmup()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tok1, s1, _ = serve(lm, tables, reqs, "cuda", engine=eng)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if len(tok1) != len(reqs) or any(len(v) != 16 for v in tok1.values()):
+        raise AssertionError(f"ssm: not every request finished: {tok1}")
+    if not all(0 <= t < cfg.vocab for v in tok1.values() for t in v):
+        raise AssertionError("ssm: a token outside the vocab")
+    check_path_launches(launches, "ssm", "ssm run 1")
+    sites = ssm_gemm_sites(cfg)
+    by = kernels.int8_matmul.by_shape
+    dispatches = sum(n for (_, K, N, _), n in by.items()
+                     if N == cfg.vocab_padded)
+    if (any((K, N, mode) not in sites for (_, K, N, mode) in by)
+            or launches["int8_matmul"] != (4 * cfg.n_layers + 1) * dispatches):
+        raise AssertionError(f"GEMM launches {by} are not 4 a layer and "
+                             f"the head in each of {dispatches} dispatches")
+    print(f"  ssm run 1 (SlotArena, exact prefill, warmed): prompts "
+          f"{[r.prompt_len for r in reqs]}, {s1['steps']} steps, "
+          f"{dispatches} dispatches, launches {launches}; int8_matmul by "
+          "site and path: " + ", ".join(
+              f"{sites[(K, N, mode)]} M{M} "
+              f"({'decode' if M <= 16 else 'prefill'}) {n}"
+              for (M, K, N, mode), n in sorted(by.items())))
+    requant_forms_ssm(kernels, cfg, dispatches, launches["requant"])
+    print_stats("ssm run 1", s1)
+    tel = Telemetry()
+    tok2, s2, eng2 = serve(lm, tables, reqs, "cuda", warm=True,
+                           engine=make_engine(lm, tables, "cuda", paged=False,
+                                              telemetry=tel))
+    if tok2 != tok1:
+        raise AssertionError("ssm run 2 (telemetry on) gave other tokens")
+    m = tel.metrics()
+    print("  ssm run 2 (SlotArena, warmed, telemetry on) host ms per step "
+          "phase (mean over the steps it ran in; total): " + ", ".join(
+              f"{ph} {m['phase_mean_s'][ph] * 1e3:.2f} "
+              f"({m['phase_total_s'][ph] * 1e3:.1f})"
+              for ph in m["phase_mean_s"])
+          + f"; step wall {sum(st['wall_s'] for st in m['steps']) * 1e3:.1f}"
+          f" over {m['n_steps']} steps")
+    ops, island_ops, ms = ssm_decode_ops(torch, np, lm, eng2)
+    print(f"  ssm decode dispatch ({N_SLOTS} rows, {cfg.n_layers} layers): "
+          f"{ops} aten ops, {island_ops} of them in the scan island "
+          f"({island_ops / cfg.n_layers:.0f} a layer); {ms:.2f} ms by CUDA "
+          "events")
+    del eng2
+    tok3, s3, _ = serve(lm, tables, reqs, "cuda", warm=True)
+    if tok3 != tok1:
+        raise AssertionError("ssm over the paged arena gave other tokens")
+    for what, s in (("SlotArena", s1), ("SlotArena run 2", s2),
+                    ("paged arena", s3)):
+        print(f"  ssm over {what}: {s['n_generated']} tokens in "
+              f"{s['wall_s']:.3f} s = {s['throughput_tok_s']:.2f} tok/s, "
+              f"p50 / p99 TTFT {s['p50_ttft_s'] * 1e3:.1f} / "
+              f"{s['p99_ttft_s'] * 1e3:.1f} ms, p50 / p99 ITL "
+              f"{s['p50_itl_s'] * 1e3:.1f} / {s['p99_itl_s'] * 1e3:.1f} ms")
+    print(f"  ssm: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; tokens "
+          f"{tok1}")
+
+
 def phase_overload(torch, np, kernels, lm, tables, reqs, closed, rps):
     """The open-loop phase's requests at classes i % 2 under
     `PrioritySLOPolicy(preempt=True, slo_ttft_s=SLO_TTFT_S)`, arriving
@@ -2061,11 +2361,11 @@ def phase_configs(torch, np, kernels):
 
 def phase_musicgen(torch, np, kernels):
     """musicgen_medium: the 2-layer full-width card-vs-CPU parity at
-    kv_bits 8 and 4, then the whole model at full width and depth
-    calibrated and deployed by `deploy_model` and served as the main
-    phase's 8-request cell (`serve_twice`: run 1 counted, run 2 warmed
-    with telemetry on) at kv_bits 8 and 4.  -> run 1's launches at
-    kv_bits 8."""
+    kv_bits 8 and 4, then the model at full width over its first
+    MUSICGEN_LAYERS layers calibrated and deployed by `deploy_model` and
+    served as the main phase's 8-request cell (`serve_twice`: run 1
+    counted, run 2 warmed with telemetry on) at kv_bits 8 and 4.  ->
+    run 1's launches at kv_bits 8."""
     from repro_torch.launch.serve import deploy_model, ragged_requests
 
     config_parity(torch, np, "musicgen_medium")
@@ -2073,7 +2373,8 @@ def phase_musicgen(torch, np, kernels):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lm, tables = deploy_model("musicgen_medium", reduced=False,
-                              max_seq=MAX_LEN, seed=SEED, device="cuda")
+                              max_seq=MAX_LEN, seed=SEED, device="cuda",
+                              n_layers=MUSICGEN_LAYERS)
     torch.cuda.synchronize()
     cfg = lm.cfg
     print(f"  calibrated and deployed musicgen_medium ({cfg.n_layers} "
@@ -2665,7 +2966,7 @@ def phase_done(name: str, t0: float) -> float:
 
 SKIPPABLE = ("entry", "cnn", "calibrate", "parity", "open-loop", "prefix",
              "preempt", "async", "whole_prompt", "int_softmax", "configs",
-             "musicgen", "olmoe", "nemotron")
+             "musicgen", "olmoe", "ssm", "nemotron")
 
 
 def main() -> int:
@@ -2710,6 +3011,7 @@ def main() -> int:
     errs["int8_matmul"] = max(
         check_int8_matmul(torch, np, timer, rng, report),
         check_config_gemms(torch, np, timer, rng, report),
+        check_ssm_gemms(torch, np, timer, rng, report),
         check_cnn_gemms(torch, np, timer, rng, report))
     errs["int8_matmul_grouped"] = max(
         check_grouped_gemm(torch, np, timer, rng, report),
@@ -2794,7 +3096,7 @@ def main() -> int:
         t0 = phase_done("configs", t0)
     if "musicgen" not in skip:
         print("[musicgen] musicgen_medium: 2-layer parity, then full width "
-              "and depth on the card")
+              f"on the card, {MUSICGEN_LAYERS} of 48 layers")
         phase_musicgen(torch, np, kernels)
         t0 = phase_done("musicgen", t0)
     if "olmoe" not in skip:
@@ -2803,6 +3105,11 @@ def main() -> int:
         launches["int8_matmul_grouped"] = phase_olmoe(
             torch, np, kernels)["int8_matmul_grouped"]
         t0 = phase_done("olmoe", t0)
+    if "ssm" not in skip:
+        print(f"[ssm] {SSM_ARCH}: 2-layer parity, then full width on the "
+              "card")
+        phase_ssm(torch, np, kernels)
+        t0 = phase_done("ssm", t0)
     if "nemotron" not in skip:
         print("[nemotron] one nemotron_4_340b layer at full width, card vs "
               "CPU")

@@ -6,8 +6,10 @@ Registered: the token configs of the reference that the port serves,
 one file each with its values: `granite_3_2b`, `llama3_2_3b` and
 `chatglm3_6b` (RMSNorm, gated SiLU MLP), `musicgen_medium` (LayerNorm
 with bias, ungated GELU MLP, MHA), `nemotron_4_340b` (LayerNorm with
-bias, ungated squared-ReLU MLP, head_dim 192) and `olmoe_1b_7b` (the
-MoE family: 64 experts, top-8, an expert layer in every block); and
+bias, ungated squared-ReLU MLP, head_dim 192), `olmoe_1b_7b` (the
+MoE family: 64 experts, top-8, an expert layer in every block) and
+`falcon_mamba_7b` (the ssm family: 64 Mamba-1 blocks, no attention);
+and
 `nemo_cnn`, the paper's CNN (family "cnn", served by
 `models.cnn.NemoCNN`; `LM_ARCH_IDS` leaves it out, as the reference's
 dry run does).
@@ -21,7 +23,7 @@ from typing import Dict
 _REGISTRY: Dict[str, "ArchConfig"] = {}
 
 ARCH_IDS = ["granite_3_2b", "llama3_2_3b", "chatglm3_6b", "musicgen_medium",
-            "nemotron_4_340b", "olmoe_1b_7b", "nemo_cnn"]
+            "nemotron_4_340b", "olmoe_1b_7b", "falcon_mamba_7b", "nemo_cnn"]
 # the configs `DecoderLM` serves (the CLI's --arch)
 LM_ARCH_IDS = [a for a in ARCH_IDS if a != "nemo_cnn"]
 
@@ -29,7 +31,7 @@ LM_ARCH_IDS = [a for a in ARCH_IDS if a != "nemo_cnn"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | moe | cnn
+    family: str                 # dense | moe | ssm | cnn
     n_layers: int
     d_model: int
     vocab: int
@@ -49,7 +51,13 @@ class ArchConfig:
     moe_every: int = 1          # 2 = MoE on every other layer (llama4)
     shared_expert: bool = False
     moe_group: int = 512
+    # --- SSM ---
+    ssm_kind: str = ""          # mamba1 (mamba2: the hybrid family)
+    ssm_state: int = 16
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
     input_mode: str = "tokens"
+    sub_quadratic: bool = False  # eligible for long contexts
     notes: str = ""
 
     @property
@@ -63,7 +71,7 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU tests (the reference's
-        `reduced()` for a dense or MoE config)."""
+        `reduced()` for a dense, MoE or ssm config)."""
         kw = dataclasses.asdict(self)
         kw.update(
             n_layers=min(self.n_layers, 2),
@@ -76,19 +84,29 @@ class ArchConfig:
             n_experts=min(self.n_experts, 4),
             top_k=min(self.top_k, 2),
             moe_group=64,
+            ssm_state=min(self.ssm_state, 16),
+            ssm_head_dim=(
+                32 if self.ssm_kind == "mamba2" else self.ssm_head_dim),
             name=self.name + "_reduced",
         )
         return ArchConfig(**kw)
 
     def param_count(self) -> int:
-        """Analytic parameter count (the reference's, for the dense and
-        MoE families)."""
-        if self.family not in ("dense", "moe"):
+        """Analytic parameter count (the reference's, for the dense, MoE
+        and ssm families)."""
+        if self.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"param_count of the {self.family} family (ROADMAP item 10)")
         d, V, hd = self.d_model, self.vocab, self.hd
         ff_mats = 3 if self.gated else 2
         n = 2 * V * d  # embed + head
+        if self.family == "ssm":
+            di = self.ssm_expand * d
+            rank = max(1, -(-d // 16))
+            per_layer = (d * 2 * di + di * (rank + 2 * self.ssm_state)
+                         + rank * di + di * d + di * self.ssm_state
+                         + 2 * di + d)
+            return int(n + self.n_layers * per_layer)
         for i in range(self.n_layers):
             n += (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                   + self.n_heads * hd * d) + 2 * d  # attention, norms

@@ -1,0 +1,152 @@
+"""Float islands of the ID path written as fixed float32 sequences:
+`exp_f32`, `log_f32`, `log1p_f32` and `softplus_f32`, the selective
+scan's transcendental functions (`layers.ssm`).
+
+The reference leaves these to XLA, which on the CPU lowers them to
+Cephes-style polynomials with every multiply-add contracted into a
+fused multiply-add, and runs with denormals flushed to zero.  A library
+exp or log1p differs between the card and the CPU (libdevice against
+the host's vector maths) on a few percent of float32 inputs.  So each
+function here is a fixed sequence of elementwise torch operations,
+every one rounded once to float32, the same on both devices; it follows
+the reference's lowering step for step (constants, evaluation order,
+which products are fused), so it gives the reference's bits on the
+inputs the tests sweep (`tests/test_torch_ssm.py`).
+
+`fma(a, b, c)` is the fused multiply-add, rounded once as the
+hardware's is (emulated in float64 with the sum rounded to odd).
+`ftz` flushes float32 subnormals to a zero of the same sign, as the
+reference's host runs do.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+F32 = torch.float32
+F64 = torch.float64
+FLT_MIN = float(np.finfo(np.float32).tiny)  # 2^-126, the least normal
+
+
+def _k(v) -> float:
+    """A constant rounded to float32 (as the reference's lowering
+    stores it), as the Python float that holds it exactly."""
+    return float(np.float32(v))
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """round_f32(a * b + c) for float32 tensors or constants, rounded
+    once: the product is exact in float64, the sum is rounded to odd in
+    float64 (its rounding error, exact by TwoSum, moves an even result
+    to the odd neighbour on the error's side), and a sum rounded to odd
+    with 29 spare bits rounds to float32 as the exact value does."""
+    a64 = a.to(F64) if isinstance(a, torch.Tensor) else _k(a)
+    b64 = b.to(F64) if isinstance(b, torch.Tensor) else _k(b)
+    c64 = c.to(F64) if isinstance(c, torch.Tensor) else _k(c)
+    p = a64 * b64
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.nextafter(s, torch.copysign(torch.full_like(s, np.inf), err))
+    return torch.where((err != 0) & even, away, s).to(F32)
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values -> a zero of the same sign."""
+    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+
+
+# exp: n = floor(x log2 e + 1/2) clamped to [-127, 127], r = x - n C1 -
+# n C2, e^r by a degree-5 polynomial and r + r^2 p(r) + 1, times 2^n
+_EXP_LO, _EXP_HI = -87.8, 88.8
+_LOG2E = 1.4426950408889634
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of float32 x as the reference's lowering computes it;
+    results below the least normal float32 are 0."""
+    x = x.to(F32).clamp(_k(_EXP_LO), _k(_EXP_HI))
+    n = torch.floor(fma(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = fma(n, -_k(_EXP_C1), x)
+    r = fma(n, -_k(_EXP_C2), r)
+    z = fma(r, _EXP_P[0], _EXP_P[1])
+    for p in _EXP_P[2:]:
+        z = fma(z, r, p)
+    z = fma(z, r * r, r) + 1.0
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(F32)
+    y = z * pow2
+    return torch.where(y.abs() < FLT_MIN, torch.zeros_like(y), y)
+
+
+# log: x = m 2^e with m in [sqrt(1/2), sqrt(2)), log(m) = f - f^2/2 +
+# f^3 p(f) for f = m - 1, plus e ln 2 in two parts
+_SQRTHF = 0.707106781186547524
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def log_f32(u: torch.Tensor) -> torch.Tensor:
+    """log of positive normal float32 u as the reference's lowering
+    computes it (the least normal stands in for anything below it)."""
+    u = u.to(F32).clamp_min(FLT_MIN)
+    bits = u.view(torch.int32)
+    e = ((bits >> 23) - 127).to(F32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(F32)  # in [0.5, 1)
+    small = m < _k(_SQRTHF)
+    x = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    e = e - small.to(F32)
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y = fma(fma(x, p[0], p[1]), x, p[2])
+    y1 = fma(fma(x, p[3], p[4]), x, p[5])
+    y2 = fma(fma(x, p[6], p[7]), x, p[8])
+    y = fma(y, x3, y1)
+    y = fma(y, x3, y2)
+    y = fma(y, x3, e * _k(_LOG_Q1))
+    x = fma(x2, -0.5, x)
+    return fma(e, _LOG_Q2, x + y)
+
+
+# log1p: below sqrt(2) - 1 a (6, 6) rational approximation, x - x^2/2
+# + x^3 P(x)/Q(x); above it log(1 + x)
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _horner(x: torch.Tensor, coefs) -> torch.Tensor:
+    p = torch.full_like(x, _k(coefs[0]))
+    for c in coefs[1:]:
+        p = fma(p, x, c)
+    return p
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + x) of float32 x > -1 as the reference's lowering
+    computes it."""
+    x = x.to(F32)
+    x2 = x * x
+    r = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
+    r = fma(x2, -0.5, (x * x2) * r)
+    small = x + r
+    return torch.where(x.abs() < _k(_LOG1P_SMALL), small,
+                       log_f32(x + 1.0))
+
+
+def softplus_f32(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as the reference's `jax.nn.softplus`:
+    max(x, 0) + log1p(exp(-|x|))."""
+    x = x.to(F32)
+    return torch.clamp_min(x, 0.0) + log1p_f32(exp_f32(-x.abs()))

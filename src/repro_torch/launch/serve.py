@@ -42,8 +42,8 @@ The arena is the reference's default, `SlotArena`, unless `--paged`
 asks for the paged one (`--page-size`, `--pages`; kv_bits 4 and the
 prefix cache need it).  `--prefill-chunk 0` prefills each prompt whole
 at batch 1, padded to a `--prefill-bucket` multiple; the MoE family
-(`--arch olmoe_1b_7b`) always prefills whole prompts at their exact
-length.
+(`--arch olmoe_1b_7b`) and the ssm family (`--arch falcon_mamba_7b`)
+always prefill whole prompts at their exact length.
 
 `serve_batch` is the reference's lockstep loop, kept as the parity
 oracle: B prompts prefilled together at position 0, then decoded at

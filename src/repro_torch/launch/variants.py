@@ -1,5 +1,5 @@
 """Process-wide variant switches (port of `repro.launch.variants`,
-with the two keys a port path reads).
+with the keys a port path reads).
 
 Layer code consults `get(key)` without plumbing; `use_variants(**kw)`
 overrides keys for the duration of a `with` block, and the serving
@@ -14,6 +14,9 @@ TPU graph) steer nothing the port runs.
                 pools) | "gather" (write-then-gather: the dense
                 logical view gathered through the table, the
                 reference's parity oracle)
+  ssm_island_dtype  "f32" (the scan island in float32) | "bf16" (not
+                ported: the ssm layer raises, ROADMAP item 10)
+  ssm_chunk     the selective scan's chunk length (0: layers.ssm.CHUNK)
 
 The attention takes the kernel only under "kernel" and the float
 island; every other setting takes the gather path.
@@ -28,6 +31,8 @@ _ACTIVE: Dict[str, Any] = {}
 DEFAULTS = {
     "attn_softmax": "float",
     "paged_decode": "kernel",
+    "ssm_island_dtype": "f32",
+    "ssm_chunk": 0,
 }
 
 

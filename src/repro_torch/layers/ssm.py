@@ -1,0 +1,431 @@
+"""Mamba-1 selective state-space layer under NEMO quantization (port of
+`repro.layers.ssm`: `QMamba1` with its float forward `apply_float`,
+`deploy`, `apply_id` and `init_cache`; the Mamba-2 core of the hybrid
+family is not ported yet, ROADMAP item 10).
+
+Everything around the scan is W8A8 integer: the in / x / dt / out
+projections on the int8 GEMM (kernels/int8_matmul.py; in_proj and
+x_proj with their requant fused into the epilogue), the depthwise
+causal conv1d as int32 torch ops (`causal_conv1d_int`), its requant
+and SiLU LUT on the requant kernel (`requant`, `requant_act`), and the
+gate z's LUT, the gate product and `gated_rqt` in one launch of the
+requant kernel's gate form (`requant_gate`).  The scan core is the
+paper's §3.8 float island: softplus, exp(dt A) and the recurrence
+h_t = a_t h_{t-1} + u_t, entered through two static dequant scales and
+left through `eps_y_inv`.
+
+The island is a fixed sequence of float32 operations, each rounded
+once, the same on the card and the CPU (`core.island`), written as the
+reference's XLA lowering computes it: the recurrence as
+`jax.lax.associative_scan`'s odd / even recursion (`assoc_scan`) with
+its combine's multiply-add fused, over one block when L is not a
+multiple of the chunk (`ssm_chunk`, default CHUNK) or below it, else
+chunk by chunk with the float32 carry; the 16-lane sum of h * C as one
+chain of fused multiply-adds; every state product flushed to zero below
+the least normal float32 (the reference's host runs flush subnormals).
+The state enters as the reference's serving steps fuse it, h_0 = a_0
+h0 + u_0 in one multiply-add (a decode step is that alone).
+
+Cache (serving): {"conv": (B, conv_k - 1, d_inner) int8, the last
+conv inputs; "h": (B, d_inner, d_state) float32, the scan state}, the
+one float leaf of an ID cache tree.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.intmath import build_lut
+from repro_torch.core.island import exp_f32, fma, ftz, softplus_f32
+from repro_torch.core.requant import make_rqt
+from repro_torch.kernels.requant_kernel import (
+    requant, requant_act, requant_gate,
+)
+from repro_torch.launch import variants
+from repro_torch.layers.act_quant import QAct
+from repro_torch.layers.common import (
+    ACT_QMIN, ActKind, DeployCtx, act_fn, act_fn_np, normal_np,
+)
+from repro_torch.layers.conv import K_ALIGN
+from repro_torch.layers.linear import QLinear
+
+CHUNK = 128
+
+
+def _chunk_len() -> int:
+    return variants.get("ssm_chunk") or CHUNK
+
+
+def _check_island_dtype():
+    if variants.get("ssm_island_dtype") != "f32":
+        raise NotImplementedError(
+            f"ssm_island_dtype {variants.get('ssm_island_dtype')!r}: the "
+            "port runs the scan island in float32 (the bf16 island is "
+            "ROADMAP item 10)")
+
+
+# -- the scan ------------------------------------------------------------
+def _combine(x, y):
+    """(a, u) of an earlier span then a later one -> the whole span's."""
+    ax, ux = x
+    ay, uy = y
+    return ftz(ax * ay), ftz(fma(ay, ux, uy))
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even / odd positions along axis 1 -> one sequence; each entry
+    passes through + 0 as in the reference (-0 becomes +0)."""
+    n = even.shape[1] + odd.shape[1]
+    out = even.new_empty((even.shape[0], n) + even.shape[2:])
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out + 0.0
+
+
+def _scan(a: torch.Tensor, u: torch.Tensor):
+    """`jax.lax.associative_scan(combine, (a, u), axis=1)`: pairs
+    combined, the half-length scan recursed, the even positions
+    completed from it, and the two interleaved."""
+    n = a.shape[1]
+    if n < 2:
+        return a, u
+    ra, ru = _combine((a[:, 0:-1:2], u[:, 0:-1:2]), (a[:, 1::2], u[:, 1::2]))
+    oa, ou = _scan(ra, ru)
+    if n % 2 == 0:
+        ea, eu = _combine((oa[:, :-1], ou[:, :-1]), (a[:, 2::2], u[:, 2::2]))
+    else:
+        ea, eu = _combine((oa, ou), (a[:, 2::2], u[:, 2::2]))
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eu = torch.cat([u[:, :1], eu], dim=1)
+    return _interleave(ea, oa), _interleave(eu, ou)
+
+
+def assoc_scan(a: torch.Tensor, dt_b: torch.Tensor, x1: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + u_t along axis 1 with u = dt_b * x1 (a, dt_b
+    (B, L, di, ds), x1 (B, L, di, 1)); h0 (B, di, ds) the state before
+    position 0, or None.  -> h (B, L, di, ds)."""
+    u = ftz(dt_b * x1)
+    if h0 is not None:
+        first = ftz(fma(a[:, :1], h0[:, None], u[:, :1]))
+        u = torch.cat([first, u[:, 1:]], dim=1)
+    return _scan(a, u)[1]
+
+
+def lane_sum_hc(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """sum over the state axis of h (B, L, di, ds) * c (B, L, ds), as
+    one chain of fused multiply-adds in lane order from 0."""
+    c = c[..., None, :]
+    acc = torch.zeros_like(h[..., 0])
+    for i in range(h.shape[-1]):
+        acc = fma(h[..., i], c[..., i], acc)
+    return acc
+
+
+def ssm_core(x1: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float scan core (the reference's `QMamba1._core_fp` through
+    `_chunked_recurrence`): x1, dt (B, L, di), bm, cm (B, L, ds) float32,
+    A (di, ds), D (di,), h0 (B, di, ds) or None.  -> (y (B, L, di),
+    h_last (B, di, ds))."""
+    _check_island_dtype()
+    chunk = _chunk_len()
+    L = x1.shape[1]
+
+    def block(s: slice, h_prev):
+        dts = dt[:, s]
+        a = exp_f32(dts[..., None] * A)
+        dt_b = ftz(dts[..., None] * bm[:, s, None, :])
+        xs = x1[:, s]
+        h = assoc_scan(a, dt_b, xs[..., None], h_prev)
+        y = fma(D, xs, lane_sum_hc(h, cm[:, s]))
+        return y, h[:, -1]
+
+    if L % chunk or L < chunk:
+        return block(slice(None), h0)
+    h = (torch.zeros(x1.shape[0], A.shape[0], A.shape[1],
+                     dtype=torch.float32, device=x1.device)
+         if h0 is None else h0)
+    ys = []
+    for c0 in range(0, L, chunk):
+        y, h = block(slice(c0, c0 + chunk), h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+# -- the integer conv ----------------------------------------------------
+def causal_conv1d_int(s_x: torch.Tensor, w_q: torch.Tensor,
+                      b_q: torch.Tensor) -> torch.Tensor:
+    """int8 s_x (B, L, D), int8 depthwise taps w_q (K, D), int32 b_q
+    (D,) -> the int32 accumulator (B, L - K + 1, D) over the valid
+    windows: sum_i s_x[:, t + i] * w_q[i] + b_q."""
+    K = w_q.shape[0]
+    Lo = s_x.shape[1] - K + 1
+    acc = b_q.to(torch.int32).expand(s_x.shape[0], Lo, -1).clone()
+    for i in range(K):
+        acc += s_x[:, i:i + Lo].to(torch.int32) * w_q[i].to(torch.int32)
+    return acc
+
+
+def _causal_conv1d_fp(x: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    K = w.shape[0]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    y = pad[:, 0:x.shape[1]] * w[0]
+    for i in range(1, K):
+        y = y + pad[:, i:i + x.shape[1]] * w[i]
+    return y + b
+
+
+# ===========================================================================
+# Mamba-1 (falcon_mamba_7b)
+# ===========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class QMamba1:
+    d_model: int
+    d_state: int = 16
+    expand: int = 2
+    dt_rank: int = 0          # 0 -> ceil(d_model / 16)
+    conv_k: int = 4
+    name: str = "mamba"
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def rank(self) -> int:
+        return self.dt_rank or max(1, int(np.ceil(self.d_model / 16)))
+
+    def _sub(self):
+        di, ds, r = self.d_inner, self.d_state, self.rank
+        return {
+            "in_proj": QLinear(self.d_model, 2 * di),
+            "x_proj": QLinear(di, r + 2 * ds),
+            "dt_proj": QLinear(self.rank, di, use_bias=True),
+            "out_proj": QLinear(di, self.d_model),
+        }
+
+    def init_np(self, rng: np.random.Generator) -> dict:
+        """Float params with the reference's shapes and scales: A_log =
+        log(1..d_state) on every channel, D = 1, conv taps normal /
+        sqrt(conv_k), zero conv bias, and the dt bias softplus^-1(0.01)
+        = log(expm1(0.01))."""
+        p = {n: lay.init_np(rng) for n, lay in self._sub().items()}
+        di, ds = self.d_inner, self.d_state
+        p["A_log"] = np.log(np.broadcast_to(
+            np.arange(1, ds + 1, dtype=np.float32)[None, :], (di, ds)))
+        p["D"] = np.ones((di,), np.float32)
+        p["conv_w"] = normal_np(rng, (self.conv_k, di),
+                                1.0 / np.sqrt(self.conv_k))
+        p["conv_b"] = np.zeros((di,), np.float32)
+        p["dt_proj"]["b"] = np.full((di,), np.log(np.expm1(0.01)),
+                                    np.float32)
+        return p
+
+    # -- float forward ------------------------------------------------------
+    def apply_float(self, p: dict, x: torch.Tensor, calib=None,
+                    scope: str = "", cache: Optional[dict] = None):
+        """FullPrecision forward of (B, L, d) float32 -> (out, new
+        cache or None), observing the reference's six ranges under
+        ``{scope}{name}.``."""
+        subs = self._sub()
+        ds, r = self.d_state, self.rank
+        nm = f"{scope}{self.name}"
+        xz = subs["in_proj"].apply_fp(p["in_proj"], x)
+        x1, z = torch.chunk(xz, 2, dim=-1)
+        if cache is not None:
+            conv_in = torch.cat([cache["conv"].to(x1.dtype), x1], dim=1)
+            x1c = _causal_conv1d_fp(conv_in, p["conv_w"],
+                                    p["conv_b"])[:, -x1.shape[1]:]
+            new_conv = conv_in[:, -(self.conv_k - 1):]
+        else:
+            x1c = _causal_conv1d_fp(x1, p["conv_w"], p["conv_b"])
+            new_conv = x1[:, -(self.conv_k - 1):]
+        x1a = act_fn(ActKind.SILU, x1c)
+        if calib is not None:
+            calib.observe(f"{nm}.conv.pre", x1c)
+            calib.observe(f"{nm}.conv", x1a)
+        xdb = subs["x_proj"].apply_fp(p["x_proj"], x1a)
+        dt_r, bm, cm = torch.split(xdb, [r, ds, ds], dim=-1)
+        dt = softplus_f32(subs["dt_proj"].apply_fp(p["dt_proj"], dt_r))
+        A = -exp_f32(p["A_log"])
+        y, h_last = ssm_core(x1a, dt, bm.contiguous(), cm.contiguous(), A,
+                             p["D"], h0=None if cache is None
+                             else cache["h"])
+        zs = act_fn(ActKind.SILU, z)
+        if calib is not None:
+            calib.observe(f"{nm}.y", y)
+            calib.observe(f"{nm}.z.pre", z)
+            calib.observe(f"{nm}.z", zs)
+            calib.observe(f"{nm}.gated", y * zs)
+        out = subs["out_proj"].apply_fp(p["out_proj"], y * zs)
+        new_cache = ({"conv": new_conv, "h": h_last}
+                     if cache is not None else None)
+        return out, new_cache
+
+    # -- transform ------------------------------------------------------------
+    def deploy(self, ctx: DeployCtx, scope: str, p_np: dict, eps_x: float,
+               zp_x: int) -> Tuple[dict, np.ndarray]:
+        """-> (integer and island tables, eps of out_proj's
+        accumulator): the reference's float64 host arithmetic."""
+        subs = self._sub()
+        t: dict = {}
+        nm = f"{scope}{self.name}"
+        # in_proj -> split spaces (x1 | z), both symmetric int8
+        ip, eps_acc = subs["in_proj"].deploy(p_np["in_proj"], eps_x, zp_x)
+        t["in_proj"] = ip
+        act_xz = QAct(ActKind.IDENTITY, sym=True, name=f"{self.name}.xz")
+        txz, eps_xz, _ = act_xz.deploy(ctx, scope, eps_acc, 0,
+                                       subs["in_proj"].acc_bound())
+        t["xz_rqt"] = txz["rqt"]
+        # conv (int8 taps on one per-tensor grid) -> SiLU LUT
+        w = np.asarray(p_np["conv_w"], np.float64)
+        amax_w = np.maximum(np.abs(w).max(), 1e-8)
+        eps_cw = 2.0 * amax_w / 255.0
+        t["conv_wq"] = np.clip(np.floor(w / eps_cw), -128,
+                               127).astype(np.int8)
+        eps_cacc = eps_cw * eps_xz
+        t["conv_bq"] = np.round(
+            np.asarray(p_np["conv_b"], np.float64) / eps_cacc
+        ).astype(np.int32)
+        lo, hi = ctx.range(f"{nm}.conv.pre", "ssm")
+        amax = max(abs(lo), abs(hi), 1e-6)
+        eps_cpre = 2.0 * amax / 255.0
+        t["conv_rqt"] = make_rqt(
+            eps_cacc, eps_cpre, zp_out=0, requant_factor=ctx.factor,
+            acc_bound=self.conv_k * 127.0 * 127.0)
+        lo_c, hi_c = ctx.range(f"{nm}.conv", "act_asym")
+        eps_conv = (max(hi_c, lo_c + 1e-6) - lo_c) / 255.0
+        zp_conv = ACT_QMIN - int(round(lo_c / eps_conv))
+        t["conv_lut"] = build_lut(lambda v: act_fn_np(ActKind.SILU, v),
+                                  eps_cpre, 0, eps_conv, zp_conv)
+        t["zp_conv"] = np.int32(zp_conv)
+        # x_proj consumes the asymmetric conv output
+        ipx, eps_accx = subs["x_proj"].deploy(p_np["x_proj"], eps_conv,
+                                              zp_conv)
+        t["x_proj"] = ipx
+        act_xdb = QAct(ActKind.IDENTITY, sym=True, name=f"{self.name}.xdb")
+        txdb, eps_xdb, _ = act_xdb.deploy(ctx, scope, eps_accx, 0,
+                                          subs["x_proj"].acc_bound())
+        t["xdb_rqt"] = txdb["rqt"]
+        # dt_proj int8; its accumulator enters the island (softplus)
+        ipdt, eps_accdt = subs["dt_proj"].deploy(p_np["dt_proj"], eps_xdb, 0)
+        t["dt_proj"] = ipdt
+        t["dt_scale"] = eps_accdt.astype(np.float32)  # per channel (di,)
+        # island constants
+        t["A"] = -np.exp(np.asarray(p_np["A_log"], np.float32))
+        t["Dv"] = np.asarray(p_np["D"], np.float32)
+        t["eps_conv_f"] = np.float32(eps_conv)
+        t["zp_conv_f"] = np.float32(zp_conv)
+        t["eps_xdb_f"] = np.float32(eps_xdb)
+        # island exit: y -> symmetric int8
+        lo_y, hi_y = ctx.range(f"{nm}.y", "ssm")
+        amax_y = max(abs(lo_y), abs(hi_y), 1e-6)
+        eps_y = 2.0 * amax_y / 255.0
+        t["eps_y_inv"] = np.float32(1.0 / eps_y)
+        # gate z: SiLU LUT on the xz space
+        lo_z, hi_z = ctx.range(f"{nm}.z", "act_asym")
+        eps_z = (max(hi_z, lo_z + 1e-6) - lo_z) / 255.0
+        zp_z = ACT_QMIN - int(round(lo_z / eps_z))
+        t["z_lut"] = build_lut(lambda v: act_fn_np(ActKind.SILU, v),
+                               eps_xz, 0, eps_z, zp_z)
+        t["zp_z"] = np.int32(zp_z)
+        # gated product -> symmetric int8 -> out_proj
+        lo_g, hi_g = ctx.range(f"{nm}.gated", "ssm")
+        amax_g = max(abs(lo_g), abs(hi_g), 1e-6)
+        eps_gt = 2.0 * amax_g / 255.0
+        t["gated_rqt"] = make_rqt(
+            eps_y * eps_z, eps_gt, zp_out=0, requant_factor=ctx.factor,
+            acc_bound=float(256 * 128))
+        ipo, eps_acco = subs["out_proj"].deploy(p_np["out_proj"], eps_gt, 0)
+        t["out_proj"] = ipo
+        return t, eps_acco
+
+    # -- integer path ---------------------------------------------------------
+    def island(self, t: dict, acc_dt: torch.Tensor, s_conv: torch.Tensor,
+               s_b: torch.Tensor, s_c: torch.Tensor,
+               h0: Optional[torch.Tensor]):
+        """The float island: softplus of the dequantized dt accumulator,
+        x1, B, C dequantized, the scan, y quantized to int8 by
+        `eps_y_inv`.  -> (s_y (B, L, di) int8, h_last float32)."""
+        f32 = torch.float32
+        dt = softplus_f32(acc_dt.to(f32) * t["dt_scale"])
+        x1f = (s_conv.to(f32) - t["zp_conv_f"]) * t["eps_conv_f"]
+        bf = s_b.to(f32) * t["eps_xdb_f"]
+        cf = s_c.to(f32) * t["eps_xdb_f"]
+        y, h_last = ssm_core(x1f, dt, bf, cf, t["A"], t["Dv"], h0=h0)
+        s_y = torch.clamp(torch.round(y * t["eps_y_inv"]), -128, 127)
+        return s_y.to(torch.int8), h_last
+
+    def apply_id(self, t: dict, s_x: torch.Tensor,
+                 cache: Optional[dict] = None):
+        """s_x (B, L, d) int8 -> (out_proj's int32 accumulator (B, L,
+        d), new cache or None); `t` through `load_core`."""
+        subs = self._sub()
+        di, ds, r = self.d_inner, self.d_state, self.rank
+        s_xz = subs["in_proj"].apply_id(t["in_proj"], s_x, t["xz_rqt"])
+        s_x1, s_z = s_xz[..., :di], s_xz[..., di:]
+        K = self.conv_k
+        if cache is not None:
+            conv_in = torch.cat([cache["conv"], s_x1], dim=1)
+        else:
+            conv_in = F.pad(s_x1, (0, 0, K - 1, 0))
+        new_conv = conv_in[:, -(K - 1):]
+        c_acc = causal_conv1d_int(conv_in, t["conv_wq"], t["conv_bq"])
+        s_cpre = requant(c_acc, t["conv_rqt"])
+        s_conv = requant_act(s_cpre, {"lut": t["conv_lut"]})  # asym int8
+        s_xdb = subs["x_proj"].apply_id(t["x_proj"], s_conv, t["xdb_rqt"])
+        s_dtr = s_xdb[..., :r]
+        kp = t["dt_proj"]["w_q"].shape[0]
+        if kp != r:
+            s_dtr = F.pad(s_dtr, (0, kp - r))
+        acc_dt = _dt_proj(t["dt_proj"], s_dtr, di)
+        s_y, h_last = self.island(
+            t, acc_dt, s_conv, s_xdb[..., r:r + ds], s_xdb[..., r + ds:],
+            cache["h"] if cache is not None else None)
+        s_g = requant_gate(s_z.contiguous(), s_y, t["z_lut"], t["zp_z"],
+                           t["gated_rqt"])
+        out = subs["out_proj"].apply_id(t["out_proj"], s_g)
+        new_cache = ({"conv": new_conv, "h": h_last}
+                     if cache is not None else None)
+        return out, new_cache
+
+    def init_cache(self, B: int, device="cuda") -> dict:
+        """A zeroed ID cache of B rows: the int8 conv window and the
+        float32 scan state."""
+        return {
+            "conv": torch.zeros((B, self.conv_k - 1, self.d_inner),
+                                dtype=torch.int8, device=device),
+            "h": torch.zeros((B, self.d_inner, self.d_state),
+                             dtype=torch.float32, device=device),
+        }
+
+
+def load_core(t: dict) -> dict:
+    """A `QMamba1`'s torch tables -> the serving state `apply_id`
+    reads: dt_proj's weight padded with zero rows to a multiple of
+    K_ALIGN along K (the GEMM kernel's granule; `apply_id` pads its
+    input to match), the stored (N, K) layout kept."""
+    w = t["dt_proj"]["w_q"]
+    k = w.shape[0]
+    kp = -(-k // K_ALIGN) * K_ALIGN
+    if kp == k:
+        return t
+    wt = torch.zeros((w.shape[1], kp), dtype=w.dtype, device=w.device)
+    wt[:, :k] = w.t()
+    return {**t, "dt_proj": {**t["dt_proj"], "w_q": wt.t()}}
+
+
+def _dt_proj(ip: dict, s_dtr: torch.Tensor, di: int) -> torch.Tensor:
+    """dt_proj's int32 accumulator over the (padded) rank columns."""
+    kp = ip["w_q"].shape[0]
+    return QLinear(kp, di, use_bias=True).apply_id(ip, s_dtr)

@@ -1,5 +1,6 @@
-"""Transformer block (port of `repro.models.blocks.DenseBlock`: the
-float forward `apply_float`, `deploy` and `apply_id`).
+"""The decoder blocks (port of `repro.models.blocks.DenseBlock` and
+`MambaBlock`: the float forward `apply_float`, `deploy` and
+`apply_id`).
 
 norm1 -> attention -> add1 -> norm2 -> MLP (or MoE) -> add2.  With
 `n_experts > 0` a `QMoE` replaces the MLP over the block's B * S
@@ -9,6 +10,9 @@ llama4_maverick) is not ported: asking for it raises.  In the ID path
 the residual stream is a symmetric int8 image between blocks; in the
 float forward it is float32, and each sublayer observes its output
 under the block's scope (the names `deploy` reads back).
+
+`MambaBlock` is norm -> `layers.ssm.QMamba1` -> add; its cache is the
+layer's {"conv", "h"} state, which `apply_id` advances in place.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from repro_torch.layers.common import ActKind, DeployCtx
 from repro_torch.layers.mlp import QMLP
 from repro_torch.layers.moe import QMoE
 from repro_torch.layers.norms import QNorm
+from repro_torch.layers.ssm import QMamba1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,3 +143,65 @@ class DenseBlock:
         else:
             m_acc = subs["mlp"].apply_id(t["mlp"], h)
         return subs["add2"].apply_id(t["add2"], s_r, m_acc)
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaBlock:
+    """norm -> mamba -> add (the pre-norm residual SSM block; port of
+    `repro.models.blocks.MambaBlock` for the Mamba-1 core)."""
+
+    d_model: int
+    ssm_kind: str = "mamba1"
+    d_state: int = 16
+    expand: int = 2
+    norm: str = "rms"
+
+    def __post_init__(self):
+        if self.ssm_kind != "mamba1":
+            raise NotImplementedError(
+                f"ssm_kind {self.ssm_kind!r}: the port has the Mamba-1 core "
+                "(Mamba-2, the hybrid family, is ROADMAP item 10)")
+
+    def _subs(self):
+        return {
+            "norm": QNorm(self.d_model, kind=self.norm, name="norm"),
+            "core": QMamba1(self.d_model, d_state=self.d_state,
+                            expand=self.expand),
+            "add": QAdd(name="add"),
+        }
+
+    def init_np(self, rng: np.random.Generator) -> dict:
+        subs = self._subs()
+        return {"norm": subs["norm"].init_np(),
+                "core": subs["core"].init_np(rng)}
+
+    def apply_float(self, p: dict, x: torch.Tensor, calib=None,
+                    scope: str = "") -> torch.Tensor:
+        """FullPrecision forward of one block (no cache)."""
+        subs = self._subs()
+        h = subs["norm"].apply_fp(p["norm"], x, calib, scope + "n.")
+        y, _ = subs["core"].apply_float(p["core"], h, calib, scope)
+        return subs["add"].apply_fp(x, y, calib, scope)
+
+    def deploy(self, ctx: DeployCtx, scope: str, p_np: dict,
+               eps_in: float) -> Tuple[dict, float]:
+        subs = self._subs()
+        t: dict = {}
+        t["norm"], eps_n, _ = subs["norm"].deploy(ctx, scope + "n.",
+                                                  p_np["norm"], eps_in)
+        t["core"], eps_core_acc = subs["core"].deploy(
+            ctx, scope, p_np["core"], eps_n, 0)
+        t["add"], eps_out, _ = subs["add"].deploy(ctx, scope, eps_in, 0,
+                                                  eps_core_acc, 0)
+        return t, eps_out
+
+    def apply_id(self, t: dict, s_x: torch.Tensor,
+                 cache: dict) -> torch.Tensor:
+        """s_x (B, S, d) int8 -> (B, S, d) int8; advances this layer's
+        {"conv", "h"} state in `cache` in place."""
+        subs = self._subs()
+        h = subs["norm"].apply_id(t["norm"], s_x)
+        acc, new = subs["core"].apply_id(t["core"], h, cache)
+        cache["conv"].copy_(new["conv"])
+        cache["h"].copy_(new["h"])
+        return subs["add"].apply_id(t["add"], s_x, acc)

@@ -1,6 +1,7 @@
-"""The decoder LM (port of `repro.models.lm.DecoderLM`, the dense and
-MoE families: `plan()` is one segment of `DenseBlock`s, with a `QMoE`
-in every block for MoE at `moe_every` 1).
+"""The decoder LM (port of `repro.models.lm.DecoderLM`, the dense, MoE
+and ssm families: `plan()` is one segment of `DenseBlock`s, with a
+`QMoE` in every block for MoE at `moe_every` 1, or one segment of
+`MambaBlock`s for ssm).
 
 Lifecycle, as the reference's: numpy init (`init_np`, the reference's
 shapes and scales) -> calibrate (`calibrate`: the FullPrecision
@@ -41,6 +42,12 @@ Each layer's `sm_tabs` (the integer softmax's m_ln2, d_ln2, ln2_img,
 r_step and (256,) exp_lut) stay int32 on the device, the scalars 0-d,
 as `core.intsoftmax.int_softmax` reads them: operands of its integer
 ops, never read on the host.
+
+The ssm family has no KV pools: its cache is each layer's recurrent
+state, {"conv": (n_layers, B, conv_k - 1, d_inner) int8, "h":
+(n_layers, B, d_inner, d_state) float32} over B slot rows
+(`init_state`, both arenas), which every dispatch advances in place
+for every row, parked rows included, as the reference's does.
 """
 from __future__ import annotations
 
@@ -59,7 +66,8 @@ from repro_torch.layers.embedding import QEmbed
 from repro_torch.layers.linear import QLinear
 from repro_torch.layers.moe import EXPERT_WEIGHTS
 from repro_torch.layers.norms import QNorm
-from repro_torch.models.blocks import DenseBlock
+from repro_torch.layers.ssm import load_core
+from repro_torch.models.blocks import DenseBlock, MambaBlock
 
 ACT_MAP = {"silu": ActKind.SILU, "gelu": ActKind.GELU, "relu": ActKind.RELU,
            "relu2": ActKind.RELU2}
@@ -147,7 +155,10 @@ def load_layer(t: dict) -> dict:
     `kv4` tables gain what every step would otherwise rebuild
     (`layers.attention.kv4_load`), and its `sm_tabs` scalars become 0-d
     int32 tensors of their own (`core.intsoftmax.int_softmax_load`), so
-    the integer softmax reads them as device operands."""
+    the integer softmax reads them as device operands.  A Mamba layer's
+    dt_proj weight is padded along K (`layers.ssm.load_core`)."""
+    if "core" in t:
+        return {**t, "core": load_core(t["core"])}
     attn = {**t["attn"], "kv4": kv4_load(t["attn"]["kv4"])}
     if "sm_tabs" in attn:
         attn["sm_tabs"] = int_softmax_load(attn["sm_tabs"])
@@ -162,8 +173,8 @@ def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
     score_scale stays f32; `segments[0]` becomes the per-layer list,
     each layer through `load_layer`."""
     if len(tables_np["segments"]) != 1:
-        raise ValueError("the dense and MoE (moe_every 1) families have "
-                         "exactly one segment")
+        raise ValueError("the dense, MoE (moe_every 1) and ssm families "
+                         "have exactly one segment")
     stacked = tree_to_torch(tables_np["segments"][0], device)
     n = len(next(iter(_leaves(stacked))))
     return {
@@ -199,7 +210,7 @@ class DecoderLM:
             raise NotImplementedError(
                 "the cnn family is not a decoder LM: its model is "
                 "repro_torch.models.cnn.NemoCNN")
-        if c.family not in ("dense", "moe"):
+        if c.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"the {c.family} family is not ported yet (ROADMAP item 10)")
         if c.family == "moe" and c.moe_every != 1:
@@ -212,8 +223,18 @@ class DecoderLM:
                 "(ROADMAP item 10)")
 
     # -- structure -------------------------------------------------------
-    def block(self) -> DenseBlock:
+    @property
+    def recurrent(self) -> bool:
+        """Whether the cache is per-slot recurrent state (ssm) rather
+        than KV pools."""
+        return self.cfg.family == "ssm"
+
+    def block(self):
         c = self.cfg
+        if self.recurrent:
+            return MambaBlock(d_model=c.d_model, ssm_kind=c.ssm_kind,
+                              d_state=c.ssm_state, expand=c.ssm_expand,
+                              norm=c.norm)
         moe = c.family == "moe"
         return DenseBlock(
             d_model=c.d_model, n_heads=c.n_heads, n_kv_heads=c.n_kv_heads,
@@ -226,9 +247,10 @@ class DecoderLM:
 
     def plan(self):
         """-> the segments (kind, template, n_steps): one segment of
-        blocks, for dense and for MoE at moe_every 1 (the reference's
-        `plan()` for those)."""
-        return [("dense", self.block(), self.cfg.n_layers)]
+        blocks, for dense and for MoE at moe_every 1, of Mamba blocks for
+        ssm (the reference's `plan()` for those)."""
+        kind = "mamba" if self.recurrent else "dense"
+        return [(kind, self.block(), self.cfg.n_layers)]
 
     def embed_layer(self) -> QEmbed:
         return QEmbed(self.cfg.vocab_padded, self.cfg.d_model)
@@ -344,6 +366,13 @@ class DecoderLM:
         return calib
 
     # -- integer serving path (torch) --------------------------------------
+    def init_state(self, B: int, device="cuda") -> dict:
+        """The ssm family's zeroed cache of B slot rows, every layer's
+        {"conv", "h"} stacked (`QMamba1.init_cache`)."""
+        one = self.block()._subs()["core"].init_cache(B, device)
+        return {k: v[None].repeat(self.cfg.n_layers, *([1] * v.dim()))
+                for k, v in one.items()}
+
     def init_pools(self, n_pages: int, page_size: int, device="cuda",
                    kv_bits: int = 8) -> dict:
         """Zeroed paged KV pools (page 0 is the PAGE_NULL trash page);
@@ -376,7 +405,10 @@ class DecoderLM:
     def init_caches(self, B: int, max_len: int, device="cuda") -> dict:
         """The reference's contiguous ID cache of `B` slots of `max_len`
         positions, zeroed, as a pool of B pages of max_len positions plus
-        the trash page, with the fixed table slot b -> page b + 1."""
+        the trash page, with the fixed table slot b -> page b + 1 (the
+        ssm family: `init_state(B)`, whatever max_len)."""
+        if self.recurrent:
+            return self.init_state(B, device)
         caches = self.init_pools(B, max_len, device=device)
         caches["table"] = torch.arange(1, B + 1, dtype=torch.int32,
                                        device=device)[:, None]
@@ -389,7 +421,8 @@ class DecoderLM:
         int32 logits at column `last_index` (an int, or None: the last
         column)."""
         B, S = batch.shape
-        check_contiguous_width(S)
+        if not self.recurrent:
+            check_contiguous_width(S)
         start = torch.zeros(B, dtype=torch.int32, device=batch.device)
         last = torch.full_like(start, S - 1 if last_index is None
                                else int(last_index))
@@ -412,14 +445,27 @@ class DecoderLM:
         are width-1 chunks); start_pos (B,) int32 position of each
         row's first token (INACTIVE_POS for parked rows); last_index
         (B,) int32 column whose logits to return.  Writes every row's
-        K/V into `caches` in place.  -> (B, 1, vocab_padded) int32."""
+        K/V into `caches` in place.  -> (B, 1, vocab_padded) int32.
+
+        The ssm family: `caches` is `init_state`'s; every row runs its
+        chunk after its state, parked rows too (positions do not
+        enter), and the state advances in place."""
         x = self.embed_in_id(t, batch)
         blk = self.block()
+        if self.recurrent:
+            for i, lt in enumerate(t["layers"]):
+                x = blk.apply_id(lt, x, {"conv": caches["conv"][i],
+                                         "h": caches["h"][i]})
+            return self._last_logits(t, x, last_index)
         table = caches["table"]
         for i, lt in enumerate(t["layers"]):
             cache_i = {"k": caches["k"][i], "v": caches["v"][i],
                        "table": table}
             x = blk.apply_id(lt, x, cache_i, start_pos)
+        return self._last_logits(t, x, last_index)
+
+    def _last_logits(self, t: dict, x: torch.Tensor,
+                     last_index: torch.Tensor) -> torch.Tensor:
         rows = torch.arange(x.shape[0], device=x.device)
         h = x[rows, last_index.to(torch.int64)][:, None, :]
         return self.logits_id(t, h)

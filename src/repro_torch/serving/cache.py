@@ -19,6 +19,16 @@ write (`models.lm.DecoderLM.init_caches`).  So the attention and the
 paged kernel serve it unchanged, and its rows hold the bytes the
 reference's (B, K, T, hd) cache does.
 
+The ssm family (`DecoderLM.recurrent`) has no KV pools: both arenas
+hold every slot's recurrent state, {"conv", "h"} of n_slots rows
+(`DecoderLM.init_state`), which the whole-prompt prefill writes
+(`write_slot`) and every dispatch advances in place.  A released slot
+keeps its stale state, as the reference's rows do, until the next
+admission's prefill overwrites it.  The paged arena still leases,
+commits and materializes pages for such a model exactly as the
+reference's does (its cache leaves have no sequence axis, so no page
+holds data), so its page table and budget step as the reference's.
+
 PagedArena:
 At kv_bits 4 the pools are int4-packed: each K/V leaf's trailing
 head_dim axis is halved (two nibbles per int8 cell, both of one
@@ -89,7 +99,7 @@ def float_cache_leaves(caches) -> List[Tuple[str, torch.dtype]]:
     The integer-only serving invariant: an ID run keeps its KV caches
     as int8 images (and int32 page tables).  The one sanctioned
     exception is the SSM recurrent ``h`` state, the scan's float
-    island, which the port does not serve yet."""
+    island (`layers.ssm`)."""
     out = []
 
     def walk(x, path):
@@ -130,6 +140,7 @@ class SlotArena:
         self.n_slots = n_slots
         self.max_len = max_len
         self.device = torch.device(device)
+        self.recurrent = lm.recurrent
         self.caches = lm.init_caches(n_slots, max_len, device=self.device)
         self._free = list(range(n_slots - 1, -1, -1))  # pop() -> slot 0
         self.lengths = np.zeros(n_slots, np.int32)  # written positions
@@ -203,6 +214,9 @@ class SlotArena:
     def write_slot(self, slot: int, single: dict):
         """Copy a B=1 cache (`init_caches(1, max_len)`, a finished
         prefill) into `slot`'s row, every layer at once."""
+        if self.recurrent:
+            _write_state(self.caches, slot, single)
+            return
         for kv in ("k", "v"):
             self.caches[kv][:, slot + 1] = single[kv][:, 1]
 
@@ -230,6 +244,12 @@ class SlotArena:
             "arena": "slot",
             "arena_positions": self.n_slots * self.max_len,
         }
+
+
+def _write_state(caches: dict, slot: int, single: dict):
+    """A finished B=1 prefill's recurrent state into `slot`'s row."""
+    for key in ("conv", "h"):
+        caches[key][:, slot] = single[key][:, 0]
 
 
 class _PrefixNode:
@@ -266,8 +286,11 @@ class PagedArena:
         self.pages_per_slot = -(-max_len // page_size)
         self.kv_bits = kv_bits
         self.device = torch.device(device)
-        self.caches = lm.init_pools(n_pages, page_size, device=self.device,
-                                    kv_bits=kv_bits)
+        self.recurrent = lm.recurrent
+        self.caches = (lm.init_state(n_slots, device=self.device)
+                       if self.recurrent else
+                       lm.init_pools(n_pages, page_size, device=self.device,
+                                     kv_bits=kv_bits))
 
         # host bookkeeping; pop() -> lowest first
         self._free_slots = list(range(n_slots - 1, -1, -1))
@@ -675,7 +698,11 @@ class PagedArena:
         """Scatter a B=1 cache (`init_caches(1, max_len)`, a finished
         prefill) through `slot`'s table row: logical block b to page
         table[slot, b].  Blocks with no page land on the trash page, the
-        last of them winning, as in the reference's scatter."""
+        last of them winning, as in the reference's scatter.  The ssm
+        family's state goes to `slot`'s row."""
+        if self.recurrent:
+            _write_state(self.caches, slot, single)
+            return
         ps, pps = self.page_size, self.pages_per_slot
         row = self.page_table[slot]
         real = [b for b in range(pps) if row[b] != PAGE_NULL]
@@ -698,7 +725,9 @@ class PagedArena:
         n_pages + 1, K, page_size, hd), hd/2 when int4-packed, page 0
         the trash page, an int32
         (n_slots, pages_per_slot) table with PAGE_NULL for unallocated
-        blocks)."""
+        blocks).  The ssm family's view is its state alone."""
+        if self.recurrent:
+            return self.caches
         table = self.to_device(self.page_table.copy())
         return {"k": self.caches["k"], "v": self.caches["v"], "table": table}
 

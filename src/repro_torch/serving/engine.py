@@ -8,9 +8,10 @@ preemption, the prefix cache, telemetry).
 The prefill dispatch is decided in one place, `_prefill_mode`:
 "chunked" (dense family, `prefill_chunk` > 0, the default), "bucketed"
 (dense, `prefill_chunk` 0: the whole prompt at batch 1, right-padded to
-a `prefill_bucket` multiple) or "exact" (MoE: the whole prompt at its
-exact length, since capacity routing integrates every position, so
-neither padding nor a chunk's garbage rows are admissible).  kv_bits 4
+a `prefill_bucket` multiple) or "exact" (MoE and ssm: the whole prompt
+at its exact length, since capacity routing and the recurrent conv /
+scan state integrate every position, so neither padding nor a chunk's
+garbage rows are admissible).  kv_bits 4
 and the prefix cache need the chunked mode.
 
 Chunked mode.  Each `step()`:
@@ -184,7 +185,9 @@ class ServingEngine:
         self.device = torch.device(cfg.device)
         self.policy = cfg.policy if cfg.policy is not None else FCFSPolicy()
         self.arena = make_arena(lm, cfg)
-        assert_integer_caches(self.arena.caches)
+        assert_integer_caches(
+            self.arena.caches,
+            allow_ssm_state=lm.cfg.family in ("ssm", "hybrid"))
         self.paged_kernel = cfg.paged_kernel is None or bool(cfg.paged_kernel)
         self._paged_decode = "kernel" if self.paged_kernel else "gather"
         self.sched = Scheduler(cfg.scheduler, cfg.max_len)
@@ -544,8 +547,8 @@ class ServingEngine:
         if self._scratch is None:
             self._scratch = self.lm.init_caches(1, self.arena.max_len,
                                                 device=self.device)
-        for kv in ("k", "v"):
-            self._scratch[kv].zero_()
+        for key in (("conv", "h") if self.lm.recurrent else ("k", "v")):
+            self._scratch[key].zero_()
         with variants.use_variants(paged_decode=self._paged_decode):
             logits = self.lm.prefill(self.tables,
                                      self.arena.to_device(padded),

@@ -74,6 +74,11 @@ padded T and hd 192, exact and counted by shape; `int_softmax` the
 CPU's image byte for byte on wrapping inputs without a host sync; a
 2-layer engine under `attn_softmax="int"` equal to the CPU's with no
 paged-kernel launch, and `paged_kernel=False` equal to the default.
+The ssm family: the scan island's fixed float32 sequences (exp, log,
+log1p, softplus) and the scan core at L 1-256 with and without a state
+give the CPU's bits on the card, and a reduced falcon_mamba_7b engine
+over either arena gives the CPU's tokens and conv / h state, with its
+launches by kernel and requant form.
 """
 import sys
 
@@ -1721,3 +1726,103 @@ def test_engine_int_softmax_card_equals_cpu(kv_bits):
     gather, _ = _engines_on_card_and_cpu("granite_3_2b", kv_bits,
                                          paged_kernel=False)
     assert _serve_all(gather, reqs) == _serve_all(default, reqs)
+
+
+# -- the ssm family: the scan island and the Mamba-1 layer ------------------
+def _island_sweep():
+    """float32 inputs over the island functions' domains: exp's [-110,
+    0], log's and log1p's (0, 4] and (0, 1], softplus's [-100, 100]."""
+    rng = np.random.default_rng(21)
+    return {
+        "exp": -rng.uniform(0, 110, 1 << 20),
+        "log": np.exp(rng.uniform(-80, 1.4, 1 << 20)),
+        "log1p": np.concatenate([rng.uniform(0, 1, 1 << 19),
+                                 np.exp(-rng.uniform(0, 80, 1 << 19))]),
+        "softplus": rng.uniform(-100, 100, 1 << 20),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", ["exp", "log", "log1p", "softplus"])
+def test_ssm_island_function_card_equals_cpu(fn):
+    """Each fixed float32 sequence of `core.island` gives the CPU's bits
+    on the card over a sweep of its domain."""
+    _need_card()
+    from repro_torch.core import island
+
+    f = {"exp": island.exp_f32, "log": island.log_f32,
+         "log1p": island.log1p_f32, "softplus": island.softplus_f32}[fn]
+    x = torch.from_numpy(_island_sweep()[fn].astype(np.float32))
+    got = f(x.cuda()).cpu()
+    assert torch.equal(got.view(torch.int32), f(x).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,h0", [(1, True), (5, False), (127, True),
+                                  (128, False), (200, True), (256, True)])
+def test_ssm_core_card_equals_cpu(L, h0):
+    """The scan core (softplus'd dt, exp(dt A), the associative scan and
+    its chunks, the 16-lane sum) on the card gives the CPU's y and h bit
+    for bit, subnormal-flushed states included."""
+    _need_card()
+    from repro_torch.core.island import softplus_f32
+    from repro_torch.layers.ssm import ssm_core
+
+    g = torch.Generator().manual_seed(L)
+    B, di, ds = 2, 64, 16
+    x1 = torch.randint(-128, 128, (B, L, di), generator=g) * 0.02
+    x1 = x1 * (torch.rand(B, L, di, generator=g) < 0.5)
+    dt = softplus_f32(torch.randn(B, L, di, generator=g) * 3)
+    bm = torch.randint(-128, 128, (B, L, ds), generator=g) * 0.03
+    cm = torch.randint(-128, 128, (B, L, ds), generator=g) * 0.03
+    A = -torch.arange(1, ds + 1, dtype=torch.float32).expand(di, ds)
+    D = torch.ones(di)
+    hs = torch.randn(B, di, ds, generator=g) if h0 else None
+    args = [x1.float(), dt, bm.float(), cm.float(), A.contiguous(), D]
+    y, h = ssm_core(*args, h0=hs)
+    yc, hc = ssm_core(*[a.cuda() for a in args],
+                      h0=None if hs is None else hs.cuda())
+    assert torch.equal(yc.cpu().view(torch.int32), y.view(torch.int32))
+    assert torch.equal(hc.cpu().view(torch.int32), h.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_ssm_engine_card_equals_cpu(paged):
+    """A reduced falcon_mamba_7b (calibrated and deployed on the card;
+    dt_proj's K 8 padded to 16 on the GEMM) served in exact mode over
+    either arena: the card's tokens and its arena's conv and h state
+    after the drain equal the CPU's bit for bit; per layer and dispatch
+    four GEMM launches and the requant kernel's rqt, act, gate and add
+    once each."""
+    _need_card()
+    from repro_torch import kernels
+    from repro_torch.launch.serve import deploy_model, ragged_requests
+    from repro_torch.serving import (
+        SchedulerConfig, ServingConfig, ServingEngine,
+    )
+
+    lm, t_gpu = deploy_model("falcon_mamba_7b", reduced=True, max_seq=256,
+                             seed=0, device="cuda")
+    tables = {"cuda": t_gpu, "cpu": tables_to(t_gpu, "cpu")}
+    reqs = ragged_requests(5, lm.cfg.vocab, np.random.default_rng(5),
+                           prompt_lo=3, prompt_hi=200, gen=5)
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = ServingEngine(lm, tables[device], ServingConfig(
+            n_slots=3, max_len=256, paged=paged, page_size=8, device=device,
+            scheduler=SchedulerConfig()))
+        kernels.reset_launch_counts()
+        tok = _serve_all(eng, reqs)
+        out[device] = (tok, eng.arena.caches["conv"].cpu(),
+                       eng.arena.caches["h"].cpu().view(torch.int32),
+                       kernels.launch_counts(), dict(kernels.requant.by_form))
+    assert out["cuda"][0] == out["cpu"][0]
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+    counts, forms = out["cuda"][3:]
+    n = forms["add"]
+    assert n > 0 and n % lm.cfg.n_layers == 0
+    assert forms == {"rqt": n, "act": n, "gate": n, "add": n}
+    assert counts["int8_matmul"] == (4 + 1 / lm.cfg.n_layers) * n
+    assert counts["paged_attention"] == counts["int8_matmul_grouped"] == 0

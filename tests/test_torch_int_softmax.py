@@ -432,7 +432,9 @@ def test_variants_switches():
         with variants.use_variants(kv_shard="batch"):
             pass
     with pytest.raises(KeyError):
-        variants.get("ssm_chunk")
+        variants.get("moe_group")
+    assert (variants.get("ssm_chunk"),
+            variants.get("ssm_island_dtype")) == (0, "f32")
     assert variants.parse("attn_softmax=int,paged_decode=gather") == {
         "attn_softmax": "int", "paged_decode": "gather"}
     assert variants.parse("") == {}

@@ -29,7 +29,8 @@ Held at tolerance 0 unless stated:
     calibration sample at max_seq 64; an exact-mode prompt longer than
     `moe_group` and not a multiple of it);
   - the guards for what is not ported (moe_every 2, the shared expert,
-    the other families) and `param_count`.
+    the hybrid family, the embeds input) and `param_count` (falcon_mamba_7b's
+    too).
 """
 import copy
 import dataclasses
@@ -519,7 +520,7 @@ def test_unported_moe_variants_and_families_raise():
     base = get_config(ARCH).reduced()
     for kw, match in ((dict(moe_every=2), "moe_every 2"),
                       (dict(shared_expert=True), "shared expert"),
-                      (dict(family="ssm"), "ssm family"),
+                      (dict(family="hybrid"), "hybrid family"),
                       (dict(input_mode="embeds"), "input_mode")):
         with pytest.raises(NotImplementedError, match=match):
             DecoderLM(dataclasses.replace(base, **kw))
@@ -528,7 +529,8 @@ def test_unported_moe_variants_and_families_raise():
 
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "granite_3_2b",
-                                  "musicgen_medium", "nemotron_4_340b"])
+                                  "musicgen_medium", "nemotron_4_340b",
+                                  "falcon_mamba_7b"])
 def test_config_and_param_count_equal_reference(arch):
     j, t = j_get_config(arch), get_config(arch)
     assert t.param_count() == j.param_count()
