@@ -45,6 +45,15 @@ Phases (any failure raises and the script exits non-zero):
             the int8 GEMM at falcon_mamba_7b's five sites (in_proj K
             4096 N 16384, x_proj K 8192 N 288, dt_proj K 256 N 8192,
             out_proj K 8192 N 4096, the head N 65024), M 8 and 256
+            the int8 GEMM at zamba2_1_2b's sites (in_proj K 2048 N
+            8384 int8 out, out_proj K 4096 N 2048, the shared
+            attention's wq / wk / wv K 4096 N 2048 and wo, the head N
+            32000), M 8 and 256; the grouped GEMM at the blockwise
+            attention's two products at full granite width (8 kv-head
+            groups of 4 x 1024 query rows, a tile; scores K 64 N 2048,
+            P.V K 2048 N 64); the requant at falcon_mamba_7b's and
+            zamba2_1_2b's conv requant, conv LUT, gate, Add and concat
+            requant shapes (L 256 and 8 rows)
             the int8 GEMM at the NemoCNN's conv and head shapes (K 32,
             144, 288, 1024; N 16, 32, 64, 10; B 256 and the head at B
             8), both modes, and the requant per channel at its N 16, 32
@@ -88,7 +97,8 @@ Phases (any failure raises and the script exits non-zero):
             scripted preemption, with equal tokens, equal prefix and
             preemption counters and both pools equal byte for byte
             after the drain
-  main      full granite_3_2b (40 layers, random seeded weights
+  main      granite_3_2b at full width over its first MAIN_LAYERS of 40
+            layers (10; random seeded weights
             calibrated and deployed layer by layer by `deploy_model`, as
             every later phase's are): 8 ragged requests
             (prompts 17-300, 16 new tokens) through `ServingEngine`,
@@ -129,8 +139,8 @@ Phases (any failure raises and the script exits non-zero):
             by request; tok/s and host ms per step of the admission,
             harvest and dispatch phases of every run
   configs   llama3_2_3b and chatglm3_6b at full width, cut to their first
-            CONFIG_LAYERS layers (4 of 28, to keep the script under
-            1000 s; their deploy is most of its time), each
+            CONFIG_LAYERS layers (2 of 28, to keep the
+            script under 1000 s; their deploy is most of its time), each
             served once (8 ragged requests, kv_bits 8, after
             `warmup()`): deploy time, device memory, launches by kernel
             (counts set to 0 just before the run), GEMM launches by site
@@ -150,7 +160,7 @@ Phases (any failure raises and the script exits non-zero):
             granite_3_2b: the calibrate phase's 2-layer table set over
             `SlotArena` on the card and the CPU (chunked and bucketed:
             tokens, and both slot pools byte for byte); the main
-            phase's 40-layer tables over `SlotArena`, chunked and
+            phase's tables over `SlotArena`, chunked and
             bucketed (`prefill_chunk` 0, bucket 16), tokens equal to
             main run 1's (paged) request by request, the path's kernels
             launched; `serve_batch` (8 prompts of 64 tokens in lockstep)
@@ -163,8 +173,8 @@ Phases (any failure raises and the script exits non-zero):
             calibrate phase's 2-layer table set under the integer
             softmax in five engine cells (SlotArena chunked and
             bucketed, paged chunked and bucketed at kv_bits 8, paged
-            chunked at 4), tokens card == CPU; the main tables (40
-            layers) under it at kv_bits 8 and 4 on the 8-request cell
+            chunked at 4), tokens card == CPU; the main tables
+            under it at kv_bits 8 and 4 on the 8-request cell
             (counts set to 0 just before and read just after: no paged
             attention launch, the grouped GEMM twice a layer and
             dispatch, by shape; tok/s, TTFT, ITL), one dispatch under a
@@ -177,7 +187,7 @@ Phases (any failure raises and the script exits non-zero):
             width card vs CPU (a 200-token prefill's logits and slot
             pools, layer 0's gate images and expert picks at a prefill
             group and a decode group, the engine's tokens and pools
-            after the drain), then the whole model at full width and
+            after the drain), then the model at full width and
             MOE_LAYERS depth calibrated and deployed by `deploy_model`
             and served as the 8-request cell over `SlotArena` (run 1
             counted: launches a step by kernel, the grouped GEMM's by
@@ -202,6 +212,32 @@ Phases (any failure raises and the script exits non-zero):
             step phase; one decode dispatch's aten ops, the island's
             apart, and its time) and over the paged arena (tokens
             equal)
+  blockwise granite_3_2b at full width cut to BLOCKWISE_LAYERS layers,
+            the calibrate phase's tables, whole-prompt prefills of
+            4097 and 8000 tokens over a contiguous cache of 8192
+            positions (the reference's dense branch streams above 4096
+            query rows: `_blockwise_attend`) and 3 decode steps after
+            each, on the card (counts set to 0 just before and read
+            just after: the grouped GEMM's two products a key block,
+            the requant) and on the CPU: int32 logits, K/V bytes and
+            the first 4 tokens equal; the card's prefill ms and peak
+            memory
+  hybrid    zamba2_1_2b (Mamba-2 blocks with d_inner 4096, 64 heads of
+            64, state 64, and one shared attention over concat(x, x0)
+            every 6 blocks, per-application tables): HYBRID_PARITY_LAYERS
+            layers at full width (1 group and a 2-block tail)
+            calibrated on the card, card vs CPU (a 128-token prefill and
+            3 decode steps: logits, conv, h bit for bit, the shared
+            pools; 3 requests, 2 new tokens each, on 3 slots over
+            `SlotArena` and the paged arena: tokens and the arenas'
+            state), then the model at full width
+            over HYBRID_LAYERS layers deployed by `deploy_model` and
+            served as the 8-request cell (prompts 254, 172, 256, 31,
+            149, 255, 121, 257; 16 new tokens) over `SlotArena` (warmed,
+            counted: launches by kernel, GEMM by site, requant by form;
+            tok/s, TTFT, ITL, deploy s, resident and peak memory; one
+            decode dispatch's aten ops with the island's share) and over
+            the paged arena (tokens equal)
   nemotron  one nemotron_4_340b decoder layer at full width (d 18432,
             96/8 heads at hd 192, ungated squared-ReLU MLP at d_ff
             73728, about 3.45 B parameters; the whole model fits no
@@ -275,9 +311,20 @@ PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                 "gather": ("int8_matmul", "int8_matmul_grouped", "requant"),
                 # the ssm family: projections on the GEMM, the conv's
                 # requant and LUT, the gate and the Add on the requant
-                "ssm": ("int8_matmul", "requant")}
-# main-path engine settings
+                "ssm": ("int8_matmul", "requant"),
+                # the hybrid: the ssm's, and the shared attention on the
+                # paged kernel (both arenas, prompts up to 4096 tokens)
+                "hybrid": ("int8_matmul", "requant", "paged_attention"),
+                # above 4096 rows over a contiguous cache: both products
+                # of each key block on the grouped GEMM, no paged kernel
+                "blockwise": ("int8_matmul", "int8_matmul_grouped",
+                              "requant")}
+# main-path engine settings; the main tables' depth (granite_3_2b's
+# first MAIN_LAYERS of 40 at full width since the blockwise and hybrid
+# phases: the whole script's 1,000 s aim; every phase on those tables
+# scales with it)
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
+MAIN_LAYERS = 10
 # paged attention at full granite geometry (B 8, H 32, K 8, hd 64,
 # pages of 16): (S, T), a prefill chunk and a decode step over the main
 # cell's 512 positions and over 4096
@@ -295,12 +342,14 @@ CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128),
 # the nemotron layer's dispatches: slots and chunk tokens (the CPU side's
 # float32 products, about 12 s a chunk and decode pair, bound them)
 NEMO_SLOTS, NEMO_CHUNK = 2, 16
-# the served depth of CONFIGS' full-width runs (both have 28 layers) and
-# of musicgen_medium's (its first 24 of 48): the whole script's 1,000 s
-# aim
-CONFIG_LAYERS = 4
-MUSICGEN_LAYERS = 24
-# the MoE config, its served depth (None: all 16 layers), and the grouped
+# the served depth of CONFIGS' full-width runs (their first 2 of 28
+# layers) and of musicgen_medium's (its first 4 of 48): the whole
+# script's 1,000 s aim
+CONFIG_LAYERS = 2
+MUSICGEN_LAYERS = 4
+# the MoE config, its served depth (None: all 16 layers; at 8 the slot
+# and paged arenas' tokens differed on the card, ROADMAP §3),
+# and the grouped
 # GEMM's shapes at its expert sites: (C, K, N) for gate/up and down at
 # decode (8 slots: groups of 8 tokens, C 4) and whole-prompt prefills
 # of 254 and 512 tokens (C 40, 80)
@@ -309,10 +358,23 @@ GROUPED_SHAPES = tuple((C, K, N) for C in (4, 40, 80)
                        for K, N in ((2048, 1024), (1024, 2048)))
 # the ssm family's config and its served depth (the first SSM_LAYERS of
 # its 64 at full width; deploy and the exact prefills bound the phase)
-SSM_ARCH, SSM_LAYERS = "falcon_mamba_7b", 8
+SSM_ARCH, SSM_LAYERS = "falcon_mamba_7b", 2
 # the ssm phase's 2-layer card-vs-CPU cell: a prefill of one scan chunk
 # (layers.ssm.CHUNK), then requests with prompts 9-40 and 4 new tokens
 SSM_PREFILL, SSM_PARITY_GEN = 128, 4
+# blockwise phase: granite_3_2b's served depth, the contiguous cache's
+# positions, the whole prompts (above 4096 rows the attention streams)
+# and the tokens compared (the prefill's and 3 decodes')
+BLOCKWISE_LAYERS, BLOCKWISE_LEN, BLOCKWISE_PROMPTS = 2, 8192, (4097, 8000)
+BLOCKWISE_TOKENS = 4
+# hybrid phase: the config, the parity depth (one group of 6 Mamba-2
+# blocks, its shared application and a 2-block tail) and its engine's
+# slots (the CPU side's island bounds the phase), the served depth of
+# the 8-request cell (14 of 38: 2 groups and a 2-block tail; all 38
+# took 213 s, the phase's room is about 150 s) and its prompts
+HYBRID_ARCH, HYBRID_PARITY_LAYERS, HYBRID_LAYERS = "zamba2_1_2b", 8, 14
+HYBRID_PARITY_SLOTS, HYBRID_PARITY_GEN = 3, 2
+HYBRID_PROMPTS = (254, 172, 256, 31, 149, 255, 121, 257)
 # the write-then-gather attention's two products on the grouped GEMM at
 # granite's attention (8 slots x 8 kv heads, group 4, hd 64, T 512): S,
 # a chunk and a decode row
@@ -531,6 +593,94 @@ def check_ssm_gemms(torch, np, timer, rng, report):
         for M in (N_SLOTS, N_SLOTS * CHUNK):
             worst = max(worst, gemm_case(torch, np, timer, rng, report, M, K,
                                          N, mode, f"{SSM_ARCH} {site}"))
+    return worst
+
+
+def hybrid_gemm_sites(cfg) -> dict:
+    """(K, N, output type) of each QLinear site of a hybrid model's
+    serving path -> its name (wq, wk and wv share a shape at zamba2's
+    32 / 32 heads)."""
+    d, ds, hd = cfg.d_model, cfg.ssm_state, cfg.hd
+    di = cfg.ssm_expand * d
+    H = di // cfg.ssm_head_dim
+    sites = {(d, 2 * di + 2 * ds + H, "int8"): "in_proj",
+             (di, d, "int32"): "out_proj",
+             (2 * d, cfg.n_kv_heads * hd, "int8"): "wk/wv",
+             (2 * d, cfg.n_heads * hd, "int8"): "wq",
+             (cfg.n_heads * hd, d, "int32"): "wo",
+             (d, cfg.vocab_padded, "int32"): "head"}
+    if cfg.n_kv_heads == cfg.n_heads:
+        sites[(2 * d, cfg.n_heads * hd, "int8")] = "wq/wk/wv"
+    return sites
+
+
+def check_hybrid_gemms(torch, np, timer, rng, report):
+    """The GEMM at every site of HYBRID_ARCH (`hybrid_gemm_sites`),
+    decode (M 8) and prefill (M 256)."""
+    from repro_torch.configs.base import get_config
+
+    worst = 0
+    for (K, N, mode), site in hybrid_gemm_sites(
+            get_config(HYBRID_ARCH)).items():
+        for M in (N_SLOTS, N_SLOTS * CHUNK):
+            worst = max(worst, gemm_case(torch, np, timer, rng, report, M, K,
+                                         N, mode, f"{HYBRID_ARCH} {site}"))
+    return worst
+
+
+def check_blockwise_products(torch, np, timer, report):
+    """The grouped GEMM at the blockwise attention's two products at
+    full granite width (B 1, 32 heads, 8 kv heads: E 8 groups of group
+    4 x the tile's rows; hd 64, key blocks of 2048), int32 out, exactly
+    as the plain version; time beside the bytes bound (library null).
+    -> max |diff| (0)."""
+    from repro_torch.kernels import (
+        int8_matmul_grouped, int8_matmul_grouped_plain,
+    )
+    from repro_torch.kernels.int8_matmul import gemm_plan
+    from repro_torch.layers.attention import (
+        BLOCKWISE_BLOCK, BLOCKWISE_TILE_SCORES,
+    )
+
+    H, Kh, hd, blk = 32, 8, 64, BLOCKWISE_BLOCK
+    rows = BLOCKWISE_TILE_SCORES["cuda"] // (H * blk)
+    E, C = Kh, (H // Kh) * rows
+    worst = 0
+    q = torch.randint(-128, 128, (1, E, C, hd), dtype=torch.int8,
+                      device="cuda")
+    k = torch.randint(-128, 128, (E, blk, hd), dtype=torch.int8,
+                      device="cuda")
+    img = torch.randint(0, 128, (1, E, C, blk), dtype=torch.int8,
+                        device="cuda")
+    vt = torch.randint(-128, 128, (E, hd, blk), dtype=torch.int8,
+                       device="cuda")
+    for what, x, w, K, N in (("scores", q, k.transpose(1, 2), hd, blk),
+                             ("P.V", img, vt.transpose(1, 2), blk, hd)):
+        got = int8_matmul_grouped(x, w)
+        want = int8_matmul_grouped_plain(x, w)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if got.dtype != torch.int32 or err != 0:
+            raise AssertionError(f"int8_matmul_grouped blockwise {what}: "
+                                 f"max err {err}")
+        del want
+        worst = max(worst, err)
+        ms = timer(lambda: int8_matmul_grouped(x, w))
+        plain = timer(lambda: int8_matmul_grouped_plain(x, w), 3)
+        n_bytes = E * C * K + E * K * N + 4 * E * C * N
+        bms, by = bound_ms(n_bytes, 2.0 * E * C * N * K, INT8_OPS_S)
+        p = gemm_plan(C, N, K, E)
+        row = dict(shape=f"G=1 E={E} C={C} K={K} N={N} int32-out "
+                   f"(blockwise {what}, a tile of {rows} rows)", ms=ms,
+                   plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=None, max_abs_err=err,
+                   plan=f"{p.path} {p.bm}x{p.bn}, {p.splits} split(s), "
+                   f"{p.blocks} blocks")
+        report.setdefault("int8_matmul_grouped", []).append(row)
+        print(f"  int8_matmul_grouped {row['shape']}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), library "
+              f"null, exact; {row['plan']}, one launch, "
+              f"{n_bytes / ms / 1e6:.0f} GB/s")
     return worst
 
 
@@ -819,6 +969,23 @@ def requant_cases(torch, np, rng):
         act("act tail", (7, 333), "channel"),
         act("GELU tail", (3, 5, 40)),
         act("ReLU^2 wrap", (B, mg), "wrap"),
+        # falcon_mamba_7b's forms (d_inner 8192, d 4096) and zamba2's
+        # (conv over 4224 channels, the concat's halves at d 2048), at
+        # a 256-token whole prompt and a decode step of 8 rows
+        rqt("falcon conv_rqt prefill", (1, 256, 8192), "scalar"),
+        rqt("falcon conv_rqt decode", (B, 1, 8192), "scalar"),
+        act("falcon conv LUT prefill", (1, 256, 8192)),
+        act("falcon conv LUT decode", (B, 1, 8192)),
+        gate("falcon gate prefill", (256, 8192), "scalar"),
+        gate("falcon gate decode", (B, 8192), "scalar"),
+        add("falcon QAdd prefill", (1, 256, 4096), "scalar", "channel"),
+        add("falcon QAdd decode", (B, 1, 4096), "scalar", "channel"),
+        rqt("zamba2 conv_rqt prefill", (1, 256, 4224), "scalar"),
+        rqt("zamba2 conv_rqt decode", (B, 1, 4224), "scalar"),
+        act("zamba2 conv LUT prefill", (1, 256, 4224)),
+        act("zamba2 conv LUT decode", (B, 1, 4224)),
+        rqt("zamba2 cat_rqt prefill", (1, 256, d), "scalar"),
+        rqt("zamba2 cat_rqt decode", (B, 1, d), "scalar"),
         # the NemoCNN's intbn requant at B 256, one per block
         rqt("nemo_cnn b0", (256, 32, 32, 16), "channel"),
         rqt("nemo_cnn b1", (256, 16, 16, 32), "channel"),
@@ -1561,10 +1728,11 @@ def phase_main(torch, np, kernels):
 
     t0 = time.perf_counter()
     lm, tables = deploy_model("granite_3_2b", reduced=False,
-                              max_seq=MAX_LEN, seed=SEED, device="cuda")
+                              max_seq=MAX_LEN, seed=SEED, device="cuda",
+                              n_layers=MAIN_LAYERS)
     torch.cuda.synchronize()
     deploy_s = time.perf_counter() - t0
-    print(f"  calibrated and deployed granite_3_2b ({lm.cfg.n_layers} "
+    print(f"  calibrated and deployed granite_3_2b ({lm.cfg.n_layers} of 40 "
           f"layers, d {lm.cfg.d_model}, vocab {lm.cfg.vocab_padded}) layer "
           f"by layer in {deploy_s:.1f} s; device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -2107,54 +2275,6 @@ def requant_forms_ssm(kernels, cfg, dispatches: int, total: int) -> None:
                              f"not {want}")
 
 
-def ssm_decode_ops(torch, np, lm, eng):
-    """One fused decode dispatch of a drained ssm engine (every slot row
-    at token 0) under a TorchDispatchMode counting aten ops, those
-    inside `QMamba1.island` apart; then the same dispatch timed by CUDA
-    events (median of 5).  -> (ops, island ops, ms)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    from repro_torch.layers.ssm import QMamba1
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = self.island = self.depth = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops += 1
-            self.island += self.depth > 0
-            return func(*args, **(kwargs or {}))
-
-    mode, island = Count(), QMamba1.island
-
-    def scoped(self, *a, **kw):
-        mode.depth += 1
-        try:
-            return island(self, *a, **kw)
-        finally:
-            mode.depth -= 1
-
-    toks = np.zeros((N_SLOTS, 1), np.int32)
-    pos = np.zeros((N_SLOTS,), np.int32)
-    QMamba1.island = scoped
-    try:
-        with mode:
-            eng._decode(toks, pos)
-            torch.cuda.synchronize()
-    finally:
-        QMamba1.island = island
-    times = []
-    for _ in range(5):
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        eng._decode(toks, pos)
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return mode.ops, mode.island, float(np.median(times))
-
-
 def phase_ssm(torch, np, kernels):
     """SSM_ARCH: 2 layers at full width card vs CPU (a one-chunk prefill
     and a decode step; the engine over both arenas), then the model at
@@ -2165,6 +2285,7 @@ def phase_ssm(torch, np, kernels):
     from repro_torch.launch.serve import (
         calibration_sample, deploy_model, ragged_requests,
     )
+    from repro_torch.layers.ssm import QMamba1
     from repro_torch.models.lm import DecoderLM
     from repro_torch.serving import Telemetry
 
@@ -2244,7 +2365,7 @@ def phase_ssm(torch, np, kernels):
               for ph in m["phase_mean_s"])
           + f"; step wall {sum(st['wall_s'] for st in m['steps']) * 1e3:.1f}"
           f" over {m['n_steps']} steps")
-    ops, island_ops, ms = ssm_decode_ops(torch, np, lm, eng2)
+    ops, island_ops, ms = decode_ops(torch, np, eng2, QMamba1)
     print(f"  ssm decode dispatch ({N_SLOTS} rows, {cfg.n_layers} layers): "
           f"{ops} aten ops, {island_ops} of them in the scan island "
           f"({island_ops / cfg.n_layers:.0f} a layer); {ms:.2f} ms by CUDA "
@@ -2881,7 +3002,7 @@ def gather_equals_kernel(torch, np, lm, tables):
 
 
 def int_full_width(torch, np, kernels, lm, tables, reqs, run1):
-    """The main tables (40 layers) under `attn_softmax="int"` on the
+    """The main tables (MAIN_LAYERS) under `attn_softmax="int"` on the
     paged arena at kv_bits 8 and 4, the 8-request cell (counts set to 0
     just before and read just after): no paged attention launch, the
     grouped GEMM two launches a layer and dispatch (by shape); tok/s,
@@ -2958,6 +3079,326 @@ def phase_int_softmax(torch, np, kernels, timer, lm, tables, reqs, run1,
     print(f"  (full width: {time.perf_counter() - t0:.1f} s)")
 
 
+def greedy_after_prefill(torch, lm, t, prompt, max_len, dev, n_tokens):
+    """One whole-prompt prefill of `prompt` (1, P) over a fresh
+    contiguous cache, then greedy decode steps: -> (prefill logits,
+    tokens, the cache after the prefill (host copies of the leaves),
+    the cache after the decodes)."""
+    caches = lm.init_caches(1, max_len, device=dev)
+    tok = torch.from_numpy(prompt).to(dev)
+    logits = lm.prefill(t, tok, caches)
+    after = {k: v.cpu().clone() for k, v in caches.items()
+             if isinstance(v, torch.Tensor)}
+    toks = [int(torch.argmax(logits[0, 0]))]
+    P = prompt.shape[1]
+    for i in range(n_tokens - 1):
+        nxt = torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev)
+        lg = lm.decode_step(t, nxt, caches, torch.full(
+            (1,), P + i, dtype=torch.int32, device=dev))
+        toks.append(int(torch.argmax(lg[0, 0])))
+    return logits.cpu(), toks, after, caches
+
+
+def phase_blockwise(torch, np, kernels, lm2, t2_np):
+    """granite_3_2b at full width, the calibrate phase's 2-layer
+    tables, over a contiguous cache of BLOCKWISE_LEN positions: each
+    prompt of BLOCKWISE_PROMPTS (above 4096 rows the attention streams
+    over key blocks) prefilled whole on the card (counted, timed, peak
+    memory) and on the CPU, then greedy decode steps: int32 logits, K/V
+    bytes and the first BLOCKWISE_TOKENS tokens equal."""
+    from repro_torch.models.lm import DecoderLM, tables_from_numpy
+
+    lm = DecoderLM(lm2.cfg, max_seq=BLOCKWISE_LEN)
+    rng = np.random.default_rng(SEED + 21)
+    tc, tg = (tables_from_numpy(t2_np, d) for d in ("cuda", "cpu"))
+    for P in BLOCKWISE_PROMPTS:
+        prompt = rng.integers(0, lm.cfg.vocab, size=(1, P)).astype(np.int32)
+        # the card's prefill alone, counted and timed (a first call
+        # warms the allocator and the kernels' plans)
+        caches = lm.init_caches(1, BLOCKWISE_LEN, device="cuda")
+        lm.prefill(tc, torch.from_numpy(prompt).cuda(), caches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        lm.prefill(tc, torch.from_numpy(prompt).cuda(), caches)
+        t1.record()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        by = dict(sorted(kernels.int8_matmul_grouped.by_shape.items()))
+        check_path_launches(launches, "blockwise", f"blockwise {P}")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del caches
+        card = greedy_after_prefill(torch, lm, tc, prompt, BLOCKWISE_LEN,
+                                    "cuda", BLOCKWISE_TOKENS)
+        t_cpu = time.perf_counter()
+        host = greedy_after_prefill(torch, lm, tg, prompt, BLOCKWISE_LEN,
+                                    "cpu", BLOCKWISE_TOKENS)
+        t_cpu = time.perf_counter() - t_cpu
+        if not torch.equal(card[0], host[0]):
+            raise AssertionError(f"blockwise {P}: prefill logits card != CPU")
+        for kv in ("k", "v"):
+            if not torch.equal(card[2][kv], host[2][kv]):
+                raise AssertionError(f"blockwise {P}: {kv} card != CPU")
+        if card[1] != host[1]:
+            raise AssertionError(f"blockwise {P}: tokens card {card[1]} != "
+                                 f"CPU {host[1]}")
+        print(f"  blockwise prompt {P} over {BLOCKWISE_LEN} positions "
+              f"({lm.cfg.n_layers} layers): prefill {t0.elapsed_time(t1):.1f}"
+              f" ms on the card (CUDA events), peak {peak:.2f} GiB above "
+              f"the tables; launches {launches}, grouped GEMM by shape "
+              f"{by}; logits, K/V bytes and tokens "
+              f"{card[1]} equal on the card and the CPU (CPU {t_cpu:.1f} s)")
+        del card, host
+        torch.cuda.empty_cache()
+    del tc, tg
+
+
+def hybrid_parity(torch, np, lm8, t_np):
+    """HYBRID_PARITY_LAYERS layers at full width, card vs CPU: a
+    128-token prefill and 3 decode steps (logits, conv, h bit for bit,
+    the shared pools), then 3 requests over both arenas (tokens, the
+    arenas' state).  -> the tokens."""
+    from repro_torch.launch.serve import ragged_requests
+    from repro_torch.models.lm import tables_from_numpy
+
+    prompt = np.random.default_rng(SEED + 31).integers(
+        0, lm8.cfg.vocab, size=(1, SSM_PREFILL)).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = tables_from_numpy(t_np, dev)
+        logits, toks, after, caches = greedy_after_prefill(
+            torch, lm8, t, prompt, MAX_LEN, dev, 4)
+        final = {k: caches[k].cpu() for k in ("conv", "h", "k", "v")}
+        for leaves in (after, final):  # h compared as its bits
+            leaves["h"] = leaves["h"].view(torch.int32)
+        out[dev] = (logits, toks, after, final)
+        del t, caches
+    c, h = out["cuda"], out["cpu"]
+    if not torch.equal(c[0], h[0]) or c[1] != h[1]:
+        raise AssertionError("hybrid prefill logits or tokens card != CPU")
+    for when, a, b in (("prefill", c[2], h[2]), ("decodes", c[3], h[3])):
+        for k in ("conv", "h", "k", "v"):
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"hybrid {k} after the {when}: "
+                                     "card != CPU")
+    print(f"  hybrid {lm8.cfg.n_layers}-layer: a {SSM_PREFILL}-token prefill "
+          f"and 3 decode steps: int32 logits, tokens {c[1]}, the conv "
+          f"state {tuple(h[2]['conv'].shape)}, h {tuple(h[2]['h'].shape)} "
+          f"bit for bit and the shared pools {tuple(h[2]['k'].shape)} "
+          "equal on the card and the CPU")
+    reqs = ragged_requests(3, lm8.cfg.vocab, np.random.default_rng(SEED + 1),
+                           prompt_lo=9, prompt_hi=40, gen=HYBRID_PARITY_GEN)
+    toks = None
+    for paged in (False, True):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t = tables_from_numpy(t_np, dev)
+            tok, _, eng = serve(lm8, t, reqs, dev, engine=make_engine(
+                lm8, t, dev, paged=paged, n_slots=HYBRID_PARITY_SLOTS))
+            res[dev] = (tok, {k: eng.arena.caches[k].cpu() for k in
+                              ("conv", "h")})
+            del eng, t
+        what = f"hybrid over {'the paged arena' if paged else 'SlotArena'}"
+        if res["cuda"][0] != res["cpu"][0]:
+            raise AssertionError(f"{what}: card tokens {res['cuda'][0]} != "
+                                 f"CPU {res['cpu'][0]}")
+        for k in ("conv", "h"):
+            a, b = res["cuda"][1][k], res["cpu"][1][k]
+            if not torch.equal(a.view(torch.int32) if k == "h" else a,
+                               b.view(torch.int32) if k == "h" else b):
+                raise AssertionError(f"{what}: {k} state card != CPU")
+        if toks is not None and res["cuda"][0] != toks:
+            raise AssertionError(f"{what}: tokens differ from SlotArena's")
+        toks = res["cuda"][0]
+        print(f"  {what}: {len(reqs)} requests (prompts "
+              f"{[r.prompt_len for r in reqs]}), "
+              f"{sum(len(v) for v in toks.values())} tokens and the arena's "
+              "conv and h state equal on the card and the CPU")
+    return toks
+
+
+def decode_ops(torch, np, eng, cls):
+    """One fused decode dispatch of a drained engine (every slot row at
+    token 0) under a TorchDispatchMode counting aten ops, those inside
+    `cls.island` apart; then the same dispatch timed by CUDA events
+    (median of 5).  -> (ops, island ops, ms)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = self.island = self.depth = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            self.island += self.depth > 0
+            return func(*args, **(kwargs or {}))
+
+    mode, island = Count(), cls.island
+
+    def scoped(self, *a, **kw):
+        mode.depth += 1
+        try:
+            return island(self, *a, **kw)
+        finally:
+            mode.depth -= 1
+
+    toks = np.zeros((N_SLOTS, 1), np.int32)
+    pos = np.zeros((N_SLOTS,), np.int32)
+    cls.island = scoped
+    try:
+        with mode:
+            eng._decode(toks, pos)
+            torch.cuda.synchronize()
+    finally:
+        cls.island = island
+    times = []
+    for _ in range(5):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        eng._decode(toks, pos)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return mode.ops, mode.island, float(np.median(times))
+
+
+def phase_hybrid(torch, np, kernels):
+    """HYBRID_ARCH: HYBRID_PARITY_LAYERS layers at full width card vs
+    CPU (`hybrid_parity`), then HYBRID_LAYERS layers served as the
+    8-request cell over `SlotArena` (warmed; counts set to 0 just
+    before and read just after) and over the paged arena."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import calibration_sample, deploy_model
+    from repro_torch.layers.ssm import QMamba2
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.serving import Request
+
+    t0 = time.perf_counter()
+    lm8 = DecoderLM(dataclasses.replace(get_config(HYBRID_ARCH),
+                                        n_layers=HYBRID_PARITY_LAYERS),
+                    max_seq=MAX_LEN)
+    p = lm8.init_np(SEED)
+    t_np = lm8.deploy(p, lm8.calibrate(
+        p, calibration_sample(lm8.cfg.vocab, MAX_LEN), device="cuda"))
+    del p
+    print(f"  {HYBRID_PARITY_LAYERS} layers at full width ({lm8.plan()[0][2]} "
+          f"group and a {lm8.cfg.n_layers % lm8.cfg.shared_attn_every}-block "
+          f"tail) calibrated on the card and deployed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    hybrid_parity(torch, np, lm8, t_np)
+    del t_np, lm8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lm, tables = deploy_model(HYBRID_ARCH, reduced=False, max_seq=MAX_LEN,
+                              seed=SEED, device="cuda", n_layers=HYBRID_LAYERS)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    cfg, full = lm.cfg, get_config(HYBRID_ARCH)
+    resident = (torch.cuda.memory_allocated() - base) / 2**30
+    print(f"  calibrated and deployed {HYBRID_ARCH} at full width, "
+          f"{cfg.n_layers} of {full.n_layers} layers ({lm.groups} shared "
+          f"applications; {cfg.param_count()} of {full.param_count()} "
+          f"parameters), layer by layer in {deploy_s:.1f} s; tables "
+          f"resident {resident:.2f} GiB")
+    rng = np.random.default_rng(SEED + 2)
+    reqs = [Request(rng.integers(0, cfg.vocab, size=(P,)), max_new_tokens=16)
+            for P in HYBRID_PROMPTS]
+    eng = make_engine(lm, tables, "cuda", paged=False)
+    eng.warmup()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tok1, s1, _ = serve(lm, tables, reqs, "cuda", engine=eng)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if len(tok1) != len(reqs) or any(len(v) != 16 for v in tok1.values()):
+        raise AssertionError(f"hybrid: not every request finished: {tok1}")
+    if not all(0 <= t < cfg.vocab for v in tok1.values() for t in v):
+        raise AssertionError("hybrid: a token outside the vocab")
+    check_path_launches(launches, "hybrid", "hybrid run 1")
+    sites = hybrid_gemm_sites(cfg)
+    by = kernels.int8_matmul.by_shape
+    if any((K, N, mode) not in sites for (_, K, N, mode) in by):
+        raise AssertionError(f"hybrid GEMM launches {by} off its sites")
+    # a dispatch: each Mamba-2 block's conv requant, conv LUT and Add,
+    # each shared application's two concat requants, ctx_rqt and Add
+    D = sum(n for (_, K, N, _), n in by.items() if N == cfg.vocab_padded)
+    L, G = cfg.n_layers, lm.groups
+    want = {"rqt": D * (L + 2 * G), "act": D * L, "add": D * (L + G),
+            "rqt_heads": D * G}
+    if kernels.requant.by_form != want:
+        raise AssertionError(f"hybrid requant launches "
+                             f"{kernels.requant.by_form} are not {want}")
+    print(f"  hybrid run 1 (SlotArena, exact prefill, warmed): prompts "
+          f"{[r.prompt_len for r in reqs]}, {s1['steps']} steps, launches "
+          f"{launches}; int8_matmul by site and path: " + ", ".join(
+              f"{sites[(K, N, mode)]} M{M} "
+              f"({'decode' if M <= 16 else 'prefill'}) {n}"
+              for (M, K, N, mode), n in sorted(by.items()))
+          + "; requant by form: " + ", ".join(
+              f"{k} {v}" for k, v in sorted(kernels.requant.by_form.items())))
+    print_stats("hybrid run 1", s1)
+    ops, island_ops, ms = decode_ops(torch, np, eng, QMamba2)
+    print(f"  hybrid decode dispatch ({N_SLOTS} rows, {cfg.n_layers} blocks, "
+          f"{lm.groups} shared applications): {ops} aten ops, {island_ops} "
+          f"of them in the Mamba-2 island ({island_ops / cfg.n_layers:.0f} a "
+          f"block); {ms:.2f} ms by CUDA events")
+    del eng
+    tok2, s2, _ = serve(lm, tables, reqs, "cuda", warm=True)
+    if tok2 != tok1:
+        raise AssertionError("hybrid over the paged arena gave other tokens")
+    for what, s in (("SlotArena", s1), ("the paged arena", s2)):
+        print(f"  hybrid over {what}: {s['n_generated']} tokens in "
+              f"{s['wall_s']:.3f} s = {s['throughput_tok_s']:.2f} tok/s, "
+              f"p50 / p99 TTFT {s['p50_ttft_s'] * 1e3:.1f} / "
+              f"{s['p99_ttft_s'] * 1e3:.1f} ms, p50 / p99 ITL "
+              f"{s['p50_itl_s'] * 1e3:.1f} / {s['p99_itl_s'] * 1e3:.1f} ms")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"  hybrid: deploy {deploy_s:.1f} s, tables resident "
+          f"{resident:.2f} GiB, peak {peak:.2f} GiB above what the phase "
+          f"found; tokens {tok1}")
+
+
+def bit_length_host_cost(torch, calls: int = 1000) -> None:
+    """Host time of one `core.intmath.bit_length` call on the card (the
+    integer shift-and-compare version) beside the float64 `frexp` one
+    it replaced, at a decode's (8, 1) and a chunk's (256, 1) int32
+    operand: `calls` calls without synchronising, divided; and the
+    bit lengths equal on 2^20 values.  A QNorm takes two a call (the
+    isqrt seed and the reciprocal), so a granite dispatch 162."""
+    from repro_torch.core.intmath import bit_length
+
+    def frexp_bits(n):
+        return torch.frexp(n.to(torch.float64)).exponent.to(torch.int32)
+
+    n = torch.randint(0, 1 << 31, (1 << 20,), dtype=torch.int32,
+                      device="cuda")
+    if not torch.equal(bit_length(n), frexp_bits(n)):
+        raise AssertionError("bit_length: the integer and frexp versions "
+                             "differ on the card")
+    out = []
+    for rows in (N_SLOTS, N_SLOTS * CHUNK):
+        x = torch.randint(1, 1 << 30, (rows, 1), dtype=torch.int32,
+                          device="cuda")
+        for name, fn in (("integer", bit_length), ("frexp", frexp_bits)):
+            fn(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(x)
+            us = (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+            out.append(f"{name} ({rows}, 1) {us:.1f} us")
+    print("  bit_length host us per call (no synchronise): "
+          + ", ".join(out) + f"; x 162 a granite dispatch")
+
+
 def phase_done(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"  ({name}: {t - t0:.1f} s)")
@@ -2966,7 +3407,7 @@ def phase_done(name: str, t0: float) -> float:
 
 SKIPPABLE = ("entry", "cnn", "calibrate", "parity", "open-loop", "prefix",
              "preempt", "async", "whole_prompt", "int_softmax", "configs",
-             "musicgen", "olmoe", "ssm", "nemotron")
+             "musicgen", "olmoe", "ssm", "nemotron", "blockwise", "hybrid")
 
 
 def main() -> int:
@@ -3012,10 +3453,12 @@ def main() -> int:
         check_int8_matmul(torch, np, timer, rng, report),
         check_config_gemms(torch, np, timer, rng, report),
         check_ssm_gemms(torch, np, timer, rng, report),
+        check_hybrid_gemms(torch, np, timer, rng, report),
         check_cnn_gemms(torch, np, timer, rng, report))
     errs["int8_matmul_grouped"] = max(
         check_grouped_gemm(torch, np, timer, rng, report),
-        check_grouped_attention(torch, np, timer, report))
+        check_grouped_attention(torch, np, timer, report),
+        check_blockwise_products(torch, np, timer, report))
     errs["requant"] = check_requant(torch, np, timer, rng, report)
     errs["paged_attention"] = check_paged_attention(
         torch, np, timer, report, ptxas["paged_attention"])
@@ -3023,6 +3466,7 @@ def main() -> int:
         torch, np, timer, report, ptxas["paged_attention"], packed=True)
     errs["quant_flash_attention"] = check_quant_flash_attention(
         torch, np, timer, report, ptxas["quant_attention"])
+    bit_length_host_cost(torch)
     t0 = phase_done("kernels", t0)
     entry = {}
     if "entry" not in skip:
@@ -3088,7 +3532,16 @@ def main() -> int:
         phase_int_softmax(torch, np, kernels, timer, lm, tables, reqs, run1,
                           lm2, t2_np)
         t0 = phase_done("int_softmax", t0)
-    del lm, tables, lm2, t2_np
+    del lm, tables
+    if "blockwise" not in skip:
+        print(f"[blockwise] granite_3_2b at full width, {BLOCKWISE_LAYERS} "
+              f"layers: whole prompts of {BLOCKWISE_PROMPTS} tokens over "
+              f"{BLOCKWISE_LEN} positions, card vs CPU")
+        if lm2 is None:
+            lm2, t2_np = granite_2_layers()
+        phase_blockwise(torch, np, kernels, lm2, t2_np)
+        t0 = phase_done("blockwise", t0)
+    del lm2, t2_np
     if "configs" not in skip:
         print("[configs] " + " and ".join(CONFIGS) + f" at full width, "
               f"{CONFIG_LAYERS} layers")
@@ -3110,6 +3563,11 @@ def main() -> int:
               "card")
         phase_ssm(torch, np, kernels)
         t0 = phase_done("ssm", t0)
+    if "hybrid" not in skip:
+        print(f"[hybrid] {HYBRID_ARCH}: {HYBRID_PARITY_LAYERS}-layer parity, "
+              f"then full width on the card, {HYBRID_LAYERS} of 38 layers")
+        phase_hybrid(torch, np, kernels)
+        t0 = phase_done("hybrid", t0)
     if "nemotron" not in skip:
         print("[nemotron] one nemotron_4_340b layer at full width, card vs "
               "CPU")

@@ -8,8 +8,9 @@ one file each with its values: `granite_3_2b`, `llama3_2_3b` and
 with bias, ungated GELU MLP, MHA), `nemotron_4_340b` (LayerNorm with
 bias, ungated squared-ReLU MLP, head_dim 192), `olmoe_1b_7b` (the
 MoE family: 64 experts, top-8, an expert layer in every block) and
-`falcon_mamba_7b` (the ssm family: 64 Mamba-1 blocks, no attention);
-and
+`falcon_mamba_7b` (the ssm family: 64 Mamba-1 blocks, no attention),
+`zamba2_1_2b` (the hybrid family: Mamba-2 blocks and one shared
+attention block over concat(x, x0) applied every 6 of them); and
 `nemo_cnn`, the paper's CNN (family "cnn", served by
 `models.cnn.NemoCNN`; `LM_ARCH_IDS` leaves it out, as the reference's
 dry run does).
@@ -23,7 +24,8 @@ from typing import Dict
 _REGISTRY: Dict[str, "ArchConfig"] = {}
 
 ARCH_IDS = ["granite_3_2b", "llama3_2_3b", "chatglm3_6b", "musicgen_medium",
-            "nemotron_4_340b", "olmoe_1b_7b", "falcon_mamba_7b", "nemo_cnn"]
+            "nemotron_4_340b", "olmoe_1b_7b", "falcon_mamba_7b", "zamba2_1_2b",
+            "nemo_cnn"]
 # the configs `DecoderLM` serves (the CLI's --arch)
 LM_ARCH_IDS = [a for a in ARCH_IDS if a != "nemo_cnn"]
 
@@ -31,7 +33,7 @@ LM_ARCH_IDS = [a for a in ARCH_IDS if a != "nemo_cnn"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | moe | ssm | cnn
+    family: str                 # dense | moe | ssm | hybrid | cnn
     n_layers: int
     d_model: int
     vocab: int
@@ -52,10 +54,12 @@ class ArchConfig:
     shared_expert: bool = False
     moe_group: int = 512
     # --- SSM ---
-    ssm_kind: str = ""          # mamba1 (mamba2: the hybrid family)
+    ssm_kind: str = ""          # mamba1 | mamba2
     ssm_state: int = 16
     ssm_expand: int = 2
     ssm_head_dim: int = 64
+    # --- hybrid (zamba2) ---
+    shared_attn_every: int = 0
     input_mode: str = "tokens"
     sub_quadratic: bool = False  # eligible for long contexts
     notes: str = ""
@@ -71,10 +75,11 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU tests (the reference's
-        `reduced()` for a dense, MoE or ssm config)."""
+        `reduced()`)."""
         kw = dataclasses.asdict(self)
         kw.update(
-            n_layers=min(self.n_layers, 2),
+            n_layers=min(self.n_layers, 2 if self.shared_attn_every == 0
+                         else self.shared_attn_every + 1),
             d_model=128,
             vocab=256,
             d_ff=256 if self.d_ff else 0,
@@ -87,16 +92,16 @@ class ArchConfig:
             ssm_state=min(self.ssm_state, 16),
             ssm_head_dim=(
                 32 if self.ssm_kind == "mamba2" else self.ssm_head_dim),
+            shared_attn_every=2 if self.shared_attn_every else 0,
             name=self.name + "_reduced",
         )
         return ArchConfig(**kw)
 
     def param_count(self) -> int:
-        """Analytic parameter count (the reference's, for the dense, MoE
-        and ssm families)."""
-        if self.family not in ("dense", "moe", "ssm"):
+        """Analytic parameter count (the reference's)."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"param_count of the {self.family} family (ROADMAP item 10)")
+                f"param_count of the {self.family} family")
         d, V, hd = self.d_model, self.vocab, self.hd
         ff_mats = 3 if self.gated else 2
         n = 2 * V * d  # embed + head
@@ -107,6 +112,16 @@ class ArchConfig:
                          + rank * di + di * d + di * self.ssm_state
                          + 2 * di + d)
             return int(n + self.n_layers * per_layer)
+        if self.family == "hybrid":
+            di = self.ssm_expand * d
+            H = di // self.ssm_head_dim
+            per_layer = (d * (2 * di + 2 * self.ssm_state + H) + di * d
+                         + 3 * H + 2 * di + d)
+            n += self.n_layers * per_layer
+            if self.shared_attn_every:
+                n += (2 * d * (self.n_heads + 2 * self.n_kv_heads) * hd
+                      + self.n_heads * hd * d)
+            return int(n)
         for i in range(self.n_layers):
             n += (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                   + self.n_heads * hd * d) + 2 * d  # attention, norms

@@ -4,23 +4,32 @@
 `avgpool_requant_params` / `int_avgpool_combine`).
 
 torch has no count-leading-zeros, so the bit length that seeds the
-isqrt Newton iteration (and the integer norm's reciprocal) is read off
-exactly as the binary exponent of the value (`torch.frexp`) — never
-through a float `log2`, which rounds wrongly just below powers of two.
+isqrt Newton iteration (and the integer norm's reciprocal) is found by
+an int32 binary search over the powers of two (`torch.searchsorted`,
+one launch), so the norms run without a floating operation.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 
+@functools.lru_cache(maxsize=4)
+def _powers_of_two(device: str) -> torch.Tensor:
+    return torch.tensor([1 << k for k in range(31)], dtype=torch.int32,
+                        device=device)
+
+
 def bit_length(n: torch.Tensor) -> torch.Tensor:
     """Bit length of non-negative int32 values (0 -> 0, 1 -> 1,
-    2^31 - 1 -> 31): the `32 - clz(n)` of the reference.  Exact:
-    float64 holds every int32 exactly, and `frexp` splits it into a
-    mantissa in [0.5, 1) and the integer exponent, which is the bit
-    length — no rounded logarithm is involved."""
-    return torch.frexp(n.to(torch.float64)).exponent.to(torch.int32)
+    2^31 - 1 -> 31): the `32 - clz(n)` of the reference, in int32
+    compares only: the count of powers of two 2^0 .. 2^30 at or below
+    n, by binary search."""
+    n = n.to(torch.int32).contiguous()
+    return torch.searchsorted(_powers_of_two(str(n.device)), n,
+                              right=True, out_int32=True)
 
 
 def int_isqrt(n: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,9 @@
 """Float islands of the ID path written as fixed float32 sequences:
 `exp_f32`, `log_f32`, `log1p_f32` and `softplus_f32`, the selective
-scan's transcendental functions (`layers.ssm`).
+scan's transcendental functions (`layers.ssm`); `rsqrt_f32`,
+`window_sum` and `lane8_dot`, the Mamba-2 island's reciprocal square
+root, mean and state contraction; and `exp_image`, the blockwise
+attention's probability image (`layers.attention`).
 
 The reference leaves these to XLA, which on the CPU lowers them to
 Cephes-style polynomials with every multiply-add contracted into a
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 F32 = torch.float32
 F64 = torch.float64
@@ -80,6 +84,107 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     pow2 = ((n.to(torch.int32) + 127) << 23).view(F32)
     y = z * pow2
     return torch.where(y.abs() < FLT_MIN, torch.zeros_like(y), y)
+
+
+# exp_f32 is within 1.01 ulp of exp over a sweep of 1.6e8 float32 in
+# [-8, 0], and the libraries' float32 exp within 2 ulp on both devices;
+# with the product's rounding, each 127 e^x in float32 is within 2^-21
+# of 127 e^x relatively, so a library exp decides the rounding wherever
+# it lies further than 2^-18 of itself from a half-integer
+_IMAGE_EDGE = 2.0 ** -18
+
+
+def exp_image(x: torch.Tensor) -> torch.Tensor:
+    """round(127 exp_f32(x)) as int8, for float32 x <= 0 (half to even,
+    as the reference's `jnp.round(p * 127.0)` of its lowered exp).
+
+    Only the image is needed, so the library's float32 e^x stands in
+    for `exp_f32` wherever 127 e^x lies further than 2^-18 of itself
+    from a half-integer (the test below is exact in float32); the few
+    entries inside that edge take `exp_f32` (one read of the count, a
+    host sync on the card).  The result is the same on every device."""
+    x = x.to(F32)
+    y = torch.exp(x) * 127.0
+    out = torch.round(y)
+    edge = (y - torch.floor(y) - 0.5).abs() <= y * _IMAGE_EDGE
+    if bool(edge.any()):
+        out[edge] = torch.round(exp_f32(x[edge]) * 127.0)
+    return out.to(torch.int8)
+
+
+# rsqrt: the host's 12-bit estimate (a table of 2 x 1024 entries by the
+# exponent's parity and the mantissa's top 10 bits, each the estimate at
+# its interval's midpoint rounded to 12 bits), then two Newton steps
+# y + (y / 2)(1 - x y^2), every multiply-add fused
+def _rsqrt_table() -> torch.Tensor:
+    i = np.arange(1024, dtype=np.float64)
+    mid = 1.0 + (i + 0.5) / 1024.0
+    rows = [np.round((2.0 / np.sqrt(mid * s) - 1.0) * 4096.0) for s in (1, 2)]
+    return torch.from_numpy(np.stack(rows).astype(np.int32) & 0xFFF)
+
+
+_RSQRT_TABLE = _rsqrt_table()
+
+
+def rsqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """1 / sqrt(x) of positive normal float32 x as the reference's
+    lowering computes it on its host (12-bit estimate, two fused Newton
+    steps; within 1 ulp, not always the nearest)."""
+    x = x.to(F32)
+    bits = x.view(torch.int32)
+    e = (bits >> 23) - 127
+    odd = e & 1
+    tab = _RSQRT_TABLE.to(x.device)
+    man = tab[odd.long(), ((bits >> 13) & 1023).long()]
+    y = (((126 - torch.div(e, 2, rounding_mode="floor")) << 23)
+         | (man << 11)).view(F32)
+    for _ in range(2):
+        y = fma(y * 0.5, fma(-(x * y), y, 1.0), y)
+    return y
+
+
+WINDOW = 32  # the reference's lowering sums long rows in windows of 32
+
+
+def window_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as the reference's lowering reduces a row
+    longer than WINDOW: windows of 32 each summed in order from 0
+    (zero-padded at the end), again until at most 32 partial sums are
+    left, then those in order; every add rounded once."""
+    x = x.to(F32)
+    while x.shape[-1] > WINDOW:
+        x = F.pad(x, (0, (-x.shape[-1]) % WINDOW))
+        w = x.reshape(*x.shape[:-1], -1, WINDOW)
+        acc = torch.zeros_like(w[..., 0])
+        for i in range(WINDOW):
+            acc = acc + w[..., i]
+        x = acc
+    acc = torch.zeros_like(x[..., 0])
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def lane8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum over the last axis of a * b (the same length, a multiple of
+    8; broadcastable) as the reference's lowering contracts a batched
+    matrix-vector product: lane l of 8 takes the products of indices
+    l, l + 8, ... (the first a plain product, the rest fused
+    multiply-adds in turn), then adjacent lanes are added pairwise,
+    (0 + 1), (2 + 3), ..., then the pairs, then the halves."""
+    n = a.shape[-1]
+
+    def groups(x):  # (..., n) -> (n / 8, ..., 8), each group contiguous
+        x = x.to(F32)
+        return x.reshape(*x.shape[:-1], n // 8, 8).movedim(-2, 0).contiguous()
+
+    a8, b8 = groups(a), groups(b)
+    lanes = a8[0] * b8[0]
+    for j in range(1, n // 8):
+        lanes = fma(a8[j], b8[j], lanes)
+    while lanes.shape[-1] > 1:
+        lanes = lanes[..., 0::2] + lanes[..., 1::2]
+    return lanes[..., 0]
 
 
 # log: x = m 2^e with m in [sqrt(1/2), sqrt(2)), log(m) = f - f^2/2 +

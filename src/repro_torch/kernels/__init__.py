@@ -8,7 +8,9 @@ beside it (see build.py for how they are built).
                                                 attention's two products
                                                 (scores, P.V; int32 out,
                                                 one group a slot and kv
-                                                head)
+                                                head), and the blockwise
+                                                attention's, a key block
+                                                at a time
   requant              csrc/requant.cu          the standalone requant sites:
                                                 ctx_rqt (heads to rows), each
                                                 QAdd, the gated MLP's LUT,

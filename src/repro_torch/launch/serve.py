@@ -42,8 +42,9 @@ The arena is the reference's default, `SlotArena`, unless `--paged`
 asks for the paged one (`--page-size`, `--pages`; kv_bits 4 and the
 prefix cache need it).  `--prefill-chunk 0` prefills each prompt whole
 at batch 1, padded to a `--prefill-bucket` multiple; the MoE family
-(`--arch olmoe_1b_7b`) and the ssm family (`--arch falcon_mamba_7b`)
-always prefill whole prompts at their exact length.
+(`--arch olmoe_1b_7b`), the ssm family (`--arch falcon_mamba_7b`) and
+the hybrid (`--arch zamba2_1_2b`) always prefill whole prompts at their
+exact length.
 
 `serve_batch` is the reference's lockstep loop, kept as the parity
 oracle: B prompts prefilled together at position 0, then decoded at
@@ -122,11 +123,25 @@ def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
     # layers calibrate and deploy in order (each one's float input is
     # the previous layer's output, and its tables need the previous
     # layer's output quantum); the next layer's floats are drawn
-    # meanwhile, and each layer's floats are dropped once deployed
+    # meanwhile, and each layer's floats are dropped once deployed.  The
+    # hybrid's shared block (one float weight set) runs and deploys
+    # after each group, over concat(x, x0) with x0 the embedding's
+    # output, with tables of its own at each application
     n = cfg.n_layers
+    x0, eps_in = x, eps_x
+    p_shared_np = lm.init_shared_np(seed) if lm.groups else None
+    p_shared = (params_to_torch(p_shared_np, device) if lm.groups
+                else None)
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
         ahead = pool.submit(lm.init_layer_np, seed, 0)
-        for i in range(n):
+        for kind, i in lm.steps():
+            if kind == "shared":
+                x = lm.apply_shared(p_shared, i, x, x0, calib)
+                t_i, eps_x = lm.deploy_shared(ctx, i, p_shared_np, eps_x,
+                                              eps_in)
+                tables.setdefault("shared", []).append(
+                    load_layer(tree_to_torch(t_i, device)))
+                continue
             p_i = ahead.result()
             if i + 1 < n:
                 ahead = pool.submit(lm.init_layer_np, seed, i + 1)
@@ -134,6 +149,7 @@ def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
             t_i, eps_x = lm.deploy_layer(ctx, i, p_i, eps_x)
             del p_i
             tables["layers"].append(load_layer(tree_to_torch(t_i, device)))
+    del x0, p_shared, p_shared_np
     p_norm, p_head = lm.init_head_np(seed)
     lm.logits({"norm_f": params_to_torch(p_norm, device),
                "head": params_to_torch(p_head, device)}, x, calib)

@@ -1,6 +1,7 @@
 """Grouped-query attention (port of `repro.layers.attention.QAttention`:
-the float forward `apply_float` without a cache, `deploy` and the
-paged branch of `apply_id`, over both of its paths).
+the float forward `apply_float` without a cache, `deploy` and
+`apply_id` over both of its paths and the blockwise one; `d_in` for
+zamba2's shared block, whose wq / wk / wv read the 2 d-wide concat).
 
 The float forward (FullPrecision, calibration's pass) runs causal
 attention over the whole sequence in float32: q/k/v matmuls, float
@@ -69,8 +70,20 @@ pack side's rounding term once, when the tables are loaded, so a step
 builds neither.  `deploy` also emits the integer softmax's `sm_tabs`
 (`core.intsoftmax.make_int_softmax_tables` at the score quantum).
 
-Left out of this slice: the contiguous cache, the blockwise path for
-S > 4096 and sharding hints.
+Above BLOCKWISE_THRESHOLD (4096) query rows the reference's dense
+branch streams instead (`_blockwise_id`), and the port takes that path
+where the reference does: over a contiguous cache (`DecoderLM.
+init_caches`, marked ``"contiguous"``: the slot arena and the
+whole-prompt scratch), whatever the variants say, and on the gather
+path over pools.  Over a paged arena on the kernel path the kernel
+stays, as the reference's has no width limit.  `_blockwise_attend`
+scans the keys in blocks of 2048 with a running max, sum and float32
+accumulator, each block's products on the grouped GEMM and its island
+as the reference's XLA lowering computes it (its exp, the fused
+multiply-adds of its update, / 127 as a product with the reciprocal),
+and ends in round(127 ctx) as int32 for ctx_rqt.
+
+Left out: sharding hints.
 """
 from __future__ import annotations
 
@@ -82,6 +95,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.intmath import pack_int4
+from repro_torch.core.island import exp_f32, exp_image, fma
 from repro_torch.core.intsoftmax import int_softmax, make_int_softmax_tables
 from repro_torch.core.requant import make_rqt
 from repro_torch.kernels.int8_matmul import int8_matmul_grouped
@@ -101,6 +115,18 @@ EPS_P = 1.0 / 127.0  # probability quantum (symmetric int8, zp=0)
 NEG_INF = -1e9  # the float forward's causal mask
 PAGE_NULL = 0  # physical page 0 is the trash page
 INACTIVE_POS = 1 << 30  # parked rows: past every cache, int32-safe
+# above this many query rows the dense branch streams over key blocks of
+# half its size (the reference's `QAttention.BLOCKWISE_THRESHOLD`)
+BLOCKWISE_THRESHOLD = 4096
+BLOCKWISE_BLOCK = BLOCKWISE_THRESHOLD // 2
+# query rows of one blockwise tile: at most this many (row, key) scores
+# of all heads at once, which bounds the island's temporaries (smaller
+# on the host, where a tile that stays in cache runs faster; the
+# result does not depend on the tiling)
+BLOCKWISE_TILE_SCORES = {"cpu": 1 << 20, "cuda": 1 << 26}
+# the reference divides the block's P.V and image sum by 127, which its
+# XLA lowering computes as a product with the float32 reciprocal
+_INV127 = float(np.float32(1.0 / 127.0))
 
 
 @functools.lru_cache(maxsize=8)
@@ -132,6 +158,7 @@ class QAttention:
     rope_fraction: float = 1.0
     max_seq: int = 4096
     name: str = "attn"
+    d_in: int = 0  # input width where not d_model (zamba2's concat)
 
     @property
     def group(self) -> int:
@@ -139,10 +166,11 @@ class QAttention:
 
     def _sub(self):
         H, K, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        d_in = self.d_in or self.d_model
         return {
-            "wq": QLinear(self.d_model, H * hd),
-            "wk": QLinear(self.d_model, K * hd),
-            "wv": QLinear(self.d_model, K * hd),
+            "wq": QLinear(d_in, H * hd),
+            "wk": QLinear(d_in, K * hd),
+            "wv": QLinear(d_in, K * hd),
             "wo": QLinear(H * hd, self.d_model),
         }
 
@@ -282,8 +310,14 @@ class QAttention:
         q = rotate_int(q, c, s, rot).contiguous()
         k = rotate_int(k, c, s, rot)
         kv4 = t["kv4"] if cache["k"].shape[-1] != hd else None
-        if (variants.get("paged_decode") == "kernel"
-                and variants.get("attn_softmax") != "int"):
+        kernel = (variants.get("paged_decode") == "kernel"
+                  and variants.get("attn_softmax") != "int")
+        if S > BLOCKWISE_THRESHOLD and (cache.get("contiguous")
+                                        or not kernel):
+            k_view, v_view = _paged_cache_update(cache, k, v, pos, kv4=kv4)
+            acc = _blockwise_attend(q, k_view, v_view, pos,
+                                    t["score_scale"], self.group)
+        elif kernel:
             _paged_write(cache, k, v, pos, kv4=kv4)
             kw = ({} if kv4 is None
                   else dict(k_rq=kv4["k_rq"], v_rq=kv4["v_rq"]))
@@ -329,6 +363,71 @@ class QAttention:
             s_p.view(1, B * K, G * S, T + pad),
             vt.view(B * K, hd, T + pad).transpose(1, 2))
         return acc.view(B, H, S, hd)
+
+
+def _blockwise_attend(q: torch.Tensor, k_view: torch.Tensor,
+                      v_view: torch.Tensor, pos: torch.Tensor,
+                      score_scale: torch.Tensor, group: int
+                      ) -> torch.Tensor:
+    """The reference's `_blockwise_id` up to its ctx_rqt: q (B, H, S,
+    hd) int8, k_view / v_view (B, K, T, hd) int8, T a multiple of
+    BLOCKWISE_BLOCK -> round(127 ctx) (B, H, S, hd) int32.
+
+    For each block of keys: int32 scores on the grouped GEMM, logits
+    scores * score_scale masked to NEG_INF past each row's position,
+    the running max m, p = exp(logits - m) and its image round(127 p)
+    as int8 (`core.island.exp_image`), P.V on the grouped GEMM, corr =
+    exp(m_old - m), acc = acc corr + pv / 127 and l = l corr +
+    sum(image) / 127, each update one fused multiply-add and each / 127
+    a product with the float32 reciprocal, as the reference's lowering
+    computes them; at the end ctx = acc / max(l, 1e-9).  Query rows run
+    in tiles (their results do not depend on one another), and a tile
+    skips the blocks wholly past its last row's position: there p is
+    0, corr 1 and the update leaves acc and l as they were."""
+    B, H, S, hd = q.shape
+    K = H // group
+    T = k_view.shape[2]
+    blk = BLOCKWISE_BLOCK
+    if T % blk:
+        raise ValueError(f"blockwise attention needs T % {blk} == 0, got "
+                         f"(T, block) = {(T, blk)}")
+    dev = q.device
+    scale = score_scale.to(torch.float32)
+    k_blocks = [k_view[:, :, j:j + blk].reshape(B * K, blk, hd).contiguous()
+                for j in range(0, T, blk)]
+    v_blocks = [v_view[:, :, j:j + blk].transpose(2, 3).reshape(
+        B * K, hd, blk).contiguous() for j in range(0, T, blk)]
+    rows = max(1, min(S, BLOCKWISE_TILE_SCORES[dev.type] // (B * H * blk)))
+    p0 = pos.to(torch.int64)
+    first_max = int(p0.max())  # one read of the positions a layer
+    out = torch.empty((B, H, S, hd), dtype=torch.int32, device=dev)
+    for r0 in range(0, S, rows):
+        R = min(rows, S - r0)
+        q_t = q[:, :, r0:r0 + R].reshape(1, B * K, group * R,
+                                         hd).contiguous()
+        q_pos = p0[:, None] + torch.arange(r0, r0 + R, device=dev)  # (B,R)
+        m = torch.full((B, H, R), NEG_INF, dtype=torch.float32, device=dev)
+        l_ = torch.zeros((B, H, R), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, R, hd), dtype=torch.float32, device=dev)
+        n_blk = min(T // blk, (first_max + r0 + R - 1) // blk + 1)
+        for j in range(n_blk):
+            s = int8_matmul_grouped(q_t, k_blocks[j].transpose(1, 2))
+            logits = s.view(B, H, R, blk).to(torch.float32) * scale
+            k_pos = torch.arange(j * blk, (j + 1) * blk, device=dev)
+            keep = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+            logits = torch.where(keep, logits, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            qp = exp_image(logits - m_new[..., None])
+            pv = int8_matmul_grouped(
+                qp.view(1, B * K, group * R, blk),
+                v_blocks[j].transpose(1, 2)).view(B, H, R, hd)
+            corr = exp_f32(m - m_new)
+            acc = fma(acc, corr[..., None], pv.to(torch.float32) * _INV127)
+            l_ = fma(l_, corr, qp.to(torch.float32).sum(-1) * _INV127)
+            m = m_new
+        ctx = acc / torch.clamp_min(l_, 1e-9)[..., None]
+        out[:, :, r0:r0 + R] = torch.round(ctx * 127.0).to(torch.int32)
+    return out
 
 
 def _bool_mask(S: int, T: int, pos: torch.Tensor) -> torch.Tensor:

@@ -1,34 +1,41 @@
-"""Mamba-1 selective state-space layer under NEMO quantization (port of
-`repro.layers.ssm`: `QMamba1` with its float forward `apply_float`,
-`deploy`, `apply_id` and `init_cache`; the Mamba-2 core of the hybrid
-family is not ported yet, ROADMAP item 10).
+"""Selective state-space layers under NEMO quantization (port of
+`repro.layers.ssm`: `QMamba1`, the falcon_mamba_7b layer, and
+`QMamba2`, the zamba2 hybrid's, each with its float forward
+`apply_float`, `deploy`, `apply_id` and `init_cache`).
 
-Everything around the scan is W8A8 integer: the in / x / dt / out
-projections on the int8 GEMM (kernels/int8_matmul.py; in_proj and
-x_proj with their requant fused into the epilogue), the depthwise
-causal conv1d as int32 torch ops (`causal_conv1d_int`), its requant
-and SiLU LUT on the requant kernel (`requant`, `requant_act`), and the
-gate z's LUT, the gate product and `gated_rqt` in one launch of the
-requant kernel's gate form (`requant_gate`).  The scan core is the
-paper's §3.8 float island: softplus, exp(dt A) and the recurrence
-h_t = a_t h_{t-1} + u_t, entered through two static dequant scales and
-left through `eps_y_inv`.
+Everything around the scan is W8A8 integer: the projections on the
+int8 GEMM (kernels/int8_matmul.py; the in_proj's requant, and Mamba-1's
+x_proj's, fused into the epilogue), the depthwise causal conv1d as
+int32 torch ops (`causal_conv1d_int`), its requant and SiLU LUT on the
+requant kernel (`requant`, `requant_act`), and Mamba-1's gate z (its
+LUT, the gate product and `gated_rqt` in one launch of the requant
+kernel's gate form, `requant_gate`).  The scan core is the paper's
+§3.8 float island: softplus, exp(dt A) and the recurrence h_t = a_t
+h_{t-1} + u_t, entered through static dequant scales.  Mamba-1 leaves
+it through `eps_y_inv`; Mamba-2 keeps its gate and gated RMS norm
+inside the island and leaves through `eps_n_inv`.
 
 The island is a fixed sequence of float32 operations, each rounded
 once, the same on the card and the CPU (`core.island`), written as the
 reference's XLA lowering computes it: the recurrence as
-`jax.lax.associative_scan`'s odd / even recursion (`assoc_scan`) with
-its combine's multiply-add fused, over one block when L is not a
-multiple of the chunk (`ssm_chunk`, default CHUNK) or below it, else
-chunk by chunk with the float32 carry; the 16-lane sum of h * C as one
-chain of fused multiply-adds; every state product flushed to zero below
-the least normal float32 (the reference's host runs flush subnormals).
-The state enters as the reference's serving steps fuse it, h_0 = a_0
-h0 + u_0 in one multiply-add (a decode step is that alone).
+`jax.lax.associative_scan`'s odd / even recursion (`_scan`) with its
+combine's multiply-add fused, over one block when L is not a multiple
+of the chunk (`ssm_chunk`, default CHUNK) or below it, else chunk by
+chunk with the float32 carry (`_chunked`); every state product flushed
+to zero below the least normal float32 (the reference's host runs
+flush subnormals).  The state enters as the reference's serving steps
+fuse it, h_0 = a_0 h0 + u_0 in one multiply-add (a decode step is that
+alone).  Mamba-1 sums h * C over its 16 states as one chain of fused
+multiply-adds (`lane_sum_hc`); Mamba-2 contracts h with C as the
+reference's batched matrix-vector product (`core.island.lane8_dot`),
+adds D x in one fused multiply-add, and takes its gate z / (1 + e^-z),
+the mean of the squares (`window_sum`) and `rsqrt_f32` as its lowering
+does.
 
-Cache (serving): {"conv": (B, conv_k - 1, d_inner) int8, the last
-conv inputs; "h": (B, d_inner, d_state) float32, the scan state}, the
-one float leaf of an ID cache tree.
+Caches (serving): Mamba-1 {"conv": (B, conv_k - 1, d_inner) int8, the
+last conv inputs; "h": (B, d_inner, d_state) float32}; Mamba-2 {"conv":
+(B, conv_k - 1, d_conv_in) int8 over the x, B, C channels; "h": (B, H,
+P, d_state) float32}: the one float leaf of an ID cache tree.
 """
 from __future__ import annotations
 
@@ -40,7 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.intmath import build_lut
-from repro_torch.core.island import exp_f32, fma, ftz, softplus_f32
+from repro_torch.core.island import (
+    exp_f32, fma, ftz, lane8_dot, rsqrt_f32, softplus_f32, window_sum,
+)
 from repro_torch.core.requant import make_rqt
 from repro_torch.kernels.requant_kernel import (
     requant, requant_act, requant_gate,
@@ -104,16 +113,40 @@ def _scan(a: torch.Tensor, u: torch.Tensor):
     return _interleave(ea, oa), _interleave(eu, ou)
 
 
+def scan_h(a: torch.Tensor, u: torch.Tensor,
+           h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + u_t along axis 1 (a broadcastable to u); h0
+    the state before position 0 (u's shape less axis 1), or None.  ->
+    h, u's shape."""
+    if h0 is not None:
+        first = ftz(fma(a[:, :1], h0[:, None], u[:, :1]))
+        u = torch.cat([first, u[:, 1:]], dim=1)
+    return _scan(a, u)[1]
+
+
 def assoc_scan(a: torch.Tensor, dt_b: torch.Tensor, x1: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = a_t h_{t-1} + u_t along axis 1 with u = dt_b * x1 (a, dt_b
     (B, L, di, ds), x1 (B, L, di, 1)); h0 (B, di, ds) the state before
     position 0, or None.  -> h (B, L, di, ds)."""
-    u = ftz(dt_b * x1)
-    if h0 is not None:
-        first = ftz(fma(a[:, :1], h0[:, None], u[:, :1]))
-        u = torch.cat([first, u[:, 1:]], dim=1)
-    return _scan(a, u)[1]
+    return scan_h(a, ftz(dt_b * x1), h0)
+
+
+def _chunked(L: int, block, h0: Optional[torch.Tensor], zeros):
+    """The reference's `_chunked_recurrence` around `block(span, h_prev)
+    -> (y, h_last)`: one block over all L positions when L is not a
+    multiple of the chunk or below it (h_prev = h0, maybe None), else
+    chunk by chunk from h0 or `zeros()`."""
+    _check_island_dtype()
+    chunk = _chunk_len()
+    if L % chunk or L < chunk:
+        return block(slice(None), h0)
+    h = zeros() if h0 is None else h0
+    ys = []
+    for c0 in range(0, L, chunk):
+        y, h = block(slice(c0, c0 + chunk), h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
 
 
 def lane_sum_hc(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -130,13 +163,10 @@ def ssm_core(x1: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
              cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
              h0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The float scan core (the reference's `QMamba1._core_fp` through
-    `_chunked_recurrence`): x1, dt (B, L, di), bm, cm (B, L, ds) float32,
-    A (di, ds), D (di,), h0 (B, di, ds) or None.  -> (y (B, L, di),
-    h_last (B, di, ds))."""
-    _check_island_dtype()
-    chunk = _chunk_len()
-    L = x1.shape[1]
+    """The float scan core (the reference's `QMamba1._core_fp`
+    through `_chunked_recurrence`): x1, dt (B, L, di), bm, cm (B, L, ds)
+    float32, A (di, ds), D (di,), h0 (B, di, ds) or None.  -> (y (B, L,
+    di), h_last (B, di, ds))."""
 
     def block(s: slice, h_prev):
         dts = dt[:, s]
@@ -147,16 +177,33 @@ def ssm_core(x1: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
         y = fma(D, xs, lane_sum_hc(h, cm[:, s]))
         return y, h[:, -1]
 
-    if L % chunk or L < chunk:
-        return block(slice(None), h0)
-    h = (torch.zeros(x1.shape[0], A.shape[0], A.shape[1],
-                     dtype=torch.float32, device=x1.device)
-         if h0 is None else h0)
-    ys = []
-    for c0 in range(0, L, chunk):
-        y, h = block(slice(c0, c0 + chunk), h)
-        ys.append(y)
-    return torch.cat(ys, dim=1), h
+    return _chunked(x1.shape[1], block, h0, lambda: torch.zeros(
+        x1.shape[0], A.shape[0], A.shape[1], dtype=torch.float32,
+        device=x1.device))
+
+
+def ssm2_core(xh: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+              cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+              h0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 scan core (the reference's `QMamba2._core_fp`, one
+    group): xh (B, L, H, P), dt (B, L, H), bm, cm (B, L, ds) float32, A,
+    D (H,), h0 (B, H, P, ds) or None.  a = exp(dt A) per head, u = dt x
+    B in that order, y = h . C (`lane8_dot`) + D x fused.  -> (y (B, L,
+    H, P), h_last (B, H, P, ds))."""
+
+    def block(s: slice, h_prev):
+        dts, xs = dt[:, s], xh[:, s]
+        a = exp_f32(dts * A)[..., None, None]
+        u = ftz(ftz(dts[..., None, None] * xs[..., None])
+                * bm[:, s, None, None, :])
+        h = scan_h(a, u, h_prev)
+        y = fma(D[:, None], xs, lane8_dot(h, cm[:, s, None, None, :]))
+        return y, h[:, -1]
+
+    B, _, H, P = xh.shape
+    return _chunked(xh.shape[1], block, h0, lambda: torch.zeros(
+        B, H, P, bm.shape[-1], dtype=torch.float32, device=xh.device))
 
 
 # -- the integer conv ----------------------------------------------------
@@ -410,11 +457,237 @@ class QMamba1:
         }
 
 
+# ===========================================================================
+# Mamba-2 (zamba2)
+# ===========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class QMamba2:
+    d_model: int
+    d_state: int = 64
+    expand: int = 2
+    head_dim: int = 64
+    conv_k: int = 4
+    n_groups: int = 1
+    name: str = "mamba2"
+
+    def __post_init__(self):
+        if self.n_groups != 1:
+            raise NotImplementedError(
+                f"n_groups {self.n_groups}: the reference's configs use one "
+                "B / C group")
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+    @property
+    def d_conv_in(self) -> int:
+        """The conv runs over (x, B, C)."""
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+    def _sub(self):
+        di, ds, H = self.d_inner, self.d_state, self.n_heads
+        return {
+            "in_proj": QLinear(self.d_model,
+                               2 * di + 2 * self.n_groups * ds + H),
+            "out_proj": QLinear(di, self.d_model),
+        }
+
+    def init_np(self, rng: np.random.Generator) -> dict:
+        """Float params with the reference's shapes and scales: A_log =
+        log of H values evenly from 1 to 16, D = 1, dt bias
+        softplus^-1(0.01), conv taps normal / sqrt(conv_k), zero conv
+        bias, norm gain 1."""
+        p = {n: lay.init_np(rng) for n, lay in self._sub().items()}
+        H = self.n_heads
+        p["A_log"] = np.log(np.linspace(1.0, 16.0, H).astype(np.float32))
+        p["D"] = np.ones((H,), np.float32)
+        p["dt_bias"] = np.log(np.expm1(np.full((H,), 0.01, np.float32)))
+        p["conv_w"] = normal_np(rng, (self.conv_k, self.d_conv_in),
+                                1.0 / np.sqrt(self.conv_k))
+        p["conv_b"] = np.zeros((self.d_conv_in,), np.float32)
+        p["norm_g"] = np.ones((self.d_inner,), np.float32)
+        return p
+
+    def _split_proj(self, zxbcdt: torch.Tensor):
+        """-> (z, xBC, dt) along the last axis."""
+        di = self.d_inner
+        return (zxbcdt[..., :di], zxbcdt[..., di:di + self.d_conv_in],
+                zxbcdt[..., di + self.d_conv_in:])
+
+    def _xbc(self, xbc: torch.Tensor):
+        """(B, L, d_conv_in) -> x (B, L, H, P), B, C (B, L, ds)."""
+        di, ds = self.d_inner, self.d_state
+        B, L = xbc.shape[:2]
+        return (xbc[..., :di].reshape(B, L, self.n_heads, self.head_dim),
+                xbc[..., di:di + ds], xbc[..., di + ds:di + 2 * ds])
+
+    @staticmethod
+    def _gated_norm(y: torch.Tensor, gate: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+        """norm(y gate) g, the mean of the squares and rsqrt as the
+        reference's lowering computes them."""
+        gated = y * gate
+        var = window_sum(gated * gated) * (1.0 / gated.shape[-1])
+        r = rsqrt_f32(var + 1e-6)
+        return gated, (gated * r[..., None]) * g
+
+    # -- float forward ------------------------------------------------------
+    def apply_float(self, p: dict, x: torch.Tensor, calib=None,
+                    scope: str = "", cache: Optional[dict] = None):
+        """FullPrecision forward of (B, L, d) float32 -> (out, new cache
+        or None), observing the reference's ranges under
+        ``{scope}{name}.``."""
+        subs = self._sub()
+        nm = f"{scope}{self.name}"
+        zxbcdt = subs["in_proj"].apply_fp(p["in_proj"], x)
+        z, xbc, dt_r = self._split_proj(zxbcdt)
+        if cache is not None:
+            conv_in = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
+            xbcc = _causal_conv1d_fp(conv_in, p["conv_w"],
+                                     p["conv_b"])[:, -xbc.shape[1]:]
+            new_conv = conv_in[:, -(self.conv_k - 1):]
+        else:
+            xbcc = _causal_conv1d_fp(xbc, p["conv_w"], p["conv_b"])
+            new_conv = xbc[:, -(self.conv_k - 1):]
+        xbca = act_fn(ActKind.SILU, xbcc)
+        if calib is not None:
+            calib.observe(f"{nm}.conv.pre", xbcc)
+            calib.observe(f"{nm}.conv", xbca)
+        xh, bm, cm = self._xbc(xbca)
+        dt = softplus_f32(dt_r + p["dt_bias"])
+        A = -exp_f32(p["A_log"])
+        y, h_last = ssm2_core(xh, dt, bm.contiguous(), cm.contiguous(), A,
+                              p["D"], None if cache is None else cache["h"])
+        y = y.reshape(x.shape[0], x.shape[1], self.d_inner)
+        gated, yn = self._gated_norm(y, act_fn(ActKind.SILU, z),
+                                     p["norm_g"])
+        if calib is not None:
+            calib.observe(f"{nm}.y", y)
+            calib.observe(f"{nm}.z.pre", z)
+            calib.observe(f"{nm}.gated", gated)
+            calib.observe(f"{nm}.norm", yn)
+        out = subs["out_proj"].apply_fp(p["out_proj"], yn)
+        new_cache = ({"conv": new_conv, "h": h_last}
+                     if cache is not None else None)
+        return out, new_cache
+
+    # -- transform ------------------------------------------------------------
+    def deploy(self, ctx: DeployCtx, scope: str, p_np: dict, eps_x: float,
+               zp_x: int) -> Tuple[dict, np.ndarray]:
+        """-> (integer and island tables, eps of out_proj's
+        accumulator): the reference's float64 host arithmetic."""
+        subs = self._sub()
+        nm = f"{scope}{self.name}"
+        t: dict = {}
+        ip, eps_acc = subs["in_proj"].deploy(p_np["in_proj"], eps_x, zp_x)
+        t["in_proj"] = ip
+        act_p = QAct(ActKind.IDENTITY, sym=True, name=f"{self.name}.xz")
+        tp, eps_p, _ = act_p.deploy(ctx, scope, eps_acc, 0,
+                                    subs["in_proj"].acc_bound())
+        t["p_rqt"] = tp["rqt"]
+        # conv over xBC
+        w = np.asarray(p_np["conv_w"], np.float64)
+        eps_cw = 2.0 * max(float(np.abs(w).max()), 1e-8) / 255.0
+        t["conv_wq"] = np.clip(np.floor(w / eps_cw), -128,
+                               127).astype(np.int8)
+        eps_cacc = eps_cw * eps_p
+        t["conv_bq"] = np.round(np.asarray(p_np["conv_b"], np.float64)
+                                / eps_cacc).astype(np.int32)
+        lo, hi = ctx.range(f"{nm}.conv.pre", "ssm")
+        eps_cpre = 2.0 * max(abs(lo), abs(hi), 1e-6) / 255.0
+        t["conv_rqt"] = make_rqt(
+            eps_cacc, eps_cpre, zp_out=0, requant_factor=ctx.factor,
+            acc_bound=self.conv_k * 127.0 * 127.0)
+        lo_c, hi_c = ctx.range(f"{nm}.conv", "act_asym")
+        eps_conv = (max(hi_c, lo_c + 1e-6) - lo_c) / 255.0
+        zp_conv = ACT_QMIN - int(round(lo_c / eps_conv))
+        t["conv_lut"] = build_lut(lambda v: act_fn_np(ActKind.SILU, v),
+                                  eps_cpre, 0, eps_conv, zp_conv)
+        # island constants
+        t["A"] = -np.exp(np.asarray(p_np["A_log"], np.float32))
+        t["Dv"] = np.asarray(p_np["D"], np.float32)
+        t["dt_bias"] = np.asarray(p_np["dt_bias"], np.float32)
+        t["eps_p_f"] = np.float32(eps_p)
+        t["eps_conv_f"] = np.float32(eps_conv)
+        t["zp_conv_f"] = np.float32(zp_conv)
+        # the gated RMS norm runs inside the island; its exit quantizes
+        # the norm's output
+        t["norm_g_f"] = np.asarray(p_np["norm_g"], np.float32)
+        lo_n, hi_n = ctx.range(f"{nm}.norm", "norm")
+        eps_n = 2.0 * max(abs(lo_n), abs(hi_n), 1e-6) / 255.0
+        t["eps_n_inv"] = np.float32(1.0 / eps_n)
+        ipo, eps_acco = subs["out_proj"].deploy(p_np["out_proj"], eps_n, 0)
+        t["out_proj"] = ipo
+        return t, eps_acco
+
+    # -- integer path ---------------------------------------------------------
+    def island(self, t: dict, s_z: torch.Tensor, s_conv: torch.Tensor,
+               s_dt: torch.Tensor, h0: Optional[torch.Tensor]):
+        """The float island: dt = softplus(s_dt eps_p + dt_bias) (one
+        fused multiply-add), x, B, C dequantized, the scan, the gate
+        z / (1 + e^-z), the gated RMS norm, quantized to int8 by
+        `eps_n_inv`.  -> (s_n (B, L, d_inner) int8, h_last float32)."""
+        f32 = torch.float32
+        dt = softplus_f32(fma(s_dt.to(f32), t["eps_p_f"], t["dt_bias"]))
+        xbc = (s_conv.to(f32) - t["zp_conv_f"]) * t["eps_conv_f"]
+        xh, bm, cm = self._xbc(xbc)
+        y, h_last = ssm2_core(xh, dt, bm, cm, t["A"], t["Dv"], h0)
+        y = y.reshape(s_z.shape)
+        zf = s_z.to(f32) * t["eps_p_f"]
+        gate = zf / (1.0 + exp_f32(-zf))
+        _, yn = self._gated_norm(y, gate, t["norm_g_f"])
+        s_n = torch.clamp(torch.round(yn * t["eps_n_inv"]), -128, 127)
+        return s_n.to(torch.int8), h_last
+
+    def apply_id(self, t: dict, s_x: torch.Tensor,
+                 cache: Optional[dict] = None):
+        """s_x (B, L, d) int8 -> (out_proj's int32 accumulator (B, L,
+        d), new cache or None)."""
+        subs = self._sub()
+        s_all = subs["in_proj"].apply_id(t["in_proj"], s_x, t["p_rqt"])
+        s_z, s_xbc, s_dt = self._split_proj(s_all)
+        K = self.conv_k
+        if cache is not None:
+            conv_in = torch.cat([cache["conv"], s_xbc], dim=1)
+        else:
+            conv_in = F.pad(s_xbc, (0, 0, K - 1, 0))
+        new_conv = conv_in[:, -(K - 1):]
+        c_acc = causal_conv1d_int(conv_in, t["conv_wq"], t["conv_bq"])
+        s_cpre = requant(c_acc, t["conv_rqt"])
+        s_conv = requant_act(s_cpre, {"lut": t["conv_lut"]})  # asym int8
+        s_n, h_last = self.island(t, s_z, s_conv, s_dt,
+                                  cache["h"] if cache is not None else None)
+        out = subs["out_proj"].apply_id(t["out_proj"], s_n)
+        new_cache = ({"conv": new_conv, "h": h_last}
+                     if cache is not None else None)
+        return out, new_cache
+
+    def init_cache(self, B: int, device="cuda") -> dict:
+        """A zeroed ID cache of B rows: the int8 conv window over x, B,
+        C and the float32 scan state."""
+        return {
+            "conv": torch.zeros((B, self.conv_k - 1, self.d_conv_in),
+                                dtype=torch.int8, device=device),
+            "h": torch.zeros((B, self.n_heads, self.head_dim, self.d_state),
+                             dtype=torch.float32, device=device),
+        }
+
+
 def load_core(t: dict) -> dict:
     """A `QMamba1`'s torch tables -> the serving state `apply_id`
-    reads: dt_proj's weight padded with zero rows to a multiple of
-    K_ALIGN along K (the GEMM kernel's granule; `apply_id` pads its
-    input to match), the stored (N, K) layout kept."""
+    reads (a `QMamba2`'s are that already): dt_proj's weight padded
+    with zero rows to a multiple of K_ALIGN along K (the GEMM kernel's
+    granule; `apply_id` pads its input to match), the stored (N, K)
+    layout kept."""
+    if "dt_proj" not in t:
+        return t
     w = t["dt_proj"]["w_q"]
     k = w.shape[0]
     kp = -(-k // K_ALIGN) * K_ALIGN

@@ -11,8 +11,16 @@ the residual stream is a symmetric int8 image between blocks; in the
 float forward it is float32, and each sublayer observes its output
 under the block's scope (the names `deploy` reads back).
 
-`MambaBlock` is norm -> `layers.ssm.QMamba1` -> add; its cache is the
-layer's {"conv", "h"} state, which `apply_id` advances in place.
+`MambaBlock` is norm -> `layers.ssm.QMamba1` (or `QMamba2`) -> add;
+its cache is the layer's {"conv", "h"} state, which `apply_id` advances
+in place.
+
+`SharedAttnBlock` is zamba2's shared attention: norm over concat(x,
+x0) (2 d wide) -> attention -> add, with no MLP.  Its float weights
+are one set for every application; `deploy` gives each application
+its own integer tables, the concat's two halves brought into one
+symmetric space (`cat_rqt_x`, `cat_rqt_x0`) from the residual's
+quantum and x0's, the embedding's.
 """
 from __future__ import annotations
 
@@ -28,7 +36,9 @@ from repro_torch.layers.common import ActKind, DeployCtx
 from repro_torch.layers.mlp import QMLP
 from repro_torch.layers.moe import QMoE
 from repro_torch.layers.norms import QNorm
-from repro_torch.layers.ssm import QMamba1
+from repro_torch.layers.ssm import QMamba1, QMamba2
+from repro_torch.core.requant import make_rqt
+from repro_torch.kernels.requant_kernel import requant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,25 +158,28 @@ class DenseBlock:
 @dataclasses.dataclass(frozen=True)
 class MambaBlock:
     """norm -> mamba -> add (the pre-norm residual SSM block; port of
-    `repro.models.blocks.MambaBlock` for the Mamba-1 core)."""
+    `repro.models.blocks.MambaBlock`, Mamba-1 or Mamba-2 core)."""
 
     d_model: int
     ssm_kind: str = "mamba1"
     d_state: int = 16
     expand: int = 2
+    head_dim: int = 64
     norm: str = "rms"
 
     def __post_init__(self):
-        if self.ssm_kind != "mamba1":
-            raise NotImplementedError(
-                f"ssm_kind {self.ssm_kind!r}: the port has the Mamba-1 core "
-                "(Mamba-2, the hybrid family, is ROADMAP item 10)")
+        if self.ssm_kind not in ("mamba1", "mamba2"):
+            raise ValueError(f"ssm_kind {self.ssm_kind!r}")
 
     def _subs(self):
+        core = (QMamba1(self.d_model, d_state=self.d_state,
+                        expand=self.expand)
+                if self.ssm_kind == "mamba1" else
+                QMamba2(self.d_model, d_state=self.d_state,
+                        expand=self.expand, head_dim=self.head_dim))
         return {
             "norm": QNorm(self.d_model, kind=self.norm, name="norm"),
-            "core": QMamba1(self.d_model, d_state=self.d_state,
-                            expand=self.expand),
+            "core": core,
             "add": QAdd(name="add"),
         }
 
@@ -204,4 +217,75 @@ class MambaBlock:
         acc, new = subs["core"].apply_id(t["core"], h, cache)
         cache["conv"].copy_(new["conv"])
         cache["h"].copy_(new["h"])
+        return subs["add"].apply_id(t["add"], s_x, acc)
+
+    def init_cache(self, B: int, device="cuda") -> dict:
+        return self._subs()["core"].init_cache(B, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedAttnBlock:
+    """zamba2's shared attention over concat(x, x0) (port of
+    `repro.models.blocks.SharedAttnBlock`): one float weight set for
+    every application, which the caller passes in."""
+
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    max_seq: int = 4096
+    norm: str = "rms"
+
+    def _subs(self):
+        return {
+            "norm": QNorm(2 * self.d_model, kind=self.norm, name="norm"),
+            "attn": QAttention(self.d_model, self.n_heads, self.n_kv_heads,
+                               self.head_dim, max_seq=self.max_seq,
+                               d_in=2 * self.d_model),
+            "add": QAdd(name="add"),
+        }
+
+    def init_np(self, rng: np.random.Generator) -> dict:
+        subs = self._subs()
+        return {"norm": subs["norm"].init_np(),
+                "attn": subs["attn"].init_np(rng)}
+
+    def apply_float(self, p: dict, x: torch.Tensor, x0: torch.Tensor,
+                    calib=None, scope: str = "") -> torch.Tensor:
+        """FullPrecision forward of one application (no cache)."""
+        subs = self._subs()
+        cat = torch.cat([x, x0], dim=-1)
+        h = subs["norm"].apply_fp(p["norm"], cat, calib, scope + "n.")
+        a = subs["attn"].apply_float(p["attn"], h, calib, scope)
+        return subs["add"].apply_fp(x, a, calib, scope)
+
+    def deploy(self, ctx: DeployCtx, scope: str, p_np: dict, eps_in: float,
+               eps_x0: float) -> Tuple[dict, float]:
+        """One application's tables; the concat's two halves requantized
+        into the symmetric space of the larger quantum."""
+        subs = self._subs()
+        t: dict = {}
+        eps_cat = max(eps_in, eps_x0)
+        t["cat_rqt_x"] = make_rqt(eps_in, eps_cat, zp_out=0,
+                                  requant_factor=ctx.factor, acc_bound=128.0)
+        t["cat_rqt_x0"] = make_rqt(eps_x0, eps_cat, zp_out=0,
+                                   requant_factor=ctx.factor,
+                                   acc_bound=128.0)
+        t["norm"], eps_n, _ = subs["norm"].deploy(ctx, scope + "n.",
+                                                  p_np["norm"], eps_cat)
+        t["attn"], eps_a_acc = subs["attn"].deploy(ctx, scope, p_np["attn"],
+                                                   eps_n, 0)
+        t["add"], eps_out, _ = subs["add"].deploy(ctx, scope, eps_in, 0,
+                                                  eps_a_acc, 0)
+        return t, eps_out
+
+    def apply_id(self, t: dict, s_x: torch.Tensor, s_x0: torch.Tensor,
+                 cache: dict, pos: torch.Tensor) -> torch.Tensor:
+        """s_x, s_x0 (B, S, d) int8 -> (B, S, d) int8; writes this
+        application's K/V columns into `cache` in place."""
+        subs = self._subs()
+        a_ = requant(s_x.to(torch.int32), t["cat_rqt_x"])
+        b_ = requant(s_x0.to(torch.int32), t["cat_rqt_x0"])
+        h = subs["norm"].apply_id(t["norm"], torch.cat([a_, b_], dim=-1))
+        acc = subs["attn"].apply_id(t["attn"], h, cache, pos)
         return subs["add"].apply_id(t["add"], s_x, acc)

@@ -1,7 +1,10 @@
-"""The decoder LM (port of `repro.models.lm.DecoderLM`, the dense, MoE
-and ssm families: `plan()` is one segment of `DenseBlock`s, with a
-`QMoE` in every block for MoE at `moe_every` 1, or one segment of
-`MambaBlock`s for ssm).
+"""The decoder LM (port of `repro.models.lm.DecoderLM`, the dense, MoE,
+ssm and hybrid families: `plan()` is one segment of `DenseBlock`s, with
+a `QMoE` in every block for MoE at `moe_every` 1, one segment of
+`MambaBlock`s for ssm, and for the hybrid (zamba2) a segment of groups
+of `shared_attn_every` Mamba-2 blocks each followed by one application
+of the `SharedAttnBlock`, then a segment of the remaining Mamba-2
+blocks).
 
 Lifecycle, as the reference's: numpy init (`init_np`, the reference's
 shapes and scales) -> calibrate (`calibrate`: the FullPrecision
@@ -13,7 +16,9 @@ leaf for leaf, the integer softmax's `sm_tabs` included;
 -> torch state (`tables_from_numpy`) -> ID apply (`prefill_chunk`, a
 Python loop over the layers where the reference runs `lax.scan`).
 The float forward is the reference's eager per-layer walk (scopes
-`S0.L{i}.`); it has no cache branch.
+`S0.L{i}.`; the hybrid's `S0.L{g}.m{j}.`, `S0.L{g}.sh.` and
+`S1.L{i}.`, the shared block reading x0, the embedding's output); it
+has no cache branch.
 
 Port state layout (what `tables_from_numpy` returns):
 
@@ -22,7 +27,11 @@ Port state layout (what `tables_from_numpy` returns):
 
 i.e. the reference tree with its layer-stacked `segments[0]` split into
 a per-layer list (views into the stacked tensors when converted from a
-stacked tree).  Every dtype is the reference's; every QLinear weight
+stacked tree).  The hybrid's "layers" are its Mamba-2 blocks in the
+order they run (group g's block j at g * shared_attn_every + j, then
+the tail), and "shared" holds one table set per application of the
+shared block (the reference's `segments[0]["sh"]`); `steps()` gives
+the walk.  Every dtype is the reference's; every QLinear weight
 `w_q` keeps its (K, N) shape and values but is stored transposed (N,
 K) contiguous, the layout the int8 GEMM kernel reads, and so are the
 MoE's expert weights `wg_q`/`wu_q`/`wd_q`, (E, K, N) stored (E, N, K).
@@ -47,7 +56,13 @@ The ssm family has no KV pools: its cache is each layer's recurrent
 state, {"conv": (n_layers, B, conv_k - 1, d_inner) int8, "h":
 (n_layers, B, d_inner, d_state) float32} over B slot rows
 (`init_state`, both arenas), which every dispatch advances in place
-for every row, parked rows included, as the reference's does.
+for every row, parked rows included, as the reference's does.  The
+hybrid's cache holds both: the state of each of its n_layers Mamba-2
+blocks ({"conv": (.., d_conv_in) int8, "h": (n_layers, B, H, P,
+d_state) float32}) and KV pools of one layer a shared application
+(`n_kv_layers`, the number of groups).  A contiguous cache
+(`init_caches`) carries ``"contiguous": True``, which the attention
+reads to take the reference's dense-branch path above 4096 rows.
 """
 from __future__ import annotations
 
@@ -67,29 +82,12 @@ from repro_torch.layers.linear import QLinear
 from repro_torch.layers.moe import EXPERT_WEIGHTS
 from repro_torch.layers.norms import QNorm
 from repro_torch.layers.ssm import load_core
-from repro_torch.models.blocks import DenseBlock, MambaBlock
+from repro_torch.models.blocks import DenseBlock, MambaBlock, SharedAttnBlock
 
 ACT_MAP = {"silu": ActKind.SILU, "gelu": ActKind.GELU, "relu": ActKind.RELU,
            "relu2": ActKind.RELU2}
 LOGIT_PAD = -(2 ** 30)  # integer mask for padded vocab slots
 LOGIT_PAD_FP = -1e9  # the float forward's mask for padded vocab slots
-# above this many query rows the reference's contiguous-cache attention
-# takes its blockwise path (`QAttention.BLOCKWISE_THRESHOLD`), which
-# rounds otherwise and is not ported
-BLOCKWISE_THRESHOLD = 4096
-
-
-def check_contiguous_width(S: int) -> int:
-    """Query rows of one dispatch over contiguous caches: at most
-    BLOCKWISE_THRESHOLD, where the reference changes its rounding."""
-    if S > BLOCKWISE_THRESHOLD:
-        raise NotImplementedError(
-            f"{S} query rows over a contiguous cache: the reference's "
-            f"blockwise attention (S > {BLOCKWISE_THRESHOLD}, "
-            "`_blockwise_id`) is not ported yet (ROADMAP item 9)")
-    return S
-
-
 def _leaf_to_torch(key: str, a, device) -> torch.Tensor:
     a = np.asarray(a)
     if not (a.flags.c_contiguous and a.flags.writeable):
@@ -139,6 +137,10 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _n_stacked(tree) -> int:
+    return len(next(iter(_leaves(tree))))
+
+
 KV_BITS = (8, 4)  # KV storage widths: int8 images or int4-packed pairs
 
 
@@ -151,18 +153,21 @@ def check_kv_bits(kv_bits: int) -> int:
 
 
 def load_layer(t: dict) -> dict:
-    """One layer's torch tables -> its serving state: the attention's
-    `kv4` tables gain what every step would otherwise rebuild
-    (`layers.attention.kv4_load`), and its `sm_tabs` scalars become 0-d
-    int32 tensors of their own (`core.intsoftmax.int_softmax_load`), so
-    the integer softmax reads them as device operands.  A Mamba layer's
-    dt_proj weight is padded along K (`layers.ssm.load_core`)."""
+    """One layer's (or shared application's) torch tables -> its
+    serving state: the attention's `kv4` tables gain what every step
+    would otherwise rebuild (`layers.attention.kv4_load`), and its
+    `sm_tabs` scalars become 0-d int32 tensors of their own
+    (`core.intsoftmax.int_softmax_load`), so the integer softmax reads
+    them as device operands.  A Mamba-1 layer's dt_proj weight is
+    padded along K (`layers.ssm.load_core`)."""
     if "core" in t:
-        return {**t, "core": load_core(t["core"])}
-    attn = {**t["attn"], "kv4": kv4_load(t["attn"]["kv4"])}
-    if "sm_tabs" in attn:
-        attn["sm_tabs"] = int_softmax_load(attn["sm_tabs"])
-    return {**t, "attn": attn}
+        t = {**t, "core": load_core(t["core"])}
+    if "attn" in t:
+        attn = {**t["attn"], "kv4": kv4_load(t["attn"]["kv4"])}
+        if "sm_tabs" in attn:
+            attn["sm_tabs"] = int_softmax_load(attn["sm_tabs"])
+        t = {**t, "attn": attn}
+    return t
 
 
 def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
@@ -170,21 +175,34 @@ def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
     `jax.tree.map(np.asarray, tables)`) -> the port's state on
     `device`.  int32 stays int32 (every requant table, the per-head
     `kv4` pack/unpack tables included), int8 stays int8 and the f32
-    score_scale stays f32; `segments[0]` becomes the per-layer list,
-    each layer through `load_layer`."""
-    if len(tables_np["segments"]) != 1:
+    score_scale stays f32; the stacked segments become the per-layer
+    list (the hybrid's group blocks in order, then its tail) and, for
+    the hybrid, the per-application "shared" list, each entry through
+    `load_layer`."""
+    segs = [tree_to_torch(seg, device) for seg in tables_np["segments"]]
+    layers, shared = [], []
+    if segs and isinstance(segs[0], dict) and set(segs[0]) == {"m", "sh"}:
+        hyb = segs.pop(0)
+        for g in range(_n_stacked(hyb["sh"])):
+            m = _index(hyb["m"], g)
+            layers += [_index(m, j) for j in range(_n_stacked(m))]
+            shared.append(load_layer(_index(hyb["sh"], g)))
+    elif len(segs) != 1:
         raise ValueError("the dense, MoE (moe_every 1) and ssm families "
                          "have exactly one segment")
-    stacked = tree_to_torch(tables_np["segments"][0], device)
-    n = len(next(iter(_leaves(stacked))))
-    return {
+    for seg in segs:
+        layers += [_index(seg, i) for i in range(_n_stacked(seg))]
+    out = {
         "meta": {k: float(np.asarray(v)) for k, v in
                  tables_np.get("meta", {}).items()},
         "embed": tree_to_torch(tables_np["embed"], device),
-        "layers": [load_layer(_index(stacked, i)) for i in range(n)],
+        "layers": [load_layer(t) for t in layers],
         "norm_f": tree_to_torch(tables_np["norm_f"], device),
         "head": tree_to_torch(tables_np["head"], device),
     }
+    if shared:
+        out["shared"] = shared
+    return out
 
 
 def _leaves(tree):
@@ -210,9 +228,8 @@ class DecoderLM:
             raise NotImplementedError(
                 "the cnn family is not a decoder LM: its model is "
                 "repro_torch.models.cnn.NemoCNN")
-        if c.family not in ("dense", "moe", "ssm"):
-            raise NotImplementedError(
-                f"the {c.family} family is not ported yet (ROADMAP item 10)")
+        if c.family not in ("dense", "moe", "ssm", "hybrid"):
+            raise ValueError(f"unknown family {c.family!r}")
         if c.family == "moe" and c.moe_every != 1:
             raise NotImplementedError(
                 f"moe_every {c.moe_every} (the reference's pair segments, "
@@ -225,16 +242,37 @@ class DecoderLM:
     # -- structure -------------------------------------------------------
     @property
     def recurrent(self) -> bool:
-        """Whether the cache is per-slot recurrent state (ssm) rather
-        than KV pools."""
-        return self.cfg.family == "ssm"
+        """Whether the cache holds per-slot recurrent state (ssm,
+        hybrid)."""
+        return self.cfg.family in ("ssm", "hybrid")
+
+    @property
+    def has_kv(self) -> bool:
+        """Whether the cache holds KV pools (all but ssm)."""
+        return self.cfg.family != "ssm"
+
+    @property
+    def groups(self) -> int:
+        """The hybrid's shared-attention applications (0 otherwise)."""
+        c = self.cfg
+        return c.n_layers // c.shared_attn_every if (
+            c.family == "hybrid") else 0
+
+    @property
+    def n_kv_layers(self) -> int:
+        """Layers of KV pools: one a block for dense and MoE, one a
+        shared application for the hybrid."""
+        return self.groups if self.cfg.family == "hybrid" else (
+            self.cfg.n_layers if self.has_kv else 0)
 
     def block(self):
+        """The template of the config's blocks (the hybrid's Mamba-2
+        block)."""
         c = self.cfg
         if self.recurrent:
             return MambaBlock(d_model=c.d_model, ssm_kind=c.ssm_kind,
                               d_state=c.ssm_state, expand=c.ssm_expand,
-                              norm=c.norm)
+                              head_dim=c.ssm_head_dim, norm=c.norm)
         moe = c.family == "moe"
         return DenseBlock(
             d_model=c.d_model, n_heads=c.n_heads, n_kv_heads=c.n_kv_heads,
@@ -245,12 +283,82 @@ class DecoderLM:
             moe_group=c.moe_group,
         )
 
+    def shared_block(self) -> SharedAttnBlock:
+        c = self.cfg
+        return SharedAttnBlock(d_model=c.d_model, n_heads=c.n_heads,
+                               n_kv_heads=c.n_kv_heads, head_dim=c.hd,
+                               max_seq=self.max_seq, norm=c.norm)
+
     def plan(self):
-        """-> the segments (kind, template, n_steps): one segment of
-        blocks, for dense and for MoE at moe_every 1, of Mamba blocks for
-        ssm (the reference's `plan()` for those)."""
+        """-> the segments (kind, template, n_steps), the reference's
+        `plan()`: one segment of blocks for dense and MoE at moe_every
+        1, of Mamba blocks for ssm; for the hybrid the groups, then the
+        tail of Mamba blocks if any."""
+        c = self.cfg
+        if c.family == "hybrid":
+            k = c.shared_attn_every
+            groups, tail = divmod(c.n_layers, k)
+            segs = [("hybrid", (self.block(), self.shared_block()), groups)]
+            if tail:
+                segs.append(("mamba", self.block(), tail))
+            return segs
         kind = "mamba" if self.recurrent else "dense"
-        return [(kind, self.block(), self.cfg.n_layers)]
+        return [(kind, self.block(), c.n_layers)]
+
+    def steps(self):
+        """The walk of every forward: ("layer", i) for block i (in the
+        order they run) and, for the hybrid, ("shared", g) after each
+        group g of shared_attn_every blocks."""
+        c = self.cfg
+        k = c.shared_attn_every if c.family == "hybrid" else 0
+        out = []
+        for i in range(c.n_layers):
+            out.append(("layer", i))
+            if k and (i + 1) % k == 0 and (i + 1) // k <= self.groups:
+                out.append(("shared", (i + 1) // k - 1))
+        return out
+
+    def layer_scope(self, i: int) -> str:
+        """Block i's calibration scope, the reference's."""
+        c = self.cfg
+        if c.family != "hybrid":
+            return f"S0.L{i}."
+        g, j = divmod(i, c.shared_attn_every)
+        if g < self.groups:
+            return f"S0.L{g}.m{j}."
+        return f"S1.L{i - self.groups * c.shared_attn_every}."
+
+    @staticmethod
+    def shared_scope(g: int) -> str:
+        return f"S0.L{g}.sh."
+
+    def _segments(self, layers: list, shared: list = ()) -> list:
+        """Per-block trees (and the hybrid's per-application shared
+        trees) -> the reference's stacked `segments`."""
+        c = self.cfg
+        if c.family != "hybrid":
+            return [stack_trees(layers)]
+        k, G = c.shared_attn_every, self.groups
+        grp = []
+        for g in range(G):
+            one = {"m": stack_trees(layers[g * k:(g + 1) * k])}
+            if shared:
+                one["sh"] = shared[g]
+            grp.append(one)
+        segs = [stack_trees(grp)]
+        if c.n_layers > G * k:
+            segs.append(stack_trees(layers[G * k:]))
+        return segs
+
+    def layer_params(self, p: dict, i: int) -> dict:
+        """Block i's float params out of the reference's layout."""
+        c = self.cfg
+        if c.family != "hybrid":
+            return _index(p["segments"][0], i)
+        g, j = divmod(i, c.shared_attn_every)
+        if g < self.groups:
+            return _index(_index(p["segments"][0]["m"], g), j)
+        return _index(p["segments"][1], i - self.groups * c.shared_attn_every)
 
     def embed_layer(self) -> QEmbed:
         return QEmbed(self.cfg.vocab_padded, self.cfg.d_model)
@@ -280,13 +388,19 @@ class DecoderLM:
         rng = np.random.default_rng([seed, 2])
         return self.norm_f_layer().init_np(), self.head_layer().init_np(rng)
 
+    def init_shared_np(self, seed: int) -> dict:
+        """The hybrid's one float weight set of the shared block."""
+        return self.shared_block().init_np(np.random.default_rng([seed, 3]))
+
     def init_np(self, seed: int) -> dict:
         """The whole float param tree in the reference's layout
-        (layer-stacked segments)."""
+        (layer-stacked segments; the hybrid's `shared_attn`)."""
         p: Dict[str, Any] = {"embed": self.init_embed_np(seed)}
-        p["segments"] = [stack_trees(
-            [self.init_layer_np(seed, i) for i in range(self.cfg.n_layers)])]
+        p["segments"] = self._segments(
+            [self.init_layer_np(seed, i) for i in range(self.cfg.n_layers)])
         p["norm_f"], p["head"] = self.init_head_np(seed)
+        if self.groups:
+            p["shared_attn"] = self.init_shared_np(seed)
         return p
 
     # -- deploy (host, numpy) --------------------------------------------
@@ -297,7 +411,14 @@ class DecoderLM:
 
     def deploy_layer(self, ctx: DeployCtx, i: int, p_layer: dict,
                      eps_x: float) -> Tuple[dict, float]:
-        return self.block().deploy(ctx, f"S0.L{i}.", p_layer, eps_x)
+        return self.block().deploy(ctx, self.layer_scope(i), p_layer, eps_x)
+
+    def deploy_shared(self, ctx: DeployCtx, g: int, p_shared: dict,
+                      eps_x: float, eps_in: float) -> Tuple[dict, float]:
+        """Shared application g's own tables (x0's quantum is the
+        embedding's, `eps_in`)."""
+        return self.shared_block().deploy(ctx, self.shared_scope(g),
+                                          p_shared, eps_x, eps_in)
 
     def deploy_head(self, ctx: DeployCtx, p_norm: dict, p_head: dict,
                     eps_x: float):
@@ -311,13 +432,18 @@ class DecoderLM:
         ctx = DeployCtx(calib=calib, factor=factor)
         t: Dict[str, Any] = {"meta": {}}
         t["embed"], eps_x = self.deploy_embed(ctx, p["embed"])
-        t["meta"]["eps_in"] = eps_x
-        seg = p["segments"][0]
-        layers = []
-        for i in range(self.cfg.n_layers):
-            ti, eps_x = self.deploy_layer(ctx, i, _index(seg, i), eps_x)
-            layers.append(ti)
-        t["segments"] = [stack_trees(layers)]
+        eps_in = t["meta"]["eps_in"] = eps_x
+        layers, shared = [], []
+        for kind, i in self.steps():
+            if kind == "layer":
+                ti, eps_x = self.deploy_layer(ctx, i, self.layer_params(p, i),
+                                              eps_x)
+                layers.append(ti)
+            else:
+                ti, eps_x = self.deploy_shared(ctx, i, p["shared_attn"],
+                                               eps_x, eps_in)
+                shared.append(ti)
+        t["segments"] = self._segments(layers, shared)
         t["norm_f"], t["head"], t["meta"]["eps_logits"] = self.deploy_head(
             ctx, p["norm_f"], p["head"], eps_x)
         return t
@@ -330,14 +456,24 @@ class DecoderLM:
 
     def apply_layer(self, p_layer: dict, i: int, x: torch.Tensor,
                     calib=None) -> torch.Tensor:
-        """Layer i's float forward under its scope ``S0.L{i}.``."""
-        return self.block().apply_float(p_layer, x, calib, f"S0.L{i}.")
+        """Block i's float forward under its scope."""
+        return self.block().apply_float(p_layer, x, calib,
+                                        self.layer_scope(i))
+
+    def apply_shared(self, p_shared: dict, g: int, x: torch.Tensor,
+                     x0: torch.Tensor, calib=None) -> torch.Tensor:
+        """Shared application g's float forward over concat(x, x0)."""
+        return self.shared_block().apply_float(p_shared, x, x0, calib,
+                                               self.shared_scope(g))
 
     def apply(self, p: dict, x: torch.Tensor, calib=None) -> torch.Tensor:
         """(B, S, d) float -> the last layer's output, layer by layer."""
-        seg = p["segments"][0]
-        for i in range(self.cfg.n_layers):
-            x = self.apply_layer(_index(seg, i), i, x, calib)
+        x0 = x
+        for kind, i in self.steps():
+            if kind == "layer":
+                x = self.apply_layer(self.layer_params(p, i), i, x, calib)
+            else:
+                x = self.apply_shared(p["shared_attn"], i, x, x0, calib)
         return x
 
     def logits(self, p: dict, x: torch.Tensor, calib=None) -> torch.Tensor:
@@ -367,23 +503,24 @@ class DecoderLM:
 
     # -- integer serving path (torch) --------------------------------------
     def init_state(self, B: int, device="cuda") -> dict:
-        """The ssm family's zeroed cache of B slot rows, every layer's
-        {"conv", "h"} stacked (`QMamba1.init_cache`)."""
-        one = self.block()._subs()["core"].init_cache(B, device)
+        """The recurrent families' zeroed state of B slot rows, every
+        Mamba block's {"conv", "h"} stacked (`init_cache`)."""
+        one = self.block().init_cache(B, device)
         return {k: v[None].repeat(self.cfg.n_layers, *([1] * v.dim()))
                 for k, v in one.items()}
 
     def init_pools(self, n_pages: int, page_size: int, device="cuda",
                    kv_bits: int = 8) -> dict:
-        """Zeroed paged KV pools (page 0 is the PAGE_NULL trash page);
-        at kv_bits 4 the trailing head_dim axis is halved (packed)."""
+        """Zeroed paged KV pools of `n_kv_layers` layers (page 0 is the
+        PAGE_NULL trash page); at kv_bits 4 the trailing head_dim axis is
+        halved (packed)."""
         c = self.cfg
         hd = c.hd
         if check_kv_bits(kv_bits) == 4:
             if hd % 2:
                 raise ValueError(f"kv_bits=4 needs an even head_dim, got {hd}")
             hd //= 2
-        shape = (c.n_layers, n_pages + 1, c.n_kv_heads, page_size, hd)
+        shape = (self.n_kv_layers, n_pages + 1, c.n_kv_heads, page_size, hd)
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -404,14 +541,16 @@ class DecoderLM:
 
     def init_caches(self, B: int, max_len: int, device="cuda") -> dict:
         """The reference's contiguous ID cache of `B` slots of `max_len`
-        positions, zeroed, as a pool of B pages of max_len positions plus
-        the trash page, with the fixed table slot b -> page b + 1 (the
-        ssm family: `init_state(B)`, whatever max_len)."""
-        if self.recurrent:
-            return self.init_state(B, device)
-        caches = self.init_pools(B, max_len, device=device)
-        caches["table"] = torch.arange(1, B + 1, dtype=torch.int32,
-                                       device=device)[:, None]
+        positions, zeroed: KV pools of B pages of max_len positions plus
+        the trash page, with the fixed table slot b -> page b + 1 and
+        ``"contiguous": True``; the recurrent families' state of B rows
+        (`init_state`); the hybrid both."""
+        caches = self.init_state(B, device) if self.recurrent else {}
+        if self.has_kv:
+            caches.update(self.init_pools(B, max_len, device=device))
+            caches["table"] = torch.arange(1, B + 1, dtype=torch.int32,
+                                           device=device)[:, None]
+            caches["contiguous"] = True
         return caches
 
     def prefill(self, t: dict, batch: torch.Tensor, caches: dict,
@@ -421,8 +560,6 @@ class DecoderLM:
         int32 logits at column `last_index` (an int, or None: the last
         column)."""
         B, S = batch.shape
-        if not self.recurrent:
-            check_contiguous_width(S)
         start = torch.zeros(B, dtype=torch.int32, device=batch.device)
         last = torch.full_like(start, S - 1 if last_index is None
                                else int(last_index))
@@ -447,21 +584,30 @@ class DecoderLM:
         (B,) int32 column whose logits to return.  Writes every row's
         K/V into `caches` in place.  -> (B, 1, vocab_padded) int32.
 
-        The ssm family: `caches` is `init_state`'s; every row runs its
-        chunk after its state, parked rows too (positions do not
-        enter), and the state advances in place."""
-        x = self.embed_in_id(t, batch)
+        The recurrent families: every row runs its chunk after its
+        state, parked rows too (positions do not enter), and the state
+        advances in place; the hybrid's shared applications write their
+        own KV pools.  x0, the shared block's side input, is the
+        embedding's int8 image."""
+        x0 = x = self.embed_in_id(t, batch)
         blk = self.block()
-        if self.recurrent:
-            for i, lt in enumerate(t["layers"]):
-                x = blk.apply_id(lt, x, {"conv": caches["conv"][i],
-                                         "h": caches["h"][i]})
-            return self._last_logits(t, x, last_index)
-        table = caches["table"]
-        for i, lt in enumerate(t["layers"]):
-            cache_i = {"k": caches["k"][i], "v": caches["v"][i],
-                       "table": table}
-            x = blk.apply_id(lt, x, cache_i, start_pos)
+        kv = ({"table": caches["table"],
+               "contiguous": bool(caches.get("contiguous", False))}
+              if self.has_kv else None)
+        for kind, i in self.steps():
+            if kind == "shared":
+                x = self.shared_block().apply_id(
+                    t["shared"][i], x, x0,
+                    {"k": caches["k"][i], "v": caches["v"][i], **kv},
+                    start_pos)
+            elif self.recurrent:
+                x = blk.apply_id(t["layers"][i], x,
+                                 {"conv": caches["conv"][i],
+                                  "h": caches["h"][i]})
+            else:
+                x = blk.apply_id(t["layers"][i], x,
+                                 {"k": caches["k"][i], "v": caches["v"][i],
+                                  **kv}, start_pos)
         return self._last_logits(t, x, last_index)
 
     def _last_logits(self, t: dict, x: torch.Tensor,

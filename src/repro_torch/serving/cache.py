@@ -19,13 +19,15 @@ write (`models.lm.DecoderLM.init_caches`).  So the attention and the
 paged kernel serve it unchanged, and its rows hold the bytes the
 reference's (B, K, T, hd) cache does.
 
-The ssm family (`DecoderLM.recurrent`) has no KV pools: both arenas
-hold every slot's recurrent state, {"conv", "h"} of n_slots rows
+The recurrent families (`DecoderLM.recurrent`: ssm, hybrid) keep every
+slot's recurrent state in both arenas, {"conv", "h"} of n_slots rows
 (`DecoderLM.init_state`), which the whole-prompt prefill writes
-(`write_slot`) and every dispatch advances in place.  A released slot
-keeps its stale state, as the reference's rows do, until the next
-admission's prefill overwrites it.  The paged arena still leases,
-commits and materializes pages for such a model exactly as the
+(`write_slot`) and every dispatch advances in place; the ssm family has
+no KV pools, the hybrid has both (`DecoderLM.has_kv`), its shared
+attention's pools paged or contiguous like a dense model's.  A
+released slot keeps its stale state, as the reference's rows do, until
+the next admission's prefill overwrites it.  The paged arena leases,
+commits and materializes pages for an ssm model exactly as the
 reference's does (its cache leaves have no sequence axis, so no page
 holds data), so its page table and budget step as the reference's.
 
@@ -140,7 +142,7 @@ class SlotArena:
         self.n_slots = n_slots
         self.max_len = max_len
         self.device = torch.device(device)
-        self.recurrent = lm.recurrent
+        self.recurrent, self.has_kv = lm.recurrent, lm.has_kv
         self.caches = lm.init_caches(n_slots, max_len, device=self.device)
         self._free = list(range(n_slots - 1, -1, -1))  # pop() -> slot 0
         self.lengths = np.zeros(n_slots, np.int32)  # written positions
@@ -216,9 +218,9 @@ class SlotArena:
         prefill) into `slot`'s row, every layer at once."""
         if self.recurrent:
             _write_state(self.caches, slot, single)
-            return
-        for kv in ("k", "v"):
-            self.caches[kv][:, slot + 1] = single[kv][:, 1]
+        if self.has_kv:
+            for kv in ("k", "v"):
+                self.caches[kv][:, slot + 1] = single[kv][:, 1]
 
     def decode_view(self) -> dict:
         """The pools and the fixed slot table, already on the device."""
@@ -286,11 +288,12 @@ class PagedArena:
         self.pages_per_slot = -(-max_len // page_size)
         self.kv_bits = kv_bits
         self.device = torch.device(device)
-        self.recurrent = lm.recurrent
+        self.recurrent, self.has_kv = lm.recurrent, lm.has_kv
         self.caches = (lm.init_state(n_slots, device=self.device)
-                       if self.recurrent else
-                       lm.init_pools(n_pages, page_size, device=self.device,
-                                     kv_bits=kv_bits))
+                       if self.recurrent else {})
+        if self.has_kv:
+            self.caches.update(lm.init_pools(
+                n_pages, page_size, device=self.device, kv_bits=kv_bits))
 
         # host bookkeeping; pop() -> lowest first
         self._free_slots = list(range(n_slots - 1, -1, -1))
@@ -698,10 +701,11 @@ class PagedArena:
         """Scatter a B=1 cache (`init_caches(1, max_len)`, a finished
         prefill) through `slot`'s table row: logical block b to page
         table[slot, b].  Blocks with no page land on the trash page, the
-        last of them winning, as in the reference's scatter.  The ssm
-        family's state goes to `slot`'s row."""
+        last of them winning, as in the reference's scatter.  The
+        recurrent state goes to `slot`'s row."""
         if self.recurrent:
             _write_state(self.caches, slot, single)
+        if not self.has_kv:
             return
         ps, pps = self.page_size, self.pages_per_slot
         row = self.page_table[slot]
@@ -725,11 +729,12 @@ class PagedArena:
         n_pages + 1, K, page_size, hd), hd/2 when int4-packed, page 0
         the trash page, an int32
         (n_slots, pages_per_slot) table with PAGE_NULL for unallocated
-        blocks).  The ssm family's view is its state alone."""
-        if self.recurrent:
+        blocks), beside the recurrent state where there is one; the ssm
+        family's view is its state alone."""
+        if not self.has_kv:
             return self.caches
         table = self.to_device(self.page_table.copy())
-        return {"k": self.caches["k"], "v": self.caches["v"], "table": table}
+        return {**self.caches, "table": table}
 
     def stats(self) -> dict:
         out = {

@@ -118,7 +118,6 @@ import torch
 
 from repro_torch.launch import variants
 from repro_torch.layers.attention import INACTIVE_POS
-from repro_torch.models.lm import check_contiguous_width
 from repro_torch.serving.cache import assert_integer_caches, make_arena
 from repro_torch.serving.config import ServingConfig, check_dispatch_depth
 from repro_torch.serving.policy import (
@@ -208,8 +207,6 @@ class ServingEngine:
                 "prefix_cache=True requires the chunked prefill path "
                 "(prefill_chunk > 0, dense family); this engine is in "
                 f"{self._prefill_mode!r} mode")
-        if self._prefill_mode == "chunked" and not cfg.paged:
-            check_contiguous_width(self.sched.cfg.prefill_chunk)
         self._scratch = None  # the whole-prompt prefill's B=1 cache
         self.queue = DispatchQueue(cfg.dispatch_depth)
         self.on_token = on_token
@@ -547,8 +544,9 @@ class ServingEngine:
         if self._scratch is None:
             self._scratch = self.lm.init_caches(1, self.arena.max_len,
                                                 device=self.device)
-        for key in (("conv", "h") if self.lm.recurrent else ("k", "v")):
-            self._scratch[key].zero_()
+        for key in ("conv", "h", "k", "v"):
+            if key in self._scratch:
+                self._scratch[key].zero_()
         with variants.use_variants(paged_decode=self._paged_decode):
             logits = self.lm.prefill(self.tables,
                                      self.arena.to_device(padded),

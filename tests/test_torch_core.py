@@ -131,6 +131,25 @@ def test_bit_length_exact():
     np.testing.assert_array_equal(got, _bit_length_ref(vals))
 
 
+def test_integer_bit_length_equals_the_frexp_one():
+    """The integer shift-and-compare bit length against the float64
+    `frexp` exponent it replaced, on every power of two and its
+    neighbours and on random values over the norms' int32 range (sums
+    of squares up to d 18432 x 127^2, and the whole non-negative
+    int32 range)."""
+    powers = torch.tensor([1 << k for k in range(31)], dtype=torch.int64)
+    g = torch.Generator().manual_seed(29)
+    vals = torch.cat([powers - 1, powers, powers + 1,
+                      torch.tensor([0, I32_MAX]),
+                      torch.randint(0, 18432 * 127 * 127, (50000,),
+                                    generator=g),
+                      torch.randint(0, 1 << 31, (50000,), generator=g)])
+    vals = vals.clamp(0, I32_MAX).to(torch.int32)
+    want = torch.frexp(vals.to(torch.float64)).exponent.to(torch.int32)
+    got = tim.bit_length(vals)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
 def test_int_isqrt_matches_reference():
     rng = np.random.default_rng(9)
     squares = np.arange(0, 46341, dtype=np.int64) ** 2

@@ -520,7 +520,6 @@ def test_unported_moe_variants_and_families_raise():
     base = get_config(ARCH).reduced()
     for kw, match in ((dict(moe_every=2), "moe_every 2"),
                       (dict(shared_expert=True), "shared expert"),
-                      (dict(family="hybrid"), "hybrid family"),
                       (dict(input_mode="embeds"), "input_mode")):
         with pytest.raises(NotImplementedError, match=match):
             DecoderLM(dataclasses.replace(base, **kw))
@@ -530,7 +529,7 @@ def test_unported_moe_variants_and_families_raise():
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "granite_3_2b",
                                   "musicgen_medium", "nemotron_4_340b",
-                                  "falcon_mamba_7b"])
+                                  "falcon_mamba_7b", "zamba2_1_2b"])
 def test_config_and_param_count_equal_reference(arch):
     j, t = j_get_config(arch), get_config(arch)
     assert t.param_count() == j.param_count()

@@ -19,8 +19,9 @@ requests and the same submit / step sequence; held here:
     against `serve_batch` for simultaneous same-length requests, as
     `tests/test_serving.py` holds the reference's;
   - the configuration checks (paged default, kv_bits 4 and the prefix
-    cache need the paged arena and the chunked mode), `bucket_len`,
-    the blockwise width that is not ported, and the CLI.
+    cache need the paged arena and the chunked mode), `bucket_len` and
+    the CLI (the blockwise width above 4096 rows is held in
+    `tests/test_torch_blockwise.py`).
 """
 import copy
 
@@ -288,20 +289,6 @@ def test_whole_prompt_modes_refuse_kv4_and_the_prefix_cache(models):
             with pytest.raises(ValueError,
                                match=f"{what} requires the chunked"):
                 _engine(models, port, chunk=0, paged=True, config=kw)
-
-
-def test_blockwise_width_is_refused_not_rounded_otherwise(models):
-    """Above 4096 query rows the reference's contiguous-cache attention
-    changes its rounding (`_blockwise_id`): the port raises there."""
-    tlm, tt = models[2], models[3]
-    lm = DecoderLM(tlm.cfg, max_seq=8192)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        lm.prefill(tt, torch.zeros((1, 4097), dtype=torch.int32),
-                   lm.init_caches(1, 8, device="cpu"))
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        ServingEngine(lm, tt, ServingConfig(
-            max_len=8192, device="cpu",
-            scheduler=SchedulerConfig(prefill_chunk=4104)))
 
 
 def test_cli_serves_the_reference_default_arena(capsys):
