@@ -82,8 +82,8 @@ Phases (any failure raises and the script exits non-zero):
             card's ranges, the correlation of its int32 logits with the
             float logits on the sample (and of a DEFAULT_RANGES
             deploy's), then the parity below on that one table set
-  parity    granite_3_2b (in the calibrate phase), llama3_2_3b and
-            chatglm3_6b at full width, each cut to 2 layers, calibrated
+  parity    granite_3_2b (in the calibrate phase, 2 layers), llama3_2_3b
+            and chatglm3_6b (PARITY_LAYERS, 1) at full width, calibrated
             on the card and deployed once, the card against the CPU
             (plain versions), at kv_bits 8 and 4: one prefill_chunk must
             give
@@ -98,7 +98,8 @@ Phases (any failure raises and the script exits non-zero):
             preemption counters and both pools equal byte for byte
             after the drain
   main      granite_3_2b at full width over its first MAIN_LAYERS of 40
-            layers (10; random seeded weights
+            layers (4 since the embeds and train phases; random seeded
+            weights
             calibrated and deployed layer by layer by `deploy_model`, as
             every later phase's are): 8 ragged requests
             (prompts 17-300, 16 new tokens) through `ServingEngine`,
@@ -139,7 +140,8 @@ Phases (any failure raises and the script exits non-zero):
             by request; tok/s and host ms per step of the admission,
             harvest and dispatch phases of every run
   configs   llama3_2_3b and chatglm3_6b at full width, cut to their first
-            CONFIG_LAYERS layers (2 of 28, to keep the
+            CONFIG_LAYERS layers (1 of 28 since the embeds and train
+            phases, 2 before, to keep the
             script under 1000 s; their deploy is most of its time), each
             served once (8 ragged requests, kv_bits 8, after
             `warmup()`): deploy time, device memory, launches by kernel
@@ -225,7 +227,7 @@ Phases (any failure raises and the script exits non-zero):
   hybrid    zamba2_1_2b (Mamba-2 blocks with d_inner 4096, 64 heads of
             64, state 64, and one shared attention over concat(x, x0)
             every 6 blocks, per-application tables): HYBRID_PARITY_LAYERS
-            layers at full width (1 group and a 2-block tail)
+            layers at full width (1 group and a 1-block tail)
             calibrated on the card, card vs CPU (a 128-token prefill and
             3 decode steps: logits, conv, h bit for bit, the shared
             pools; 3 requests, 2 new tokens each, on 3 slots over
@@ -248,6 +250,27 @@ Phases (any failure raises and the script exits non-zero):
             slots x 16 tokens of its int8 input) and one decode
             dispatch after it, outputs and K/V pools equal byte for
             byte, at kv_bits 8 and 4
+  embeds    internvl2_76b (no embedding table: int8 embedding rows at
+            meta["eps_in"]; d 8192, 64/8 heads at hd 128, group 8, d_ff
+            28672, vocab 128256) at full width over its first
+            EMBEDS_LAYERS of 80 layers: seeded weights calibrated on the
+            card on a seeded float (4, 64, 8192) sample, deployed; card
+            vs CPU, a 2 x 32-row prefill and 3 decodes (int32 logits
+            and K/V bytes equal); then the card alone: a 2 x 1024-row
+            prefill and 16 decodes, counted (every kernel of the
+            kv_bits 8 path), timed (CUDA events), peak memory; the
+            engine refuses the model
+  train     FakeQuantized training: granite_3_2b at full width, 2
+            layers, the loss and every gradient leaf of one 2 x 64
+            batch on the card against the CPU (within 1e-3 relative and
+            2e-2 relative L2); `launch.train.build` and
+            `TrainSupervisor` at full width over TRAIN_LAYERS layers,
+            batch 8 x 256, 20 steps with a checkpoint at 10, restarted
+            from it (the resumed losses within 1e-3, the loss falling;
+            ms a step, tokens/s, peak memory, the model FLOP/s share at
+            6 N D, one step profiled); internvl2_76b's loss_fn_embeds
+            at full width, 1 layer: finite, every leaf's gradient
+            nonzero
 
 Then a `kernels` JSON line, the card line, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -320,11 +343,11 @@ PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                 "blockwise": ("int8_matmul", "int8_matmul_grouped",
                               "requant")}
 # main-path engine settings; the main tables' depth (granite_3_2b's
-# first MAIN_LAYERS of 40 at full width since the blockwise and hybrid
-# phases: the whole script's 1,000 s aim; every phase on those tables
-# scales with it)
+# first MAIN_LAYERS of 40 at full width: 10 since the blockwise and
+# hybrid phases, 4 since the embeds and train phases, for the whole
+# script's 1,000 s aim; every phase on those tables scales with it)
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
-MAIN_LAYERS = 10
+MAIN_LAYERS = 4
 # paged attention at full granite geometry (B 8, H 32, K 8, hd 64,
 # pages of 16): (S, T), a prefill chunk and a decode step over the main
 # cell's 512 positions and over 4096
@@ -338,15 +361,20 @@ CONFIGS = ("llama3_2_3b", "chatglm3_6b")
 VARIANTS = ("musicgen_medium", "nemotron_4_340b")
 CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128),
                 "musicgen_medium": (24, 24, 64),
-                "nemotron_4_340b": (96, 8, 192)}
+                "nemotron_4_340b": (96, 8, 192),
+                "internvl2_76b": (64, 8, 128)}
 # the nemotron layer's dispatches: slots and chunk tokens (the CPU side's
 # float32 products, about 12 s a chunk and decode pair, bound them)
 NEMO_SLOTS, NEMO_CHUNK = 2, 16
-# the served depth of CONFIGS' full-width runs (their first 2 of 28
-# layers) and of musicgen_medium's (its first 4 of 48): the whole
-# script's 1,000 s aim
-CONFIG_LAYERS = 2
+# the served depth of CONFIGS' full-width runs (their first layer of 28
+# since the embeds and train phases, 2 before) and of musicgen_medium's
+# (its first 4 of 48): the whole script's 1,000 s aim
+CONFIG_LAYERS = 1
 MUSICGEN_LAYERS = 4
+# the parity phase's depth for CONFIGS (their first layer since the
+# embeds and train phases, 2 before: the CPU side bounds the phase;
+# granite's 2-layer parity runs in the calibrate phase)
+PARITY_LAYERS = 1
 # the MoE config, its served depth (None: all 16 layers; at 8 the slot
 # and paged arenas' tokens differed on the card, ROADMAP §3),
 # and the grouped
@@ -357,22 +385,26 @@ MOE_ARCH, MOE_LAYERS, MOE_EXPERTS = "olmoe_1b_7b", None, 64
 GROUPED_SHAPES = tuple((C, K, N) for C in (4, 40, 80)
                        for K, N in ((2048, 1024), (1024, 2048)))
 # the ssm family's config and its served depth (the first SSM_LAYERS of
-# its 64 at full width; deploy and the exact prefills bound the phase)
-SSM_ARCH, SSM_LAYERS = "falcon_mamba_7b", 2
+# its 64 at full width: 1 since the embeds and train phases, 2 before;
+# deploy and the exact prefills bound the phase)
+SSM_ARCH, SSM_LAYERS = "falcon_mamba_7b", 1
 # the ssm phase's 2-layer card-vs-CPU cell: a prefill of one scan chunk
 # (layers.ssm.CHUNK), then requests with prompts 9-40 and 4 new tokens
 SSM_PREFILL, SSM_PARITY_GEN = 128, 4
-# blockwise phase: granite_3_2b's served depth, the contiguous cache's
+# blockwise phase: granite_3_2b's served depth (the first layer of the
+# calibrate phase's 2-layer tables since the embeds and train phases:
+# the CPU side's prefills bound the phase), the contiguous cache's
 # positions, the whole prompts (above 4096 rows the attention streams)
 # and the tokens compared (the prefill's and 3 decodes')
-BLOCKWISE_LAYERS, BLOCKWISE_LEN, BLOCKWISE_PROMPTS = 2, 8192, (4097, 8000)
+BLOCKWISE_LAYERS, BLOCKWISE_LEN, BLOCKWISE_PROMPTS = 1, 8192, (4097, 8000)
 BLOCKWISE_TOKENS = 4
 # hybrid phase: the config, the parity depth (one group of 6 Mamba-2
-# blocks, its shared application and a 2-block tail) and its engine's
-# slots (the CPU side's island bounds the phase), the served depth of
-# the 8-request cell (14 of 38: 2 groups and a 2-block tail; all 38
-# took 213 s, the phase's room is about 150 s) and its prompts
-HYBRID_ARCH, HYBRID_PARITY_LAYERS, HYBRID_LAYERS = "zamba2_1_2b", 8, 14
+# blocks, its shared application and a 1-block tail since the embeds and
+# train phases, a 2-block one before) and its engine's slots (the CPU
+# side's island bounds the phase), the served depth of the 8-request
+# cell (7 of 38 since the embeds and train phases: a group and a 1-block
+# tail; 14 in PR 29; all 38 took 213 s) and its prompts
+HYBRID_ARCH, HYBRID_PARITY_LAYERS, HYBRID_LAYERS = "zamba2_1_2b", 7, 7
 HYBRID_PARITY_SLOTS, HYBRID_PARITY_GEN = 3, 2
 HYBRID_PROMPTS = (254, 172, 256, 31, 149, 255, 121, 257)
 # the write-then-gather attention's two products on the grouped GEMM at
@@ -418,6 +450,27 @@ QFA_SHAPES = ((8192, 8192, 64, True, 0, 128),
 # source, not a count of the compiled code)
 ISLAND_INSTR = 20
 QFA_SCALE, QFA_EPS = 1.0 / 2048.0, 0.02
+# embeds phase: the embeds config (int8 embedding rows, no table), its
+# served depth (2 of 80 layers at full width: the whole model is about
+# 68 GB at int8), its calibration sample (CALIB_BATCH x 64 float rows),
+# the card-vs-CPU cell (2 rows of 32 int8 rows, 3 decodes) and the card's
+# cell (2 rows of 1024, 16 decodes)
+EMBEDS_ARCH, EMBEDS_LAYERS = "internvl2_76b", 2
+EMBEDS_PARITY, EMBEDS_PROMPT, EMBEDS_DECODES = 32, 1024, 16
+EMBEDS_MAX = EMBEDS_PROMPT + EMBEDS_DECODES
+# train phase: granite_3_2b at full width, FakeQuantized; the card-vs-CPU
+# gradient (2 layers, batch 2 x 64; the loss within TRAIN_LOSS_TOL
+# relative, every leaf's gradient within TRAIN_GRAD_TOL relative L2,
+# the CPU tests' tolerances), then the trainer over TRAIN_LAYERS of 40
+# layers at batch 8 x 256 for TRAIN_STEPS steps, a checkpoint at
+# TRAIN_CKPT and a restart from it (the resumed losses within
+# TRAIN_RESUME_TOL relative of the uninterrupted run's); internvl2_76b's
+# loss_fn_embeds at full width, 1 layer, on 1 x 64 float rows
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_RESUME_TOL = 1e-3, 2e-2, 1e-3
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 256
+TRAIN_STEPS, TRAIN_CKPT = 20, 10
+# the card's dense bf16 peak (H100 SXM data sheet, without sparsity)
+BF16_FLOPS_S = 989.4e12
 
 
 def card_line() -> str:
@@ -559,12 +612,12 @@ def check_int8_matmul(torch, np, timer, rng, report):
 
 def check_config_gemms(torch, np, timer, rng, report):
     """The GEMM at every QLinear site of the configs served beside
-    granite_3_2b and of VARIANTS (`gemm_sites`), decode (M 8) and chunk
-    (M 256)."""
+    granite_3_2b, of VARIANTS and of EMBEDS_ARCH (`gemm_sites`; its
+    head N 128256, its down K 28672), decode (M 8) and chunk (M 256)."""
     from repro_torch.configs.base import get_config
 
     worst = 0
-    for arch in CONFIGS + VARIANTS:
+    for arch in CONFIGS + VARIANTS + (EMBEDS_ARCH,):
         for (K, N, mode), site in gemm_sites(get_config(arch)).items():
             for M in (N_SLOTS, N_SLOTS * CHUNK):
                 worst = max(worst, gemm_case(torch, np, timer, rng, report,
@@ -1056,7 +1109,8 @@ def paged_inputs(torch, np, S, T, seed, packed=False, heads=(32, 8, 64)):
 def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
     """Kernel vs plain version, int8 pools or int4-packed ones (per-head
     unpack operands from `staged_unpack_rq`), at `PAGED_SHAPES` and at
-    the heads of `CONFIGS` and `VARIANTS` (S 32 and 1 at T 512).
+    the heads of `CONFIGS`, `VARIANTS` and EMBEDS_ARCH (group 8 at hd
+    128; S 32 and 1 at T 512).
     Tolerance (`check_kernel`): the kernel's int8 probability image may
     differ from the plain one by one quantum at no more than max(8, 1e-5
     of) its entries, and none by more; the int32 output must equal the
@@ -1077,7 +1131,8 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
              for i, (S, T) in enumerate(PAGED_SHAPES)]
     cases += [(arch + " ", S, MAX_LEN, CONFIG_HEADS[arch], SEED + 40 + i)
               for i, (arch, S) in enumerate(
-                  (a, S) for a in CONFIGS + VARIANTS for S in (CHUNK, 1))]
+                  (a, S) for a in CONFIGS + VARIANTS + (EMBEDS_ARCH,)
+                  for S in (CHUNK, 1))]
     worst = 0
     for label, S, T, heads, seed in cases:
         args, kw = paged_inputs(torch, np, S, T, seed, packed, heads)
@@ -1375,8 +1430,9 @@ def cnn_profile(torch, fn) -> dict:
             continue
         name = re.split(r"[<(]", e.key.replace("void ", "").replace(
             "at::native::", "").replace("(anonymous namespace)::", ""))[0]
-        who = ("int8_matmul" if "gemm_" in e.key else "requant"
-               if "requant_" in e.key else "torch " + name[:40])
+        ours = re.search(r"gemm_(gemv|wgmma)_kernel", e.key)
+        who = ("int8_matmul" if ours else "requant" if "requant_" in e.key
+               else "torch " + name[:40])
         ms, n = split.get(who, (0.0, 0))
         split[who] = (ms + e.self_device_time_total / 1e3, n + e.count)
     if not split:
@@ -1502,19 +1558,19 @@ def prefill_parity(torch, np, lm, t_np, kv_bits):
             raise AssertionError(f"{cfg.name} prefill_chunk kv_bits "
                                  f"{kv_bits} {name}: card != CPU")
     print(f"  {cfg.name} prefill_chunk kv_bits {kv_bits} ({N_SLOTS} x "
-          f"{CHUNK}, 2 layers): int32 "
+          f"{CHUNK}, {cfg.n_layers} layers): int32 "
           f"logits {tuple(out['cpu'][0].shape)} and K/V pools "
           f"{tuple(out['cpu'][1].shape)} equal byte for byte")
 
 
-def calibrated_2_layers(arch):
-    """`arch` at full width cut to 2 layers: -> (lm, its init_np float
-    params, the entry point's calibration sample)."""
+def calibrated_2_layers(arch, n_layers: int = 2):
+    """`arch` at full width cut to `n_layers` layers: -> (lm, its
+    init_np float params, the entry point's calibration sample)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import calibration_sample
     from repro_torch.models.lm import DecoderLM
 
-    lm = DecoderLM(dataclasses.replace(get_config(arch), n_layers=2),
+    lm = DecoderLM(dataclasses.replace(get_config(arch), n_layers=n_layers),
                    max_seq=MAX_LEN)
     return lm, lm.init_np(SEED), calibration_sample(lm.cfg.vocab, MAX_LEN)
 
@@ -1607,26 +1663,27 @@ def phase_parity(torch, np):
           f" equal on all {n} inputs compared (every 61st float32 in "
           f"[-104, 0]; {time.perf_counter() - t0:.1f} s)")
     for arch in CONFIGS:
-        config_parity(torch, np, arch)
+        config_parity(torch, np, arch, n_layers=PARITY_LAYERS)
 
 
-def config_parity(torch, np, arch, lm=None, t_np=None):
-    """`arch` at full width cut to 2 layers, one table set (calibrated
-    on the card, or `t_np`) on both devices, the card against the CPU
-    at kv_bits 8 and 4: one prefill_chunk byte for byte, then the
-    engine's tokens on 4 ragged requests."""
+def config_parity(torch, np, arch, lm=None, t_np=None, n_layers=2):
+    """`arch` at full width cut to `n_layers` layers (or `lm`'s), one
+    table set (calibrated on the card, or `t_np`) on both devices, the
+    card against the CPU at kv_bits 8 and 4: one prefill_chunk byte for
+    byte, then the engine's tokens on 4 ragged requests."""
     from repro_torch.launch.serve import ragged_requests
     from repro_torch.models.lm import tables_from_numpy
 
     t0 = time.perf_counter()
     if t_np is None:
-        lm, p, sample = calibrated_2_layers(arch)
+        lm, p, sample = calibrated_2_layers(arch, n_layers)
         t_np = lm.deploy(p, lm.calibrate(p, sample, device="cuda"))
     cfg = lm.cfg
     reqs = ragged_requests(4, cfg.vocab, np.random.default_rng(SEED + 1),
                            prompt_lo=17, prompt_hi=80, gen=6)
     tables = {dev: tables_from_numpy(t_np, dev) for dev in ("cuda", "cpu")}
-    print(f"  {arch}: 2 layers at full width (d {cfg.d_model}, "
+    print(f"  {arch}: {cfg.n_layers} layer(s) at full width (d "
+          f"{cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab_padded}): one table set "
           f"calibrated on the card, on both devices in "
@@ -1636,7 +1693,8 @@ def config_parity(torch, np, arch, lm=None, t_np=None):
         prefill_parity(torch, np, lm, t_np, kv_bits)
         gpu_tok = serve(lm, tables["cuda"], reqs, "cuda", kv_bits)[0]
         cpu_tok = serve(lm, tables["cpu"], reqs, "cpu", kv_bits)[0]
-        print(f"  {arch} 2-layer full-width parity, kv_bits {kv_bits}: "
+        print(f"  {arch} {cfg.n_layers}-layer full-width parity, kv_bits "
+              f"{kv_bits}: "
               f"{len(reqs)} requests, "
               f"{sum(len(v) for v in gpu_tok.values())} tokens in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -3099,16 +3157,27 @@ def greedy_after_prefill(torch, lm, t, prompt, max_len, dev, n_tokens):
     return logits.cpu(), toks, after, caches
 
 
+def _first_layers(tree, n: int):
+    """A layer-stacked numpy table tree cut to its first n layers."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
 def phase_blockwise(torch, np, kernels, lm2, t2_np):
-    """granite_3_2b at full width, the calibrate phase's 2-layer
-    tables, over a contiguous cache of BLOCKWISE_LEN positions: each
+    """granite_3_2b at full width, the first BLOCKWISE_LAYERS of the
+    calibrate phase's 2-layer tables (its final norm and head kept),
+    over a contiguous cache of BLOCKWISE_LEN positions: each
     prompt of BLOCKWISE_PROMPTS (above 4096 rows the attention streams
     over key blocks) prefilled whole on the card (counted, timed, peak
     memory) and on the CPU, then greedy decode steps: int32 logits, K/V
     bytes and the first BLOCKWISE_TOKENS tokens equal."""
     from repro_torch.models.lm import DecoderLM, tables_from_numpy
 
-    lm = DecoderLM(lm2.cfg, max_seq=BLOCKWISE_LEN)
+    lm = DecoderLM(dataclasses.replace(lm2.cfg, n_layers=BLOCKWISE_LAYERS),
+                   max_seq=BLOCKWISE_LEN)
+    t2_np = {**t2_np, "segments": [_first_layers(t2_np["segments"][0],
+                                                 BLOCKWISE_LAYERS)]}
     rng = np.random.default_rng(SEED + 21)
     tc, tg = (tables_from_numpy(t2_np, d) for d in ("cuda", "cpu"))
     for P in BLOCKWISE_PROMPTS:
@@ -3399,6 +3468,315 @@ def bit_length_host_cost(torch, calls: int = 1000) -> None:
           + ", ".join(out) + f"; x 162 a granite dispatch")
 
 
+def phase_embeds(torch, np, kernels):
+    """EMBEDS_ARCH (no embedding table: the model takes int8 embedding
+    rows at meta["eps_in"]) at full width over its first EMBEDS_LAYERS
+    layers: seeded init_np weights calibrated on the card on a seeded
+    float (CALIB_BATCH, 64, d) sample and deployed on the host; card vs
+    CPU, a prefill of 2 x EMBEDS_PARITY rows and 3 decode steps: int32
+    logits and the K/V bytes equal; then the card alone: a prefill of 2
+    x EMBEDS_PROMPT rows and EMBEDS_DECODES decodes, counted (the
+    kv_bits 8 path's kernels), timed (CUDA events) and its peak memory.
+    The engine refuses the model, as the reference's does."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import CALIB_BATCH
+    from repro_torch.models.lm import DecoderLM, tables_from_numpy
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_config(EMBEDS_ARCH),
+                              n_layers=EMBEDS_LAYERS)
+    lm = DecoderLM(cfg, max_seq=EMBEDS_MAX)
+    t0 = time.perf_counter()
+    p = lm.init_np(SEED)
+    n_par = sum(int(np.prod(np.shape(v))) for v in _np_leaves(p))
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 31)
+    sample = rng.standard_normal((CALIB_BATCH, 64, cfg.d_model),
+                                 dtype=np.float32)
+    calib = lm.calibrate(p, sample, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    t_np = lm.deploy(p, calib)
+    del p
+    t3 = time.perf_counter()
+    eps_in = float(t_np["meta"]["eps_in"])
+    print(f"  {EMBEDS_ARCH}: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads at hd {cfg.hd} (group {cfg.n_heads // cfg.n_kv_heads}), "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {EMBEDS_LAYERS} of 80 layers, "
+          f"{n_par} parameters, no embedding table; float draw "
+          f"{t1 - t0:.1f} s, calibration on the card {t2 - t1:.1f} s "
+          f"({len(calib.hi)} ranges), host deploy {t3 - t2:.1f} s; eps_in "
+          f"{eps_in:.6g}")
+    tabs = {dev: tables_from_numpy(t_np, dev) for dev in ("cuda", "cpu")}
+    del t_np
+    try:
+        ServingEngine(lm, tabs["cuda"], ServingConfig())
+        raise AssertionError("the engine served an embeds model")
+    except ValueError as e:
+        print(f"  ServingEngine refuses it: {e}")
+    x = rng.standard_normal((2, EMBEDS_MAX, cfg.d_model), dtype=np.float32)
+    rows = torch.from_numpy(
+        np.clip(np.round(x / eps_in), -128, 127).astype(np.int8))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        caches = lm.init_caches(2, EMBEDS_PARITY + PAGE, device=dev)
+        logs = [lm.prefill(tabs[dev], rows[:, :EMBEDS_PARITY].to(dev),
+                           caches)]
+        for i in range(3):
+            pos = torch.full((2,), EMBEDS_PARITY + i, dtype=torch.int32,
+                             device=dev)
+            row = rows[:, EMBEDS_PARITY + i:EMBEDS_PARITY + i + 1]
+            logs.append(lm.decode_step(tabs[dev], row.to(dev), caches, pos))
+        out[dev] = [t.cpu() for t in logs + [caches["k"], caches["v"]]]
+        print(f"  {dev}: a prefill of 2 x {EMBEDS_PARITY} int8 rows and 3 "
+              f"decodes in {time.perf_counter() - t0:.2f} s")
+    for name, a, b in zip(("prefill logits", "decode 1", "decode 2",
+                           "decode 3", "K pool", "V pool"), out["cuda"],
+                          out["cpu"]):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"embeds {name}: card != CPU")
+    print(f"  card == CPU: int32 logits {tuple(out['cuda'][0].shape)} "
+          f"(values {int(out['cuda'][0].min())}..{int(out['cuda'][0].max())})"
+          f", 3 decodes' logits and the K/V pools "
+          f"{tuple(out['cuda'][4].shape)} byte for byte")
+    del out, tabs["cpu"]
+    tc = tabs["cuda"]
+    prompt = rows[:, :EMBEDS_PROMPT].cuda()
+    lm.prefill(tc, prompt, lm.init_caches(2, EMBEDS_MAX, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    caches = lm.init_caches(2, EMBEDS_MAX, device="cuda")
+    kernels.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(2 * (EMBEDS_DECODES + 1))]
+    ev[0].record()
+    lm.prefill(tc, prompt, caches)
+    ev[1].record()
+    for i in range(EMBEDS_DECODES):
+        pos = torch.full((2,), EMBEDS_PROMPT + i, dtype=torch.int32,
+                         device="cuda")
+        row = rows[:, EMBEDS_PROMPT + i:EMBEDS_PROMPT + i + 1].cuda()
+        ev[2 * i + 2].record()
+        lm.decode_step(tc, row, caches, pos)
+        ev[2 * i + 3].record()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_path_launches(launches, 8, "embeds")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    dec = sorted(ev[2 * i + 2].elapsed_time(ev[2 * i + 3])
+                 for i in range(EMBEDS_DECODES))
+    per = {k: v / (EMBEDS_DECODES + 1) for k, v in launches.items() if v}
+    print(f"  card: prefill of 2 x {EMBEDS_PROMPT} rows "
+          f"{ev[0].elapsed_time(ev[1]):.2f} ms, a decode step (median of "
+          f"{EMBEDS_DECODES}) {dec[len(dec) // 2]:.3f} ms (min {dec[0]:.3f}, "
+          f"max {dec[-1]:.3f}), peak {peak:.3f} GiB above the tables "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB resident); "
+          f"launches {launches} ({per} a dispatch)")
+    del tc, tabs, caches
+    torch.cuda.empty_cache()
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _np_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _np_leaves(v)
+    else:
+        yield tree
+
+
+def _rel_l2(want, got) -> float:
+    den = float(want.double().norm())
+    diff = float((want.double() - got.double()).norm())
+    return diff / den if den else float(diff > 0)
+
+
+def train_card_vs_cpu(torch, np):
+    """granite_3_2b at full width, 2 layers: the FQ loss and every
+    gradient leaf of one step's batch (2 x 64) on the card and the CPU
+    from the same init_np params and init_qstate clips."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.rep import Rep
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticStream
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import DecoderLM, params_to_torch
+
+    cfg = dataclasses.replace(get_config("granite_3_2b"), n_layers=2)
+    lm = DecoderLM(cfg, max_seq=65)
+    p = lm.init_np(SEED)
+    tok = SyntheticStream(SyntheticConfig(
+        vocab=cfg.vocab, seq_len=64, global_batch=2)).batch(0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tr = {"params": params_to_torch(p, dev),
+              "qstate": lm.init_qstate(dev)}
+        t0 = time.perf_counter()
+        loss, g = value_and_grad(lambda t, x: lm.loss_fn(
+            t["params"], t["qstate"], x, Rep.FQ), tr,
+            torch.from_numpy(tok).to(dev))
+        loss = float(loss)
+        secs = time.perf_counter() - t0
+        res[dev] = (loss, [x.cpu() for x in tree_leaves(g)])
+        print(f"  {dev}: FQ loss {loss:.6f}, value and gradient in "
+              f"{secs:.2f} s")
+        del tr, g
+    rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    errs = [_rel_l2(b, a) for a, b in zip(res["cuda"][1], res["cpu"][1])]
+    print(f"  card vs CPU: loss {rel:.3e} relative (limit {TRAIN_LOSS_TOL}), "
+          f"gradients {len(errs)} leaves, worst {max(errs):.3e} relative L2 "
+          f"(limit {TRAIN_GRAD_TOL}), median "
+          f"{sorted(errs)[len(errs) // 2]:.3e}")
+    if rel > TRAIN_LOSS_TOL or max(errs) > TRAIN_GRAD_TOL:
+        raise AssertionError("train: the card's loss or gradients are off "
+                             "the CPU's")
+    torch.cuda.empty_cache()
+
+
+def train_supervised(torch, np, kernels):
+    """`launch.train.build` on the card at full width over TRAIN_LAYERS
+    layers and `TrainSupervisor`: TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens with a checkpoint every TRAIN_CKPT (and at the
+    end), then the last checkpoint removed and the run restarted from
+    TRAIN_CKPT: the resumed losses within TRAIN_RESUME_TOL of the
+    uninterrupted run's, and the loss falls (the mean of the last 5
+    steps below the first 5's).  ms a step, tokens/s, peak memory and
+    the model FLOP/s share at 6 N D over the dense bf16 peak."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.launch.elastic import TrainSupervisor
+    from repro_torch.launch.train import build
+
+    t0 = time.perf_counter()
+    lm, tr, opt, step, stream = build(
+        "granite_3_2b", reduced=False, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        device="cuda", n_layers=TRAIN_LAYERS)
+    n_par = lm.cfg.param_count()
+    print(f"  granite_3_2b at full width, {TRAIN_LAYERS} of 40 layers, "
+          f"{n_par} parameters (param_count), built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    times = []
+
+    def timed(t, o, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(t, o, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    def sup(d):
+        return TrainSupervisor(
+            train_step=timed, ckpt_dir=d, ckpt_every=TRAIN_CKPT,
+            make_batch=lambda s: torch.from_numpy(stream.batch(s)).cuda())
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        full = sup(d).run(tr, opt, n_steps=TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps_s = times[1:]
+        shutil.rmtree(Path(d) / f"step_{TRAIN_STEPS:08d}")
+        if ckpt.latest_step(d) != TRAIN_CKPT:
+            raise AssertionError("train: no checkpoint at "
+                                 f"{TRAIN_CKPT}")
+        t0 = time.perf_counter()
+        resumed = sup(d).run(tr, opt, n_steps=TRAIN_STEPS)
+        wall2 = time.perf_counter() - t0
+    batch = torch.from_numpy(stream.batch(0)).cuda()
+    split = cnn_profile(torch, lambda: step(tr, opt, batch))
+    busy = sum(ms for ms, _ in split.values())
+    a, b = full["losses"][TRAIN_CKPT:], resumed["losses"]
+    worst = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    ms = 1e3 * float(np.median(steps_s))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    share = 6.0 * n_par * tokens / (ms / 1e3) / BF16_FLOPS_S
+    ls = full["losses"]
+    print(f"  {TRAIN_STEPS} steps in {wall:.1f} s (checkpoints at "
+          f"{TRAIN_CKPT} and {TRAIN_STEPS} included): losses {ls[0]:.4f} "
+          f"-> {ls[-1]:.4f} (first five mean {np.mean(ls[:5]):.4f}, last "
+          f"five {np.mean(ls[-5:]):.4f}); a step {ms:.1f} ms (median of "
+          f"{len(steps_s)}, min {1e3 * min(steps_s):.1f}), "
+          f"{tokens / (ms / 1e3):.0f} tokens/s, model FLOP/s share "
+          f"{share:.4f} (6 N D over {BF16_FLOPS_S / 1e12:.1f} TFLOP/s), "
+          f"peak {peak:.2f} GiB; hand-written kernel launches {launches} "
+          "(the FQ path's products are bf16 matmuls)")
+    top = sorted(split.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"  one step under torch.profiler: device busy {busy:.1f} ms, idle "
+          f"share {1 - busy / ms:.3f} of the unprofiled step; by kernel: "
+          + ", ".join(f"{k} {v[0]:.1f} ms x{v[1]}" for k, v in top))
+    print(f"  restart from step {TRAIN_CKPT}: {len(b)} steps in "
+          f"{wall2:.1f} s, losses within {worst:.3e} relative of the "
+          f"uninterrupted run's (limit {TRAIN_RESUME_TOL})")
+    if len(b) != TRAIN_STEPS - TRAIN_CKPT or worst > TRAIN_RESUME_TOL:
+        raise AssertionError("train: the resumed losses are off")
+    if not np.mean(ls[-5:]) < np.mean(ls[:5]):
+        raise AssertionError("train: the loss does not fall")
+    if any(launches.values()):
+        raise AssertionError(f"train: integer kernels launched {launches}")
+    del tr, opt
+    torch.cuda.empty_cache()
+
+
+def train_embeds_step(torch, np):
+    """EMBEDS_ARCH at full width, 1 layer: one loss_fn_embeds value and
+    gradient on seeded float rows (1 x 64 x d) and targets, the clips
+    set to cut into the SiLU outputs (alpha -0.25, beta 2; at init's
+    [-1, 6) no output reaches them): a finite loss and a nonzero
+    gradient on every leaf."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.rep import Rep
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import DecoderLM, params_to_torch
+
+    cfg = dataclasses.replace(get_config(EMBEDS_ARCH), n_layers=1)
+    lm = DecoderLM(cfg, max_seq=65)
+    t0 = time.perf_counter()
+    tr = {"params": params_to_torch(lm.init_np(SEED), "cuda"),
+          "qstate": {"segments": [{"mlp": {
+              "alpha": torch.full((1,), -0.25, device="cuda"),
+              "beta": torch.full((1,), 2.0, device="cuda")}}]}}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    emb = torch.randn((1, 64, cfg.d_model), generator=g, device="cuda")
+    tgt = torch.randint(0, cfg.vocab, (1, 64), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = value_and_grad(lambda t, e, y: lm.loss_fn_embeds(
+        t["params"], t["qstate"], e, y, Rep.FQ), tr, emb, tgt)
+    loss = float(loss)
+    leaves = tree_leaves(grads)
+    zero = [i for i, x in enumerate(leaves) if not bool(x.abs().max() > 0)]
+    finite = all(bool(torch.isfinite(x).all()) for x in leaves)
+    print(f"  {EMBEDS_ARCH} at full width, 1 layer: params drawn in "
+          f"{t1 - t0:.1f} s; loss_fn_embeds {loss:.4f} and its gradient in "
+          f"{time.perf_counter() - t1:.2f} s, {len(leaves)} leaves, "
+          f"{len(zero)} all zero, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not np.isfinite(loss) or zero or not finite:
+        raise AssertionError(f"train embeds: loss {loss}, zero leaves "
+                             f"{zero}, finite {finite}")
+    del tr, grads, leaves
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, np, kernels):
+    train_card_vs_cpu(torch, np)
+    train_supervised(torch, np, kernels)
+    train_embeds_step(torch, np)
+
+
 def phase_done(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"  ({name}: {t - t0:.1f} s)")
@@ -3407,7 +3785,8 @@ def phase_done(name: str, t0: float) -> float:
 
 SKIPPABLE = ("entry", "cnn", "calibrate", "parity", "open-loop", "prefix",
              "preempt", "async", "whole_prompt", "int_softmax", "configs",
-             "musicgen", "olmoe", "ssm", "nemotron", "blockwise", "hybrid")
+             "musicgen", "olmoe", "ssm", "nemotron", "blockwise", "hybrid",
+             "embeds", "train")
 
 
 def main() -> int:
@@ -3485,7 +3864,8 @@ def main() -> int:
         lm2, t2_np = phase_calibrate(torch, np)
         t0 = phase_done("calibrate", t0)
     if "parity" not in skip:
-        print("[parity] 2-layer full width, calibrated, card vs CPU: "
+        print(f"[parity] {PARITY_LAYERS}-layer full width, calibrated, card "
+              "vs CPU: "
               + ", ".join(CONFIGS))
         phase_parity(torch, np)
         t0 = phase_done("parity", t0)
@@ -3572,7 +3952,19 @@ def main() -> int:
         print("[nemotron] one nemotron_4_340b layer at full width, card vs "
               "CPU")
         phase_nemotron(torch, np)
-        phase_done("nemotron", t0)
+        t0 = phase_done("nemotron", t0)
+    if "embeds" not in skip:
+        print(f"[embeds] {EMBEDS_ARCH} at full width, {EMBEDS_LAYERS} of 80 "
+              "layers, served from int8 embedding rows: card vs CPU, then "
+              "the card")
+        phase_embeds(torch, np, kernels)
+        t0 = phase_done("embeds", t0)
+    if "train" not in skip:
+        print("[train] FakeQuantized training: granite_3_2b card vs CPU, "
+              f"the trainer over {TRAIN_LAYERS} layers with a restart, "
+              f"{EMBEDS_ARCH}'s loss_fn_embeds")
+        phase_train(torch, np, kernels)
+        phase_done("train", t0)
     if skip:
         print(f"skipped phases {sorted(skip)}: no result line")
         return 0

@@ -10,7 +10,10 @@ bias, ungated squared-ReLU MLP, head_dim 192), `olmoe_1b_7b` (the
 MoE family: 64 experts, top-8, an expert layer in every block) and
 `falcon_mamba_7b` (the ssm family: 64 Mamba-1 blocks, no attention),
 `zamba2_1_2b` (the hybrid family: Mamba-2 blocks and one shared
-attention block over concat(x, x0) applied every 6 of them); and
+attention block over concat(x, x0) applied every 6 of them),
+`internvl2_76b` (a dense backbone fed int8 embedding rows, input_mode
+"embeds": no embedding table; `SERVE_ARCH_IDS`, the serving CLI's
+--arch, leaves it out, as the reference's engine refuses it); and
 `nemo_cnn`, the paper's CNN (family "cnn", served by
 `models.cnn.NemoCNN`; `LM_ARCH_IDS` leaves it out, as the reference's
 dry run does).
@@ -25,9 +28,11 @@ _REGISTRY: Dict[str, "ArchConfig"] = {}
 
 ARCH_IDS = ["granite_3_2b", "llama3_2_3b", "chatglm3_6b", "musicgen_medium",
             "nemotron_4_340b", "olmoe_1b_7b", "falcon_mamba_7b", "zamba2_1_2b",
-            "nemo_cnn"]
-# the configs `DecoderLM` serves (the CLI's --arch)
+            "internvl2_76b", "nemo_cnn"]
+# the configs `DecoderLM` runs
 LM_ARCH_IDS = [a for a in ARCH_IDS if a != "nemo_cnn"]
+# the token LMs the serving engine takes (the serving CLI's --arch)
+SERVE_ARCH_IDS = [a for a in LM_ARCH_IDS if a != "internvl2_76b"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +65,7 @@ class ArchConfig:
     ssm_head_dim: int = 64
     # --- hybrid (zamba2) ---
     shared_attn_every: int = 0
-    input_mode: str = "tokens"
+    input_mode: str = "tokens"  # tokens | embeds (a frontend's int8 rows)
     sub_quadratic: bool = False  # eligible for long contexts
     notes: str = ""
 

@@ -33,30 +33,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.quantum import INT8, QuantSpec
 
-@dataclasses.dataclass(frozen=True)
-class QuantSpec:
-    """A quantized space's integer range (the part of
-    `repro.core.quantum.QuantSpec` the integer BN reads)."""
-
-    n_bits: int = 8
-    signed: bool = True
-
-    @property
-    def qmin(self) -> int:
-        return -(1 << (self.n_bits - 1)) if self.signed else 0
-
-    @property
-    def qmax(self) -> int:
-        return ((1 << (self.n_bits - 1)) - 1 if self.signed
-                else (1 << self.n_bits) - 1)
-
-    @property
-    def levels(self) -> int:
-        return 1 << self.n_bits
-
-
-INT8 = QuantSpec(8, True)
 
 # ---------------------------------------------------------------------------
 # (i) BN folding, Eq. 18  (host-side, transform time)

@@ -69,7 +69,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LM_ARCH_IDS, get_config
+from repro_torch.configs.base import SERVE_ARCH_IDS, get_config
 from repro_torch.core.calibrate import Calibrator
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticStream
 from repro_torch.layers.common import DeployCtx
@@ -83,6 +83,17 @@ from repro_torch.serving import (
 
 
 CALIB_BATCH = 4  # calibration rows, as the reference entry point's
+
+
+def check_tokens(cfg) -> None:
+    """`deploy_model` and `serve_batch` feed token ids: an embeds model
+    (internvl2_76b) is served through `DecoderLM.prefill` /
+    `decode_step` on int8 rows instead, as in the reference."""
+    if cfg.input_mode != "tokens":
+        raise ValueError(
+            f"{cfg.name} takes embeddings (input_mode={cfg.input_mode!r}), "
+            "not token ids: serve it through DecoderLM.prefill / "
+            "decode_step on int8 rows")
 
 
 def calibration_sample(vocab: int, max_seq: int) -> np.ndarray:
@@ -102,6 +113,7 @@ def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
     `device`.  `n_layers` cuts the depth (the first n layers of the
     config, at its full width; None: all of them)."""
     cfg = get_config(arch)
+    check_tokens(cfg)
     if reduced:
         cfg = cfg.reduced()
     if n_layers is not None:
@@ -112,7 +124,7 @@ def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
     sample = calibration_sample(cfg.vocab, max_seq)
     p_embed = lm.init_embed_np(seed)
     x = lm.embed_in({"embed": params_to_torch(p_embed, device)},
-                    torch.from_numpy(sample).to(device), calib)
+                    torch.from_numpy(sample).to(device), calib=calib)
     t_embed, eps_x = lm.deploy_embed(ctx, p_embed)
     tables = {
         "meta": {"eps_in": eps_x},
@@ -152,7 +164,7 @@ def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
     del x0, p_shared, p_shared_np
     p_norm, p_head = lm.init_head_np(seed)
     lm.logits({"norm_f": params_to_torch(p_norm, device),
-               "head": params_to_torch(p_head, device)}, x, calib)
+               "head": params_to_torch(p_head, device)}, x, calib=calib)
     del x
     tn, th, eps_logits = lm.deploy_head(ctx, p_norm, p_head, eps_x)
     tables["norm_f"] = tree_to_torch(tn, device)
@@ -167,6 +179,7 @@ def serve_batch(lm, tables, prompts, gen_len: int) -> torch.Tensor:
     All rows prefill together at position 0 and advance in lockstep at
     one shared position over contiguous caches of P + gen_len positions
     (`DecoderLM.init_caches`), on the tables' device."""
+    check_tokens(lm.cfg)
     device = tables["head"]["w_q"].device
     prompts = torch.as_tensor(np.asarray(prompts, np.int32), device=device)
     B, P = prompts.shape
@@ -195,7 +208,8 @@ def ragged_requests(n: int, vocab: int, rng: np.random.Generator, *,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="granite_3_2b", choices=LM_ARCH_IDS)
+    ap.add_argument("--arch", default="granite_3_2b",
+                    choices=SERVE_ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)

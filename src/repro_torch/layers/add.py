@@ -1,5 +1,5 @@
 """Add of two residual branches (port of `repro.layers.add.QAdd`,
-Eq. 24: the float `apply_fp`, `deploy` and `apply_id`).
+Eq. 24: the float `apply_fp` (also FQ's), `deploy` and `apply_id`).
 
 Each branch is requantized into the fresh symmetric output space as an
 int32 image clipped to +-2^24, the two are summed in int32 and clipped

@@ -97,6 +97,7 @@ import torch
 from repro_torch.core.intmath import pack_int4
 from repro_torch.core.island import exp_f32, exp_image, fma
 from repro_torch.core.intsoftmax import int_softmax, make_int_softmax_tables
+from repro_torch.core.rep import Rep
 from repro_torch.core.requant import make_rqt
 from repro_torch.kernels.int8_matmul import int8_matmul_grouped
 from repro_torch.kernels.paged_attention import (
@@ -178,16 +179,20 @@ class QAttention:
         return {n: lay.init_np(rng) for n, lay in self._sub().items()}
 
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
-                    scope: str = "") -> torch.Tensor:
-        """FullPrecision forward, x (B, S, d) float32 at positions
-        0..S-1 (the reference's `apply_float` with no cache) -> the wo
-        output (B, S, d)."""
+                    scope: str = "", *, rep: Rep = Rep.FP) -> torch.Tensor:
+        """FullPrecision (or, with ``rep=Rep.FQ``, FakeQuantized)
+        forward, x (B, S, d) float at positions 0..S-1 (the reference's
+        `apply_float` with no cache) -> the wo output (B, S, d) in x's
+        dtype.  The scores are float32 whatever x's dtype (the
+        reference's einsum asks for a float32 result: bfloat16 products
+        are exact in float32), the softmax is float32 and the
+        probabilities go back to x's dtype for the P.V product."""
         subs = self._sub()
         B, S, _ = x.shape
         H, K, hd = self.n_heads, self.n_kv_heads, self.head_dim
-        q = subs["wq"].apply_fp(p["wq"], x)
-        k = subs["wk"].apply_fp(p["wk"], x)
-        v = subs["wv"].apply_fp(p["wv"], x)
+        q = subs["wq"].apply(p["wq"], x, rep)
+        k = subs["wk"].apply(p["wk"], x, rep)
+        v = subs["wv"].apply(p["wv"], x, rep)
         if calib is not None:
             calib.observe(f"{scope}{self.name}.q", q)
             calib.observe(f"{scope}{self.name}.k", k)
@@ -206,7 +211,9 @@ class QAttention:
                 calib.observe(f"{scope}{self.name}.v.h{h}", v[:, h])
         kh = k.repeat_interleave(self.group, dim=1)
         vh = v.repeat_interleave(self.group, dim=1)
-        scores = torch.matmul(q, kh.transpose(-1, -2)) / float(np.sqrt(hd))
+        f32 = torch.float32
+        scores = torch.matmul(q.to(f32), kh.to(f32).transpose(-1, -2))
+        scores = scores / float(np.sqrt(hd))
         scores = scores + _causal_mask(S, x.device)
         probs = torch.softmax(scores, dim=-1)
         if calib is not None:
@@ -215,7 +222,7 @@ class QAttention:
         ctx_ = ctx_.permute(0, 2, 1, 3).reshape(B, S, H * hd)
         if calib is not None:
             calib.observe(f"{scope}{self.name}.ctx", ctx_)
-        return subs["wo"].apply_fp(p["wo"], ctx_)
+        return subs["wo"].apply(p["wo"], ctx_, rep)
 
     def _qkv_acts(self):
         rt2 = float(np.sqrt(2.0))  # RoPE rotation headroom

@@ -2,11 +2,14 @@
 float forwards `apply_fp` and `apply_fq`, `deploy`, `apply_id`, and
 `harden_weights_np`).
 
-`apply_fp` is a plain float32 matmul, as the reference's is an XLA
+`apply_fp` is a plain matmul in the input's dtype (float32 in
+calibration, bfloat16 in training: the float32 weight is cast to it,
+`w.astype(x.dtype)` in the reference), as the reference's is an XLA
 dot outside any kernel; `apply_fq` is the same product over the
-PACT-restricted weights (`core.pact`, forward only), and `apply(p, x,
-rep)` picks the path by representation as the reference's does (QD
-runs `apply_fp` on weights `harden_weights_np` has put on the grid).
+PACT-restricted weights (`core.pact`, whose straight-through backward
+autograd follows), and `apply(p, x, rep)` picks the path by
+representation as the reference's does (QD runs `apply_fp` on weights
+`harden_weights_np` has put on the grid).
 
 `apply_id` runs the int8 GEMM kernel (kernels/int8_matmul.py).  With
 no requant tree it returns the int32 accumulator `x @ w_q + b_q`, as

@@ -1,9 +1,13 @@
 """Feed-forward blocks, gated (SwiGLU) and plain (GELU, squared ReLU)
-(port of `repro.layers.mlp.QMLP`: the float forward `apply_float`,
-`deploy` and `apply_id`).
+(port of `repro.layers.mlp.QMLP`: the float forward `apply_float` at FP
+and FQ, `init_qstate`, `deploy` and `apply_id`).
 
 Gated.  Float: h = act(x @ wg) * (x @ wu), out = h @ wd, observing the
-gate's input and output, up and h.  Integer:
+gate's input and output, up and h.  At FQ the products run on
+PACT-restricted weights and act(.) goes through the learnable clip of
+`init_qstate` (`pact_act` where the activation is clipped at 0 from
+below, `pact_act_asymm` otherwise), as the reference's `maybe_fq`.
+Integer:
 
     s_x --wg GEMM + g_tab.rqt epilogue--> int8 --SiLU LUT--> s_g (asym)
         --wu GEMM + u_rqt epilogue-----> s_u (sym)
@@ -33,6 +37,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.pact import pact_act, pact_act_asymm
+from repro_torch.core.rep import Rep
 from repro_torch.kernels.requant_kernel import requant_act, requant_gate
 from repro_torch.layers.act_quant import QAct
 from repro_torch.layers.common import ActKind, DeployCtx, act_fn
@@ -59,28 +65,46 @@ class QMLP:
     def init_np(self, rng: np.random.Generator) -> dict:
         return {n: lay.init_np(rng) for n, lay in self._sub().items()}
 
+    def init_qstate(self, device="cuda") -> dict:
+        """The FQ learnable clips of the nonlinear activation (paper
+        §2.2), float32 scalars: beta 6 (and alpha -1 where the
+        activation is not clipped at 0)."""
+        if self.act.zero_lo:
+            return {"beta": torch.tensor(6.0, device=device)}
+        return {"alpha": torch.tensor(-1.0, device=device),
+                "beta": torch.tensor(6.0, device=device)}
+
+    def _maybe_fq(self, a: torch.Tensor, rep: Rep, qs) -> torch.Tensor:
+        if rep is Rep.FQ and qs is not None:
+            if self.act.zero_lo:
+                return pact_act(a, qs["beta"], 8)
+            return pact_act_asymm(a, qs["alpha"], qs["beta"], 8)
+        return a
+
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
-                    scope: str = "") -> torch.Tensor:
+                    scope: str = "", *, rep: Rep = Rep.FP,
+                    qs=None) -> torch.Tensor:
         subs = self._sub()
-        u = subs["wu"].apply_fp(p["wu"], x)
+        u = subs["wu"].apply(p["wu"], x, rep)
         if not self.gated:
-            h = act_fn(self.act, u)
+            h = self._maybe_fq(act_fn(self.act, u), rep, qs)
             if calib is not None:
                 calib.observe(f"{scope}{self.name}.act.pre", u)
                 calib.observe(f"{scope}{self.name}.act", h)
                 calib.observe(f"{scope}{self.name}.h", h)
-            return subs["wd"].apply_fp(p["wd"], h)
-        g_pre = subs["wg"].apply_fp(p["wg"], x)
-        g = act_fn(self.act, g_pre)
+            return subs["wd"].apply(p["wd"], h, rep)
+        g_pre = subs["wg"].apply(p["wg"], x, rep)
+        g = self._maybe_fq(act_fn(self.act, g_pre), rep, qs)
         h = g * u
         if calib is not None:
             # the reference writes wg's product out again for these
-            # two (the same value); here it is computed once
+            # two (the same value at FP, where calibration runs); here
+            # it is computed once
             calib.observe(f"{scope}{self.name}.gate.pre", g_pre)
             calib.observe(f"{scope}{self.name}.gate", g)
             calib.observe(f"{scope}{self.name}.up", u)
             calib.observe(f"{scope}{self.name}.h", h)
-        return subs["wd"].apply_fp(p["wd"], h)
+        return subs["wd"].apply(p["wd"], h, rep)
 
     def deploy(
         self, ctx: DeployCtx, scope: str, p_np: dict, eps_x: float, zp_x: int

@@ -1,6 +1,7 @@
 """RMSNorm and LayerNorm (port of `repro.layers.norms.QNorm`, both
 kinds, with or without LayerNorm's bias: the float forward
-`apply_fp`, `deploy` and the integer `apply_id`).
+`apply_fp` (FP and FQ; its math in float32, the output in the input's
+dtype), `deploy` and the integer `apply_id`).
 
 The per-token normalizer enters as a dynamic fixed-point reciprocal
 (see the reference's module doc).  LayerNorm centres each token at

@@ -1,6 +1,7 @@
 """The decoder blocks (port of `repro.models.blocks.DenseBlock` and
 `MambaBlock`: the float forward `apply_float`, `deploy` and
-`apply_id`).
+`apply_id`; `DenseBlock.init_qstate` and its FakeQuantized forward for
+the dense family).
 
 norm1 -> attention -> add1 -> norm2 -> MLP (or MoE) -> add2.  With
 `n_experts > 0` a `QMoE` replaces the MLP over the block's B * S
@@ -30,6 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.rep import Rep
 from repro_torch.layers.add import QAdd
 from repro_torch.layers.attention import QAttention
 from repro_torch.layers.common import ActKind, DeployCtx
@@ -100,22 +102,40 @@ class DenseBlock:
             self.ffn: subs[self.ffn].init_np(rng),
         }
 
-    def _ffn_float(self, sub, p, h, calib, scope):
+    def init_qstate(self, device="cuda") -> dict:
+        """The block's FQ clips: the MLP's (`QMLP.init_qstate`).  The
+        MoE's FakeQuantized forward is not ported."""
+        if self.n_experts > 0:
+            raise NotImplementedError(
+                "the MoE's FakeQuantized forward and aux_loss are not "
+                "ported yet (ROADMAP item 11)")
+        return {"mlp": self._subs()["mlp"].init_qstate(device)}
+
+    def _ffn_float(self, sub, p, h, calib, scope, rep, qs):
         if self.n_experts == 0:
-            return sub.apply_float(p, h, calib, scope)
+            return sub.apply_float(p, h, calib, scope, rep=rep,
+                                   qs=(qs or {}).get("mlp"))
+        if rep is not Rep.FP:
+            raise NotImplementedError(
+                "the MoE's FakeQuantized forward and aux_loss are not "
+                "ported yet (ROADMAP item 11)")
         B, S, D = h.shape
         return sub.apply_float(p, h.reshape(B * S, D), calib,
                                scope).reshape(B, S, D)
 
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
-                    scope: str = "") -> torch.Tensor:
-        """FullPrecision forward of one block (no cache)."""
+                    scope: str = "", *, rep: Rep = Rep.FP,
+                    qs=None) -> torch.Tensor:
+        """FullPrecision (or, with ``rep=Rep.FQ`` and the block's clips
+        ``qs``, FakeQuantized) forward of one block (no cache); the
+        residual stream stays in x's dtype."""
         subs = self._subs()
         h = subs["norm1"].apply_fp(p["norm1"], x, calib, scope + "n1.")
-        a = subs["attn"].apply_float(p["attn"], h, calib, scope)
+        a = subs["attn"].apply_float(p["attn"], h, calib, scope, rep=rep)
         x = subs["add1"].apply_fp(x, a, calib, scope)
         h = subs["norm2"].apply_fp(p["norm2"], x, calib, scope + "n2.")
-        m = self._ffn_float(subs[self.ffn], p[self.ffn], h, calib, scope)
+        m = self._ffn_float(subs[self.ffn], p[self.ffn], h, calib, scope,
+                            rep, qs)
         return subs["add2"].apply_fp(x, m, calib, scope)
 
     def deploy(

@@ -5,7 +5,8 @@ operator:
   FP  : conv -> BN -> ReLU stacks, average pools, a linear classifier
         (`apply_float` at Rep.FP, observing each block's ranges)
   FQ  : PACT weights and activations (`apply_float` at Rep.FQ with a
-        qstate; forwards only, ROADMAP item 11)
+        qstate; autograd follows the straight-through backward of
+        `core.pact`)
   QD  : quantized BN, hardened weights, Eq. 10 activations on frozen
         quanta (`harden`, `qd_state`, `apply_qd`)
   ID  : integer tables (`deploy`), one of three BN strategies a model:

@@ -15,14 +15,26 @@ leaf for leaf, the integer softmax's `sm_tabs` included;
 `deploy(p, None)` is the calibration-free deploy on DEFAULT_RANGES)
 -> torch state (`tables_from_numpy`) -> ID apply (`prefill_chunk`, a
 Python loop over the layers where the reference runs `lax.scan`).
-The float forward is the reference's eager per-layer walk (scopes
+The float forward (`apply`) is the reference's per-layer walk (scopes
 `S0.L{i}.`; the hybrid's `S0.L{g}.m{j}.`, `S0.L{g}.sh.` and
 `S1.L{i}.`, the shared block reading x0, the embedding's output); it
-has no cache branch.
+has no cache branch.  It runs FullPrecision for every family and, for
+the dense family, FakeQuantized too (`rep=Rep.FQ` with the PACT clips
+of `init_qstate`), under autograd with each layer rematerialised:
+`loss_fn` and `loss_fn_embeds` are the reference's training losses
+(bfloat16 activations, float32 params and logits), which
+`launch.train` and `launch.steps` differentiate.
+
+An embeds model (`input_mode="embeds"`, internvl2_76b) has no
+embedding table: its float forward takes (B, S, d) float embeddings,
+its deploy takes their quantum `eps_in` (default 2 * 8 / 255), and
+`prefill` / `decode_step` / `prefill_chunk` take (B, C, d) int8 rows at
+that quantum where a token model takes (B, C) ids.
 
 Port state layout (what `tables_from_numpy` returns):
 
-    {"meta": {...}, "embed": {...}, "layers": [layer 0 tables, ...],
+    {"meta": {...}, "embed": {...} (token models), "layers": [layer 0
+     tables, ...],
      "norm_f": {...}, "head": {...}}
 
 i.e. the reference tree with its layer-stacked `segments[0]` split into
@@ -67,14 +79,16 @@ reads to take the reference's dense-branch path above 4096 rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.calibrate import Calibrator
 from repro_torch.core.intsoftmax import int_softmax_load
+from repro_torch.core.rep import Rep
 from repro_torch.layers.attention import kv4_load
 from repro_torch.layers.common import ActKind, DeployCtx, stack_trees
 from repro_torch.layers.embedding import QEmbed
@@ -137,6 +151,16 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree) -> list:
+    """A layer-stacked torch tree -> its per-layer trees (views; the
+    backward of `unbind` stacks the layers' gradients at once)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def _n_stacked(tree) -> int:
     return len(next(iter(_leaves(tree))))
 
@@ -195,11 +219,12 @@ def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
     out = {
         "meta": {k: float(np.asarray(v)) for k, v in
                  tables_np.get("meta", {}).items()},
-        "embed": tree_to_torch(tables_np["embed"], device),
         "layers": [load_layer(t) for t in layers],
         "norm_f": tree_to_torch(tables_np["norm_f"], device),
         "head": tree_to_torch(tables_np["head"], device),
     }
+    if "embed" in tables_np:
+        out["embed"] = tree_to_torch(tables_np["embed"], device)
     if shared:
         out["shared"] = shared
     return out
@@ -220,10 +245,8 @@ class DecoderLM:
 
     def __post_init__(self):
         c = self.cfg
-        if c.input_mode != "tokens":
-            raise NotImplementedError(
-                f"input_mode {c.input_mode!r}: the port serves token LMs "
-                "(the embeds frontends are ROADMAP item 10)")
+        if c.input_mode not in ("tokens", "embeds"):
+            raise ValueError(f"unknown input_mode {c.input_mode!r}")
         if c.family == "cnn":
             raise NotImplementedError(
                 "the cnn family is not a decoder LM: its model is "
@@ -394,8 +417,11 @@ class DecoderLM:
 
     def init_np(self, seed: int) -> dict:
         """The whole float param tree in the reference's layout
-        (layer-stacked segments; the hybrid's `shared_attn`)."""
-        p: Dict[str, Any] = {"embed": self.init_embed_np(seed)}
+        (layer-stacked segments; the hybrid's `shared_attn`; no
+        embedding table for an embeds model)."""
+        p: Dict[str, Any] = {}
+        if self.cfg.input_mode == "tokens":
+            p["embed"] = self.init_embed_np(seed)
         p["segments"] = self._segments(
             [self.init_layer_np(seed, i) for i in range(self.cfg.n_layers)])
         p["norm_f"], p["head"] = self.init_head_np(seed)
@@ -427,11 +453,19 @@ class DecoderLM:
         th, eps_logits = self.head_layer().deploy(p_head, eps_h, 0)
         return tn, th, float(np.max(eps_logits))
 
-    def deploy(self, p, calib=None, *, factor: int = 256) -> dict:
-        """-> integer tables in the reference's layout (numpy)."""
+    def deploy(self, p, calib=None, *, factor: int = 256,
+               eps_in: Optional[float] = None) -> dict:
+        """-> integer tables in the reference's layout (numpy).  An
+        embeds model has no table: its input rows are int8 images at
+        `eps_in` (default 2 * 8 / 255, zero point 0), which
+        `meta["eps_in"]` records as it records the embedding's quantum
+        otherwise."""
         ctx = DeployCtx(calib=calib, factor=factor)
         t: Dict[str, Any] = {"meta": {}}
-        t["embed"], eps_x = self.deploy_embed(ctx, p["embed"])
+        if self.cfg.input_mode == "tokens":
+            t["embed"], eps_x = self.deploy_embed(ctx, p["embed"])
+        else:
+            eps_x = eps_in or (2.0 * 8.0 / 255.0)
         eps_in = t["meta"]["eps_in"] = eps_x
         layers, shared = [], []
         for kind, i in self.steps():
@@ -448,17 +482,27 @@ class DecoderLM:
             ctx, p["norm_f"], p["head"], eps_x)
         return t
 
-    # -- float forward (FullPrecision, torch) -------------------------------
+    # -- float forward (FullPrecision and FakeQuantized, torch) -----------
     # p: a float param tree already on the device (`params_to_torch`).
-    def embed_in(self, p: dict, batch: torch.Tensor, calib=None):
-        """tokens (B, S) -> (B, S, d) float32, observing "embed"."""
-        return self.embed_layer().apply_fp(p["embed"], batch, calib, "")
+    def embed_in(self, p: dict, batch: torch.Tensor, rep: Rep = Rep.FP,
+                 calib=None) -> torch.Tensor:
+        """tokens (B, S) -> (B, S, d) float32 (at FP observing "embed";
+        at FQ through the PACT-restricted table); an embeds model's
+        (B, S, d) float batch passes through, as the reference's."""
+        if self.cfg.input_mode == "embeds":
+            return batch
+        return self.embed_layer().apply(p["embed"], batch, rep, calib=calib)
 
     def apply_layer(self, p_layer: dict, i: int, x: torch.Tensor,
-                    calib=None) -> torch.Tensor:
-        """Block i's float forward under its scope."""
+                    calib=None, *, rep: Rep = Rep.FP,
+                    qs=None) -> torch.Tensor:
+        """Block i's float forward under its scope (its clips ``qs`` at
+        FQ, which only the dense family's blocks take)."""
+        if rep is Rep.FP:
+            return self.block().apply_float(p_layer, x, calib,
+                                            self.layer_scope(i))
         return self.block().apply_float(p_layer, x, calib,
-                                        self.layer_scope(i))
+                                        self.layer_scope(i), rep=rep, qs=qs)
 
     def apply_shared(self, p_shared: dict, g: int, x: torch.Tensor,
                      x0: torch.Tensor, calib=None) -> torch.Tensor:
@@ -466,39 +510,132 @@ class DecoderLM:
         return self.shared_block().apply_float(p_shared, x, x0, calib,
                                                self.shared_scope(g))
 
-    def apply(self, p: dict, x: torch.Tensor, calib=None) -> torch.Tensor:
-        """(B, S, d) float -> the last layer's output, layer by layer."""
-        x0 = x
-        for kind, i in self.steps():
-            if kind == "layer":
-                x = self.apply_layer(self.layer_params(p, i), i, x, calib)
+    def check_trainable(self) -> None:
+        """The FakeQuantized forward, its clips and the losses exist for
+        the dense family; the others raise."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"the {self.cfg.family} family's FakeQuantized forward and "
+                "training are not ported yet (ROADMAP item 11): the port "
+                "trains the dense family")
+
+    def init_qstate(self, device="cuda") -> dict:
+        """The FQ clips (PACT's learnable alpha / beta) in the
+        reference's layout, {"segments": [{"mlp": {"alpha": (L,),
+        "beta": (L,)}}]}, stacked over the layers as the params are, so
+        a train state, its moments and its checkpoints are the
+        reference's leaf for leaf; block i's are `_index(qs, i)` of the
+        segment.  A reference qstate carries across through
+        `params_to_torch`."""
+        self.check_trainable()
+        one = self.block().init_qstate(device)
+        n = self.cfg.n_layers
+
+        def stack(v):
+            if isinstance(v, dict):
+                return {k: stack(u) for k, u in v.items()}
+            return v.expand(n).clone()
+
+        return {"segments": [stack(one)]}
+
+    def apply(self, p: dict, x: torch.Tensor, rep: Rep = Rep.FP, *,
+              qstate=None, calib=None) -> torch.Tensor:
+        """(B, S, d) float -> the last layer's output, layer by layer.
+
+        At FP with a calibrator this is the reference's eager walk,
+        observing every layer under its scope.  Otherwise, for the dense
+        family with gradients on and more than one layer, each layer is
+        rematerialised in the backward pass (`torch.utils.checkpoint`),
+        as the reference's scan body is (`jax.checkpoint`).  The stacked
+        layer params (and clips) are split with `unbind`, whose backward
+        is one stack a leaf."""
+        if rep is Rep.ID:
+            raise ValueError("the integer forward is prefill_chunk's")
+        if rep is not Rep.FP:
+            self.check_trainable()
+        if self.cfg.family != "dense":
+            x0 = x
+            for kind, i in self.steps():
+                if kind == "layer":
+                    x = self.apply_layer(self.layer_params(p, i), i, x,
+                                         calib)
+                else:
+                    x = self.apply_shared(p["shared_attn"], i, x, x0, calib)
+            return x
+        layers = _unbind(p["segments"][0])
+        qs = (_unbind(qstate["segments"][0]) if qstate
+              else [None] * len(layers))
+        remat = (calib is None and torch.is_grad_enabled()
+                 and self.cfg.n_layers > 1)
+        for i, (p_i, qs_i) in enumerate(zip(layers, qs)):
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    self._layer_fn(i, rep), p_i, qs_i, x,
+                    use_reentrant=False)
             else:
-                x = self.apply_shared(p["shared_attn"], i, x, x0, calib)
+                x = self.apply_layer(p_i, i, x, calib, rep=rep, qs=qs_i)
         return x
 
-    def logits(self, p: dict, x: torch.Tensor, calib=None) -> torch.Tensor:
-        """Final norm + float head; observes "final.norm" and
-        "final.head_in"; padded vocab slots masked to -1e9."""
+    def _layer_fn(self, i: int, rep: Rep):
+        def run(p_i, qs_i, x):
+            return self.apply_layer(p_i, i, x, rep=rep, qs=qs_i)
+        return run
+
+    def logits(self, p: dict, x: torch.Tensor, rep: Rep = Rep.FP,
+               calib=None) -> torch.Tensor:
+        """Final norm + float head (at FQ on the PACT-restricted head);
+        observes "final.norm" and "final.head_in"; padded vocab slots
+        masked to -1e9; in x's dtype."""
         c = self.cfg
         h = self.norm_f_layer().apply_fp(p["norm_f"], x, calib, "final.")
         if calib is not None:
             calib.observe("final.head_in", h)
-        logits = self.head_layer().apply_fp(p["head"], h)
+        logits = self.head_layer().apply(p["head"], h, rep)
         if c.vocab_padded != c.vocab:
             pad = torch.arange(c.vocab_padded, device=logits.device) >= c.vocab
             logits = logits.masked_fill(pad, LOGIT_PAD_FP)
         return logits
 
+    def _nll(self, p: dict, x: torch.Tensor, tgt: torch.Tensor,
+             rep: Rep, qstate) -> torch.Tensor:
+        x = self.apply(p, x, rep, qstate=qstate)
+        logits = self.logits(p, x, rep).to(torch.float32)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, tgt.to(torch.int64)[..., None])[..., 0]
+        # the reference adds 0.01 * the MoE's aux loss: 0 for dense
+        return torch.mean(nll)
+
+    def loss_fn(self, p: dict, qstate, tokens: torch.Tensor,
+                rep: Rep) -> torch.Tensor:
+        """Next-token cross entropy, tokens (B, S + 1): the reference's
+        mixed precision (float32 params, the embedding's output cast to
+        bfloat16, float32 logits into log_softmax)."""
+        self.check_trainable()
+        inp, tgt = tokens[:, :-1], tokens[:, 1:]
+        x = self.embed_in(p, inp, rep).to(torch.bfloat16)
+        return self._nll(p, x, tgt, rep, qstate)
+
+    def loss_fn_embeds(self, p: dict, qstate, embeds: torch.Tensor,
+                       tgt: torch.Tensor, rep: Rep) -> torch.Tensor:
+        """Cross entropy of given embeddings (B, S, d), cast to bfloat16,
+        against targets (B, S)."""
+        self.check_trainable()
+        return self._nll(p, embeds.to(torch.bfloat16), tgt, rep, qstate)
+
     def calibrate(self, p, sample, *, device="cuda") -> Calibrator:
-        """The FullPrecision forward of `sample` (B, S) tokens with
-        every activation observed; `p` is the whole numpy float param
-        tree, moved to `device` in float32."""
+        """The FullPrecision forward of `sample` with every activation
+        observed: (B, S) tokens, or an embeds model's (B, S, d) float
+        embeddings; `p` is the whole numpy float param tree, moved to
+        `device` in float32."""
         calib = Calibrator()
         p = params_to_torch(p, device)
-        tok = torch.from_numpy(np.array(sample)).to(device)
-        x = self.embed_in(p, tok, calib)
-        x = self.apply(p, x, calib)
-        self.logits(p, x, calib)
+        if self.cfg.input_mode == "embeds":
+            batch = torch.from_numpy(np.asarray(sample, np.float32))
+        else:
+            batch = torch.from_numpy(np.array(sample))
+        x = self.embed_in(p, batch.to(device), calib=calib)
+        x = self.apply(p, x, calib=calib)
+        self.logits(p, x, calib=calib)
         return calib
 
     # -- integer serving path (torch) --------------------------------------
@@ -526,8 +663,13 @@ class DecoderLM:
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
         }
 
-    def embed_in_id(self, t: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed_layer().apply_id(t["embed"], tokens)
+    def embed_in_id(self, t: dict, batch: torch.Tensor) -> torch.Tensor:
+        """tokens (B, C) -> their int8 rows; an embeds model's int8 (B,
+        C, d) rows (images at meta["eps_in"], zero point 0) pass
+        through."""
+        if self.cfg.input_mode == "embeds":
+            return batch
+        return self.embed_layer().apply_id(t["embed"], batch)
 
     def logits_id(self, t: dict, s_x: torch.Tensor) -> torch.Tensor:
         """Final norm + int32 head; padded vocab slots masked."""
@@ -558,8 +700,9 @@ class DecoderLM:
         """ID prefill at position 0 of every row (the reference's
         `prefill`): fills `caches` in place; -> (B, 1, vocab_padded)
         int32 logits at column `last_index` (an int, or None: the last
-        column)."""
-        B, S = batch.shape
+        column).  `batch` is (B, S) tokens or an embeds model's (B, S,
+        d) int8 rows."""
+        B, S = batch.shape[:2]
         start = torch.zeros(B, dtype=torch.int32, device=batch.device)
         last = torch.full_like(start, S - 1 if last_index is None
                                else int(last_index))
@@ -578,9 +721,10 @@ class DecoderLM:
         """ID batched + chunked prefill over the paged arena (or the
         contiguous caches, read as pages).
 
-        batch (B, C) int32 tokens (one chunk per slot row; decode rows
-        are width-1 chunks); start_pos (B,) int32 position of each
-        row's first token (INACTIVE_POS for parked rows); last_index
+        batch (B, C) int32 tokens, or an embeds model's (B, C, d) int8
+        rows (one chunk per slot row; decode rows are width-1 chunks);
+        start_pos (B,) int32 position of each row's first token
+        (INACTIVE_POS for parked rows); last_index
         (B,) int32 column whose logits to return.  Writes every row's
         K/V into `caches` in place.  -> (B, 1, vocab_padded) int32.
 

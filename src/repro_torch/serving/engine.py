@@ -179,6 +179,10 @@ class ServingEngine:
     def __init__(self, lm, tables, config: Optional[ServingConfig] = None,
                  *, on_token: Optional[Callable[[int, int], None]] = None):
         cfg = self.config = config if config is not None else ServingConfig()
+        if lm.cfg.input_mode != "tokens":
+            raise ValueError(
+                "ServingEngine serves token LMs "
+                f"(input_mode={lm.cfg.input_mode!r})")
         self.lm = lm
         self.tables = tables
         self.device = torch.device(cfg.device)

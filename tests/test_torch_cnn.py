@@ -57,7 +57,9 @@ from repro.layers.conv import QMaxPool2d as JQMaxPool2d
 from repro.layers.linear import QLinear as JQLinear
 from repro.layers.linear import harden_weights_np as j_harden_weights_np
 from repro.models.cnn import NemoCNN as JNemoCNN
-from repro_torch.configs.base import ARCH_IDS, LM_ARCH_IDS, get_config
+from repro_torch.configs.base import (
+    ARCH_IDS, LM_ARCH_IDS, SERVE_ARCH_IDS, get_config,
+)
 from repro_torch.core import bn, intmath, pact, rep
 from repro_torch.core.calibrate import Calibrator
 from repro_torch.layers.conv import QAvgPool2d, QConv2d, QMaxPool2d
@@ -180,11 +182,12 @@ def test_config_equals_the_reference_and_stays_off_the_lm_paths():
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     assert "nemo_cnn" in ARCH_IDS and "nemo_cnn" not in LM_ARCH_IDS
+    assert "nemo_cnn" not in SERVE_ARCH_IDS
     with pytest.raises(NotImplementedError, match="NemoCNN"):
         DecoderLM(got)
     from repro_torch.launch import serve
 
-    assert 'choices=LM_ARCH_IDS' in inspect.getsource(serve.main)
+    assert 'choices=SERVE_ARCH_IDS' in inspect.getsource(serve.main)
 
 
 def test_rep_equals_the_reference():
@@ -392,10 +395,18 @@ def test_pact_forwards_equal_reference():
                                             jnp.asarray(b.numpy()), 8, -1))
         np.testing.assert_array_equal(pact.pact_weight(_t(w), b, 8).numpy(),
                                       want)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        pact.pact_act(_t(x).requires_grad_(), 2.5, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        pact.pact_weight(_t(w).requires_grad_(), beta, 8)
+    # the straight-through gradients: dx passes on [0, beta), dbeta sums
+    # the gradient above beta, dw passes on [-b, b) and beta_w gets none
+    xt, bt = _t(x).requires_grad_(), torch.tensor(2.5, requires_grad=True)
+    dx, db = torch.autograd.grad(pact.pact_act(xt, bt, 8).sum(), (xt, bt))
+    np.testing.assert_array_equal(dx.numpy(), ((x >= 0) & (x < 2.5)) * 1.0)
+    assert float(db) == float((x >= 2.5).sum())
+    wt, bw = _t(w).requires_grad_(), beta.clone().requires_grad_()
+    dw, dbw = torch.autograd.grad(pact.pact_weight(wt, bw, 8).sum(),
+                                  (wt, bw))
+    b = beta.numpy()
+    np.testing.assert_array_equal(dw.numpy(), ((w >= -b) & (w < b)) * 1.0)
+    assert not dbw.any()
 
 
 def test_qlinear_fq_and_harden_equal_reference():

@@ -58,8 +58,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_public_entry_points_default_to_cuda():
     from repro_torch.core import bn
-    from repro_torch.launch import serve
-    from repro_torch.layers import conv, rope
+    from repro_torch.launch import serve, train
+    from repro_torch.layers import conv, mlp, rope
     from repro_torch.models import cnn, lm
     from repro_torch.serving import PagedArena, ServingConfig, SlotArena
 
@@ -69,10 +69,13 @@ def test_public_entry_points_default_to_cuda():
                rope.rope_tables_int, PagedArena.__init__,
                SlotArena.__init__, cnn.tables_from_numpy,
                cnn.NemoCNN.calibrate, cnn.image_inputs, conv.QConv2d.load,
-               bn.integer_bn_to_torch, bn.thresholds_to_torch):
+               bn.integer_bn_to_torch, bn.thresholds_to_torch, train.build,
+               lm.DecoderLM.init_qstate, mlp.QMLP.init_qstate):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     src = inspect.getsource(serve.main)
     assert 'add_argument("--device", default="cuda")' in src
+    assert 'add_argument("--device", default="cuda",' in inspect.getsource(
+        train.main)
 
 
 def _run_smoke(cwd: Path):

@@ -519,8 +519,7 @@ def test_exact_prompt_over_the_group_raises_as_the_reference(served):
 def test_unported_moe_variants_and_families_raise():
     base = get_config(ARCH).reduced()
     for kw, match in ((dict(moe_every=2), "moe_every 2"),
-                      (dict(shared_expert=True), "shared expert"),
-                      (dict(input_mode="embeds"), "input_mode")):
+                      (dict(shared_expert=True), "shared expert")):
         with pytest.raises(NotImplementedError, match=match):
             DecoderLM(dataclasses.replace(base, **kw))
     with pytest.raises(NotImplementedError, match="shared-expert"):
@@ -529,7 +528,8 @@ def test_unported_moe_variants_and_families_raise():
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "granite_3_2b",
                                   "musicgen_medium", "nemotron_4_340b",
-                                  "falcon_mamba_7b", "zamba2_1_2b"])
+                                  "falcon_mamba_7b", "zamba2_1_2b",
+                                  "internvl2_76b"])
 def test_config_and_param_count_equal_reference(arch):
     j, t = j_get_config(arch), get_config(arch)
     assert t.param_count() == j.param_count()
