@@ -2,8 +2,10 @@
 `exp_f32`, `log_f32`, `log1p_f32` and `softplus_f32`, the selective
 scan's transcendental functions (`layers.ssm`); `rsqrt_f32`,
 `window_sum` and `lane8_dot`, the Mamba-2 island's reciprocal square
-root, mean and state contraction; and `exp_image`, the blockwise
-attention's probability image (`layers.attention`).
+root, mean and state contraction; `exp_image`, the blockwise
+attention's probability image (`layers.attention`); `softmax_f32`, the
+float forward's softmax as the reference computes `jax.nn.softmax`; and
+`tanh_f32`, the GELU's tanh.
 
 The reference leaves these to XLA, which on the CPU lowers them to
 Cephes-style polynomials with every multiply-add contracted into a
@@ -20,8 +22,21 @@ inputs the tests sweep (`tests/test_torch_ssm.py`).
 hardware's is (emulated in float64 with the sum rounded to odd).
 `ftz` flushes float32 subnormals to a zero of the same sign, as the
 reference's host runs do.
+
+The FakeQuantized forward differentiates through these sequences.
+Where one reads bits (`fma`, `exp_f32`, `softplus_f32`, `rsqrt_f32`,
+`tanh_f32`, `softmax_f32`) or flushes them (`ftz`), it runs as a
+`torch.autograd.Function` whose forward is the same sequence and whose
+backward is the function's analytic derivative (exp: y g; softplus:
+sigmoid(x) g; rsqrt: -y^3 g / 2; tanh: (1 - y^2) g; softmax: y (g -
+sum y g); fma as a b + c; ftz as the identity), as jax differentiates
+the reference's plain operations.  Without a gradient to carry (serving,
+calibration) each runs its sequence alone; the bits are the same
+either way.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,7 +53,12 @@ def _k(v) -> float:
     return float(np.float32(v))
 
 
-def fma(a, b, c) -> torch.Tensor:
+def _grad_on(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
+def _fma(a, b, c) -> torch.Tensor:
     """round_f32(a * b + c) for float32 tensors or constants, rounded
     once: the product is exact in float64, the sum is rounded to odd in
     float64 (its rounding error, exact by TwoSum, moves an even result
@@ -56,9 +76,81 @@ def fma(a, b, c) -> torch.Tensor:
     return torch.where((err != 0) & even, away, s).to(F32)
 
 
-def ftz(x: torch.Tensor) -> torch.Tensor:
-    """Subnormal float32 values -> a zero of the same sign."""
+def _meta(v):
+    return (v.shape, v.dtype) if isinstance(v, torch.Tensor) else None
+
+
+def _grad_of(g: torch.Tensor, meta) -> Optional[torch.Tensor]:
+    """g reduced to an operand's (shape, dtype); None for a constant."""
+    if meta is None:
+        return None
+    return g.sum_to_size(meta[0]).to(meta[1])
+
+
+class _Fma(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(*(v for v in (a, b)
+                                if isinstance(v, torch.Tensor)))
+        ctx.consts = tuple(None if isinstance(v, torch.Tensor) else _k(v)
+                           for v in (a, b))
+        ctx.metas = tuple(_meta(v) for v in (a, b, c))
+        return _fma(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = iter(ctx.saved_tensors)
+        a, b = (next(saved) if k is None else k for k in ctx.consts)
+        ma, mb, mc = ctx.metas
+        return _grad_of(g * b, ma), _grad_of(g * a, mb), _grad_of(g, mc)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """round_f32(a * b + c) for float32 tensors or constants, rounded
+    once (`_fma`); its gradient is that of a * b + c."""
+    if _grad_on(a, b, c):
+        return _Fma.apply(a, b, c)
+    return _fma(a, b, c)
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+
+
+class _Ftz(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _ftz(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values -> a zero of the same sign (the
+    identity's gradient)."""
+    return _Ftz.apply(x) if _grad_on(x) else _ftz(x)
+
+
+class _Unary(torch.autograd.Function):
+    """y = fn(x) by a fixed sequence, dL/dx = deriv(x, y) g."""
+
+    @staticmethod
+    def forward(ctx, x, fn, deriv):
+        y = fn(x)
+        ctx.save_for_backward(x, y)
+        ctx.deriv = deriv
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return (g * ctx.deriv(x.to(F32), y)).to(x.dtype), None, None
+
+
+def _unary(fn, deriv, x: torch.Tensor) -> torch.Tensor:
+    return _Unary.apply(x, fn, deriv) if _grad_on(x) else fn(x)
 
 
 # exp: n = floor(x log2 e + 1/2) clamped to [-127, 127], r = x - n C1 -
@@ -73,6 +165,10 @@ _EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
 def exp_f32(x: torch.Tensor) -> torch.Tensor:
     """exp of float32 x as the reference's lowering computes it;
     results below the least normal float32 are 0."""
+    return _unary(_exp_f32, lambda x, y: y, x)
+
+
+def _exp_f32(x: torch.Tensor) -> torch.Tensor:
     x = x.to(F32).clamp(_k(_EXP_LO), _k(_EXP_HI))
     n = torch.floor(fma(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
     r = fma(n, -_k(_EXP_C1), x)
@@ -130,6 +226,10 @@ def rsqrt_f32(x: torch.Tensor) -> torch.Tensor:
     """1 / sqrt(x) of positive normal float32 x as the reference's
     lowering computes it on its host (12-bit estimate, two fused Newton
     steps; within 1 ulp, not always the nearest)."""
+    return _unary(_rsqrt_f32, lambda x, y: y * y * y * -0.5, x)
+
+
+def _rsqrt_f32(x: torch.Tensor) -> torch.Tensor:
     x = x.to(F32)
     bits = x.view(torch.int32)
     e = (bits >> 23) - 127
@@ -253,5 +353,65 @@ def log1p_f32(x: torch.Tensor) -> torch.Tensor:
 def softplus_f32(x: torch.Tensor) -> torch.Tensor:
     """log(1 + e^x) as the reference's `jax.nn.softplus`:
     max(x, 0) + log1p(exp(-|x|))."""
+    return _unary(_softplus_f32, lambda x, y: torch.sigmoid(x), x)
+
+
+def _softplus_f32(x: torch.Tensor) -> torch.Tensor:
     x = x.to(F32)
-    return torch.clamp_min(x, 0.0) + log1p_f32(exp_f32(-x.abs()))
+    return torch.clamp_min(x, 0.0) + log1p_f32(_exp_f32(-x.abs()))
+
+
+# tanh: x itself below |x| 4e-4, else the input clamped to +-c, x
+# p(x^2) / q(x^2) by two polynomials in Horner form, every step fused
+_TANH_CLAMP = 7.99881172180175781
+_TANH_SMALL = 0.0004
+_TANH_NUM = (-2.76076847742355e-16, 2.00018790482477e-13,
+             -8.60467152213735e-11, 5.12229709037114e-08,
+             1.48572235717979e-05, 6.37261928875436e-04,
+             4.89352455891786e-03)
+_TANH_DEN = (1.19825839466702e-06, 1.18534705686654e-04,
+             2.26843463243900e-03, 4.89352518554385e-03)
+
+
+def _tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(F32)
+    xc = x.clamp(-_k(_TANH_CLAMP), _k(_TANH_CLAMP))
+    x2 = xc * xc
+    y = (_horner(x2, _TANH_NUM) * xc) / _horner(x2, _TANH_DEN)
+    return torch.where(x.abs() < _k(_TANH_SMALL), x, y)
+
+
+def tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """tanh of float32 x as the reference's lowering computes it (its
+    bits over a sweep of 2.2e5 inputs in [-10, 10]); gradient (1 - y^2)
+    g."""
+    return _unary(_tanh_f32, lambda x, y: 1.0 - y * y, x)
+
+
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _softmax_f32(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return y * (g - torch.sum(y * g, dim=-1, keepdim=True))
+
+
+def _softmax_f32(x: torch.Tensor) -> torch.Tensor:
+    e = _exp_f32(x - x.amax(dim=-1, keepdim=True))
+    return e / window_sum(e)[..., None]
+
+
+def softmax_f32(x: torch.Tensor) -> torch.Tensor:
+    """softmax over the last axis of float32 x as the reference's
+    `jax.nn.softmax` lowers: the row max, `exp_f32`, the row sum in
+    `window_sum`'s order, one divide: its bits on rows of up to 32
+    entries or a multiple of 32 (`tests/test_torch_train_moe.py`; on
+    other lengths the reference's row sum takes another order).  The
+    gradient p (g - sum p g), as jax's."""
+    x = x.to(F32)
+    return _Softmax.apply(x) if _grad_on(x) else _softmax_f32(x)

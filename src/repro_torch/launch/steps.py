@@ -6,7 +6,8 @@ are multi-device work, ROADMAP item 12).
 `build_train_step(lm, microbatches=M)` is the reference's FakeQuantized
 train step: the gradient of `lm.loss_fn` at Rep.FQ (`loss_fn_embeds`
 for an embeds model, whose batch is {"embeds", "targets"}; a token
-model's is {"tokens"}), accumulated in sequence over M slices of the
+model's is {"tokens"}; every family, the MoE's loss with its 0.01 aux
+term), accumulated in sequence over M slices of the
 batch when M > 1, then `cosine_schedule` (total 10000, the reference's
 default here) and `adamw_update`.  Eager torch; autograd replaces
 `jax.value_and_grad`.

@@ -1,7 +1,10 @@
 """Training entry point (port of `repro.launch.train`): QAT
-(FakeQuantized) training of the dense family with the reference's
-substrate: synthetic data, AdamW, checkpoint / restart, the straggler
-watch and optional int8 gradient compression.
+(FakeQuantized) training of the dense, MoE, ssm and hybrid families
+with the reference's substrate: synthetic data, AdamW, checkpoint /
+restart, the straggler watch and optional int8 gradient compression.
+A MoE model's batch of B x S tokens must divide into its `moe_group`
+(64 reduced, 512 at full width): `QMoE._group` raises otherwise, as the
+reference asserts.
 
 `build` returns (lm, trainable, opt, train_step, stream) as the
 reference's does: the params from `DecoderLM.init_np(seed)` and the
@@ -15,7 +18,8 @@ asks for the CPU).  Like the reference's `build`, it feeds token ids;
 an embeds model (internvl2_76b) trains through
 `launch.steps.build_train_step` on {"embeds", "targets"} batches.
 
-CPU example (reduced config):
+CPU example (reduced config; `--arch olmoe_1b_7b`, `falcon_mamba_7b` or
+`zamba2_1_2b` train the same way):
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
       --reduced --device cpu --steps 30 --batch 8 --seq 64 --ckpt /tmp/ck
 """

@@ -15,6 +15,14 @@ GEMM's epilogue (`QLinear.apply_id(..., rqt)`); what follows it (the
 LUT, or the square and `rqt2`) is one launch of the requant kernel's
 act form (`requant_act`), or part of the gated MLP's `requant_gate`.
 `apply_id` here is the unfused form.
+
+The float forwards, as the reference's: `apply_fp` (the activation,
+observing its output, and for SiLU / GELU its input, the LUT's space),
+`apply_fq` (PACT after the activation: `pact_act` on [0, beta) for the
+ReLU kinds, `pact_act_asymm` on [alpha, beta) otherwise, the clips from
+`init_qstate`), `apply_qd` (Eq. 10's floor on the frozen `eps_y` and
+`alpha_y` of `qd_state`) and `apply`, which picks one by
+representation.
 """
 from __future__ import annotations
 
@@ -25,10 +33,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.intmath import build_lut
+from repro_torch.core.pact import pact_act, pact_act_asymm
+from repro_torch.core.rep import Rep
 from repro_torch.core.requant import make_rqt
 from repro_torch.kernels.requant_kernel import requant, requant_act
 from repro_torch.layers.common import (
-    ACT_QMAX, ACT_QMIN, ActKind, DeployCtx, act_fn_np,
+    ACT_QMAX, ACT_QMIN, ActKind, DeployCtx, act_fn, act_fn_np,
 )
 
 
@@ -39,6 +49,72 @@ class QAct:
     name: str = "act"
     sym: bool = False
     range_scale: float = 1.0
+
+    # -- FQ quant state -----------------------------------------------------
+    def init_qstate(self, device="cuda") -> dict:
+        """The learnable PACT clips: beta 6 (the ReLU kinds), or alpha
+        -6 and beta 6, float32 0-d tensors."""
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        if self.kind.zero_lo:
+            return {"beta": f32(6.0)}
+        return {"alpha": f32(-6.0), "beta": f32(6.0)}
+
+    # -- float paths -------------------------------------------------------
+    def apply_fp(self, x: torch.Tensor, calib=None,
+                 scope: str = "") -> torch.Tensor:
+        y = act_fn(self.kind, x)
+        if calib is not None:
+            if self.kind in (ActKind.SILU, ActKind.GELU):
+                calib.observe(f"{scope}{self.name}.pre", x)  # the LUT's in
+            calib.observe(f"{scope}{self.name}", y)
+        return y
+
+    def apply_fq(self, qs: dict, x: torch.Tensor) -> torch.Tensor:
+        y = act_fn(self.kind, x)
+        if self.kind.zero_lo:
+            return pact_act(y, qs["beta"], self.n_bits)
+        return pact_act_asymm(y, qs["alpha"], qs["beta"], self.n_bits)
+
+    def apply_qd(self, dstate: dict, x: torch.Tensor) -> torch.Tensor:
+        """QuantizedDeployable: Eq. 10, alpha + clip(floor((y - alpha) /
+        eps), 0, 2^Q - 1) eps on the frozen float32 `eps_y` / `alpha_y`
+        (which lift a bfloat16 y to float32, as the reference's numpy
+        scalars do)."""
+        y = act_fn(self.kind, x)
+        y = y.to(torch.promote_types(y.dtype, torch.float32))
+        eps = torch.as_tensor(dstate["eps_y"], dtype=torch.float32,
+                              device=y.device)
+        alpha = torch.as_tensor(dstate["alpha_y"], dtype=torch.float32,
+                                device=y.device)
+        q = torch.clamp(torch.floor((y - alpha) / eps), 0.0,
+                        float(2 ** self.n_bits - 1))
+        return alpha + q * eps
+
+    def qd_state(self, ctx: DeployCtx, scope: str) -> dict:
+        """The frozen quantum and offset `apply_qd` reads, from the
+        calibrated range (numpy float32, as the reference's)."""
+        full = f"{scope}{self.name}"
+        if self.kind.zero_lo:
+            lo, hi = 0.0, ctx.range(full, "act")[1]
+        else:
+            asym = self.kind in (ActKind.SILU, ActKind.GELU)
+            lo, hi = ctx.range(full, "act_asym" if asym else "resid")
+        eps = (max(hi, lo + 1e-6) - lo) / (2 ** self.n_bits - 1)
+        return {"eps_y": np.float32(eps), "alpha_y": np.float32(lo)}
+
+    def apply(self, state, x: torch.Tensor, rep: Rep, *, calib=None,
+              scope: str = "") -> torch.Tensor:
+        """By representation: ID the integer path on its tables, FQ on
+        the clips, QD on the frozen state, FP the plain activation."""
+        if rep is Rep.ID:
+            return self.apply_id(state, x)
+        if rep is Rep.FQ:
+            return self.apply_fq(state, x)
+        if rep is Rep.QD:
+            return self.apply_qd(state, x)
+        return self.apply_fp(x, calib=calib, scope=scope)
 
     def deploy(
         self,

@@ -106,7 +106,7 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.requant_kernel import requant
 from repro_torch.launch import variants
 from repro_torch.layers.act_quant import QAct
-from repro_torch.layers.common import ActKind, DeployCtx
+from repro_torch.layers.common import ActKind, DeployCtx, float_matmul
 from repro_torch.layers.linear import QLinear
 from repro_torch.layers.rope import (
     apply_rope_fp, gather_trig, rope_tables_fp, rope_tables_int, rotate_int,
@@ -186,7 +186,8 @@ class QAttention:
         dtype.  The scores are float32 whatever x's dtype (the
         reference's einsum asks for a float32 result: bfloat16 products
         are exact in float32), the softmax is float32 and the
-        probabilities go back to x's dtype for the P.V product."""
+        probabilities go back to x's dtype for the P.V product
+        (`float_matmul`)."""
         subs = self._sub()
         B, S, _ = x.shape
         H, K, hd = self.n_heads, self.n_kv_heads, self.head_dim
@@ -218,7 +219,7 @@ class QAttention:
         probs = torch.softmax(scores, dim=-1)
         if calib is not None:
             calib.observe(f"{scope}{self.name}.probs", probs)
-        ctx_ = torch.matmul(probs.to(x.dtype), vh)
+        ctx_ = float_matmul(probs.to(x.dtype), vh)
         ctx_ = ctx_.permute(0, 2, 1, 3).reshape(B, S, H * hd)
         if calib is not None:
             calib.observe(f"{scope}{self.name}.ctx", ctx_)

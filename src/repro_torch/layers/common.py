@@ -21,6 +21,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.island import exp_f32, tanh_f32
+
 ACT_QMIN, ACT_QMAX = -128, 127
 
 
@@ -37,23 +39,53 @@ class ActKind(enum.Enum):
         return self in (ActKind.RELU, ActKind.RELU2)
 
 
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
 def act_fn(kind: ActKind, x: torch.Tensor) -> torch.Tensor:
     """Full-precision activation of the float forward, written as the
-    reference's `act_fn` is, operation for operation."""
+    reference's `act_fn` is, operation for operation: on float32 its
+    exp and tanh are the reference lowering's (`core.island`), so the
+    result is the reference's and the same on every device; a bfloat16
+    result rounds the library's float32 exp and tanh to 8 bits, where
+    the two agree (no difference over 2.4e4 inputs,
+    `tests/test_torch_train_moe.py`) at a fraction of the cost.  ReLU is
+    a maximum with 0, whose gradient at 0 is half the incoming one, as
+    jax's."""
     if kind is ActKind.IDENTITY:
         return x
     if kind is ActKind.RELU:
-        return torch.clamp(x, min=0.0)
+        return torch.maximum(x, _zero(x))
     if kind is ActKind.RELU2:
-        r = torch.clamp(x, min=0.0)
+        r = torch.maximum(x, _zero(x))
         return r * r
+    exact = x.dtype == torch.float32
     if kind is ActKind.SILU:
-        return x * (1.0 / (1.0 + torch.exp(-x)))
+        e = exp_f32(-x) if exact else torch.exp(-x)
+        return x * (1.0 / (1.0 + e))
     if kind is ActKind.GELU:
-        # tanh approximation (the reference's, jax.nn.gelu approximate)
-        c = float(np.sqrt(2.0 / np.pi))
-        return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3)))
+        # tanh approximation (the reference's, jax.nn.gelu approximate);
+        # its constants in x's dtype, as jax's weak typing rounds them
+        c = torch.tensor(float(np.sqrt(2.0 / np.pi)), dtype=x.dtype,
+                         device=x.device)
+        k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+        inner = c * (x + k * (x * x * x))
+        return 0.5 * x * (1.0 + (tanh_f32(inner) if exact
+                                 else torch.tanh(inner)))
     raise ValueError(kind)
+
+
+def float_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of the float forward in the operands' dtype.  A bfloat16
+    product is each output accumulated in float32 and rounded to
+    bfloat16 once, as the reference's XLA dot computes it: torch's CPU
+    bfloat16 matmul rounds otherwise on a few outputs in 10^5, so on
+    the CPU the product runs in float32 and is cast back; on the card
+    it is cuBLAS's bfloat16 product."""
+    if a.dtype == torch.bfloat16 and a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float()).to(torch.bfloat16)
+    return torch.matmul(a, b)
 
 
 def act_fn_np(kind: ActKind, x: np.ndarray) -> np.ndarray:

@@ -28,7 +28,9 @@ import torch
 from repro_torch.core.pact import default_weight_beta, pact_weight
 from repro_torch.core.rep import Rep
 from repro_torch.kernels.int8_matmul import int8_matmul
-from repro_torch.layers.common import normal_np, row_spans, run_blocks
+from repro_torch.layers.common import (
+    float_matmul, normal_np, row_spans, run_blocks,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +53,7 @@ class QLinear:
         return p
 
     def apply_fp(self, p: dict, x: torch.Tensor) -> torch.Tensor:
-        y = x @ p["w"].to(x.dtype)
+        y = float_matmul(x, p["w"].to(x.dtype))
         if self.use_bias:
             y = y + p["b"].to(x.dtype)
         return y
@@ -59,7 +61,7 @@ class QLinear:
     def apply_fq(self, p: dict, x: torch.Tensor) -> torch.Tensor:
         beta_w = default_weight_beta(p["w"], channel_axis=-1)
         w_hat = pact_weight(p["w"], beta_w, self.n_bits_w, -1)
-        y = x @ w_hat.to(x.dtype)
+        y = float_matmul(x, w_hat.to(x.dtype))
         if self.use_bias:
             y = y + p["b"].to(x.dtype)
         return y

@@ -39,6 +39,19 @@ the gate images and expert picks that differ (none so far).
 Capacity routing couples the tokens of a group: a serving dispatch's
 parked rows (token 0 at INACTIVE_POS) route and compete for capacity as
 the reference's do.
+
+FakeQuantized (`apply_float(..., Rep.FQ, qs=init_qstate())`): the
+router on PACT-restricted weights, each expert weight on its own
+per-(expert, out-channel) floor grid with the straight-through mask
+(`_fq_w3`), the gate's activation clipped by `pact_act_asymm` with the
+layer's (alpha, beta); the float forward returns the Switch-style
+load-balancing `aux_loss` beside y at FP and FQ, as the reference's
+does.  The float forward's softmax (routing and `aux_loss`) is
+`core.island.softmax_f32`, `jax.nn.softmax` as the reference's lowering
+computes it; the ID path keeps the serving island's.  The router's
+gradient flows through that softmax (its backward p (g - sum p g)), the
+top-k gates, their normalisation and the capacity mask; expert and slot
+indices carry none.
 """
 from __future__ import annotations
 
@@ -50,12 +63,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.intmath import build_lut
+from repro_torch.core.island import softmax_f32, window_sum
+from repro_torch.core.pact import pact_act_asymm
+from repro_torch.core.rep import Rep
 from repro_torch.core.requant import make_rqt
 from repro_torch.kernels.int8_matmul import int8_matmul_grouped
 from repro_torch.kernels.paged_attention import _lane_sum, island_exp
 from repro_torch.kernels.requant_kernel import requant_gate
 from repro_torch.layers.common import (
-    ACT_QMIN, ActKind, DeployCtx, act_fn, act_fn_np, normal_np, run_blocks,
+    ACT_QMIN, ActKind, DeployCtx, act_fn, act_fn_np, float_matmul, normal_np,
+    run_blocks,
 )
 from repro_torch.layers.linear import QLinear
 
@@ -104,17 +121,17 @@ class QMoE:
                 f"reference asserts T % gs == 0: {(T, gs)})")
         return x.reshape(T // gs, gs, -1), gs
 
-    def _route(self, logits: torch.Tensor):
+    def _route(self, logits: torch.Tensor, softmax=None):
         """logits (G, Gs, E) float32 -> gates (G, Gs, k) float32 (0 where
         capacity dropped), experts (G, Gs, k) int64, slot positions (G,
-        Gs, k) int64, token-for-slot (G, E, C) int64 (Gs: empty), C."""
+        Gs, k) int64, token-for-slot (G, E, C) int64 (Gs: empty), C.
+        The softmax is the serving island's (`island_softmax`) unless
+        the caller names another."""
         G, Gs, E = logits.shape
         k = self.top_k
         C = self.capacity(Gs)
         dev = logits.device
-        m = logits.amax(dim=-1, keepdim=True)
-        p = island_exp(logits - m)
-        probs = p / _lane_sum(p)
+        probs = (softmax or island_softmax)(logits)
         srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         gates, experts = srt[..., :k], idx[..., :k]
         if self.normalize_gates:
@@ -151,25 +168,56 @@ class QMoE:
                                                                 None]
         return he_pad[g, experts, pos]
 
-    # -- float forward (FullPrecision, torch) ------------------------------
-    def apply_float(self, p: dict, x: torch.Tensor, calib=None,
-                    scope: str = "") -> torch.Tensor:
-        """x (T, d) float32 -> (T, d), observing the five expert
-        activation spaces under `scope` (padded slots included, as the
-        reference observes them)."""
+    def init_qstate(self, device="cuda") -> dict:
+        """The gate activation's PACT clips [alpha, beta) = [-1, 6)."""
+        return {"alpha": torch.tensor(-1.0, dtype=torch.float32,
+                                      device=device),
+                "beta": torch.tensor(6.0, dtype=torch.float32,
+                                     device=device)}
+
+    def aux_loss(self, logits: torch.Tensor,
+                 experts: torch.Tensor) -> torch.Tensor:
+        """Switch-style load balance, logits (G, Gs, E) float32 and the
+        chosen experts (G, Gs, k): E * mean over groups of sum_e (mean
+        probability of e) * (share of the k choices that pick e)."""
+        G, Gs, E = logits.shape
+        # every mean a sum in the reference lowering's order, then / n
+        me = window_sum(softmax_f32(logits).transpose(1, 2)) / Gs  # (G, E)
+        oh = torch.nn.functional.one_hot(experts, E).to(torch.float32)
+        ce = torch.sum(oh, dim=(1, 2)) / Gs / self.top_k   # exact sums
+        return E * (window_sum(window_sum(me * ce)) / G)
+
+    # -- float forward (FullPrecision and FakeQuantized, torch) --------------
+    def apply_float(self, p: dict, x: torch.Tensor, rep: Rep = Rep.FP, *,
+                    qs=None, calib=None, scope: str = ""):
+        """x (T, d) float -> (y (T, d) in x's dtype, aux_loss float32),
+        observing the five expert activation spaces under `scope`
+        (padded slots included, as the reference observes them).  At FQ
+        the router and expert weights are restricted to their grids and
+        the gate's activation clipped by ``qs`` (`init_qstate`)."""
+        def w3(name):
+            w = p[name]
+            if rep is Rep.FQ:
+                beta = torch.clamp(torch.amax(torch.abs(w.detach()), dim=1),
+                                   min=1e-8)
+                return _fq_w3(w, beta)
+            return w
+
         xg, _ = self._group(x)
-        logits = self._router().apply_fp(p["router"], xg)
-        gates, experts, pos, tfs, C = self._route(logits.to(torch.float32))
+        logits = self._router().apply(p["router"], xg, rep).to(torch.float32)
+        gates, experts, pos, tfs, C = self._route(logits, softmax_f32)
         x_pad = torch.cat([xg, torch.zeros_like(xg[:, :1])], dim=1)
         xe = self._gather_tokens(x_pad, tfs)            # (G, E, C, d)
-        g = torch.matmul(xe, p["wg"].to(x.dtype))
-        u = torch.matmul(xe, p["wu"].to(x.dtype))
+        g = float_matmul(xe, w3("wg").to(x.dtype))
+        u = float_matmul(xe, w3("wu").to(x.dtype))
         ga = act_fn(self.act, g)
+        if rep is Rep.FQ and qs is not None:
+            ga = pact_act_asymm(ga, qs["alpha"], qs["beta"], 8)
         h = ga * u
-        he = torch.matmul(h, p["wd"].to(x.dtype))
+        he = float_matmul(h, w3("wd").to(x.dtype))
         if calib is not None:
             calib.observe(f"{scope}{self.name}.gate.pre", g)
-            calib.observe(f"{scope}{self.name}.gate", ga)
+            calib.observe(f"{scope}{self.name}.gate", act_fn(self.act, g))
             calib.observe(f"{scope}{self.name}.up", u)
             calib.observe(f"{scope}{self.name}.h", h)
             calib.observe(f"{scope}{self.name}.out", he)
@@ -177,7 +225,7 @@ class QMoE:
         pos_safe = torch.where(gates > 0, pos, C)
         yk = self._combine(he_pad, experts, pos_safe)    # (G, Gs, k, d)
         y = torch.sum(yk * gates[..., None].to(x.dtype), dim=2)
-        return y.reshape(x.shape)
+        return y.reshape(x.shape), self.aux_loss(logits, experts)
 
     # -- deploy (host, numpy) ----------------------------------------------
     @staticmethod
@@ -265,3 +313,26 @@ class QMoE:
         acc = torch.sum(yk.to(torch.int32) * s_gates[..., None].to(
             torch.int32), dim=2, dtype=torch.int32)
         return acc.reshape(s_x.shape[0], -1)
+
+
+def island_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """The ID routing island's softmax over the last axis of float32
+    logits, the same bits on every device: the row max, `island_exp`
+    (the paged attention's exp), the sum in `_lane_sum`'s fixed order
+    and one IEEE divide."""
+    m = logits.amax(dim=-1, keepdim=True)
+    p = island_exp(logits - m)
+    return p / _lane_sum(p)
+
+
+def _fq_w3(w: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """The FQ restriction of (E, d_in, out) expert weights, beta (E,
+    out): the value is the paper's symmetric floor grid, eps = 2 b /
+    255; the gradient the chi_[-b, b) straight-through mask, written as
+    the reference writes it, stop_gradient(q - mask w) + mask w (the
+    same float32 bits)."""
+    b = beta[:, None, :]
+    eps = 2.0 * b / torch.full((), 255.0, dtype=b.dtype, device=b.device)
+    q = torch.clamp(torch.floor(w / eps), -128.0, 127.0) * eps
+    mask = ((w >= -b) & (w < b)).to(w.dtype)
+    return (q - mask * w).detach() + mask * w

@@ -45,11 +45,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core.intmath import build_lut
 from repro_torch.core.island import (
     exp_f32, fma, ftz, lane8_dot, rsqrt_f32, softplus_f32, window_sum,
 )
+from repro_torch.core.rep import Rep
 from repro_torch.core.requant import make_rqt
 from repro_torch.kernels.requant_kernel import (
     requant, requant_act, requant_gate,
@@ -136,7 +138,8 @@ def _chunked(L: int, block, h0: Optional[torch.Tensor], zeros):
     """The reference's `_chunked_recurrence` around `block(span, h_prev)
     -> (y, h_last)`: one block over all L positions when L is not a
     multiple of the chunk or below it (h_prev = h0, maybe None), else
-    chunk by chunk from h0 or `zeros()`."""
+    chunk by chunk from h0 or `zeros()` (each chunk rematerialised in
+    the backward pass when gradients are on)."""
     _check_island_dtype()
     chunk = _chunk_len()
     if L % chunk or L < chunk:
@@ -144,7 +147,14 @@ def _chunked(L: int, block, h0: Optional[torch.Tensor], zeros):
     h = zeros() if h0 is None else h0
     ys = []
     for c0 in range(0, L, chunk):
-        y, h = block(slice(c0, c0 + chunk), h)
+        span = slice(c0, c0 + chunk)
+        if torch.is_grad_enabled():
+            # the reference's checkpointed chunk step: the backward keeps
+            # each chunk's inputs and carry, and recomputes the rest
+            y, h = torch.utils.checkpoint.checkpoint(
+                block, span, h, use_reentrant=False)
+        else:
+            y, h = block(span, h)
         ys.append(y)
     return torch.cat(ys, dim=1), h
 
@@ -280,14 +290,20 @@ class QMamba1:
 
     # -- float forward ------------------------------------------------------
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
-                    scope: str = "", cache: Optional[dict] = None):
-        """FullPrecision forward of (B, L, d) float32 -> (out, new
-        cache or None), observing the reference's six ranges under
-        ``{scope}{name}.``."""
+                    scope: str = "", cache: Optional[dict] = None, *,
+                    rep: Rep = Rep.FP):
+        """FullPrecision (or, with ``rep=Rep.FQ``, FakeQuantized: the
+        projections on PACT-restricted weights) forward of (B, L, d)
+        float -> (out in x's dtype, new cache or None), observing the
+        reference's six ranges under ``{scope}{name}.``.  The conv's
+        float32 taps lift a bfloat16 input to float32, so the scan runs
+        in float32 as in calibration; y returns to x's dtype before the
+        gate, as in the reference."""
         subs = self._sub()
         ds, r = self.d_state, self.rank
         nm = f"{scope}{self.name}"
-        xz = subs["in_proj"].apply_fp(p["in_proj"], x)
+        f32 = torch.float32
+        xz = subs["in_proj"].apply(p["in_proj"], x, rep)
         x1, z = torch.chunk(xz, 2, dim=-1)
         if cache is not None:
             conv_in = torch.cat([cache["conv"].to(x1.dtype), x1], dim=1)
@@ -301,20 +317,21 @@ class QMamba1:
         if calib is not None:
             calib.observe(f"{nm}.conv.pre", x1c)
             calib.observe(f"{nm}.conv", x1a)
-        xdb = subs["x_proj"].apply_fp(p["x_proj"], x1a)
+        xdb = subs["x_proj"].apply(p["x_proj"], x1a, rep)
         dt_r, bm, cm = torch.split(xdb, [r, ds, ds], dim=-1)
-        dt = softplus_f32(subs["dt_proj"].apply_fp(p["dt_proj"], dt_r))
+        dt = softplus_f32(subs["dt_proj"].apply(p["dt_proj"], dt_r, rep))
         A = -exp_f32(p["A_log"])
-        y, h_last = ssm_core(x1a, dt, bm.contiguous(), cm.contiguous(), A,
-                             p["D"], h0=None if cache is None
-                             else cache["h"])
+        y, h_last = ssm_core(x1a.to(f32), dt, bm.to(f32).contiguous(),
+                             cm.to(f32).contiguous(), A, p["D"],
+                             h0=None if cache is None else cache["h"])
+        y = y.to(x.dtype)
         zs = act_fn(ActKind.SILU, z)
         if calib is not None:
             calib.observe(f"{nm}.y", y)
             calib.observe(f"{nm}.z.pre", z)
             calib.observe(f"{nm}.z", zs)
             calib.observe(f"{nm}.gated", y * zs)
-        out = subs["out_proj"].apply_fp(p["out_proj"], y * zs)
+        out = subs["out_proj"].apply(p["out_proj"], y * zs, rep)
         new_cache = ({"conv": new_conv, "h": h_last}
                      if cache is not None else None)
         return out, new_cache
@@ -531,22 +548,28 @@ class QMamba2:
     @staticmethod
     def _gated_norm(y: torch.Tensor, gate: torch.Tensor,
                     g: torch.Tensor) -> torch.Tensor:
-        """norm(y gate) g, the mean of the squares and rsqrt as the
-        reference's lowering computes them."""
+        """-> (y gate, norm(y gate) g): the product in y's dtype, the
+        norm in float32 (the mean of the squares and rsqrt as the
+        reference's lowering computes them), returned in y's dtype."""
         gated = y * gate
-        var = window_sum(gated * gated) * (1.0 / gated.shape[-1])
+        gf = gated.to(torch.float32)
+        var = window_sum(gf * gf) * (1.0 / gated.shape[-1])
         r = rsqrt_f32(var + 1e-6)
-        return gated, (gated * r[..., None]) * g
+        return gated, ((gf * r[..., None]) * g).to(y.dtype)
 
     # -- float forward ------------------------------------------------------
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
-                    scope: str = "", cache: Optional[dict] = None):
-        """FullPrecision forward of (B, L, d) float32 -> (out, new cache
-        or None), observing the reference's ranges under
-        ``{scope}{name}.``."""
+                    scope: str = "", cache: Optional[dict] = None, *,
+                    rep: Rep = Rep.FP):
+        """FullPrecision (or, with ``rep=Rep.FQ``, FakeQuantized)
+        forward of (B, L, d) float -> (out in x's dtype, new cache or
+        None), observing the reference's ranges under
+        ``{scope}{name}.``; the scan in float32 (the conv's taps lift
+        the input), the gate product in x's dtype, the gated norm in
+        float32 and back."""
         subs = self._sub()
         nm = f"{scope}{self.name}"
-        zxbcdt = subs["in_proj"].apply_fp(p["in_proj"], x)
+        zxbcdt = subs["in_proj"].apply(p["in_proj"], x, rep)
         z, xbc, dt_r = self._split_proj(zxbcdt)
         if cache is not None:
             conv_in = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
@@ -560,12 +583,12 @@ class QMamba2:
         if calib is not None:
             calib.observe(f"{nm}.conv.pre", xbcc)
             calib.observe(f"{nm}.conv", xbca)
-        xh, bm, cm = self._xbc(xbca)
-        dt = softplus_f32(dt_r + p["dt_bias"])
+        xh, bm, cm = (v.to(torch.float32) for v in self._xbc(xbca))
+        dt = softplus_f32(dt_r.to(torch.float32) + p["dt_bias"])
         A = -exp_f32(p["A_log"])
         y, h_last = ssm2_core(xh, dt, bm.contiguous(), cm.contiguous(), A,
                               p["D"], None if cache is None else cache["h"])
-        y = y.reshape(x.shape[0], x.shape[1], self.d_inner)
+        y = y.reshape(x.shape[0], x.shape[1], self.d_inner).to(x.dtype)
         gated, yn = self._gated_norm(y, act_fn(ActKind.SILU, z),
                                      p["norm_g"])
         if calib is not None:
@@ -573,7 +596,7 @@ class QMamba2:
             calib.observe(f"{nm}.z.pre", z)
             calib.observe(f"{nm}.gated", gated)
             calib.observe(f"{nm}.norm", yn)
-        out = subs["out_proj"].apply_fp(p["out_proj"], yn)
+        out = subs["out_proj"].apply(p["out_proj"], yn, rep)
         new_cache = ({"conv": new_conv, "h": h_last}
                      if cache is not None else None)
         return out, new_cache

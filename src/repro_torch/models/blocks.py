@@ -1,13 +1,20 @@
-"""The decoder blocks (port of `repro.models.blocks.DenseBlock` and
-`MambaBlock`: the float forward `apply_float`, `deploy` and
-`apply_id`; `DenseBlock.init_qstate` and its FakeQuantized forward for
-the dense family).
+"""The decoder blocks (port of `repro.models.blocks.DenseBlock`,
+`MambaBlock` and `SharedAttnBlock`: `init_qstate`, the float forward
+`apply_float` at FullPrecision and FakeQuantized, `deploy` and
+`apply_id`).
+
+Every block's `apply_float(p, x, ..., rep=, qs=, aux=)` returns the
+block's output; a block with experts appends its MoE's load-balancing
+loss (a float32 0-d tensor) to the list ``aux`` when the caller passes
+one (the reference returns it beside x; the others append nothing, as
+the reference's return None).
 
 norm1 -> attention -> add1 -> norm2 -> MLP (or MoE) -> add2.  With
 `n_experts > 0` a `QMoE` replaces the MLP over the block's B * S
 tokens, and its int32 combine accumulator goes into the second `QAdd`.
 The reference's shared-expert branch (an MLP beside the MoE,
-llama4_maverick) is not ported: asking for it raises.  In the ID path
+llama4_maverick) is not ported: asking for it raises.  The block's FQ
+clips are its MLP's, or its MoE's gate clips.  In the ID path
 the residual stream is a symmetric int8 image between blocks; in the
 float forward it is float32, and each sublayer observes its output
 under the block's scope (the names `deploy` reads back).
@@ -26,7 +33,7 @@ quantum and x0's, the embedding's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +74,7 @@ class DenseBlock:
         if self.shared_expert:
             raise NotImplementedError(
                 "the shared-expert branch (an MLP beside the MoE, "
-                "llama4_maverick) is not ported yet (ROADMAP item 10)")
+                "llama4_maverick) is not ported yet (ROADMAP item 10b)")
 
     @property
     def ffn(self) -> str:
@@ -103,39 +110,35 @@ class DenseBlock:
         }
 
     def init_qstate(self, device="cuda") -> dict:
-        """The block's FQ clips: the MLP's (`QMLP.init_qstate`).  The
-        MoE's FakeQuantized forward is not ported."""
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                "the MoE's FakeQuantized forward and aux_loss are not "
-                "ported yet (ROADMAP item 11)")
-        return {"mlp": self._subs()["mlp"].init_qstate(device)}
+        """The block's FQ clips: {"mlp": `QMLP.init_qstate`} or {"moe":
+        `QMoE.init_qstate`}."""
+        return {self.ffn: self._subs()[self.ffn].init_qstate(device)}
 
-    def _ffn_float(self, sub, p, h, calib, scope, rep, qs):
+    def _ffn_float(self, sub, p, h, calib, scope, rep, qs, aux):
+        qs = (qs or {}).get(self.ffn)
         if self.n_experts == 0:
-            return sub.apply_float(p, h, calib, scope, rep=rep,
-                                   qs=(qs or {}).get("mlp"))
-        if rep is not Rep.FP:
-            raise NotImplementedError(
-                "the MoE's FakeQuantized forward and aux_loss are not "
-                "ported yet (ROADMAP item 11)")
+            return sub.apply_float(p, h, calib, scope, rep=rep, qs=qs)
         B, S, D = h.shape
-        return sub.apply_float(p, h.reshape(B * S, D), calib,
-                               scope).reshape(B, S, D)
+        m, a = sub.apply_float(p, h.reshape(B * S, D), rep, qs=qs,
+                               calib=calib, scope=scope)
+        if aux is not None:
+            aux.append(a)
+        return m.reshape(B, S, D)
 
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
-                    scope: str = "", *, rep: Rep = Rep.FP,
-                    qs=None) -> torch.Tensor:
+                    scope: str = "", *, rep: Rep = Rep.FP, qs=None,
+                    aux: Optional[list] = None) -> torch.Tensor:
         """FullPrecision (or, with ``rep=Rep.FQ`` and the block's clips
         ``qs``, FakeQuantized) forward of one block (no cache); the
-        residual stream stays in x's dtype."""
+        residual stream stays in x's dtype; the MoE's aux loss goes to
+        ``aux``."""
         subs = self._subs()
         h = subs["norm1"].apply_fp(p["norm1"], x, calib, scope + "n1.")
         a = subs["attn"].apply_float(p["attn"], h, calib, scope, rep=rep)
         x = subs["add1"].apply_fp(x, a, calib, scope)
         h = subs["norm2"].apply_fp(p["norm2"], x, calib, scope + "n2.")
         m = self._ffn_float(subs[self.ffn], p[self.ffn], h, calib, scope,
-                            rep, qs)
+                            rep, qs, aux)
         return subs["add2"].apply_fp(x, m, calib, scope)
 
     def deploy(
@@ -208,12 +211,19 @@ class MambaBlock:
         return {"norm": subs["norm"].init_np(),
                 "core": subs["core"].init_np(rng)}
 
+    def init_qstate(self, device="cuda") -> dict:
+        """No clips: the scan core's FQ forward quantizes its
+        projections' weights only."""
+        return {}
+
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
-                    scope: str = "") -> torch.Tensor:
-        """FullPrecision forward of one block (no cache)."""
+                    scope: str = "", *, rep: Rep = Rep.FP, qs=None,
+                    aux: Optional[list] = None) -> torch.Tensor:
+        """FullPrecision (or FakeQuantized) forward of one block (no
+        cache); no aux loss."""
         subs = self._subs()
         h = subs["norm"].apply_fp(p["norm"], x, calib, scope + "n.")
-        y, _ = subs["core"].apply_float(p["core"], h, calib, scope)
+        y, _ = subs["core"].apply_float(p["core"], h, calib, scope, rep=rep)
         return subs["add"].apply_fp(x, y, calib, scope)
 
     def deploy(self, ctx: DeployCtx, scope: str, p_np: dict,
@@ -270,13 +280,19 @@ class SharedAttnBlock:
         return {"norm": subs["norm"].init_np(),
                 "attn": subs["attn"].init_np(rng)}
 
+    def init_qstate(self, device="cuda") -> dict:
+        return {}
+
     def apply_float(self, p: dict, x: torch.Tensor, x0: torch.Tensor,
-                    calib=None, scope: str = "") -> torch.Tensor:
-        """FullPrecision forward of one application (no cache)."""
+                    calib=None, scope: str = "", *, rep: Rep = Rep.FP,
+                    qs=None, aux: Optional[list] = None) -> torch.Tensor:
+        """FullPrecision (or FakeQuantized: `QAttention`'s FQ path)
+        forward of one application (no cache) over norm(concat(x,
+        x0)); no aux loss."""
         subs = self._subs()
         cat = torch.cat([x, x0], dim=-1)
         h = subs["norm"].apply_fp(p["norm"], cat, calib, scope + "n.")
-        a = subs["attn"].apply_float(p["attn"], h, calib, scope)
+        a = subs["attn"].apply_float(p["attn"], h, calib, scope, rep=rep)
         return subs["add"].apply_fp(x, a, calib, scope)
 
     def deploy(self, ctx: DeployCtx, scope: str, p_np: dict, eps_in: float,

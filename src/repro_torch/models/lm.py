@@ -18,11 +18,14 @@ Python loop over the layers where the reference runs `lax.scan`).
 The float forward (`apply`) is the reference's per-layer walk (scopes
 `S0.L{i}.`; the hybrid's `S0.L{g}.m{j}.`, `S0.L{g}.sh.` and
 `S1.L{i}.`, the shared block reading x0, the embedding's output); it
-has no cache branch.  It runs FullPrecision for every family and, for
-the dense family, FakeQuantized too (`rep=Rep.FQ` with the PACT clips
-of `init_qstate`), under autograd with each layer rematerialised:
-`loss_fn` and `loss_fn_embeds` are the reference's training losses
-(bfloat16 activations, float32 params and logits), which
+has no cache branch.  It runs FullPrecision and FakeQuantized
+(`rep=Rep.FQ` with the PACT clips of `init_qstate`) for every family,
+under autograd with the reference's rematerialisation (each layer of a
+dense, MoE or ssm segment of more than one layer; each group of the
+hybrid, its blocks and its shared application); `apply_with_aux` also
+returns the MoE layers' summed load-balancing loss.  `loss_fn` and
+`loss_fn_embeds` are the reference's training losses (bfloat16
+activations, float32 params and logits, + 0.01 aux), which
 `launch.train` and `launch.steps` differentiate.
 
 An embeds model (`input_mode="embeds"`, internvl2_76b) has no
@@ -89,6 +92,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.calibrate import Calibrator
 from repro_torch.core.intsoftmax import int_softmax_load
 from repro_torch.core.rep import Rep
+from repro_torch.launch import variants
 from repro_torch.layers.attention import kv4_load
 from repro_torch.layers.common import ActKind, DeployCtx, stack_trees
 from repro_torch.layers.embedding import QEmbed
@@ -159,6 +163,14 @@ def _unbind(tree) -> list:
         n = len(next(iter(per.values())))
         return [{k: v[i] for k, v in per.items()} for i in range(n)]
     return list(torch.unbind(tree))
+
+
+def _run(fn, remat: bool, *args):
+    """fn(*args), rematerialised in the backward pass when `remat`."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def _n_stacked(tree) -> int:
@@ -256,11 +268,11 @@ class DecoderLM:
         if c.family == "moe" and c.moe_every != 1:
             raise NotImplementedError(
                 f"moe_every {c.moe_every} (the reference's pair segments, "
-                "llama4_maverick) is not ported yet (ROADMAP item 10)")
+                "llama4_maverick) is not ported yet (ROADMAP item 10b)")
         if c.family == "moe" and c.shared_expert:
             raise NotImplementedError(
                 "the shared expert (llama4_maverick) is not ported yet "
-                "(ROADMAP item 10)")
+                "(ROADMAP item 10b)")
 
     # -- structure -------------------------------------------------------
     @property
@@ -494,91 +506,119 @@ class DecoderLM:
         return self.embed_layer().apply(p["embed"], batch, rep, calib=calib)
 
     def apply_layer(self, p_layer: dict, i: int, x: torch.Tensor,
-                    calib=None, *, rep: Rep = Rep.FP,
-                    qs=None) -> torch.Tensor:
+                    calib=None, *, rep: Rep = Rep.FP, qs=None,
+                    aux: Optional[list] = None) -> torch.Tensor:
         """Block i's float forward under its scope (its clips ``qs`` at
-        FQ, which only the dense family's blocks take)."""
-        if rep is Rep.FP:
-            return self.block().apply_float(p_layer, x, calib,
-                                            self.layer_scope(i))
+        FQ; a MoE block appends its aux loss to ``aux``)."""
         return self.block().apply_float(p_layer, x, calib,
-                                        self.layer_scope(i), rep=rep, qs=qs)
+                                        self.layer_scope(i), rep=rep, qs=qs,
+                                        aux=aux)
 
     def apply_shared(self, p_shared: dict, g: int, x: torch.Tensor,
-                     x0: torch.Tensor, calib=None) -> torch.Tensor:
+                     x0: torch.Tensor, calib=None, *,
+                     rep: Rep = Rep.FP) -> torch.Tensor:
         """Shared application g's float forward over concat(x, x0)."""
         return self.shared_block().apply_float(p_shared, x, x0, calib,
-                                               self.shared_scope(g))
+                                               self.shared_scope(g), rep=rep)
 
     def check_trainable(self) -> None:
         """The FakeQuantized forward, its clips and the losses exist for
-        the dense family; the others raise."""
-        if self.cfg.family != "dense":
+        every family the port builds; the bfloat16 scan island raises
+        (the shared expert already raises at construction)."""
+        if self.recurrent and variants.get("ssm_island_dtype") != "f32":
             raise NotImplementedError(
-                f"the {self.cfg.family} family's FakeQuantized forward and "
-                "training are not ported yet (ROADMAP item 11): the port "
-                "trains the dense family")
+                f"ssm_island_dtype {variants.get('ssm_island_dtype')!r}: the "
+                "port trains the scan island in float32 (the bf16 island is "
+                "ROADMAP item 10c)")
 
     def init_qstate(self, device="cuda") -> dict:
         """The FQ clips (PACT's learnable alpha / beta) in the
-        reference's layout, {"segments": [{"mlp": {"alpha": (L,),
-        "beta": (L,)}}]}, stacked over the layers as the params are, so
-        a train state, its moments and its checkpoints are the
-        reference's leaf for leaf; block i's are `_index(qs, i)` of the
-        segment.  A reference qstate carries across through
+        reference's layout (its `plan()`): a dense or MoE segment's
+        {"mlp" | "moe": {"alpha": (L,), "beta": (L,)}}, stacked over
+        the layers as the params are, and {} for each mamba and hybrid
+        segment, so a train state, its moments and its checkpoints are
+        the reference's leaf for leaf; block i's are `_index(qs, i)` of
+        the segment.  A reference qstate carries across through
         `params_to_torch`."""
         self.check_trainable()
-        one = self.block().init_qstate(device)
-        n = self.cfg.n_layers
 
-        def stack(v):
+        def stack(v, n):
             if isinstance(v, dict):
-                return {k: stack(u) for k, u in v.items()}
+                return {k: stack(u, n) for k, u in v.items()}
             return v.expand(n).clone()
 
-        return {"segments": [stack(one)]}
+        return {"segments": [
+            stack(tpl.init_qstate(device), n) if kind == "dense" else {}
+            for kind, tpl, n in self.plan()]}
 
     def apply(self, p: dict, x: torch.Tensor, rep: Rep = Rep.FP, *,
               qstate=None, calib=None) -> torch.Tensor:
-        """(B, S, d) float -> the last layer's output, layer by layer.
+        """(B, S, d) float -> the last layer's output (`apply_with_aux`
+        without the aux loss)."""
+        return self.apply_with_aux(p, x, rep, qstate=qstate,
+                                   calib=calib)[0]
+
+    def apply_with_aux(self, p: dict, x: torch.Tensor, rep: Rep = Rep.FP,
+                       *, qstate=None, calib=None):
+        """(B, S, d) float -> (the last layer's output, the MoE layers'
+        aux losses summed in layer order, a float32 0-d tensor: 0 for
+        the other families), walking the reference's segments.
 
         At FP with a calibrator this is the reference's eager walk,
-        observing every layer under its scope.  Otherwise, for the dense
-        family with gradients on and more than one layer, each layer is
-        rematerialised in the backward pass (`torch.utils.checkpoint`),
-        as the reference's scan body is (`jax.checkpoint`).  The stacked
-        layer params (and clips) are split with `unbind`, whose backward
-        is one stack a leaf."""
+        observing every layer under its scope.  Otherwise, with
+        gradients on, the reference's scan bodies are rematerialised in
+        the backward pass (`torch.utils.checkpoint`, as `jax.checkpoint`
+        does there): each layer of a dense, MoE or mamba segment when
+        the model has more than one layer, and each hybrid group (its
+        blocks and shared application) always.  The stacked layer
+        params (and clips) are split with `unbind`, whose backward is
+        one stack a leaf; the shared weights' gradient sums over their
+        applications."""
         if rep is Rep.ID:
             raise ValueError("the integer forward is prefill_chunk's")
         if rep is not Rep.FP:
             self.check_trainable()
-        if self.cfg.family != "dense":
-            x0 = x
-            for kind, i in self.steps():
-                if kind == "layer":
-                    x = self.apply_layer(self.layer_params(p, i), i, x,
-                                         calib)
-                else:
-                    x = self.apply_shared(p["shared_attn"], i, x, x0, calib)
-            return x
-        layers = _unbind(p["segments"][0])
-        qs = (_unbind(qstate["segments"][0]) if qstate
-              else [None] * len(layers))
-        remat = (calib is None and torch.is_grad_enabled()
-                 and self.cfg.n_layers > 1)
-        for i, (p_i, qs_i) in enumerate(zip(layers, qs)):
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    self._layer_fn(i, rep), p_i, qs_i, x,
-                    use_reentrant=False)
-            else:
-                x = self.apply_layer(p_i, i, x, calib, rep=rep, qs=qs_i)
-        return x
+        remat = calib is None and torch.is_grad_enabled()
+        deep = self.cfg.n_layers > 1
+        segs_qs = qstate["segments"] if qstate else None
+        x0, aux, i0 = x, None, 0
+        for si, (kind, _, n) in enumerate(self.plan()):
+            seg = p["segments"][si]
+            if kind == "hybrid":
+                k = self.cfg.shared_attn_every
+                for g, p_g in enumerate(_unbind(seg["m"])):
+                    fn = self._group_fn(g, rep, calib)
+                    x = _run(fn, remat, _unbind(p_g), p["shared_attn"], x,
+                             x0)
+                i0 += n * k
+                continue
+            seg_qs = segs_qs[si] if segs_qs else None
+            qs = _unbind(seg_qs) if seg_qs else [None] * n
+            for j, (p_j, qs_j) in enumerate(zip(_unbind(seg), qs)):
+                x, a = _run(self._layer_fn(i0 + j, rep, calib),
+                            remat and deep, p_j, qs_j, x)
+                if a is not None:
+                    aux = a if aux is None else aux + a
+            i0 += n
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
 
-    def _layer_fn(self, i: int, rep: Rep):
+    def _layer_fn(self, i: int, rep: Rep, calib):
         def run(p_i, qs_i, x):
-            return self.apply_layer(p_i, i, x, rep=rep, qs=qs_i)
+            acc: list = []
+            x = self.apply_layer(p_i, i, x, calib, rep=rep, qs=qs_i,
+                                 aux=acc)
+            return x, (acc[0] if acc else None)
+        return run
+
+    def _group_fn(self, g: int, rep: Rep, calib):
+        k = self.cfg.shared_attn_every
+
+        def run(p_blocks, p_shared, x, x0):
+            for j, p_j in enumerate(p_blocks):
+                x = self.apply_layer(p_j, g * k + j, x, calib, rep=rep)
+            return self.apply_shared(p_shared, g, x, x0, calib, rep=rep)
         return run
 
     def logits(self, p: dict, x: torch.Tensor, rep: Rep = Rep.FP,
@@ -598,18 +638,18 @@ class DecoderLM:
 
     def _nll(self, p: dict, x: torch.Tensor, tgt: torch.Tensor,
              rep: Rep, qstate) -> torch.Tensor:
-        x = self.apply(p, x, rep, qstate=qstate)
+        x, aux = self.apply_with_aux(p, x, rep, qstate=qstate)
         logits = self.logits(p, x, rep).to(torch.float32)
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, tgt.to(torch.int64)[..., None])[..., 0]
-        # the reference adds 0.01 * the MoE's aux loss: 0 for dense
-        return torch.mean(nll)
+        # + 0.01 * the MoE's aux loss at every float rep (0 elsewhere)
+        return torch.mean(nll) + 0.01 * aux
 
     def loss_fn(self, p: dict, qstate, tokens: torch.Tensor,
                 rep: Rep) -> torch.Tensor:
-        """Next-token cross entropy, tokens (B, S + 1): the reference's
-        mixed precision (float32 params, the embedding's output cast to
-        bfloat16, float32 logits into log_softmax)."""
+        """Next-token cross entropy (+ 0.01 aux), tokens (B, S + 1): the
+        reference's mixed precision (float32 params, the embedding's
+        output cast to bfloat16, float32 logits into log_softmax)."""
         self.check_trainable()
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
         x = self.embed_in(p, inp, rep).to(torch.bfloat16)

@@ -76,6 +76,17 @@ from repro_torch.models.blocks import DenseBlock
 from repro_torch.models.lm import DecoderLM, params_to_torch, tables_from_numpy
 from repro_torch.serving import SchedulerConfig, ServingConfig, ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The reduced models' products are too small for torch's thread
+    pool, which only contends with XLA's and the other test workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5  # of max |ref| (outputs) and of the reference's span (ranges)
 ARCHS = ("granite_3_2b", "llama3_2_3b", "chatglm3_6b")
 MAX_LEN = 64

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import get_config as j_get_config
 from repro.data.synthetic import SyntheticConfig, SyntheticStream
@@ -34,6 +35,17 @@ from repro_torch.models.lm import DecoderLM, tables_from_numpy
 from repro_torch.serving import (
     SchedulerConfig, ServingConfig, ServingEngine,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The reduced models' products are too small for torch's thread
+    pool, which only contends with XLA's and the other test workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ARCHS = ("llama3_2_3b", "chatglm3_6b")
 MAX_LEN = 96

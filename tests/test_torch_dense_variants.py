@@ -79,6 +79,17 @@ from repro_torch.models.lm import (
 )
 from repro_torch.serving import SchedulerConfig, ServingConfig, ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The reduced models' products are too small for torch's thread
+    pool, which only contends with XLA's and the other test workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("musicgen_medium", "nemotron_4_340b")
 MAX_LEN = 64
 TOL = 1e-5  # of max |ref| (float outputs) and of the span (ranges)

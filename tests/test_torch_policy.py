@@ -30,6 +30,7 @@ import pathlib
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.launch.serve import deploy_model as j_deploy_model
 from repro.serving import (
@@ -48,6 +49,17 @@ from repro_torch.serving import (
 from repro_torch.serving import policy as tpolicy
 from test_policy import ScriptedPreemptions
 from test_starvation_proof import ScriptedEvictions, _assert_ledger
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The reduced models' products are too small for torch's thread
+    pool, which only contends with XLA's and the other test workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 MAX_LEN = 40
 PS = 8

@@ -37,6 +37,17 @@ from repro_torch.serving import (
 )
 from test_policy import ScriptedPreemptions
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The reduced models' products are too small for torch's thread
+    pool, which only contends with XLA's and the other test workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MAX_LEN = 40
 PS = 8
 PREFIX_KEYS = ("prefix_hits", "prefix_misses", "prefix_hit_pages",
