@@ -58,6 +58,12 @@ Phases (any failure raises and the script exits non-zero):
             144, 288, 1024; N 16, 32, 64, 10; B 256 and the head at B
             8), both modes, and the requant per channel at its N 16, 32
             and 64
+            the mesh-aware paged attention per head range (both pool
+            modes, granite's K 8, S 32 and 1, T 512): each rank's launch
+            of a "model" width of 2 and 4 over its own kv heads,
+            concatenated, equal to the whole-pool launch (max |diff| 0);
+            rank 0 of 2 (K 4, H 16) timed beside its bound, its plain
+            version and SDPA
   entry     `quant_flash_attention` driven through its entry point (no
             serving path calls it), counts read around it
   cnn       the paper's NemoCNN at full width (channels 16/32/64, 32 x
@@ -184,6 +190,18 @@ Phases (any failure raises and the script exits non-zero):
             then the float island over the gather path
             (`paged_kernel=False`), tokens equal to main run 1's (the
             paged kernel)
+  sharded   kv-head-sharded serving: the calibrate phase's 2-layer
+            granite tables (saved once, loaded by each rank) serve the
+            8-request cell over `SlotArena` at kv_bits 8 and the paged
+            arena at 8 and 4, unsharded, then by SHARD_RANKS ranks on a
+            (1, SHARD_RANKS) mesh with `kv_shard` sharing the one card
+            over gloo: tokens and finish reasons equal on every rank,
+            the ranks' pools concatenated along K equal the unsharded
+            pools, each rank's counts (set to 0 before its cell) the
+            path's kernels; per-rank pool bytes and step ms (gloo-staged,
+            not a multi-GPU figure); then one nccl rank on a (1, 1) mesh
+            with `kv_shard`, tokens equal (width 1 keeps every head: no
+            collective runs, the nccl all-gather is not exercised)
   olmoe     olmoe_1b_7b (64 experts, top-8, d_ff 1024 an expert; the MoE
             family, exact-length whole-prompt prefill):
             MOE_PARITY_LAYERS at full width card vs CPU (a 200-token
@@ -206,7 +224,11 @@ Phases (any failure raises and the script exits non-zero):
             logits and both state leaves, h bit for bit; then 3
             requests, prompts 9-40, 4 new tokens, over `SlotArena` and
             the paged arena: tokens and the arenas' conv and h state
-            after the drain), then the model at full width over its
+            after the drain; then the bf16 scan island, card vs CPU:
+            a 128-token prefill's logits and state bit for bit, a
+            256-token prompt (two chunks) served at its exact length,
+            tokens and state), then the model at
+            full width over its
             first SSM_LAYERS of 64 layers calibrated and deployed by
             `deploy_model` and served as the 8-request cell over
             `SlotArena` (warmed, counted: launches by kernel, by GEMM
@@ -228,12 +250,13 @@ Phases (any failure raises and the script exits non-zero):
   hybrid    zamba2_1_2b (Mamba-2 blocks with d_inner 4096, 64 heads of
             64, state 64, and one shared attention over concat(x, x0)
             every 6 blocks, per-application tables): HYBRID_PARITY_LAYERS
-            layers at full width (1 group and a 1-block tail)
+            layers at full width (1 group and its shared application)
             calibrated on the card, card vs CPU (a 128-token prefill and
             3 decode steps: logits, conv, h bit for bit, the shared
             pools; 3 requests, 2 new tokens each, on 3 slots over
             `SlotArena` and the paged arena: tokens and the arenas'
-            state), then the model at full width
+            state; the bf16 island cell as in the ssm phase), then the
+            model at full width
             over HYBRID_LAYERS layers deployed by `deploy_model` and
             served as the 8-request cell (prompts 254, 172, 256, 31,
             149, 255, 121, 257; 16 new tokens) over `SlotArena` (warmed,
@@ -277,9 +300,13 @@ Phases (any failure raises and the script exits non-zero):
             (the MoE's differing (token, expert) choices counted), and
             `launch.train.build`'s step on the card (warm-up, then
             TRAIN_FAMILY_TIMED steps: ms a step, tokens/s, peak memory,
-            the model FLOP/s share)
+            the model FLOP/s share); then falcon_mamba_7b with the bf16
+            scan island: card vs CPU on 1 x TRAIN_BF16_SEQ tokens in two
+            chunks, and its trainer
 
-Then a `kernels` JSON line, the card line, and as the last line
+Then a `kernels` JSON line (one entry a kernel, and the paged
+attention's per-head-range launches of both pool modes with the
+sharded phase's launch counts), the card line, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout (no src/repro_torch beside it), it exits non-zero at once.
 `--skip PHASE,...` leaves phases out (for a short development run; it
@@ -355,6 +382,12 @@ PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
 # script's 1,000 s aim; every phase on those tables scales with it)
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
 MAIN_LAYERS = 4
+# the per-head-range paged attention: S at T MAX_LEN, and the "model"
+# widths whose shards must concatenate to the whole-pool launch
+SHARD_S = (CHUNK, 1)
+SHARD_WIDTHS = (2, 4)
+# the sharded phase's ranks (one card: they share it over gloo)
+SHARD_RANKS = 2
 # paged attention at full granite geometry (B 8, H 32, K 8, hd 64,
 # pages of 16): (S, T), a prefill chunk and a decode step over the main
 # cell's 512 positions and over 4096
@@ -406,6 +439,8 @@ SSM_PARITY_LAYERS = 1
 # one scan chunk (layers.ssm.CHUNK), then requests with prompts 9-40
 # and 4 new tokens
 SSM_PREFILL, SSM_PARITY_GEN = 128, 4
+# the bf16 island's served prompt: two scan chunks
+BF16_PROMPT = 256
 # blockwise phase: granite_3_2b's served depth (the first layer of the
 # calibrate phase's 2-layer tables since the embeds and train phases:
 # the CPU side's prefills bound the phase), the contiguous cache's
@@ -416,12 +451,13 @@ SSM_PREFILL, SSM_PARITY_GEN = 128, 4
 BLOCKWISE_LAYERS, BLOCKWISE_LEN, BLOCKWISE_PROMPTS = 1, 8192, (4097, 6145)
 BLOCKWISE_TOKENS = 4
 # hybrid phase: the config, the parity depth (one group of 6 Mamba-2
-# blocks, its shared application and a 1-block tail since the embeds and
-# train phases, a 2-block one before) and its engine's slots (the CPU
+# blocks and its shared application since the bf16 island cell, with a
+# 1-block tail before it, a 2-block one before the embeds and train
+# phases) and its engine's slots (the CPU
 # side's island bounds the phase), the served depth of the 8-request
 # cell (7 of 38 since the embeds and train phases: a group and a 1-block
 # tail; 14 in PR 29; all 38 took 213 s) and its prompts
-HYBRID_ARCH, HYBRID_PARITY_LAYERS, HYBRID_LAYERS = "zamba2_1_2b", 7, 7
+HYBRID_ARCH, HYBRID_PARITY_LAYERS, HYBRID_LAYERS = "zamba2_1_2b", 6, 7
 HYBRID_PARITY_SLOTS, HYBRID_PARITY_GEN = 3, 2
 HYBRID_PROMPTS = (254, 172, 256, 31, 149, 255, 121, 257)
 # the write-then-gather attention's two products on the grouped GEMM at
@@ -502,7 +538,10 @@ TRAIN_STEPS, TRAIN_CKPT = 12, 6
 TRAIN_FAMILIES = (("olmoe_1b_7b", 1, 1, 512, 2, 4, 512),
                   ("falcon_mamba_7b", 1, 1, 64, 1, 8, 256),
                   ("zamba2_1_2b", 7, 1, 64, 7, 2, 256))
-TRAIN_FAMILY_WARM, TRAIN_FAMILY_TIMED = 2, 10
+# (5 timed steps since the bf16 island's train cell, 10 before: time)
+TRAIN_FAMILY_WARM, TRAIN_FAMILY_TIMED = 2, 5
+# the bf16 island's card-vs-CPU batch: 64 tokens in two chunks of 32
+TRAIN_BF16_SEQ = 64
 # card-vs-CPU gradient tolerances of those families (relative L2; the
 # loss within TRAIN_LOSS_TOL for all): the MoE's about 2% of (token,
 # expert) choices differ between the devices (bf16 router logits a
@@ -1242,6 +1281,96 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
               f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), SDPA "
               f"{lib:.4f} ms, quanta moved {moved} of {qp.numel()}, "
               f"max |acc diff| {err}")
+    return worst
+
+
+def rank_operands(args, kw, r: int, n: int, packed: bool):
+    """Rank r of n's own paged-attention operands, as a kv-sharded rank
+    holds them: its K / n kv heads' pools and (6, K / n) unpack
+    columns, its contiguous H / n query heads.  -> (args, kw)."""
+    q, kp, vp, table, pos, scale = args
+    kl, hl = kp.shape[1] // n, q.shape[1] // n
+    kr = slice(r * kl, (r + 1) * kl)
+    kw_r = dict(kw)
+    if packed:
+        kw_r.update(k_rq=kw["k_rq"][:, kr].contiguous(),
+                    v_rq=kw["v_rq"][:, kr].contiguous())
+    return (q[:, r * hl:(r + 1) * hl].contiguous(), kp[:, kr].contiguous(),
+            vp[:, kr].contiguous(), table, pos, scale), kw_r
+
+
+def check_paged_shards(torch, np, timer, report, packed=False):
+    """The paged attention per kv-head range (the kv-sharded serving
+    path's launch): at granite's geometry (H 32, K 8, hd 64; S 32 and
+    1, T 512), for a "model" width n of 2 and 4, each rank's launch on
+    its own operands (its K / n kv heads' pools and unpack columns, its
+    H / n query heads: `rank_operands`), concatenated along the heads,
+    must equal the whole-pool launch exactly.  Rank 0's launch at n 2
+    (K 4 of 8, H 16 of 32) is timed beside its plain version, its bound
+    and SDPA at that head count.
+    -> the largest |diff| over every shard."""
+    from repro_torch.kernels import paged_attention, paged_attention_plain
+    from repro_torch.kernels.paged_attention import (
+        gathered_view, kv4_unpack,
+    )
+
+    name = ("paged_attention_kv4" if packed else "paged_attention") \
+        + "_shard"
+    worst = 0
+    for i, S in enumerate(SHARD_S):
+        args, kw = paged_inputs(torch, np, S, MAX_LEN, SEED + 60 + i,
+                                packed)
+        q, kp, vp, table, pos, scale = args
+        whole = paged_attention(*args, **kw)
+        B, H, _, hd = q.shape
+        K, hd_store = kp.shape[1], kp.shape[3]
+        for n in SHARD_WIDTHS:
+            kl = K // n
+            parts = []
+            for r in range(n):
+                a, k = rank_operands(args, kw, r, n, packed)
+                parts.append(paged_attention(*a, **k))
+            torch.cuda.synchronize()
+            err = int((torch.cat(parts, dim=1).to(torch.int64)
+                       - whole.to(torch.int64)).abs().max())
+            print(f"  {name} S={S} T={MAX_LEN} n={n}: {n} launches of "
+                  f"K {kl} / H {H // n}, concatenated vs the whole-pool "
+                  f"launch: max |diff| {err}")
+            if err:
+                raise AssertionError(f"{name} S={S} n={n}: max |diff| "
+                                     f"{err} (0 required)")
+            worst = max(worst, err)
+        # rank 0 of n 2
+        n = 2
+        kl, hl = K // n, H // n
+        local, kw0 = rank_operands(args, kw, 0, n, packed)
+        q0, kp0, vp0 = local[:3]
+        ms = timer(lambda: paged_attention(*local, **kw0))
+        plain = timer(lambda: paged_attention_plain(*local, **kw0), 3)
+        k8, v8 = ((kv4_unpack(kp0, kw0["k_rq"]), kv4_unpack(vp0, kw0["v_rq"]))
+                  if packed else (kp0, vp0))
+        qf = q0.to(torch.float16)
+        kf = gathered_view(k8, table, kw["group"]).to(torch.float16)
+        vf = gathered_view(v8, table, kw["group"]).to(torch.float16)
+        lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qf, kf, vf))
+        pos_np = pos.cpu().numpy().astype(np.int64)
+        seen = np.minimum(MAX_LEN, pos_np[:, None] + np.arange(1, S + 1))
+        n_bytes = q0.numel() + 2 * int(seen[:, -1].sum()) * kl * hd_store \
+            + 4 * B * (MAX_LEN // PAGE) + 4 * B + 4 * B * hl * S * hd \
+            + (48 * kl if packed else 0)
+        n_ops = 2.0 * 2 * hl * hd * float(seen.sum())
+        bms, by = bound_ms(n_bytes, n_ops, INT8_OPS_S)
+        row = dict(shape=f"S={S} T={MAX_LEN} B={B} H={hl} of {H} K={kl} of "
+                   f"{K} hd={hd} (rank 0 of 2; n "
+                   + " and ".join(map(str, SHARD_WIDTHS))
+                   + " concatenated exact)",
+                   ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                   library_ms=lib, max_abs_err=worst)
+        report.setdefault(name, []).append(row)
+        print(f"  {name} {row['shape']}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), SDPA {lib:.4f} "
+              "ms")
     return worst
 
 
@@ -2391,6 +2520,63 @@ def requant_forms_ssm(kernels, cfg, dispatches: int, total: int) -> None:
                              f"not {want}")
 
 
+def bf16_island_parity(torch, np, lm, t_np, what):
+    """The bf16 scan island (``ssm_island_dtype="bf16"``) card vs CPU on
+    `lm`'s tables: a SSM_PREFILL-token prefill (one chunk, the bf16
+    branch) with int32 logits and the conv and h state bit for bit (on
+    the card h apart from the float32 island's), then a
+    BF16_PROMPT-token prompt (two chunks) served at its exact length
+    over `SlotArena`: tokens and the arena's state bit for bit."""
+    from repro_torch.launch import variants
+    from repro_torch.launch.serve import serve_scenario
+    from repro_torch.models.lm import tables_from_numpy
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    prompt = rng.integers(0, lm.cfg.vocab, size=(1, SSM_PREFILL)).astype(
+        np.int32)
+    sc = dict(config=dict(n_slots=2, max_len=MAX_LEN),
+              variants=dict(ssm_island_dtype="bf16"),
+              requests=[(rng.integers(0, lm.cfg.vocab,
+                                      size=(BF16_PROMPT,)).tolist(),
+                         SSM_PARITY_GEN)])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = tables_from_numpy(t_np, dev)
+        res = {}
+        for dtype in ("bf16", "f32") if dev == "cuda" else ("bf16",):
+            caches = lm.init_caches(1, MAX_LEN, device=dev)
+            with variants.use_variants(ssm_island_dtype=dtype):
+                logits = lm.prefill(t, torch.from_numpy(prompt).to(dev),
+                                    caches)
+            res[dtype] = [logits.cpu(), caches["conv"].cpu(),
+                          caches["h"].cpu().view(torch.int32)]
+        out[dev] = (res, serve_scenario(lm, t, sc, device=dev))
+        del t, caches
+    (rc, sc_card), (rh, sc_cpu) = out["cuda"], out["cpu"]
+    for name, a, b in zip(("logits", "conv", "h"), rc["bf16"], rh["bf16"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} bf16 island prefill {name}: card "
+                                 "!= CPU")
+    n_h = int((rc["bf16"][2] != rc["f32"][2]).sum())
+    if n_h == 0:
+        raise AssertionError(f"{what}: the bf16 island's h equals the "
+                             "float32 island's")
+    if sc_card["tokens"] != sc_cpu["tokens"]:
+        raise AssertionError(f"{what} bf16 island serve: card tokens "
+                             f"{sc_card['tokens']} != CPU {sc_cpu['tokens']}")
+    for k in ("conv", "h"):
+        if not torch.equal(sc_card["pools"][k], sc_cpu["pools"][k]):
+            raise AssertionError(f"{what} bf16 island serve: {k} state "
+                                 "card != CPU")
+    print(f"  {what} bf16 island: a {SSM_PREFILL}-token prefill's logits, "
+          f"conv and h {tuple(rh['bf16'][2].shape)} equal on the card and "
+          f"the CPU bit for bit ({n_h} h entries apart from the float32 "
+          f"island's); a {BF16_PROMPT}-token prompt served at its exact "
+          f"length: tokens {sc_card['tokens']} and the arena's state equal "
+          f"on the card and the CPU ({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_ssm(torch, np, kernels):
     """SSM_ARCH: SSM_PARITY_LAYERS at full width card vs CPU (a
     one-chunk prefill and a decode step; the engine over both arenas),
@@ -2423,6 +2609,7 @@ def phase_ssm(torch, np, kernels):
     small = ragged_requests(3, cfg.vocab, np.random.default_rng(SEED + 1),
                             prompt_lo=9, prompt_hi=40, gen=SSM_PARITY_GEN)
     ssm_engine_parity(torch, np, lm2, t_np, small)
+    bf16_island_parity(torch, np, lm2, t_np, "ssm")
     del t_np, lm2
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3197,6 +3384,99 @@ def phase_int_softmax(torch, np, kernels, timer, lm, tables, reqs, run1,
     print(f"  (full width: {time.perf_counter() - t0:.1f} s)")
 
 
+def pool_bytes(pools: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in pools.values())
+
+
+def phase_sharded(torch, np, kernels, lm2, t2_np, reqs, device="cuda"):
+    """Kv-head-sharded serving: granite at full width on the calibrate
+    phase's 2-layer tables (saved once, loaded by each rank) serves the
+    8-request cell over `SlotArena` at kv_bits 8 and over the paged arena
+    at kv_bits 8 and 4, unsharded here and then by SHARD_RANKS ranks on
+    a (1, SHARD_RANKS) mesh with `kv_shard`, which share the one card
+    over "gloo" (collectives staged through the host).  Tokens, finish
+    reasons and the ranks' pools concatenated along K must equal the
+    unsharded engine's; each rank's kernel counts (set to 0 before its
+    cell, read after) must show the cell's path.  Then one rank on a
+    world-size-1 "nccl" mesh with `kv_shard`: a "model" width of 1
+    keeps every kv head on the rank, so this runs the unsharded path
+    with the mesh attached and no collective (the nccl all-gather needs
+    two cards and is not exercised here).  -> the sharded cells'
+    launches by kernel, summed over the ranks."""
+    from repro_torch.launch.serve import run_sharded, serve_scenario
+    from repro_torch.models.lm import tables_from_numpy
+
+    tables = tables_from_numpy(t2_np, device)
+    geo = dict(n_slots=N_SLOTS, max_len=MAX_LEN)
+    pg = dict(geo, paged=True, page_size=PAGE, n_pages=N_PAGES)
+    cells = {"SlotArena kv8": (geo, 8), "paged kv8": (pg, 8),
+             "paged kv4": (dict(pg, kv_bits=4), 4)}
+    req_list = [(r.prompt.tolist(), r.max_new_tokens) for r in reqs]
+    scs = [dict(config=c, requests=req_list, count_launches=True,
+                scheduler=dict(prefill_chunk=CHUNK, max_prefills_per_step=2))
+           for c, _ in cells.values()]
+    t0 = time.perf_counter()
+    single = [serve_scenario(lm2, tables, sc, device=device) for sc in scs]
+    print(f"  unsharded engine, {len(scs)} cells in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ranks = run_sharded(lm2, tables, scs, SHARD_RANKS, device=device,
+                        backend="gloo")
+    print(f"  {SHARD_RANKS} gloo ranks on one card, {len(scs)} cells each, "
+          f"in {time.perf_counter() - t0:.1f} s (spawn and table loads "
+          "included)")
+    totals = {}
+    for i, (name, (_, kv_bits)) in enumerate(cells.items()):
+        one = single[i]
+        for r, res in enumerate(r[i] for r in ranks):
+            if res["tokens"] != one["tokens"] or res["finish"] != one[
+                    "finish"]:
+                raise AssertionError(f"sharded {name} rank {r}: tokens "
+                                     "differ from the unsharded engine's")
+            check_path_launches(res["launches"], kv_bits,
+                                f"sharded {name} rank {r}")
+            for k, n in res["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+        for k in ("k", "v"):
+            got = torch.cat([r[i]["pools"][k] for r in ranks], dim=2)
+            if not torch.equal(got, one["pools"][k]):
+                raise AssertionError(f"sharded {name}: the ranks' {k} pools "
+                                     "concatenated along K != unsharded")
+        st = [r[i]["stats"] for r in ranks]
+        if st[0]["pool_bytes_total"] != pool_bytes(one["pools"]) or any(
+                x["pool_bytes"] != pool_bytes(r[i]["pools"])
+                for x, r in zip(st, ranks)):
+            raise AssertionError(f"sharded {name}: pool bytes {st}")
+        steps = [r[i]["step_ms"] for r in ranks]
+        print(f"  sharded {name}: {sum(map(len, one['tokens']))} tokens "
+              f"equal the unsharded engine's on both ranks; pools per rank "
+              f"{[x['pool_bytes'] for x in st]} B (K {st[0]['kv_heads']} of "
+              f"{lm2.cfg.n_kv_heads}), total {st[0]['pool_bytes_total']} B, "
+              f"unsharded {pool_bytes(one['pools'])} B; launches rank 0 "
+              f"{ranks[0][i]['launches']}, requant by form "
+              f"{ranks[0][i]['requant_by_form']}")
+        print(f"    step ms (gloo-staged on one card, not a multi-GPU "
+              f"figure): rank medians "
+              + ", ".join(f"{float(np.median(x)):.2f}" for x in steps)
+              + f" over {len(steps[0])} steps, totals "
+              + ", ".join(f"{sum(x):.1f}" for x in steps)
+              + f"; unsharded median {float(np.median(one['step_ms'])):.2f}"
+              f", total {sum(one['step_ms']):.1f}")
+    t0 = time.perf_counter()
+    (solo,) = run_sharded(lm2, tables, scs[:2], 1, device=device,
+                          backend="nccl")
+    for res, one, name in zip(solo, single, cells):
+        if res["tokens"] != one["tokens"]:
+            raise AssertionError(f"nccl world-size-1 {name}: tokens differ")
+        if res["stats"]["mesh_devices"] != 1 or not res["stats"]["kv_shard"]:
+            raise AssertionError(f"nccl {name}: stats {res['stats']}")
+    print(f"  one nccl rank on a (1, 1) mesh with kv_shard (width 1: "
+          f"every head, no collective): {', '.join(list(cells)[:2])} "
+          f"tokens equal the unsharded engine's "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return totals
+
+
 def greedy_after_prefill(torch, lm, t, prompt, max_len, dev, n_tokens):
     """One whole-prompt prefill of `prompt` (1, P) over a fresh
     contiguous cache, then greedy decode steps: -> (prefill logits,
@@ -3419,6 +3699,7 @@ def phase_hybrid(torch, np, kernels):
           f"tail) calibrated on the card and deployed in "
           f"{time.perf_counter() - t0:.1f} s")
     hybrid_parity(torch, np, lm8, t_np)
+    bf16_island_parity(torch, np, lm8, t_np, "hybrid")
     del t_np, lm8
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3966,6 +4247,8 @@ def train_family_step(torch, np, kernels, arch, layers, batch, seq):
 
 
 def phase_train(torch, np, kernels):
+    from repro_torch.launch import variants
+
     train_card_vs_cpu(torch, np)
     train_supervised(torch, np, kernels)
     train_embeds_step(torch, np)
@@ -3974,6 +4257,17 @@ def phase_train(torch, np, kernels):
         train_family_card_vs_cpu(torch, np, arch, cl, cb, cs)
         train_family_step(torch, np, kernels, arch, tl, tb, ts)
         print(f"  ({arch}: {time.perf_counter() - t0:.1f} s)")
+    # the bf16 scan island: card vs CPU over two chunks of the batch's
+    # TRAIN_BF16_SEQ tokens (chunk TRAIN_BF16_SEQ / 2), then the trainer
+    arch, cl, cb, cs, tl, tb, ts = TRAIN_FAMILIES[1]
+    t0 = time.perf_counter()
+    print(f"  {arch} with the bf16 scan island:")
+    with variants.use_variants(ssm_island_dtype="bf16",
+                               ssm_chunk=TRAIN_BF16_SEQ // 2):
+        train_family_card_vs_cpu(torch, np, arch, cl, cb, TRAIN_BF16_SEQ)
+    with variants.use_variants(ssm_island_dtype="bf16"):
+        train_family_step(torch, np, kernels, arch, tl, tb, ts)
+    print(f"  ({arch} bf16: {time.perf_counter() - t0:.1f} s)")
 
 
 def phase_done(name: str, t0: float) -> float:
@@ -3983,9 +4277,9 @@ def phase_done(name: str, t0: float) -> float:
 
 
 SKIPPABLE = ("entry", "cnn", "calibrate", "parity", "open-loop", "prefix",
-             "preempt", "async", "whole_prompt", "int_softmax", "configs",
-             "musicgen", "olmoe", "ssm", "nemotron", "blockwise", "hybrid",
-             "embeds", "train")
+             "preempt", "async", "whole_prompt", "int_softmax", "sharded",
+             "configs", "musicgen", "olmoe", "ssm", "nemotron", "blockwise",
+             "hybrid", "embeds", "train")
 
 
 def main() -> int:
@@ -4042,6 +4336,10 @@ def main() -> int:
         torch, np, timer, report, ptxas["paged_attention"])
     errs["paged_attention_kv4"] = check_paged_attention(
         torch, np, timer, report, ptxas["paged_attention"], packed=True)
+    for packed in (False, True):
+        name = ("paged_attention_kv4" if packed else "paged_attention")
+        errs[name + "_shard"] = check_paged_shards(torch, np, timer, report,
+                                                   packed)
     errs["quant_flash_attention"] = check_quant_flash_attention(
         torch, np, timer, report, ptxas["quant_attention"])
     bit_length_host_cost(torch)
@@ -4112,6 +4410,15 @@ def main() -> int:
                           lm2, t2_np)
         t0 = phase_done("int_softmax", t0)
     del lm, tables
+    shard_launches = None
+    if "sharded" not in skip:
+        print(f"[sharded] granite_3_2b at full width, 2 layers, kv heads "
+              f"split over {SHARD_RANKS} ranks sharing the card (gloo), "
+              "then one nccl rank")
+        if lm2 is None:
+            lm2, t2_np = granite_2_layers()
+        shard_launches = phase_sharded(torch, np, kernels, lm2, t2_np, reqs)
+        t0 = phase_done("sharded", t0)
     if "blockwise" not in skip:
         print(f"[blockwise] granite_3_2b at full width, {BLOCKWISE_LAYERS} "
               f"layers: whole prompts of {BLOCKWISE_PROMPTS} tokens over "
@@ -4182,6 +4489,17 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"],
+        })
+    # the paged attention per head range: launches of the sharded phase
+    for name in ("paged_attention", "paged_attention_kv4"):
+        r = report[name + "_shard"][0]
+        rows.append({
+            "name": name + "_shard", "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": shard_launches[name],
+            "max_abs_err": errs[name + "_shard"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],

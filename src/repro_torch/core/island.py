@@ -1,6 +1,7 @@
 """Float islands of the ID path written as fixed float32 sequences:
 `exp_f32`, `log_f32`, `log1p_f32` and `softplus_f32`, the selective
-scan's transcendental functions (`layers.ssm`); `rsqrt_f32`,
+scan's transcendental functions (`layers.ssm`); `lane8_halves`, its
+Mamba-1 h * C sum over a bfloat16 state; `rsqrt_f32`,
 `window_sum` and `lane8_dot`, the Mamba-2 island's reciprocal square
 root, mean and state contraction; `exp_image`, the blockwise
 attention's probability image (`layers.attention`); `softmax_f32`, the
@@ -284,6 +285,23 @@ def lane8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         lanes = fma(a8[j], b8[j], lanes)
     while lanes.shape[-1] > 1:
         lanes = lanes[..., 0::2] + lanes[..., 1::2]
+    return lanes[..., 0]
+
+
+def lane8_halves(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum over the last axis of a * b (broadcastable, the length a
+    multiple of 8) as the reference's lowering reduces the Mamba-1 h * C
+    product when h is a bfloat16 image: lane l of 8 takes the products
+    of indices l, l + 8, ... (the first a plain product, the rest fused
+    multiply-adds in turn), then the lanes are added by halves, (0..3)
+    + (4..7), then (0, 1) + (2, 3), then 0 + 1."""
+    a, b = torch.broadcast_tensors(a.to(F32), b.to(F32))
+    lanes = a[..., 0:8] * b[..., 0:8]
+    for j in range(8, a.shape[-1], 8):
+        lanes = fma(a[..., j:j + 8], b[..., j:j + 8], lanes)
+    while lanes.shape[-1] > 1:
+        n = lanes.shape[-1] // 2
+        lanes = lanes[..., :n] + lanes[..., n:]
     return lanes[..., 0]
 
 

@@ -352,7 +352,13 @@ def paged_attention(q, k_pool, v_pool, table, pos, score_scale, *,
     (6, K) int32 unpack operands ``k_rq``/``v_rq``; int8 pools take
     none.  ``qp_out`` (CUDA only, optional): a (B, H, S, T) int8
     tensor the kernel fills with its probability image, for
-    `check_image`."""
+    `check_image`.
+
+    The wrapper knows no mesh: a kv-sharded rank
+    (`layers.attention.QAttention.apply_id`) passes its own K / n kv
+    heads' pools and unpack columns with their contiguous H / n query
+    heads, and gets that head range, each (b, h) equal to the
+    whole-pool call's."""
     B, H, S, hd = q.shape
     n_pool, K, ps, hd_store = k_pool.shape
     pps = table.shape[1]

@@ -1,6 +1,5 @@
 """Integer-only serving entry point of the port (port of
-`repro.launch.serve`: `deploy_model`, `serve_batch` and the CLI, without
-the mesh flags).
+`repro.launch.serve`: `deploy_model`, `serve_batch` and the CLI).
 
 `deploy_model` does what the reference's does: init -> calibrate ->
 deploy.  It draws the float params from numpy (seeded), runs the
@@ -38,6 +37,18 @@ flight on the device while the host plans the next (same tokens).
 (`ServingConfig.paged_kernel` False), the reference's parity oracle,
 instead of the paged attention kernel (same tokens).
 
+Multi-device serving (the reference's DESIGN.md §Serving
+¶Multi-device): `--mesh N` deploys once, then spawns N ranks
+(`launch.mesh.spawn`: "gloo" on `--device cpu`, "nccl" and one GPU a
+rank on the card; fewer GPUs than N raise), each serving the same
+requests on a ("data", "model") = (1, N) mesh; `--kv-shard` splits the
+KV arena's kv heads over it (it needs `--mesh`).  Every rank gets the
+same tokens; rank 0 prints.  `serve_scenario` runs one engine over a
+list of requests (submitted one a step, then drained) and returns its
+tokens, stats, step times and pools; `run_sharded` runs a list of such
+scenarios on every rank of a spawned mesh (`serve_sharded`, the rank
+function) and returns each rank's results.
+
 The arena is the reference's default, `SlotArena`, unless `--paged`
 asks for the paged one (`--page-size`, `--pages`; kv_bits 4 and the
 prefix cache need it).  `--prefill-chunk 0` prefills each prompt whole
@@ -51,7 +62,8 @@ oracle: B prompts prefilled together at position 0, then decoded at
 one shared position over contiguous caches.
 
 Example (on the card; add --reduced --device cpu for a CPU smoke run,
---paged --kv-bits 4 for int4-packed KV pools):
+--paged --kv-bits 4 for int4-packed KV pools, --mesh 2 --kv-shard for
+two kv-sharded ranks):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --paged --requests 8 --slots 8 --prompt-len 300 --gen 16 \\
       --max-len 512 --ragged --arrival-rate 4 --slo-ttft-p99 2 \\
@@ -60,18 +72,23 @@ Example (on the card; add --reduced --device cpu for a CPU smoke run,
 from __future__ import annotations
 
 import argparse
+import builtins
 import concurrent.futures
 import dataclasses
 import json
+import os
+import tempfile
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import SERVE_ARCH_IDS, get_config
 from repro_torch.core.calibrate import Calibrator
+from repro_torch import kernels
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticStream
+from repro_torch.launch import variants
 from repro_torch.layers.common import DeployCtx
 from repro_torch.models.lm import (
     DecoderLM, load_layer, params_to_torch, tree_to_torch,
@@ -104,6 +121,19 @@ def calibration_sample(vocab: int, max_seq: int) -> np.ndarray:
     return stream.batch(0)[:, :-1]
 
 
+def build_lm(arch: str, *, reduced: bool, max_seq: int,
+             n_layers: Optional[int] = None) -> DecoderLM:
+    """The served `DecoderLM` of `arch` (reduced, or cut to its first
+    `n_layers` layers at full width)."""
+    cfg = get_config(arch)
+    check_tokens(cfg)
+    if reduced:
+        cfg = cfg.reduced()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return DecoderLM(cfg, max_seq=max_seq)
+
+
 def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
                  device="cuda", n_layers: Optional[int] = None):
     """-> (lm, tables on `device`), equal to
@@ -112,13 +142,8 @@ def deploy_model(arch: str, *, reduced: bool, max_seq: int, seed: int = 0,
     `calibration_sample(vocab, max_seq)`: the float forward runs on
     `device`.  `n_layers` cuts the depth (the first n layers of the
     config, at its full width; None: all of them)."""
-    cfg = get_config(arch)
-    check_tokens(cfg)
-    if reduced:
-        cfg = cfg.reduced()
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    lm = DecoderLM(cfg, max_seq=max_seq)
+    lm = build_lm(arch, reduced=reduced, max_seq=max_seq, n_layers=n_layers)
+    cfg = lm.cfg
     calib = Calibrator()
     ctx = DeployCtx(calib=calib)
     sample = calibration_sample(cfg.vocab, max_seq)
@@ -193,6 +218,97 @@ def serve_batch(lm, tables, prompts, gen_len: int) -> torch.Tensor:
         tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)[:, None]
         out.append(tok)
     return torch.cat(out, dim=1)
+
+
+def serve_scenario(lm, tables, sc: dict, *, device="cuda", mesh=None,
+                   kv_shard: bool = False) -> dict:
+    """One engine over one scenario: ``sc["config"]`` (`ServingConfig`
+    keywords but the device, mesh and scheduler), ``sc["scheduler"]``
+    (`SchedulerConfig` keywords), ``sc["variants"]`` (around every
+    step, `launch.variants.use_variants`) and ``sc["requests"]``
+    [(prompt, max_new_tokens)], each submitted then stepped once, then
+    drained.
+    -> {"tokens", "finish" (in submission order), "stats", "step_ms"
+    (each step's host wall time), "pools" (the arena's caches on the
+    CPU), and with ``sc["count_launches"]`` "launches" (the kernels'
+    launch counts, set to 0 before the first step)}."""
+    eng = ServingEngine(lm, tables, ServingConfig(
+        device=device, mesh=mesh, kv_shard=kv_shard,
+        scheduler=SchedulerConfig(**sc.get("scheduler", {})),
+        **sc["config"]))
+    step_ms = []
+
+    def step():
+        t0 = time.perf_counter()
+        with variants.use_variants(**sc.get("variants", {})):
+            eng.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    if sc.get("count_launches"):
+        kernels.reset_launch_counts()
+    ids = []
+    for prompt, gen in sc["requests"]:
+        ids.append(eng.submit(np.asarray(prompt, np.int32),
+                              max_new_tokens=gen))
+        step()
+    while eng._busy():
+        step()
+        if len(step_ms) > 10_000:
+            raise RuntimeError("not drained after 10000 steps")
+    done = {c.req_id: c for c in eng.completed}
+    pools = {k: v.cpu() for k, v in eng.arena.caches.items()
+             if isinstance(v, torch.Tensor) and k != "table"}
+    out = {"tokens": [list(map(int, done[i].tokens)) for i in ids],
+           "finish": [done[i].finish_reason for i in ids],
+           "stats": eng.stats(), "step_ms": step_ms, "pools": pools}
+    if sc.get("count_launches"):
+        out["launches"] = kernels.launch_counts()
+        out["requant_by_form"] = dict(kernels.requant.by_form)
+    return out
+
+
+def _rank_device(device: str) -> str:
+    """A rank's device: "cuda" is the card `launch.mesh.spawn` gave it."""
+    return (f"cuda:{torch.cuda.current_device()}" if device == "cuda"
+            else device)
+
+
+def serve_sharded(rank: int, spec: dict) -> None:
+    """The rank function of `run_sharded`: the model of ``spec["cfg"]``,
+    the saved tables loaded onto this rank's device, the (1, n) serving
+    mesh, and every scenario run kv-sharded, the results saved to
+    ``{out}.{rank}``."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    device = _rank_device(spec["device"])
+    lm = DecoderLM(spec["cfg"], max_seq=spec["max_seq"])
+    tables = torch.load(spec["tables"], map_location=device,
+                        weights_only=False)
+    mesh = make_serving_mesh(spec["n_model"])
+    out = [serve_scenario(lm, tables, sc, device=device, mesh=mesh,
+                          kv_shard=True) for sc in spec["scenarios"]]
+    torch.save(out, f"{spec['out']}.{rank}")
+
+
+def run_sharded(lm, tables, scenarios: List[dict], n_model: int, *,
+                device: str = "cuda", backend: Optional[str] = None
+                ) -> List[List[dict]]:
+    """`scenarios` (see `serve_scenario`) served kv-sharded by
+    `n_model` spawned ranks on a (1, n_model) mesh (`launch.mesh.spawn`;
+    ``backend`` "gloo" lets ranks share one card), from `tables` saved
+    once.  -> each rank's results, rank-major."""
+    from repro_torch.launch.mesh import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tables.pt")
+        torch.save(tables, path)
+        spec = {"cfg": lm.cfg, "max_seq": lm.max_seq, "tables": path,
+                "device": device, "n_model": n_model,
+                "scenarios": scenarios, "out": os.path.join(tmp, "out")}
+        spawn(serve_sharded, n_model, (spec,), device=device,
+              backend=backend)
+        return [torch.load(f"{spec['out']}.{r}", weights_only=False)
+                for r in range(n_model)]
 
 
 def ragged_requests(n: int, vocab: int, rng: np.random.Generator, *,
@@ -278,24 +394,63 @@ def main(argv=None):
     ap.add_argument("--profile-annotations", action="store_true",
                     help="wrap each dispatch in torch.profiler."
                     "record_function (enables telemetry)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="ranks on the serving mesh's model dim, one "
+                    "process each (0: one process, no mesh)")
+    ap.add_argument("--kv-shard", action="store_true",
+                    help="split the KV arena's kv heads over the mesh's "
+                    "model dim (needs --mesh)")
     args = ap.parse_args(argv)
-
     max_len = args.max_len or (args.prompt_len + args.gen)
     if args.shared_prefix > args.prompt_len:
         ap.error("--shared-prefix must be <= --prompt-len")
+    if args.kv_shard and not args.mesh:
+        ap.error("--kv-shard needs --mesh N")
     t0 = time.perf_counter()
     lm, tables = deploy_model(args.arch, reduced=args.reduced,
                               max_seq=max_len, seed=args.seed,
                               device=args.device)
     print(f"deployed {lm.cfg.name} ({lm.cfg.n_layers} layers) on "
           f"{args.device} in {time.perf_counter() - t0:.1f} s")
+    if not args.mesh:
+        return _serve(args, lm, tables)
+    from repro_torch.launch.mesh import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tables.pt")
+        torch.save(tables, path)
+        del tables
+        spawn(_cli_rank, args.mesh, (args, path), device=args.device)
+
+
+def _cli_rank(rank: int, args: argparse.Namespace, path: str) -> None:
+    """One rank of `--mesh N`: the deployed tables loaded onto its
+    device, the (1, N) mesh, the same requests; rank 0 prints."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    device = _rank_device(args.device)
+    lm = build_lm(args.arch, reduced=args.reduced,
+                  max_seq=args.max_len or (args.prompt_len + args.gen))
+    tables = torch.load(path, map_location=device, weights_only=False)
+    _serve(args, lm, tables, device=device,
+           mesh=make_serving_mesh(args.mesh), quiet=rank != 0)
+
+
+def _serve(args, lm, tables, *, device=None, mesh=None, quiet=False):
+    """The CLI's engine, requests and report."""
+    def print(*a, **k):  # noqa: A001 - rank 0 reports
+        if not quiet:
+            builtins.print(*a, **k)
+
+    max_len = args.max_len or (args.prompt_len + args.gen)
     tel = None
     if args.trace_out or args.metrics_out or args.profile_annotations:
         tel = Telemetry(profile_annotations=args.profile_annotations)
     engine = ServingEngine(lm, tables, ServingConfig(
         n_slots=args.slots, max_len=max_len, paged=args.paged,
         page_size=args.page_size,
-        n_pages=args.pages or None, device=args.device,
+        n_pages=args.pages or None, device=device or args.device,
+        mesh=mesh, kv_shard=args.kv_shard,
         paged_kernel=not args.paged_gather,
         kv_bits=args.kv_bits, dispatch_depth=args.dispatch_depth,
         telemetry=tel,
@@ -364,7 +519,7 @@ def main(argv=None):
     for c in completions[:4]:
         print(f"  req {c.req_id}: P={c.prompt_len} -> {c.n_generated} toks "
               f"[{c.finish_reason}] {np.asarray(c.tokens)[:8]}")
-    if tel is not None:
+    if tel is not None and not quiet:
         if args.trace_out:
             tel.export_trace(args.trace_out)
             print(f"  trace: {len(tel.events)} events -> {args.trace_out}")

@@ -76,7 +76,6 @@ def build_train_step(lm, *, microbatches: int = 1) -> Callable:
     memory scales down by the factor, the math stays the reference's
     (float32 sums, then one scale by 1 / microbatches)."""
     c = lm.cfg
-    lm.check_trainable()
 
     def loss_of(tr, mb):
         if c.input_mode == "embeds":

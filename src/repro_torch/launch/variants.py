@@ -14,8 +14,9 @@ TPU graph) steer nothing the port runs.
                 pools) | "gather" (write-then-gather: the dense
                 logical view gathered through the table, the
                 reference's parity oracle)
-  ssm_island_dtype  "f32" (the scan island in float32) | "bf16" (not
-                ported: the ssm layer raises, ROADMAP item 10)
+  ssm_island_dtype  "f32" (the scan island in float32) | "bf16" (the
+                chunked scan in bfloat16 with a float32 carry,
+                `layers.ssm._chunked`)
   ssm_chunk     the selective scan's chunk length (0: layers.ssm.CHUNK)
 
 The attention takes the kernel only under "kernel" and the float

@@ -83,7 +83,22 @@ as the reference's XLA lowering computes it (its exp, the fused
 multiply-adds of its update, / 127 as a product with the reciprocal),
 and ends in round(127 ctx) as int32 for ctx_rqt.
 
-Left out: sharding hints.
+Kv-head sharding.  Under a serving profile whose mesh splits the kv
+heads (`sharding.hints.use_profile`, entered by the engine of a
+kv-sharded arena; `sharding.rules.kv_head_range`), every branch
+computes this rank's contiguous kv heads and their H / n query heads
+alone: the K/V column write touches the rank's pools, the paged
+kernel (given the rank's own q, pools and unpack columns: the wrapper
+knows no mesh), the gather path's grouped products (one group a slot
+and local kv head), the integer softmax and the blockwise branch run
+over them, and ctx_rqt writes their int8 rows.  The engine cuts each
+layer's `kv4` tables to the rank's heads once (`kv4_shard`, through
+`models.lm.shard_tables`).
+Those rows are all-gathered over the mesh's "model" group, rank-major,
+which is head order, and wo runs on every rank over the whole row.
+Integer stages make the result the unsharded one bit for bit.  The
+reference's GSPMD sharding hints have no counterpart
+(`sharding.hints.hint`).
 """
 from __future__ import annotations
 
@@ -93,6 +108,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.intmath import pack_int4
 from repro_torch.core.island import exp_f32, exp_image, fma
@@ -111,6 +127,8 @@ from repro_torch.layers.linear import QLinear
 from repro_torch.layers.rope import (
     apply_rope_fp, gather_trig, rope_tables_fp, rope_tables_int, rotate_int,
 )
+from repro_torch.sharding.hints import profile_mesh
+from repro_torch.sharding.rules import kv_head_range
 
 EPS_P = 1.0 / 127.0  # probability quantum (symmetric int8, zp=0)
 NEG_INF = -1e9  # the float forward's causal mask
@@ -296,10 +314,11 @@ class QAttention:
     def apply_id(self, t: dict, s_x: torch.Tensor, cache: dict,
                  pos: torch.Tensor) -> torch.Tensor:
         """s_x (B, S, d) int8 (zp=0); cache {"k", "v": (n_pages + 1, K,
-        ps, hd) int8 pools of this layer — (.., hd/2) when int4-packed
-        — "table": (B, pps) int32}; pos (B,) int32 position of each
-        row's first query.  Writes the new K/V columns into the pools
-        in place and returns the int32 wo accumulator (B, S, d)."""
+        ps, hd) int8 pools of this layer — (.., hd/2) when int4-packed,
+        K / n kv heads on a kv-sharded rank — "table": (B, pps)
+        int32}; pos (B,) int32 position of each row's first query.
+        Writes the new K/V columns into the pools in place and returns
+        the int32 wo accumulator (B, S, d)."""
         subs = self._sub()
         B, S, _ = s_x.shape
         H, K, hd = self.n_heads, self.n_kv_heads, self.head_dim
@@ -315,9 +334,17 @@ class QAttention:
         positions = pos.to(torch.int64)[:, None] + torch.arange(
             S, device=s_x.device)
         c, s = gather_trig(cos_q, sin_q, positions)
+        mesh = profile_mesh()
+        kr = kv_head_range(K, mesh)
+        kv4 = t["kv4"] if cache["k"].shape[-1] != hd else None
+        if kr is not None:  # this rank's kv heads and their query heads
+            k, v = k[:, kr], v[:, kr]
+            q = q[:, kr.start * self.group:kr.stop * self.group]
+            if kv4 is not None and kv4["k_rq"].shape[1] != kr.stop - kr.start:
+                raise ValueError("a kv-sharded rank's kv4 tables must hold "
+                                 "its kv heads (models.lm.shard_tables)")
         q = rotate_int(q, c, s, rot).contiguous()
         k = rotate_int(k, c, s, rot)
-        kv4 = t["kv4"] if cache["k"].shape[-1] != hd else None
         kernel = (variants.get("paged_decode") == "kernel"
                   and variants.get("attn_softmax") != "int")
         if S > BLOCKWISE_THRESHOLD and (cache.get("contiguous")
@@ -336,6 +363,11 @@ class QAttention:
             k_view, v_view = _paged_cache_update(cache, k, v, pos, kv4=kv4)
             acc = self._dense_attend(t, q, k_view, v_view, pos)
         s_ctx = requant(acc, t["ctx_rqt"], heads_to_rows=True)
+        if kr is not None:  # the ranks' rows in head order
+            parts = [torch.empty_like(s_ctx)
+                     for _ in range(K // (kr.stop - kr.start))]
+            dist.all_gather(parts, s_ctx, group=mesh.get_group("model"))
+            s_ctx = torch.cat(parts, dim=2)
         s_ctx = s_ctx.view(B, S, H * hd)
         return subs["wo"].apply_id(t["wo"], s_ctx)
 
@@ -344,12 +376,13 @@ class QAttention:
                       ) -> torch.Tensor:
         """The reference's dense branch over the gathered views: q (B,
         H, S, hd) int8 contiguous, k_view / v_view (B, K, T, hd) int8
-        contiguous -> the int32 P.V accumulator (B, H, S, hd).  Both
+        contiguous (H = K group: all heads, or a kv-sharded rank's) ->
+        the int32 P.V accumulator (B, H, S, hd).  Both
         products are one grouped GEMM launch each, group b * K + kv
         head; the island is the integer softmax under ``attn_softmax
         "int"``, else the float island of the kernel."""
         B, H, S, hd = q.shape
-        K, G = self.n_kv_heads, self.group
+        K, G = k_view.shape[1], self.group
         T = k_view.shape[2]
         scores = int8_matmul_grouped(
             q.view(1, B * K, G * S, hd),
@@ -492,6 +525,22 @@ def _kv4_operand(rqt: dict, n_kv_heads: int) -> torch.Tensor:
     rows = (rqt["m"], rqt["s0"], rqt["lo"], rqt["hi"], rqt["d"], rqt["zp"])
     return torch.stack([r.to(torch.int32).reshape(-1).expand(n_kv_heads)
                         for r in rows])
+
+
+def kv4_shard(kv4: dict, kr: slice) -> dict:
+    """A layer's loaded `kv4` tables (`kv4_load`) for a kv-sharded rank
+    whose pools hold the kv heads `kr`: the per-head entries of the
+    pack and unpack tables and the (6, K) operands cut to those heads,
+    scalar entries kept."""
+    K = kv4["k_rq"].shape[1]
+    out = dict(kv4)
+    for short in ("k", "v"):
+        for kind in ("pack", "unpack"):
+            out[f"{short}_{kind}"] = {
+                n: x[kr] if x.dim() == 1 and x.shape[0] == K else x
+                for n, x in kv4[f"{short}_{kind}"].items()}
+        out[f"{short}_rq"] = kv4[f"{short}_rq"][:, kr].contiguous()
+    return out
 
 
 def kv4_load(kv4: dict) -> dict:

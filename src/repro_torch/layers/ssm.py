@@ -32,6 +32,16 @@ adds D x in one fused multiply-add, and takes its gate z / (1 + e^-z),
 the mean of the squares (`window_sum`) and `rsqrt_f32` as its lowering
 does.
 
+Under the variant ``ssm_island_dtype="bf16"`` the chunked branch alone
+changes, as in the reference: each chunk's a, u and incoming state are
+rounded to bfloat16 and the scan runs in bfloat16, every operation
+computed in float32 and rounded back (the combine's multiply-add as a
+rounded product, then the sum; the state enters the same way), the
+carry returns to float32, and y reads the bfloat16 h lifted to float32
+(Mamba-1's h * C summed in 8 lanes by halves, `core.island.
+lane8_halves`).  Shorter or ragged spans and the decode step stay
+float32.
+
 Caches (serving): Mamba-1 {"conv": (B, conv_k - 1, d_inner) int8, the
 last conv inputs; "h": (B, d_inner, d_state) float32}; Mamba-2 {"conv":
 (B, conv_k - 1, d_conv_in) int8 over the x, B, C channels; "h": (B, H,
@@ -49,7 +59,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core.intmath import build_lut
 from repro_torch.core.island import (
-    exp_f32, fma, ftz, lane8_dot, rsqrt_f32, softplus_f32, window_sum,
+    exp_f32, fma, ftz, lane8_dot, lane8_halves, rsqrt_f32, softplus_f32,
+    window_sum,
 )
 from repro_torch.core.rep import Rep
 from repro_torch.core.requant import make_rqt
@@ -71,12 +82,11 @@ def _chunk_len() -> int:
     return variants.get("ssm_chunk") or CHUNK
 
 
-def _check_island_dtype():
-    if variants.get("ssm_island_dtype") != "f32":
-        raise NotImplementedError(
-            f"ssm_island_dtype {variants.get('ssm_island_dtype')!r}: the "
-            "port runs the scan island in float32 (the bf16 island is "
-            "ROADMAP item 10)")
+def _island_dtype() -> torch.dtype:
+    """The chunked scan's dtype: bfloat16 under the variant
+    ``ssm_island_dtype="bf16"``, else float32."""
+    return (torch.bfloat16 if variants.get("ssm_island_dtype") == "bf16"
+            else torch.float32)
 
 
 # -- the scan ------------------------------------------------------------
@@ -85,6 +95,26 @@ def _combine(x, y):
     ax, ux = x
     ay, uy = y
     return ftz(ax * ay), ftz(fma(ay, ux, uy))
+
+
+def _bf(v: torch.Tensor) -> torch.Tensor:
+    """A float32 result -> bfloat16: flushed, then rounded once to
+    nearest even, as the reference's lowering converts each bfloat16
+    operation it computes in float32."""
+    return ftz(v).to(torch.bfloat16)
+
+
+def _f(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.float32)
+
+
+def _combine_bf16(x, y):
+    """`_combine` on bfloat16 pairs as the reference's lowering runs it:
+    each operation in float32 and rounded back, the multiply-add as a
+    product rounded to bfloat16, then the sum."""
+    ax, ux = x
+    ay, uy = y
+    return _bf(_f(ax) * _f(ay)), _bf(_f(_bf(_f(ay) * _f(ux))) + _f(uy))
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
@@ -97,29 +127,39 @@ def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
     return out + 0.0
 
 
-def _scan(a: torch.Tensor, u: torch.Tensor):
+def _scan(a: torch.Tensor, u: torch.Tensor, combine=_combine):
     """`jax.lax.associative_scan(combine, (a, u), axis=1)`: pairs
     combined, the half-length scan recursed, the even positions
     completed from it, and the two interleaved."""
     n = a.shape[1]
     if n < 2:
         return a, u
-    ra, ru = _combine((a[:, 0:-1:2], u[:, 0:-1:2]), (a[:, 1::2], u[:, 1::2]))
-    oa, ou = _scan(ra, ru)
+    ra, ru = combine((a[:, 0:-1:2], u[:, 0:-1:2]), (a[:, 1::2], u[:, 1::2]))
+    oa, ou = _scan(ra, ru, combine)
     if n % 2 == 0:
-        ea, eu = _combine((oa[:, :-1], ou[:, :-1]), (a[:, 2::2], u[:, 2::2]))
+        ea, eu = combine((oa[:, :-1], ou[:, :-1]), (a[:, 2::2], u[:, 2::2]))
     else:
-        ea, eu = _combine((oa, ou), (a[:, 2::2], u[:, 2::2]))
+        ea, eu = combine((oa, ou), (a[:, 2::2], u[:, 2::2]))
     ea = torch.cat([a[:, :1], ea], dim=1)
     eu = torch.cat([u[:, :1], eu], dim=1)
     return _interleave(ea, oa), _interleave(eu, ou)
 
 
 def scan_h(a: torch.Tensor, u: torch.Tensor,
-           h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+           h0: Optional[torch.Tensor] = None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """h_t = a_t h_{t-1} + u_t along axis 1 (a broadcastable to u); h0
     the state before position 0 (u's shape less axis 1), or None.  ->
-    h, u's shape."""
+    h, u's shape, in ``dtype``: float32 with each multiply-add fused,
+    or bfloat16 (a, u and h0 rounded to it, every operation rounded
+    back to it, `_combine_bf16`; the state enters as a product, then
+    a sum)."""
+    if dtype == torch.bfloat16:
+        a, u = a.to(dtype), u.to(dtype)
+        if h0 is not None:
+            ah = _bf(_f(a[:, :1]) * _f(h0.to(dtype)[:, None]))
+            u = torch.cat([_bf(_f(u[:, :1]) + _f(ah)), u[:, 1:]], dim=1)
+        return _scan(a, u, _combine_bf16)[1]
     if h0 is not None:
         first = ftz(fma(a[:, :1], h0[:, None], u[:, :1]))
         u = torch.cat([first, u[:, 1:]], dim=1)
@@ -127,23 +167,27 @@ def scan_h(a: torch.Tensor, u: torch.Tensor,
 
 
 def assoc_scan(a: torch.Tensor, dt_b: torch.Tensor, x1: torch.Tensor,
-               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+               h0: Optional[torch.Tensor] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """h_t = a_t h_{t-1} + u_t along axis 1 with u = dt_b * x1 (a, dt_b
     (B, L, di, ds), x1 (B, L, di, 1)); h0 (B, di, ds) the state before
-    position 0, or None.  -> h (B, L, di, ds)."""
-    return scan_h(a, ftz(dt_b * x1), h0)
+    position 0, or None.  -> h (B, L, di, ds) in ``dtype``
+    (`scan_h`)."""
+    return scan_h(a, ftz(dt_b * x1), h0, dtype)
 
 
 def _chunked(L: int, block, h0: Optional[torch.Tensor], zeros):
-    """The reference's `_chunked_recurrence` around `block(span, h_prev)
-    -> (y, h_last)`: one block over all L positions when L is not a
-    multiple of the chunk or below it (h_prev = h0, maybe None), else
-    chunk by chunk from h0 or `zeros()` (each chunk rematerialised in
-    the backward pass when gradients are on)."""
-    _check_island_dtype()
+    """The reference's `_chunked_recurrence` around `block(span, h_prev,
+    dtype) -> (y, h_last)`: one block over all L positions in float32
+    when L is not a multiple of the chunk or below it (h_prev = h0,
+    maybe None), else chunk by chunk from h0 or `zeros()` with the scan
+    in the island's dtype (`_island_dtype`) and the carry in float32
+    (each chunk rematerialised in the backward pass when gradients are
+    on)."""
     chunk = _chunk_len()
     if L % chunk or L < chunk:
-        return block(slice(None), h0)
+        return block(slice(None), h0, torch.float32)
+    dtype = _island_dtype()
     h = zeros() if h0 is None else h0
     ys = []
     for c0 in range(0, L, chunk):
@@ -152,9 +196,9 @@ def _chunked(L: int, block, h0: Optional[torch.Tensor], zeros):
             # the reference's checkpointed chunk step: the backward keeps
             # each chunk's inputs and carry, and recomputes the rest
             y, h = torch.utils.checkpoint.checkpoint(
-                block, span, h, use_reentrant=False)
+                block, span, h, dtype, use_reentrant=False)
         else:
-            y, h = block(span, h)
+            y, h = block(span, h, dtype)
         ys.append(y)
     return torch.cat(ys, dim=1), h
 
@@ -178,13 +222,15 @@ def ssm_core(x1: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     float32, A (di, ds), D (di,), h0 (B, di, ds) or None.  -> (y (B, L,
     di), h_last (B, di, ds))."""
 
-    def block(s: slice, h_prev):
+    def block(s: slice, h_prev, dtype):
         dts = dt[:, s]
         a = exp_f32(dts[..., None] * A)
         dt_b = ftz(dts[..., None] * bm[:, s, None, :])
         xs = x1[:, s]
-        h = assoc_scan(a, dt_b, xs[..., None], h_prev)
-        y = fma(D, xs, lane_sum_hc(h, cm[:, s]))
+        h = _f(assoc_scan(a, dt_b, xs[..., None], h_prev, dtype))
+        hc = (lane_sum_hc(h, cm[:, s]) if dtype == torch.float32
+              else lane8_halves(h, cm[:, s, None, :]))
+        y = fma(D, xs, hc)
         return y, h[:, -1]
 
     return _chunked(x1.shape[1], block, h0, lambda: torch.zeros(
@@ -202,12 +248,12 @@ def ssm2_core(xh: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     B in that order, y = h . C (`lane8_dot`) + D x fused.  -> (y (B, L,
     H, P), h_last (B, H, P, ds))."""
 
-    def block(s: slice, h_prev):
+    def block(s: slice, h_prev, dtype):
         dts, xs = dt[:, s], xh[:, s]
         a = exp_f32(dts * A)[..., None, None]
         u = ftz(ftz(dts[..., None, None] * xs[..., None])
                 * bm[:, s, None, None, :])
-        h = scan_h(a, u, h_prev)
+        h = _f(scan_h(a, u, h_prev, dtype))
         y = fma(D[:, None], xs, lane8_dot(h, cm[:, s, None, None, :]))
         return y, h[:, -1]
 

@@ -92,8 +92,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.calibrate import Calibrator
 from repro_torch.core.intsoftmax import int_softmax_load
 from repro_torch.core.rep import Rep
-from repro_torch.launch import variants
-from repro_torch.layers.attention import kv4_load
+from repro_torch.layers.attention import kv4_load, kv4_shard
 from repro_torch.layers.common import ActKind, DeployCtx, stack_trees
 from repro_torch.layers.embedding import QEmbed
 from repro_torch.layers.linear import QLinear
@@ -204,6 +203,23 @@ def load_layer(t: dict) -> dict:
             attn["sm_tabs"] = int_softmax_load(attn["sm_tabs"])
         t = {**t, "attn": attn}
     return t
+
+
+def shard_tables(tables: dict, kr: slice) -> dict:
+    """Served tables (`tables_from_numpy`) for a kv-sharded rank whose
+    pools hold the kv heads `kr`: every attention's `kv4` tables cut to
+    those heads (`layers.attention.kv4_shard`), the hybrid's shared
+    applications too; every other table is shared with `tables`."""
+    def cut(t):
+        if "attn" not in t:
+            return t
+        attn = t["attn"]
+        return {**t, "attn": {**attn, "kv4": kv4_shard(attn["kv4"], kr)}}
+
+    out = dict(tables, layers=[cut(t) for t in tables["layers"]])
+    if "shared" in tables:
+        out["shared"] = [cut(t) for t in tables["shared"]]
+    return out
 
 
 def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
@@ -521,16 +537,6 @@ class DecoderLM:
         return self.shared_block().apply_float(p_shared, x, x0, calib,
                                                self.shared_scope(g), rep=rep)
 
-    def check_trainable(self) -> None:
-        """The FakeQuantized forward, its clips and the losses exist for
-        every family the port builds; the bfloat16 scan island raises
-        (the shared expert already raises at construction)."""
-        if self.recurrent and variants.get("ssm_island_dtype") != "f32":
-            raise NotImplementedError(
-                f"ssm_island_dtype {variants.get('ssm_island_dtype')!r}: the "
-                "port trains the scan island in float32 (the bf16 island is "
-                "ROADMAP item 10c)")
-
     def init_qstate(self, device="cuda") -> dict:
         """The FQ clips (PACT's learnable alpha / beta) in the
         reference's layout (its `plan()`): a dense or MoE segment's
@@ -540,7 +546,6 @@ class DecoderLM:
         the reference's leaf for leaf; block i's are `_index(qs, i)` of
         the segment.  A reference qstate carries across through
         `params_to_torch`."""
-        self.check_trainable()
 
         def stack(v, n):
             if isinstance(v, dict):
@@ -576,8 +581,6 @@ class DecoderLM:
         applications."""
         if rep is Rep.ID:
             raise ValueError("the integer forward is prefill_chunk's")
-        if rep is not Rep.FP:
-            self.check_trainable()
         remat = calib is None and torch.is_grad_enabled()
         deep = self.cfg.n_layers > 1
         segs_qs = qstate["segments"] if qstate else None
@@ -650,7 +653,6 @@ class DecoderLM:
         """Next-token cross entropy (+ 0.01 aux), tokens (B, S + 1): the
         reference's mixed precision (float32 params, the embedding's
         output cast to bfloat16, float32 logits into log_softmax)."""
-        self.check_trainable()
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
         x = self.embed_in(p, inp, rep).to(torch.bfloat16)
         return self._nll(p, x, tgt, rep, qstate)
@@ -659,7 +661,6 @@ class DecoderLM:
                        tgt: torch.Tensor, rep: Rep) -> torch.Tensor:
         """Cross entropy of given embeddings (B, S, d), cast to bfloat16,
         against targets (B, S)."""
-        self.check_trainable()
         return self._nll(p, embeds.to(torch.bfloat16), tgt, rep, qstate)
 
     def calibrate(self, p, sample, *, device="cuda") -> Calibrator:
@@ -687,17 +688,19 @@ class DecoderLM:
                 for k, v in one.items()}
 
     def init_pools(self, n_pages: int, page_size: int, device="cuda",
-                   kv_bits: int = 8) -> dict:
+                   kv_bits: int = 8, kv_heads: Optional[int] = None) -> dict:
         """Zeroed paged KV pools of `n_kv_layers` layers (page 0 is the
-        PAGE_NULL trash page); at kv_bits 4 the trailing head_dim axis is
-        halved (packed)."""
+        PAGE_NULL trash page) holding `kv_heads` kv heads (all of them
+        by default; a kv-sharded rank's range otherwise); at kv_bits 4
+        the trailing head_dim axis is halved (packed)."""
         c = self.cfg
         hd = c.hd
         if check_kv_bits(kv_bits) == 4:
             if hd % 2:
                 raise ValueError(f"kv_bits=4 needs an even head_dim, got {hd}")
             hd //= 2
-        shape = (self.n_kv_layers, n_pages + 1, c.n_kv_heads, page_size, hd)
+        K = c.n_kv_heads if kv_heads is None else kv_heads
+        shape = (self.n_kv_layers, n_pages + 1, K, page_size, hd)
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -721,15 +724,18 @@ class DecoderLM:
             logits = logits.masked_fill(pad, LOGIT_PAD)
         return logits
 
-    def init_caches(self, B: int, max_len: int, device="cuda") -> dict:
+    def init_caches(self, B: int, max_len: int, device="cuda",
+                    kv_heads: Optional[int] = None) -> dict:
         """The reference's contiguous ID cache of `B` slots of `max_len`
         positions, zeroed: KV pools of B pages of max_len positions plus
-        the trash page, with the fixed table slot b -> page b + 1 and
-        ``"contiguous": True``; the recurrent families' state of B rows
-        (`init_state`); the hybrid both."""
+        the trash page (of `kv_heads` kv heads, `init_pools`), with the
+        fixed table slot b -> page b + 1 and ``"contiguous": True``; the
+        recurrent families' state of B rows (`init_state`); the hybrid
+        both."""
         caches = self.init_state(B, device) if self.recurrent else {}
         if self.has_kv:
-            caches.update(self.init_pools(B, max_len, device=device))
+            caches.update(self.init_pools(B, max_len, device=device,
+                                          kv_heads=kv_heads))
             caches["table"] = torch.arange(1, B + 1, dtype=torch.int32,
                                            device=device)[:, None]
             caches["contiguous"] = True

@@ -3,10 +3,14 @@
 modes, synchronous or one step deep (`DispatchQueue`), int8 or
 int4-packed KV,
 the prefix cache with copy-on-write and warm pages, FCFS and
-`PrioritySLOPolicy` with bit-exact preemption, telemetry and the
-open-loop load generator)."""
+`PrioritySLOPolicy` with bit-exact preemption, telemetry, the
+open-loop load generator, and either arena kv-sharded over a serving
+mesh)."""
 from repro_torch.layers.attention import INACTIVE_POS, PAGE_NULL
-from repro_torch.serving.cache import PagedArena, SlotArena, make_arena
+from repro_torch.serving.cache import (
+    PagedArena, SlotArena, assert_integer_caches, float_cache_leaves,
+    make_arena,
+)
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import DispatchQueue, ServingEngine
 from repro_torch.serving.loadgen import (

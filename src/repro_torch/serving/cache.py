@@ -1,5 +1,6 @@
 """KV arenas (port of `repro.serving.cache`: `make_arena`, `SlotArena`
-and `PagedArena` with its prefix cache; without sharding).
+and `PagedArena` with its prefix cache, either kv-sharded over a
+serving mesh).
 
 Both keep the engine's protocol: slot leases and their page budget
 (`can_admit`, `alloc`, `release`, `pages_needed`, `committed_for`,
@@ -61,6 +62,20 @@ pools are torch tensors on the serving device, laid out per
 place; `decode_view()` hands them out with the page table copied to
 the device.  The copy-on-write page copy is torch indexing on both
 pools, enqueued on the device before the dispatch that follows it.
+
+Kv-head sharding (`ServingConfig.kv_shard` over `mesh`, the
+counterpart of the reference's `_arena_place`): each rank's pools hold
+its contiguous range of the kv heads (`kv_range`,
+`sharding.rules.kv_head_range`), (.., K/n, positions, hd) for a
+"model" width n that divides K (int4-packed pools alike), where
+`sharding.rules.arena_leaf_spec` puts the KV leaves' kv-head axis; a
+width that does not divide K keeps every head on every rank.  The recurrent state
+and the page table stay whole on every rank, and so does the host
+bookkeeping: page allocation, the prefix trie and copy-on-write run
+the same on every rank over its own pools (a page holds all kv heads
+of its positions).  `stats()` reports the rank's `pool_bytes`, and a
+sharded arena also `pool_bytes_total` (every rank's) and `kv_heads`
+(the rank's), which its `gauges()` carry too.
 """
 from __future__ import annotations
 
@@ -70,17 +85,47 @@ import numpy as np
 import torch
 
 from repro_torch.layers.attention import PAGE_NULL
+from repro_torch.sharding.rules import kv_head_range
 
 
 def make_arena(lm, cfg):
     """The arena a `ServingConfig` describes (the one construction site
-    of both)."""
+    of both), its pools kv-sharded where the config says so
+    (`sharding.rules.kv_head_range`)."""
+    kv_range = (kv_head_range(lm.cfg.n_kv_heads, cfg.mesh)
+                if cfg.kv_shard and lm.has_kv else None)
     if cfg.paged:
         return PagedArena(
             lm, cfg.n_slots, cfg.max_len, cfg.page_size, cfg.n_pages,
             device=cfg.device, kv_bits=cfg.kv_bits,
-            prefix_cache=cfg.prefix_cache, keep_pages=cfg.cache_keep_pages)
-    return SlotArena(lm, cfg.n_slots, cfg.max_len, device=cfg.device)
+            prefix_cache=cfg.prefix_cache, keep_pages=cfg.cache_keep_pages,
+            kv_range=kv_range)
+    return SlotArena(lm, cfg.n_slots, cfg.max_len, device=cfg.device,
+                     kv_range=kv_range)
+
+
+def _kv_split(arena, lm, kv_range: Optional[slice]):
+    """An arena's kv-head range, the count it holds (None: all) and the
+    number of ranks that split the heads."""
+    arena.kv_range = kv_range
+    arena.kv_heads = (None if kv_range is None
+                      else kv_range.stop - kv_range.start)
+    arena.kv_split = (1 if kv_range is None
+                      else lm.cfg.n_kv_heads // arena.kv_heads)
+
+
+def _pool_stats(arena) -> dict:
+    """The rank's pool bytes (the K/V pools and the recurrent state),
+    and on a kv-sharded arena every rank's and the rank's kv heads."""
+    kv = sum(arena.caches[k].numel() * arena.caches[k].element_size()
+             for k in ("k", "v") if k in arena.caches)
+    other = sum(arena.caches[k].numel() * arena.caches[k].element_size()
+                for k in ("conv", "h") if k in arena.caches)
+    out = {"pool_bytes": kv + other}
+    if arena.kv_split > 1:
+        out["pool_bytes_total"] = kv * arena.kv_split + other
+        out["kv_heads"] = int(arena.caches["k"].shape[2])
+    return out
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -135,7 +180,8 @@ class SlotArena:
     """Slot rows of `max_len` positions, leased whole (free -> leased ->
     free); see the module docstring for the storage."""
 
-    def __init__(self, lm, n_slots: int, max_len: int, *, device="cuda"):
+    def __init__(self, lm, n_slots: int, max_len: int, *, device="cuda",
+                 kv_range: Optional[slice] = None):
         if max_len > lm.max_seq:
             raise ValueError(
                 f"max_len {max_len} exceeds model max_seq {lm.max_seq}")
@@ -143,7 +189,9 @@ class SlotArena:
         self.max_len = max_len
         self.device = torch.device(device)
         self.recurrent, self.has_kv = lm.recurrent, lm.has_kv
-        self.caches = lm.init_caches(n_slots, max_len, device=self.device)
+        _kv_split(self, lm, kv_range)
+        self.caches = lm.init_caches(n_slots, max_len, device=self.device,
+                                     kv_heads=self.kv_heads)
         self._free = list(range(n_slots - 1, -1, -1))  # pop() -> slot 0
         self.lengths = np.zeros(n_slots, np.int32)  # written positions
         self.owner: List[Optional[int]] = [None] * n_slots
@@ -235,17 +283,23 @@ class SlotArena:
         return []
 
     def gauges(self) -> dict:
-        return {
+        out = {
             "n_leased": self.n_leased,
             "n_free": self.n_free,
             "occupancy": self.n_leased / self.n_slots,
         }
+        if self.kv_split > 1:
+            out.update(_pool_stats(self))
+        return out
 
     def stats(self) -> dict:
-        return {
+        out = {
             "arena": "slot",
             "arena_positions": self.n_slots * self.max_len,
         }
+        if self.kv_split > 1:
+            out.update(_pool_stats(self))
+        return out
 
 
 def _write_state(caches: dict, slot: int, single: dict):
@@ -273,7 +327,8 @@ class _PrefixNode:
 class PagedArena:
     def __init__(self, lm, n_slots: int, max_len: int, page_size: int = 16,
                  n_pages: int = 64, *, device="cuda", kv_bits: int = 8,
-                 prefix_cache: bool = False, keep_pages: int = 0):
+                 prefix_cache: bool = False, keep_pages: int = 0,
+                 kv_range: Optional[slice] = None):
         if max_len > lm.max_seq:
             raise ValueError(
                 f"max_len {max_len} exceeds model max_seq {lm.max_seq}")
@@ -289,11 +344,13 @@ class PagedArena:
         self.kv_bits = kv_bits
         self.device = torch.device(device)
         self.recurrent, self.has_kv = lm.recurrent, lm.has_kv
+        _kv_split(self, lm, kv_range)
         self.caches = (lm.init_state(n_slots, device=self.device)
                        if self.recurrent else {})
         if self.has_kv:
             self.caches.update(lm.init_pools(
-                n_pages, page_size, device=self.device, kv_bits=kv_bits))
+                n_pages, page_size, device=self.device, kv_bits=kv_bits,
+                kv_heads=self.kv_heads))
 
         # host bookkeeping; pop() -> lowest first
         self._free_slots = list(range(n_slots - 1, -1, -1))
@@ -691,6 +748,8 @@ class PagedArena:
         if self.prefix_cache:
             out["cache_pages"] = self.cache_pages
             out["warm_pages"] = self.warm_pages
+        if self.kv_split > 1:
+            out.update(_pool_stats(self))
         return out
 
     # -- device view ----------------------------------------------------
@@ -743,8 +802,7 @@ class PagedArena:
             "page_size": self.page_size,
             "n_pages": self.n_pages,
             "kv_bits": self.kv_bits,
-            "pool_bytes": sum(t.numel() * t.element_size()
-                              for t in self.caches.values()),
+            **_pool_stats(self),
             "pages_in_use": self.pages_in_use,
             "committed_pages": self.committed_pages,
             "max_pages_in_use": self.max_pages_in_use,

@@ -1,8 +1,8 @@
 """`ServingConfig`: the engine's validated construction record (port of
-`repro.serving.config`, without the mesh: the arena (`paged`), a
-scheduling policy, dispatch synchronous or one step deep
-(`dispatch_depth` 0 or 1), int8 or int4-packed KV, the prefix cache,
-and the telemetry sink).
+`repro.serving.config`: the arena (`paged`), a scheduling policy,
+dispatch synchronous or one step deep (`dispatch_depth` 0 or 1), int8
+or int4-packed KV, the prefix cache, the telemetry sink, and the
+serving mesh).
 
 `paged` picks the arena, as in the reference, whose default it keeps:
 False is `SlotArena` (every slot leases `max_len` contiguous
@@ -41,6 +41,13 @@ device while the host plans the next (`engine.DispatchQueue`).
 
 `telemetry` is the engine's observability sink
 (`serving.telemetry.Telemetry`); None gives the no-op `NULL`.
+
+`mesh` is the serving mesh (`launch.mesh.make_serving_mesh`: a
+DeviceMesh with a "model" dim, one process a rank) and `kv_shard`
+splits the KV arena's kv-head axis over its "model" dim
+(`sharding.rules`); `kv_shard` needs a mesh.  With a mesh and without
+`kv_shard` every rank holds the whole arena (the reference's
+mesh-but-unsharded point).
 """
 from __future__ import annotations
 
@@ -81,6 +88,8 @@ class ServingConfig:
     telemetry: Any = None  # None -> serving.telemetry.NULL
     prefix_cache: bool = False
     cache_keep_pages: int = 0  # warm-page budget (needs prefix_cache)
+    mesh: Any = None  # launch.mesh.make_serving_mesh
+    kv_shard: bool = False  # kv heads split over the mesh's "model" dim
 
     def __post_init__(self):
         if self.n_slots < 1:
@@ -107,5 +116,12 @@ class ServingConfig:
         if self.cache_keep_pages and not self.prefix_cache:
             raise ValueError("cache_keep_pages needs prefix_cache=True "
                              "(warm pages are prefix-cache state)")
+        if self.kv_shard and self.mesh is None:
+            raise ValueError("kv_shard=True needs a mesh "
+                             "(launch.mesh.make_serving_mesh)")
+        if self.mesh is not None and "model" not in (
+                self.mesh.mesh_dim_names or ()):
+            raise ValueError('serving mesh needs a "model" dim, got '
+                             f"{self.mesh.mesh_dim_names}")
         if self.scheduler is None:
             self.scheduler = SchedulerConfig()

@@ -102,13 +102,23 @@ the reference, where it is not an engine field either.  The
 constructor checks that the arena's caches hold no float tensor
 (`serving.cache.assert_integer_caches`).
 
-Left out of the port so far (a later slice ports it): mesh and
-kv-head sharding.  Its `stats()` keys read as the reference's do
-without it: `mesh_devices` 1, `kv_shard` False.
+Multi-device (`ServingConfig.mesh`, `kv_shard`; the reference's
+DESIGN.md §Serving ¶Multi-device): one process a rank, each running
+this engine with the same host scheduler on the same replicated
+tables.  With `kv_shard` each rank's arena holds its contiguous kv
+heads (`serving.cache.make_arena`), the engine cuts the layers' `kv4`
+tables to them once (`models.lm.shard_tables`), and every dispatch
+runs under the mesh's profile (`sharding.hints.use_profile`), in which
+the attention computes those heads and all-gathers the int8 ctx rows
+before wo (`layers.attention`), so every rank gets the single-device
+engine's tokens, step for step, at either dispatch depth.  Only rank 0 calls
+`on_token`.  `stats()` reports `mesh_devices` and `kv_shard` as the
+reference's does.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
@@ -118,6 +128,7 @@ import torch
 
 from repro_torch.launch import variants
 from repro_torch.layers.attention import INACTIVE_POS
+from repro_torch.models.lm import shard_tables
 from repro_torch.serving.cache import assert_integer_caches, make_arena
 from repro_torch.serving.config import ServingConfig, check_dispatch_depth
 from repro_torch.serving.policy import (
@@ -128,6 +139,7 @@ from repro_torch.serving.request import (
     Request, RequestState, ResumeState,
 )
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.sharding.hints import use_profile
 from repro_torch.serving.telemetry import NULL
 
 ChunkRow = Tuple[PrefillState, int, int]  # (state, offset, n_tokens)
@@ -184,10 +196,14 @@ class ServingEngine:
                 "ServingEngine serves token LMs "
                 f"(input_mode={lm.cfg.input_mode!r})")
         self.lm = lm
-        self.tables = tables
         self.device = torch.device(cfg.device)
+        self.mesh = cfg.mesh
+        self.kv_shard = bool(cfg.kv_shard)
         self.policy = cfg.policy if cfg.policy is not None else FCFSPolicy()
         self.arena = make_arena(lm, cfg)
+        # a kv-sharded rank's kv4 tables hold its heads, cut once here
+        self.tables = (tables if self.arena.kv_range is None
+                       else shard_tables(tables, self.arena.kv_range))
         assert_integer_caches(
             self.arena.caches,
             allow_ssm_state=lm.cfg.family in ("ssm", "hybrid"))
@@ -213,7 +229,9 @@ class ServingEngine:
                 f"{self._prefill_mode!r} mode")
         self._scratch = None  # the whole-prompt prefill's B=1 cache
         self.queue = DispatchQueue(cfg.dispatch_depth)
-        self.on_token = on_token
+        # every rank emits the same tokens; rank 0 reports them
+        self.on_token = (on_token if self.mesh is None
+                         or torch.distributed.get_rank() == 0 else None)
         self.tel = cfg.telemetry if cfg.telemetry is not None else NULL
         self.active: Dict[int, RequestState] = {}  # slot -> decode state
         # slot -> chunked-prefill progress, in admission order
@@ -542,16 +560,28 @@ class ServingEngine:
         else:
             self._start_decoding(req, slot, first, now, admit_t)
 
+    def _dispatch_ctx(self):
+        """Every dispatch's context: the attention's path
+        (``paged_decode``) and, over a kv-sharded arena, the mesh's
+        profile (the per-rank head range)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(
+            variants.use_variants(paged_decode=self._paged_decode))
+        if self.mesh is not None and self.kv_shard:
+            stack.enter_context(use_profile(self.mesh))
+        return stack
+
     def _prefill_one(self, padded: np.ndarray, last: int) -> int:
         """The B=1 prefill into the zeroed scratch cache; -> the first
         token (the one host sync of an admission)."""
         if self._scratch is None:
-            self._scratch = self.lm.init_caches(1, self.arena.max_len,
-                                                device=self.device)
+            self._scratch = self.lm.init_caches(
+                1, self.arena.max_len, device=self.device,
+                kv_heads=self.arena.kv_heads)
         for key in ("conv", "h", "k", "v"):
             if key in self._scratch:
                 self._scratch[key].zero_()
-        with variants.use_variants(paged_decode=self._paged_decode):
+        with self._dispatch_ctx():
             logits = self.lm.prefill(self.tables,
                                      self.arena.to_device(padded),
                                      self._scratch, last_index=last)
@@ -609,7 +639,7 @@ class ServingEngine:
     def _decode(self, toks: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         """Enqueue one decode_step over every slot row and the greedy
         argmax; -> the (n_slots,) next-token vector on the device."""
-        with variants.use_variants(paged_decode=self._paged_decode):
+        with self._dispatch_ctx():
             logits = self.lm.decode_step(
                 self.tables, self.arena.to_device(toks),
                 self.arena.decode_view(), self.arena.to_device(pos))
@@ -638,7 +668,7 @@ class ServingEngine:
                  last: np.ndarray) -> torch.Tensor:
         """Enqueue one prefill_chunk over every row and the greedy
         argmax; -> the (n_slots,) next-token vector on the device."""
-        with variants.use_variants(paged_decode=self._paged_decode):
+        with self._dispatch_ctx():
             logits = self.lm.prefill_chunk(
                 self.tables, self.arena.to_device(toks),
                 self.arena.decode_view(), self.arena.to_device(start),
@@ -894,8 +924,9 @@ class ServingEngine:
                 self._occupancy_sum / self._steps if self._steps else 0.0),
             "max_active": self._max_active,
             "dispatch_depth": self.queue.depth,
-            "mesh_devices": 1,
-            "kv_shard": False,
+            "mesh_devices": (1 if self.mesh is None
+                             else int(self.mesh.mesh.numel())),
+            "kv_shard": self.kv_shard,
             "device": str(self.device),
         }
         out.update(self.arena.stats())

@@ -1909,3 +1909,84 @@ def test_fq_train_step_card_close_to_cpu():
         assert (float((a - b).norm()) / den if den else float(a.norm())
                 ) <= 2e-2
     assert all(abs(a - b) <= 2e-2 * abs(b) for a, b in zip(sc, sh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("S", [1, 32])
+@pytest.mark.parametrize("n", [2, 4])
+def test_paged_attention_per_head_range_equals_whole_launch(packed, S, n):
+    """The paged attention per kv-head range (the kv-sharded serving
+    path): at granite's geometry (H 32, K 8, hd 64, pages of 16, T
+    512), each of n ranks' launches over its own operands (its K / n kv
+    heads' pools and (6, K / n) unpack columns, its H / n query heads),
+    concatenated along the heads, equals the whole-pool launch exactly;
+    one launch a rank on the pool mode's counter."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(S + n)
+    B, H, K, hd, ps, T = 8, 32, 8, 64, 16, 512
+    hs = hd // 2 if packed else hd
+    n_pool = B * (T // ps) + 1
+    q = torch.randint(-40, 41, (B, H, S, hd), dtype=torch.int8,
+                      device="cuda", generator=g)
+    kp, vp = (torch.randint(-128, 128, (n_pool, K, ps, hs), dtype=torch.int8,
+                            device="cuda", generator=g) for _ in range(2))
+    table = torch.randperm(n_pool - 1, device="cuda", generator=g)[
+        :B * (T // ps)].add(1).to(torch.int32).reshape(B, T // ps)
+    pos = torch.randint(0, T - S, (B,), dtype=torch.int32, device="cuda",
+                        generator=g)
+    pos[-1] = INACTIVE_POS
+    scale = torch.tensor(1.0 / 2048.0, device="cuda")
+    kw = dict(group=H // K)
+    if packed:
+        kw["k_rq"] = staged_unpack_rq(K).cuda()
+        kw["v_rq"] = torch.roll(kw["k_rq"], 3, dims=1)
+    whole = paged_attention(q, kp, vp, table, pos, scale, **kw)
+    counter = paged_attention_kv4 if packed else paged_attention
+    c0 = counter.launches
+    kl, hl = K // n, H // n
+
+    def rank(r):
+        kr = slice(r * kl, (r + 1) * kl)
+        kw_r = dict(kw)
+        if packed:
+            kw_r.update(k_rq=kw["k_rq"][:, kr].contiguous(),
+                        v_rq=kw["v_rq"][:, kr].contiguous())
+        return paged_attention(
+            q[:, r * hl:(r + 1) * hl].contiguous(), kp[:, kr].contiguous(),
+            vp[:, kr].contiguous(), table, pos, scale, **kw_r)
+
+    parts = [rank(r) for r in range(n)]
+    assert counter.launches == c0 + n
+    assert all(p.shape == (B, H // n, S, hd) for p in parts)
+    assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_1_2b"])
+def test_bf16_island_engine_card_equals_cpu(arch):
+    """Under ``ssm_island_dtype="bf16"``: a reduced model (calibrated
+    and deployed on the card) serves a 256-token prompt (two bf16 scan
+    chunks) and a 37-token one at their exact length over `SlotArena`;
+    the card's tokens and the arena's conv and h state equal the CPU's
+    bit for bit, and the h state differs from the float32 island's."""
+    _need_card()
+    from repro_torch.launch.serve import deploy_model, serve_scenario
+
+    lm, t_gpu = deploy_model(arch, reduced=True, max_seq=320, seed=0,
+                             device="cuda")
+    rng = np.random.default_rng(7)
+    reqs = [(rng.integers(0, lm.cfg.vocab, size=(n,)).tolist(), 4)
+            for n in (256, 37)]
+    out = {}
+    for dev, t in (("cuda", t_gpu), ("cpu", tables_to(t_gpu, "cpu"))):
+        for dtype in ("bf16", "f32"):
+            out[dev, dtype] = serve_scenario(lm, t, dict(
+                config=dict(n_slots=2, max_len=320), requests=reqs,
+                variants=dict(ssm_island_dtype=dtype)), device=dev)
+    card, cpu = out["cuda", "bf16"], out["cpu", "bf16"]
+    assert card["tokens"] == cpu["tokens"]
+    assert torch.equal(card["pools"]["conv"], cpu["pools"]["conv"])
+    assert torch.equal(card["pools"]["h"].view(torch.int32),
+                       cpu["pools"]["h"].view(torch.int32))
+    assert not torch.equal(cpu["pools"]["h"], out["cpu", "f32"]["pools"]["h"])

@@ -30,7 +30,9 @@ Held at tolerance 0 unless stated:
     reasons, steps, arena host state after every step, and the arena's
     conv and h state after the drain;
   - the reference's refusals (kv_bits 4, the prefix cache), the
-    integer-cache check, the bf16 island variant and `ssm_chunk`.
+    integer-cache check, and the variants `ssm_chunk` and the bf16
+    island (`tests/test_torch_ssm_bf16.py` holds the bf16 island's
+    layers and engines).
 """
 import copy
 import dataclasses
@@ -198,23 +200,25 @@ def test_ssm_core_equals_reference(L, h0):
 
 def test_ssm_chunk_variant_and_bf16_island():
     """`ssm_chunk` 64 runs 128 positions as two chunks in both packages
-    (equal bits); the bf16 island is not ported and raises."""
-    x1, dt, bm, cm, A, D, _ = _scan_inputs(128, 3)
+    (equal bits); with the bf16 island too (each chunk's scan in
+    bfloat16, the carry in float32), y and h equal the reference's bit
+    for bit and differ from the float32 island's."""
+    x1, dt, bm, cm, A, D, h0 = _scan_inputs(128, 3)
     m = JQMamba1(16, d_state=16)
-    with j_variants.use_variants(ssm_chunk=64):
-        jy, jh = jax.jit(lambda *a: m._core_fp(*a, return_h=True))(
-            x1, dt, bm, cm, A, D)
     T = torch.from_numpy
     args = (T(x1), T(dt), T(bm), T(cm), T(A), T(D))
-    with variants.use_variants(ssm_chunk=64):
-        y, h = ssm_core(*args)
-    assert (_bits_differ(y.numpy(), jy), _bits_differ(h.numpy(), jh)) == (
-        0, 0)
-    y1, _ = ssm_core(*args)
-    assert _bits_differ(y1.numpy(), y.numpy()) > 0  # another carry order
-    with variants.use_variants(ssm_island_dtype="bf16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            ssm_core(*args)
+    for kw in ({}, {"ssm_island_dtype": "bf16"}):
+        with j_variants.use_variants(ssm_chunk=64, **kw):
+            jy, jh = jax.jit(lambda *a: m._core_fp(*a, return_h=True))(
+                x1, dt, bm, cm, A, D, h0)
+        with variants.use_variants(ssm_chunk=64, **kw):
+            y, h = ssm_core(*args, h0=T(h0))
+        assert (_bits_differ(y.numpy(), jy),
+                _bits_differ(h.numpy(), jh)) == (0, 0)
+        y1, h1 = ssm_core(*args, h0=T(h0))
+        assert _bits_differ(y1.numpy(), y.numpy()) > 0  # another order
+        if kw:
+            assert _bits_differ(h1.numpy(), h.numpy()) > 0
 
 
 @pytest.mark.parametrize("L", [1, 7])

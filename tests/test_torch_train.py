@@ -57,6 +57,7 @@ from repro.configs.base import get_config as j_get_config
 from repro.core import pact as jpact
 from repro.core import quantum as jq
 from repro.core.rep import Rep as JRep
+from repro.launch import variants as j_variants
 from repro.launch.steps import build_train_step as j_build_train_step
 from repro.launch.train import build as j_build
 from repro.models.lm import DecoderLM as JLM
@@ -499,10 +500,13 @@ def test_fq_loss_embeds_and_gradients_equal_reference():
 def test_other_families_raise_on_training():
     """What the port still does not train: llama4_maverick's pair
     segments and shared expert (ROADMAP item 10b; the model is refused
-    at construction), the bf16 scan island (10c) and `build` of an
-    embeds model (its stream feeds token ids).  Every other family
-    trains (`tests/test_torch_train_moe.py`,
-    `tests/test_torch_train_ssm.py`)."""
+    at construction) and `build` of an embeds model (its stream feeds
+    token ids).  Every other family trains
+    (`tests/test_torch_train_moe.py`, `tests/test_torch_train_ssm.py`),
+    the bf16 scan island (10c) too: under ``ssm_island_dtype="bf16"``
+    the first train step's FQ loss of reduced falcon_mamba_7b and
+    zamba2_1_2b at two chunks of 128 tokens is within LOSS_TOL of the
+    reference's jitted loss under the variant."""
     jcfg = j_get_config("llama4_maverick_400b_a17b").reduced()
     cfg = ArchConfig(**{f.name: getattr(jcfg, f.name)
                         for f in dataclasses.fields(ArchConfig)})
@@ -511,15 +515,18 @@ def test_other_families_raise_on_training():
     with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
         DecoderLM(dataclasses.replace(cfg, moe_every=1), max_seq=SEQ)
     for arch in ("falcon_mamba_7b", "zamba2_1_2b"):
-        lm = DecoderLM(get_config(arch).reduced(), max_seq=SEQ)
-        with variants.use_variants(ssm_island_dtype="bf16"):
-            with pytest.raises(NotImplementedError, match="item 10c"):
-                lm.init_qstate("cpu")
-            with pytest.raises(NotImplementedError, match="item 10c"):
-                lm.loss_fn({}, None, torch.zeros((1, 4), dtype=torch.int32),
-                           Rep.FQ)
-            with pytest.raises(NotImplementedError, match="item 10c"):
-                build_train_step(lm)
+        with variants.use_variants(ssm_island_dtype="bf16"), \
+                j_variants.use_variants(ssm_island_dtype="bf16"):
+            jlm, jtr, _, _, stream = j_build(arch, reduced=True, seq=256,
+                                             batch=1)
+            tok = stream.batch(0)
+            jl = jax.jit(lambda t: jlm.loss_fn(
+                t["params"], t["qstate"], jnp.asarray(tok), JRep.FQ))(jtr)
+            lm = DecoderLM(get_config(arch).reduced(), max_seq=257)
+            tr = params_to_torch(_np(jtr), "cpu")
+            loss, _, _ = build_train_step(lm)(tr, adamw_init(tr),
+                                              {"tokens": _t(tok)})
+        assert abs(float(loss) - float(jl)) <= LOSS_TOL * abs(float(jl))
     with pytest.raises(ValueError, match="build_train_step"):
         build("internvl2_76b", reduced=True, seq=SEQ, batch=2, device="cpu")
 
