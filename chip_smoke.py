@@ -104,7 +104,7 @@ Phases (any failure raises and the script exits non-zero):
             preemption counters and both pools equal byte for byte
             after the drain
   main      granite_3_2b at full width over its first MAIN_LAYERS of 40
-            layers (4 since the embeds and train phases; random seeded
+            layers (2 since the train_sharded phase; random seeded
             weights
             calibrated and deployed layer by layer by `deploy_model`, as
             every later phase's are): 8 ragged requests
@@ -224,10 +224,11 @@ Phases (any failure raises and the script exits non-zero):
             logits and both state leaves, h bit for bit; then 3
             requests, prompts 9-40, 4 new tokens, over `SlotArena` and
             the paged arena: tokens and the arenas' conv and h state
-            after the drain; then the bf16 scan island, card vs CPU:
-            a 128-token prefill's logits and state bit for bit, a
-            256-token prompt (two chunks) served at its exact length,
-            tokens and state), then the model at
+            after the drain; then the bf16 scan island at scan
+            chunks of BF16_CHECK_CHUNK, card vs CPU: a one-chunk
+            prefill's logits and state bit for bit, a two-chunk prompt
+            served at its exact length, tokens and state), then the
+            model at
             full width over its
             first SSM_LAYERS of 64 layers calibrated and deployed by
             `deploy_model` and served as the 8-request cell over
@@ -303,15 +304,29 @@ Phases (any failure raises and the script exits non-zero):
             the model FLOP/s share); then falcon_mamba_7b with the bf16
             scan island: card vs CPU on 1 x TRAIN_BF16_SEQ tokens in two
             chunks, and its trainer
+  train_sharded  the training shardings: granite_3_2b at full width,
+            SHARDED_TRAIN_LAYERS layers, batch 2 x 64, one FQ step
+            unsharded on the card, then by two gloo ranks sharing the
+            card on a (1, 2) mesh (loss and every leaf of the new
+            params, qstate and moments bit-equal) and a (2, 1) mesh
+            (within SHARDED_TRAIN_TOL), each rank's bytes equal to its
+            placements', the (1, 2) result checkpointed and restored
+            onto (2, 1) with equal leaves, and one nccl rank on (1, 1)
+            (bit-equal); step times, gloo-staged on one card; then the
+            float forward's cache (`init_caches(rep=FP)`): a 64-token
+            prefill and 4 decodes card vs CPU and against the no-cache
+            forward
 
 Then a `kernels` JSON line (one entry a kernel, and the paged
 attention's per-head-range launches of both pool modes with the
 sharded phase's launch counts), the card line, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout (no src/repro_torch beside it), it exits non-zero at once.
-`--skip PHASE,...` leaves phases out (for a short development run; it
-then prints no result line), the build, kernels and main phases
-excepted.
+`--skip PHASE,...` leaves phases out (for a short development run),
+the build, kernels and main phases excepted; a row whose launches a
+skipped phase counts (the quantized flash attention's: entry; the
+grouped GEMM's: olmoe; the per-head-range rows: sharded) carries
+launches null.
 """
 from __future__ import annotations
 
@@ -378,10 +393,11 @@ PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                               "requant")}
 # main-path engine settings; the main tables' depth (granite_3_2b's
 # first MAIN_LAYERS of 40 at full width: 10 since the blockwise and
-# hybrid phases, 4 since the embeds and train phases, for the whole
-# script's 1,000 s aim; every phase on those tables scales with it)
+# hybrid phases, 4 since the embeds and train phases, 2 since the
+# train_sharded phase, for the whole script's time; every phase on
+# those tables scales with it)
 N_SLOTS, PAGE, MAX_LEN, N_PAGES, CHUNK = 8, 16, 512, 256, 32
-MAIN_LAYERS = 4
+MAIN_LAYERS = 2
 # the per-head-range paged attention: S at T MAX_LEN, and the "model"
 # widths whose shards must concatenate to the whole-pool launch
 SHARD_S = (CHUNK, 1)
@@ -439,8 +455,14 @@ SSM_PARITY_LAYERS = 1
 # one scan chunk (layers.ssm.CHUNK), then requests with prompts 9-40
 # and 4 new tokens
 SSM_PREFILL, SSM_PARITY_GEN = 128, 4
-# the bf16 island's served prompt: two scan chunks
-BF16_PROMPT = 256
+# the ssm and hybrid bf16 island checks run at scan chunks of this
+# length (a one-chunk prefill, a two-chunk prompt: 128 and 256 tokens
+# before, 20.2 and 53.7 s of the phases on an H100 80GB HBM3 at 700 W
+# host, the CPU side most of it)
+BF16_CHECK_CHUNK = 32
+# torch.exp card vs CPU over every EXP_STRIDE-th float32 in [-104, 0]
+# (every one before: 10.7 s)
+EXP_STRIDE = 4
 # blockwise phase: granite_3_2b's served depth (the first layer of the
 # calibrate phase's 2-layer tables since the embeds and train phases:
 # the CPU side's prefills bound the phase), the contiguous cache's
@@ -522,14 +544,17 @@ EMBEDS_MAX = EMBEDS_PROMPT + EMBEDS_DECODES
 # TRAIN_RESUME_TOL relative of the uninterrupted run's); internvl2_76b's
 # loss_fn_embeds at full width, 1 layer, on 1 x 64 float rows
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_RESUME_TOL = 1e-3, 2e-2, 1e-3
-TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 256
+# (2 trainer layers since the train_sharded phase, 4 before: time)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 8, 256
 TRAIN_STEPS, TRAIN_CKPT = 12, 6
 # the other trained families at full width: (arch, the card-vs-CPU
 # check's depth, batch and sequence; the trainer's depth, batch and
 # sequence).  olmoe: 1 of 16 layers on one MoE group of 512 tokens,
 # then 2 layers at 4 x 512; falcon_mamba_7b 1 of 64 layers; zamba2_1_2b
 # 7 of 38 (a group of 6 Mamba-2 blocks, its shared attention, a 1-block
-# tail: its serving phase's depth); the scan families' checks within
+# tail: its serving phase's depth) in the trainer, 6 (the group, no
+# tail, since the train_sharded phase: time) in its card-vs-CPU check;
+# the scan families' checks within
 # one scan chunk (64 tokens each: the CPU
 # side's island bounds them, 97 s at 128), their trainers over two
 # chunks, falcon_mamba_7b at 8 x 256, zamba2_1_2b at 2 x 256 (time:
@@ -537,9 +562,10 @@ TRAIN_STEPS, TRAIN_CKPT = 12, 6
 # phase)
 TRAIN_FAMILIES = (("olmoe_1b_7b", 1, 1, 512, 2, 4, 512),
                   ("falcon_mamba_7b", 1, 1, 64, 1, 8, 256),
-                  ("zamba2_1_2b", 7, 1, 64, 7, 2, 256))
-# (5 timed steps since the bf16 island's train cell, 10 before: time)
-TRAIN_FAMILY_WARM, TRAIN_FAMILY_TIMED = 2, 5
+                  ("zamba2_1_2b", 6, 1, 64, 7, 2, 256))
+# (1 warm-up and 3 timed steps since the train_sharded phase, 2 and 5
+# since the bf16 island's train cell, 2 and 10 before: time)
+TRAIN_FAMILY_WARM, TRAIN_FAMILY_TIMED = 1, 3
 # the bf16 island's card-vs-CPU batch: 64 tokens in two chunks of 32
 TRAIN_BF16_SEQ = 64
 # card-vs-CPU gradient tolerances of those families (relative L2; the
@@ -554,6 +580,31 @@ TRAIN_BF16_SEQ = 64
 TRAIN_FAMILY_GRAD_TOL = {"moe": 1e-1, "ssm": TRAIN_GRAD_TOL, "hybrid": 5e-2}
 # the card's dense bf16 peak (H100 SXM data sheet, without sparsity)
 BF16_FLOPS_S = 989.4e12
+# train_sharded phase: granite_3_2b at full width, SHARDED_TRAIN_LAYERS
+# layers, the train cell's card-vs-CPU batch (2 x 64): the unsharded FQ
+# step on the card, then two gloo ranks sharing the card on a (1, 2) and
+# a (2, 1) ("data", "model") mesh, and one nccl rank on (1, 1).  The
+# (2, 1) mesh's limits (each leaf's max |diff| over its max |value|):
+# on the CPU (tests/test_torch_train_sharded.py SHARD_TOL) the loss is
+# 8e-8 apart and the moments a bfloat16 rounding of each rank's
+# partial weight gradients; on the card the split also halves every
+# GEMM's row count, for which cuBLAS takes other kernels, so the rows'
+# bfloat16 products differ as the card's and the CPU's do: the loss
+# within the train phase's card-vs-CPU TRAIN_LOSS_TOL (measured 3.8e-5
+# on an H100 80GB HBM3 at 700 W), the moments within 5e-2 (measured
+# 1.4e-2), the params bit-equal (AdamW's first step moves each by lr
+# times a sign); SHARDED_TRAIN_TIMED timed steps a mesh
+SHARDED_TRAIN_LAYERS, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ = 2, 2, 64
+SHARDED_TRAIN_TOL = {"loss": 1e-3, "trainable": 1e-6, "moments": 5e-2}
+SHARDED_TRAIN_TIMED = 1
+# the float forward's cache (same phase): the 2-layer model's prefill of
+# FLOAT_CACHE_PREFILL tokens and FLOAT_CACHE_DECODES decodes through
+# init_caches(rep=FP) for 2 rows, card vs CPU (logits within
+# FLOAT_CACHE_TOL of their span) and each step against the no-cache
+# forward over the whole sequence (FLOAT_NOCACHE_TOL of the span: the
+# cache holds K / V in bfloat16)
+FLOAT_CACHE_PREFILL, FLOAT_CACHE_DECODES = 64, 4
+FLOAT_CACHE_TOL, FLOAT_NOCACHE_TOL = 1e-3, 5e-2
 
 
 def card_line() -> str:
@@ -1658,24 +1709,25 @@ def serve(lm, tables, requests, device, kv_bits=8, *, telemetry=None,
     return {c.req_id: list(c.tokens) for c in done}, eng.stats(), eng
 
 
-def exp_agreement(torch):
+def exp_agreement(torch, stride=EXP_STRIDE):
     """torch.exp on the card against torch.exp on the host CPU over
-    every float32 in [-104, 0] (the softmax's exponents; below -104 both
-    give 0).  The paged attention takes `island_exp` instead, the same
-    on both (`island_exp_agreement`); this count says why.  -> (differing,
-    total)."""
+    every `stride`-th float32 in [-104, 0] (the softmax's exponents;
+    below -104 both give 0).  The paged attention takes `island_exp`
+    instead, the same on both (`island_exp_agreement`); this count says
+    why.  -> (differing, compared)."""
     lo = -(1 << 31)                                     # bits of -0.0
     hi = lo + (0xC2D00000 - 0x80000000) + 1             # bits of -104.0
-    step = 1 << 26
-    bad = 0
+    step = stride << 26
+    bad = n = 0
     for a in range(lo, hi, step):
-        bits = torch.arange(a, min(a + step, hi), dtype=torch.int64,
+        bits = torch.arange(a, min(a + step, hi), stride, dtype=torch.int64,
                             device="cuda").to(torch.int32)
         x = bits.view(torch.float32)
         on_card = torch.exp(x).view(torch.int32).cpu()
         on_cpu = torch.exp(x.cpu()).view(torch.int32)
         bad += int((on_card != on_cpu).sum())
-    return bad, hi - lo
+        n += bits.numel()
+    return bad, n
 
 
 def island_exp_agreement(torch, stride=61):
@@ -1839,7 +1891,8 @@ def phase_parity(torch, np):
     t0 = time.perf_counter()
     bad, total = exp_agreement(torch)
     print(f"  torch.exp on the card vs the CPU: {bad} of {total} float32 "
-          f"inputs in [-104, 0] differ ({time.perf_counter() - t0:.1f} s)")
+          f"inputs in [-104, 0] (every {EXP_STRIDE}th) differ "
+          f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     n = island_exp_agreement(torch)
     print(f"  island_exp (the paged attention's exp) on the card vs the CPU:"
@@ -2520,25 +2573,27 @@ def requant_forms_ssm(kernels, cfg, dispatches: int, total: int) -> None:
                              f"not {want}")
 
 
-def bf16_island_parity(torch, np, lm, t_np, what):
+def bf16_island_parity(torch, np, lm, t_np, what, chunk):
     """The bf16 scan island (``ssm_island_dtype="bf16"``) card vs CPU on
-    `lm`'s tables: a SSM_PREFILL-token prefill (one chunk, the bf16
-    branch) with int32 logits and the conv and h state bit for bit (on
-    the card h apart from the float32 island's), then a
-    BF16_PROMPT-token prompt (two chunks) served at its exact length
-    over `SlotArena`: tokens and the arena's state bit for bit."""
+    `lm`'s tables under ``ssm_chunk=chunk``: a one-chunk prefill (the
+    bf16 branch) with int32 logits and the conv and h state bit for bit
+    (on the card h apart from the float32 island's), then a two-chunk
+    prompt served at its exact length over `SlotArena`: tokens and the
+    arena's state bit for bit."""
     from repro_torch.launch import variants
     from repro_torch.launch.serve import serve_scenario
     from repro_torch.models.lm import tables_from_numpy
 
     t0 = time.perf_counter()
+    n_pre, n_prompt = chunk, 2 * chunk
     rng = np.random.default_rng(SEED + 13)
-    prompt = rng.integers(0, lm.cfg.vocab, size=(1, SSM_PREFILL)).astype(
+    prompt = rng.integers(0, lm.cfg.vocab, size=(1, n_pre)).astype(
         np.int32)
+    isl = dict(ssm_island_dtype="bf16", ssm_chunk=chunk)
     sc = dict(config=dict(n_slots=2, max_len=MAX_LEN),
-              variants=dict(ssm_island_dtype="bf16"),
+              variants=isl,
               requests=[(rng.integers(0, lm.cfg.vocab,
-                                      size=(BF16_PROMPT,)).tolist(),
+                                      size=(n_prompt,)).tolist(),
                          SSM_PARITY_GEN)])
     out = {}
     for dev in ("cuda", "cpu"):
@@ -2546,7 +2601,7 @@ def bf16_island_parity(torch, np, lm, t_np, what):
         res = {}
         for dtype in ("bf16", "f32") if dev == "cuda" else ("bf16",):
             caches = lm.init_caches(1, MAX_LEN, device=dev)
-            with variants.use_variants(ssm_island_dtype=dtype):
+            with variants.use_variants(**dict(isl, ssm_island_dtype=dtype)):
                 logits = lm.prefill(t, torch.from_numpy(prompt).to(dev),
                                     caches)
             res[dtype] = [logits.cpu(), caches["conv"].cpu(),
@@ -2569,10 +2624,10 @@ def bf16_island_parity(torch, np, lm, t_np, what):
         if not torch.equal(sc_card["pools"][k], sc_cpu["pools"][k]):
             raise AssertionError(f"{what} bf16 island serve: {k} state "
                                  "card != CPU")
-    print(f"  {what} bf16 island: a {SSM_PREFILL}-token prefill's logits, "
+    print(f"  {what} bf16 island: a {n_pre}-token prefill's logits, "
           f"conv and h {tuple(rh['bf16'][2].shape)} equal on the card and "
           f"the CPU bit for bit ({n_h} h entries apart from the float32 "
-          f"island's); a {BF16_PROMPT}-token prompt served at its exact "
+          f"island's); a {n_prompt}-token prompt served at its exact "
           f"length: tokens {sc_card['tokens']} and the arena's state equal "
           f"on the card and the CPU ({time.perf_counter() - t0:.1f} s)")
 
@@ -2609,7 +2664,7 @@ def phase_ssm(torch, np, kernels):
     small = ragged_requests(3, cfg.vocab, np.random.default_rng(SEED + 1),
                             prompt_lo=9, prompt_hi=40, gen=SSM_PARITY_GEN)
     ssm_engine_parity(torch, np, lm2, t_np, small)
-    bf16_island_parity(torch, np, lm2, t_np, "ssm")
+    bf16_island_parity(torch, np, lm2, t_np, "ssm", chunk=BF16_CHECK_CHUNK)
     del t_np, lm2
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3699,7 +3754,8 @@ def phase_hybrid(torch, np, kernels):
           f"tail) calibrated on the card and deployed in "
           f"{time.perf_counter() - t0:.1f} s")
     hybrid_parity(torch, np, lm8, t_np)
-    bf16_island_parity(torch, np, lm8, t_np, "hybrid")
+    bf16_island_parity(torch, np, lm8, t_np, "hybrid",
+                       chunk=BF16_CHECK_CHUNK)
     del t_np, lm8
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4270,6 +4326,263 @@ def phase_train(torch, np, kernels):
     print(f"  ({arch} bf16: {time.perf_counter() - t0:.1f} s)")
 
 
+def _sharded_train_lm(max_seq=SHARDED_TRAIN_SEQ + 1):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.lm import DecoderLM
+
+    return DecoderLM(dataclasses.replace(get_config("granite_3_2b"),
+                                         n_layers=SHARDED_TRAIN_LAYERS),
+                     max_seq=max_seq)
+
+
+def _sharded_train_state(torch, lm, dev):
+    """The seeded (trainable, opt state, batch) on `dev`."""
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticStream
+    from repro_torch.models.lm import params_to_torch
+    from repro_torch.optim.adamw import adamw_init
+
+    tr = {"params": params_to_torch(lm.init_np(SEED), dev),
+          "qstate": lm.init_qstate(dev)}
+    tok = SyntheticStream(SyntheticConfig(
+        vocab=lm.cfg.vocab, seq_len=SHARDED_TRAIN_SEQ,
+        global_batch=SHARDED_TRAIN_BATCH)).batch(0)
+    return tr, adamw_init(tr), {"tokens": torch.from_numpy(tok).to(dev)}
+
+
+def _timed_steps(torch, step, *args) -> list:
+    out = []
+    for _ in range(SHARDED_TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def train_sharded_rank(rank, out_dir, ckpt_dir, meshes):
+    """One rank of the train_sharded phase: the seeded state, the
+    unsharded FQ step on the card (timed), then for each mesh shape the
+    state placed by `launch.steps.train_shardings` (its bytes and what
+    its placements say), one sharded step gathered back and held
+    against the unsharded one (bit-equal where the mesh does not split
+    the batch, else within SHARDED_TRAIN_TOL), SHARDED_TRAIN_TIMED timed
+    steps; the (1, 2) step's result saved as a checkpoint, restored onto
+    (2, 1) and held against it.  Writes a JSON report a rank."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_train_step, train_shardings
+    from repro_torch.sharding import place
+    from repro_torch.sharding.rules import local_shape
+
+    lm = _sharded_train_lm()
+    tr, opt, batch = _sharded_train_state(torch, lm, "cuda")
+    step = build_train_step(lm)
+    loss, ntr, nopt = step(tr, opt, batch)
+    want = [loss] + tree_leaves(ntr) + tree_leaves(nopt)
+    n_tr = len(tree_leaves(ntr))
+    kinds = ["loss"] + ["trainable"] * n_tr + ["moments"] * (
+        len(want) - 1 - n_tr)
+    report = {"unsharded": {"loss": float(loss), "bytes": sum(
+        x.numel() * x.element_size() for x in tree_leaves(tr)
+        + tree_leaves(opt)), "ms": _timed_steps(torch, step, tr, opt, batch)}}
+    del step, ntr, nopt
+    kept = None
+    for shape in meshes:
+        shape = tuple(shape)
+        mesh = make_mesh(shape, ("data", "model"), device_type="cuda")
+        (tr_sh, opt_sh, _), _, _ = train_shardings(lm, mesh, "train_4k")
+        dtr, dopt = place.distribute(tr, tr_sh), place.distribute(opt, opt_sh)
+        need = sum(int(np.prod(local_shape(tuple(x.shape), sh.spec, mesh),
+                               dtype=np.int64)) * x.element_size()
+                   for t, shs in ((tr, tr_sh), (opt, opt_sh))
+                   for x, sh in zip(tree_leaves(t), tree_leaves(shs)))
+        have = place.local_bytes(dtr) + place.local_bytes(dopt)
+        sstep = build_train_step(lm, mesh=mesh)
+        loss, ntr, nopt = sstep(dtr, dopt, batch)
+        got = [loss] + [place.gather(x) for x in tree_leaves(ntr)
+                        + tree_leaves(nopt)]
+        equal = all(g.shape == w.shape and g.dtype == w.dtype
+                    and torch.equal(_bits(torch, g), _bits(torch, w))
+                    for g, w in zip(got, want))
+        worst = dict.fromkeys(SHARDED_TRAIN_TOL, 0.0)
+        for g, w, kind in zip(got, want, kinds):
+            worst[kind] = max(worst[kind], float(
+                (g.double() - w.double()).abs().max()
+                / w.double().abs().max().clamp(min=1e-30)))
+        if shape == (1, 2):
+            kept = got[1:]
+        del got
+        report[f"{shape[0]}x{shape[1]}"] = {
+            "loss": float(loss), "bytes": [have, need], "equal": equal,
+            "worst": worst,
+            "ms": _timed_steps(torch, sstep, dtr, dopt, batch)}
+        if shape == (1, 2):
+            ckpt.save(ckpt_dir, 1, {"trainable": ntr, "opt": nopt}, keep=1)
+        if shape == (2, 1):
+            back = ckpt.restore(ckpt_dir, 1, {"trainable": dtr, "opt": dopt},
+                                shardings={"trainable": tr_sh,
+                                           "opt": opt_sh})
+            leaves = (tree_leaves(back["trainable"])
+                      + tree_leaves(back["opt"]))
+            report["restored"] = {
+                "placed": all(place.is_placed(x) for x in leaves),
+                "equal": all(torch.equal(place.gather(x), k)
+                             for x, k in zip(leaves, kept)),
+                "n": len(leaves)}
+            del back, leaves
+        del dtr, dopt, ntr, nopt, sstep
+        torch.cuda.empty_cache()
+    (Path(out_dir) / f"rank{rank}_{len(meshes)}.json").write_text(
+        json.dumps(report))
+
+
+def _bits(torch, t):
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8, 8: torch.int64}
+    return t.reshape(-1).view(ints[t.element_size()])
+
+
+def phase_train_sharded(torch, np):
+    """The training shardings on the card (see the constants above), in
+    spawned ranks: two gloo ranks sharing the card on (1, 2) (bit-equal
+    to the unsharded card step) and (2, 1) (within SHARDED_TRAIN_TOL),
+    each rank's bytes against its placements, the (1, 2) checkpoint
+    restored onto (2, 1); one nccl rank on (1, 1) (bit-equal); then the
+    float forward's cache, card vs CPU."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import spawn
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        spawn(train_sharded_rank, 2, (d, str(Path(d) / "ck"),
+                                      [(1, 2), (2, 1)]),
+              device="cuda", backend="gloo")
+        gloo_s = time.perf_counter() - t0
+        reports = [json.loads((Path(d) / f"rank{r}_2.json").read_text())
+                   for r in range(2)]
+        t0 = time.perf_counter()
+        # the world of one nccl rank is this process (no spawn to pay)
+        dist.init_process_group("nccl", init_method="file://" + str(
+            Path(d) / "rendezvous"), world_size=1, rank=0)
+        try:
+            train_sharded_rank(0, d, str(Path(d) / "ck1"), [(1, 1)])
+        finally:
+            dist.destroy_process_group()
+        nccl_s = time.perf_counter() - t0
+        solo = json.loads((Path(d) / "rank0_1.json").read_text())
+    one = reports[0]["unsharded"]
+    print(f"  granite_3_2b at full width, {SHARDED_TRAIN_LAYERS} layers, "
+          f"batch {SHARDED_TRAIN_BATCH} x {SHARDED_TRAIN_SEQ}: the unsharded "
+          f"FQ step on the card, loss {one['loss']:.6f}; params, qstate "
+          f"and moments {one['bytes']} B")
+    for shape, rows in (("1x2", reports), ("2x1", reports),
+                        ("1x1", [solo])):
+        by = [r[shape]["bytes"] for r in rows]
+        if any(h != n for h, n in by):
+            raise AssertionError(f"train_sharded {shape}: rank bytes {by} "
+                                 "are not their placements'")
+        worst = {k: max(r[shape]["worst"][k] for r in rows)
+                 for k in SHARDED_TRAIN_TOL}
+        if shape != "2x1" and not all(r[shape]["equal"] for r in rows):
+            raise AssertionError(f"train_sharded {shape}: not bit-equal to "
+                                 f"the unsharded step ({worst})")
+        if shape == "2x1" and any(worst[k] > SHARDED_TRAIN_TOL[k]
+                                  for k in worst):
+            raise AssertionError(f"train_sharded (2, 1): {worst} over "
+                                 f"{SHARDED_TRAIN_TOL}")
+        what = ("nccl rank" if shape == "1x1" else "gloo ranks on the card")
+        print(f"  ({shape[0]}, {shape[2]}) mesh, {len(rows)} {what}: loss "
+              f"{rows[0][shape]['loss']:.6f}, "
+              + ("loss and every leaf bit-equal to the unsharded step"
+                 if shape != "2x1" else
+                 "max |diff| / max |value| by kind "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                 + f" (limits {SHARDED_TRAIN_TOL})")
+              + "; params, qstate and moments a rank "
+              + " and ".join(str(b[0]) for b in by)
+              + f" B = their placements' (unsharded {one['bytes']} B)")
+    res = [r["restored"] for r in reports]
+    if not all(x["placed"] and x["equal"] for x in res):
+        raise AssertionError(f"train_sharded: the (1, 2) checkpoint "
+                             f"restored onto (2, 1): {res}")
+    print(f"  the (1, 2) step's checkpoint restored onto (2, 1): "
+          f"{res[0]['n']} leaves equal on both ranks, each holding its "
+          "shards")
+    print(f"  step ms (median of {SHARDED_TRAIN_TIMED}; gloo-staged on one "
+          f"card, not a multi-GPU figure): unsharded "
+          f"{float(np.median(one['ms'])):.1f}; (1, 2) ranks "
+          + ", ".join(f"{float(np.median(r['1x2']['ms'])):.1f}"
+                      for r in reports)
+          + "; (2, 1) ranks "
+          + ", ".join(f"{float(np.median(r['2x1']['ms'])):.1f}"
+                      for r in reports)
+          + f"; nccl (1, 1) {float(np.median(solo['1x1']['ms'])):.1f} "
+          f"(gloo spawn {gloo_s:.1f} s, nccl rank {nccl_s:.1f} s)")
+    float_cache_card_vs_cpu(torch, np)
+
+
+def float_cache_card_vs_cpu(torch, np):
+    """The 2-layer model's float forward through `init_caches(rep=FP)`
+    on the card and the CPU (see FLOAT_CACHE_*), and each step against
+    the no-cache forward over the sequence so far."""
+    from repro_torch.core.rep import Rep
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.lm import params_to_torch
+
+    P, D = FLOAT_CACHE_PREFILL, FLOAT_CACHE_DECODES
+    lm = _sharded_train_lm(max_seq=P + D)
+    p = lm.init_np(SEED)
+    tok = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+        0, lm.cfg.vocab, size=(2, P + D)).astype(np.int32))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pt = params_to_torch(p, dev)
+        tk = tok.to(dev)
+        with torch.no_grad():
+            caches = lm.init_caches(2, P + D, Rep.FP, device=dev)
+            x, caches = lm.apply(pt, lm.embed_in(pt, tk[:, :P]),
+                                 caches=caches, pos=0)
+            steps = [lm.logits(pt, x)[:, -1].cpu()]
+            for d in range(D):
+                x, caches = lm.apply(pt, lm.embed_in(pt, tk[:, P + d:P + d + 1]),
+                                     caches=caches, pos=P + d)
+                steps.append(lm.logits(pt, x)[:, -1].cpu())
+            nocache = [lm.logits(pt, lm.apply(pt, lm.embed_in(
+                pt, tk[:, :P + d])))[:, -1].cpu() for d in range(D + 1)]
+        res[dev] = (steps, nocache, [c.cpu() for c in tree_leaves(caches)])
+        res[dev + "_s"] = time.perf_counter() - t0
+        del pt, caches
+    (sc, nc, cc), (sh, nh, ch) = res["cuda"], res["cpu"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / (b.max() - b.min()))
+
+    card_cpu = max(rel(a, b) for a, b in zip(sc, sh))
+    vs_full = max(rel(a, b) for a, b in zip(sc + sh, nc + nh))
+    flips = max(float((_bits(torch, a) != _bits(torch, b)).float().mean())
+                for a, b in zip(cc, ch))
+    print(f"  float cache, {SHARDED_TRAIN_LAYERS} layers at full width: a "
+          f"{P}-token prefill and {D} decodes through init_caches(rep=FP) "
+          f"(bfloat16 K/V {tuple(cc[0].shape)}): logits card vs CPU within "
+          f"{card_cpu:.3e} of their span (limit {FLOAT_CACHE_TOL}); the "
+          f"bfloat16 cache cells card vs CPU differing at most {flips:.4f}; "
+          f"each step vs the no-cache forward within {vs_full:.3e} (limit "
+          f"{FLOAT_NOCACHE_TOL}); card {res['cuda_s']:.1f} s, CPU "
+          f"{res['cpu_s']:.1f} s")
+    if card_cpu > FLOAT_CACHE_TOL or vs_full > FLOAT_NOCACHE_TOL:
+        raise AssertionError("float cache: the card's logits are off")
+    if not all(bool(torch.isfinite(a).all()) for a in sc):
+        raise AssertionError("float cache: a logit is not finite")
+
+
 def phase_done(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"  ({name}: {t - t0:.1f} s)")
@@ -4279,7 +4592,7 @@ def phase_done(name: str, t0: float) -> float:
 SKIPPABLE = ("entry", "cnn", "calibrate", "parity", "open-loop", "prefix",
              "preempt", "async", "whole_prompt", "int_softmax", "sharded",
              "configs", "musicgen", "olmoe", "ssm", "nemotron", "blockwise",
-             "hybrid", "embeds", "train")
+             "hybrid", "embeds", "train", "train_sharded")
 
 
 def main() -> int:
@@ -4445,6 +4758,8 @@ def main() -> int:
         launches["int8_matmul_grouped"] = phase_olmoe(
             torch, np, kernels)["int8_matmul_grouped"]
         t0 = phase_done("olmoe", t0)
+    else:  # the grouped GEMM's path launches are the olmoe phase's
+        launches["int8_matmul_grouped"] = None
     if "ssm" not in skip:
         print(f"[ssm] {SSM_ARCH}: {SSM_PARITY_LAYERS}-layer parity, then "
               "full width on the "
@@ -4474,11 +4789,18 @@ def main() -> int:
               + ", ".join(f[0] for f in TRAIN_FAMILIES)
               + ": card vs CPU and the trainer")
         phase_train(torch, np, kernels)
-        phase_done("train", t0)
+        t0 = phase_done("train", t0)
+    if "train_sharded" not in skip:
+        print(f"[train_sharded] granite_3_2b at full width, "
+              f"{SHARDED_TRAIN_LAYERS} layers: the FQ step on (1, 2) and "
+              "(2, 1) meshes of gloo ranks sharing the card and on one nccl "
+              "rank, a checkpoint re-sharded; the float forward's cache")
+        phase_train_sharded(torch, np)
+        phase_done("train_sharded", t0)
     if skip:
-        print(f"skipped phases {sorted(skip)}: no result line")
-        return 0
-    launches["quant_flash_attention"] = entry["quant_flash_attention"]
+        print(f"skipped phases {sorted(skip)}: the rows of their kernels "
+              "carry launches null")
+    launches["quant_flash_attention"] = entry.get("quant_flash_attention")
     rep_shape = {"int8_matmul": 8, "int8_matmul_grouped": 0, "requant": 4,
                  "paged_attention": 0, "paged_attention_kv4": 0,
                  "quant_flash_attention": 0}
@@ -4498,7 +4820,9 @@ def main() -> int:
         r = report[name + "_shard"][0]
         rows.append({
             "name": name + "_shard", "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": shard_launches[name],
+            "replaces": REPLACES[name],
+            "launches": (None if shard_launches is None
+                         else shard_launches[name]),
             "max_abs_err": errs[name + "_shard"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

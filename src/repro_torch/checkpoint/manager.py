@@ -11,9 +11,17 @@ Leaves are numbered in jax's flatten order (dict keys sorted, lists in
 order: `core.tree.tree_leaves`), so a checkpoint the reference writes
 restores into the port's tree of the same structure and the reverse.
 A bfloat16 leaf is stored as the reference's numpy stores it: its two
-bytes, dtype "bfloat16" in meta.json.  `restore` puts each leaf on the
-device of the matching leaf of `like` (the reference places it with a
-sharding; the port has one device).
+bytes, dtype "bfloat16" in meta.json.
+
+Sharded trees (DTensor leaves, `sharding.place`): `save` gathers each
+leaf in full on every rank (a collective: every rank of the mesh calls
+it) and rank 0 alone writes, then all ranks wait for the publish, so
+the files are exactly an unsharded checkpoint's.  `restore(...,
+shardings=)` loads each leaf in full and places this rank's shard by
+the matching `Sharding` of the CURRENT mesh, which may differ from the
+one the checkpoint was saved on: the elastic re-shard (a (1, 2)
+checkpoint restores onto (2, 1), onto one rank, or unsharded).
+Without shardings each leaf goes to the device of `like`'s leaf.
 """
 from __future__ import annotations
 
@@ -24,8 +32,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tree import tree_leaves, tree_unflatten, treedef_str
+from repro_torch.sharding import place
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -38,6 +48,17 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save(ckpt_dir, step: int, tree: Any, *, keep: int = 3) -> Path:
+    """Write `tree` as step `step` (atomically: a .tmp directory renamed
+    when complete) and keep the newest `keep` steps.  A placed tree is
+    gathered on every rank and written by rank 0."""
+    leaves = tree_leaves(tree)
+    if any(place.is_placed(x) for x in leaves):
+        full = [place.gather(x) for x in leaves]
+        path = Path(ckpt_dir) / f"step_{step:08d}"
+        if dist.get_rank() == 0:
+            save(ckpt_dir, step, tree_unflatten(tree, full), keep=keep)
+        dist.barrier()  # every rank returns after the publish
+        return path
     base = Path(ckpt_dir)
     base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
@@ -45,7 +66,6 @@ def save(ckpt_dir, step: int, tree: Any, *, keep: int = 3) -> Path:
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    leaves = tree_leaves(tree)
     meta = {"step": step, "treedef": treedef_str(tree),
             "n_leaves": len(leaves), "leaves": []}
     for i, leaf in enumerate(leaves):
@@ -87,16 +107,21 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir, step: int, like: Any) -> Any:
+def restore(ckpt_dir, step: int, like: Any, *, shardings: Any = None) -> Any:
     """Restore into the structure of `like`: the leaf count and every
     shape must match (as the reference asserts); each leaf keeps the
-    file's dtype and goes to the device of `like`'s leaf."""
+    file's dtype and goes to the device of `like`'s leaf, or with
+    `shardings` (a matching tree of `sharding.rules.Sharding`) this
+    rank's shard of it is placed on the current mesh (on the device of
+    `like`'s leaf: its local shard's for a DTensor)."""
     path = Path(ckpt_dir) / f"step_{step:08d}"
     meta = json.loads((path / "meta.json").read_text())
     leaves_like = tree_leaves(like)
     if meta["n_leaves"] != len(leaves_like):
         raise ValueError(f"checkpoint {path} holds {meta['n_leaves']} "
                          f"leaves, the tree {len(leaves_like)}")
+    sh = (tree_leaves(shardings) if shardings is not None
+          else [None] * len(leaves_like))
     out = []
     for i, ref in enumerate(leaves_like):
         arr = np.load(path / f"arr_{i:06d}.npy")
@@ -105,6 +130,8 @@ def restore(ckpt_dir, step: int, like: Any) -> Any:
             raise ValueError(f"leaf {i}: shape {arr.shape} in the "
                              f"checkpoint, {expect} in the tree")
         t = _from_numpy(arr, meta["leaves"][i]["dtype"])
-        device = ref.device if isinstance(ref, torch.Tensor) else "cpu"
-        out.append(t.to(device))
+        ref_t = place.local(ref)
+        device = ref_t.device if isinstance(ref_t, torch.Tensor) else "cpu"
+        t = t.to(device)
+        out.append(t if sh[i] is None else place.place(t, sh[i]))
     return tree_unflatten(like, out)

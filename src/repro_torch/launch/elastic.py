@@ -8,6 +8,11 @@ straggler detection.
     the same command run again), straggler detection from step times,
     and `fail_at`, which raises at a given step to simulate a node
     failure.
+  * Elastic re-mesh: `run(..., shardings=)` restores the latest
+    checkpoint with the CURRENT mesh's placements
+    (`checkpoint.manager.restore`), so a checkpoint saved on one mesh
+    resumes on another (lose a pod, keep training); a sharded state's
+    checkpoints are written whole by rank 0.
   * Data is keyed by (seed, step, host): there is no sampler state to
     save.
 """
@@ -56,14 +61,18 @@ class TrainSupervisor:
     # raise at this step to simulate a node failure
     fail_at: Optional[int] = None
 
-    def run(self, trainable, opt_state, *, n_steps: int) -> dict:
+    def run(self, trainable, opt_state, *, n_steps: int,
+            shardings=None) -> dict:
         """Runs or resumes training; -> a summary dict ("status",
-        "step", "losses" of the steps run, "stragglers")."""
+        "step", "losses" of the steps run, "stragglers").  `shardings`
+        ({"trainable": .., "opt": ..} of `sharding.rules.Sharding`s)
+        places a restored state on the current mesh."""
         state = {"trainable": trainable, "opt": opt_state}
         start = 0
         last = ckpt.latest_step(self.ckpt_dir)
         if last is not None:
-            state = ckpt.restore(self.ckpt_dir, last, state)
+            state = ckpt.restore(self.ckpt_dir, last, state,
+                                 shardings=shardings)
             start = last
         losses = []
         preempted = {"flag": False}

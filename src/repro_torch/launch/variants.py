@@ -4,8 +4,10 @@ with the keys a port path reads).
 Layer code consults `get(key)` without plumbing; `use_variants(**kw)`
 overrides keys for the duration of a `with` block, and the serving
 engine runs each dispatch under `use_variants(paged_decode=...)`.
-The reference's other keys (layouts, sharding and microbatching of the
-TPU graph) steer nothing the port runs.
+The reference's `kv_update` ("onehot" | "dus") and `kv_shard` ("seq"
+| "batch") steer only XLA's lowering of the decode cache write and its
+layout, which eager torch does not have: they are not keys here (the
+float cache write is plain indexing, `layers.attention._cache_write`).
 
   attn_softmax  "float" (the paper's §3.8 float island) | "int" (the
                 integer softmax, `core.intsoftmax`: no float
@@ -18,6 +20,14 @@ TPU graph) steer nothing the port runs.
                 chunked scan in bfloat16 with a float32 carry,
                 `layers.ssm._chunked`)
   ssm_chunk     the selective scan's chunk length (0: layers.ssm.CHUNK)
+  serve_weight_stationary  False | True: the serve cells' weights
+                replicated across "data" (no FSDP split of the tables;
+                `launch.steps.serve_shardings`)
+  train_zero2   False | True: the ZeRO-2 training layout, params
+                replicated across "data", the Adam moments still 2-D
+                sharded (`launch.steps.train_shardings`)
+  microbatches  the gradient-accumulation factor of the cells (0: the
+                `launch.steps.MICROBATCH` table's, else 1)
 
 The attention takes the kernel only under "kernel" and the float
 island; every other setting takes the gather path.
@@ -34,6 +44,9 @@ DEFAULTS = {
     "paged_decode": "kernel",
     "ssm_island_dtype": "f32",
     "ssm_chunk": 0,
+    "serve_weight_stationary": False,
+    "train_zero2": False,
+    "microbatches": 0,
 }
 
 

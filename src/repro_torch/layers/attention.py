@@ -1,15 +1,19 @@
 """Grouped-query attention (port of `repro.layers.attention.QAttention`:
-the float forward `apply_float` without a cache, `deploy` and
-`apply_id` over both of its paths and the blockwise one; `d_in` for
-zamba2's shared block, whose wq / wk / wv read the 2 d-wide concat).
+the float forward `apply_float` with its cache branch, `init_cache`,
+`deploy` and `apply_id` over both of its paths and the blockwise one;
+`d_in` for zamba2's shared block, whose wq / wk / wv read the 2 d-wide
+concat).
 
-The float forward (FullPrecision, calibration's pass) runs causal
-attention over the whole sequence in float32: q/k/v matmuls, float
-RoPE, scores, softmax and P.V as plain torch operations, observing
-q, k, v (before RoPE), each kv head's K and V (after RoPE, what the
-cache stores: the int4 pools' per-head ranges), the probabilities and
-ctx.  No library attention call stands in: the calibrator reads the
-probabilities.
+The float forward (FullPrecision, calibration's pass, FakeQuantized
+training) runs causal attention over the whole sequence in float32:
+q/k/v matmuls, float RoPE, scores, softmax and P.V as plain torch
+operations, observing q, k, v (before RoPE), each kv head's K and V
+(after RoPE, what the cache stores: the int4 pools' per-head ranges),
+the probabilities and ctx.  No library attention call stands in: the
+calibrator reads the probabilities.  With a float cache (bfloat16 K/V,
+contiguous or paged) it writes the new rows in place and attends over
+every cached position under the length mask (`apply_float`,
+`_cache_write`).
 
 ID dataflow per layer (B slot rows, S query rows each):
 
@@ -197,15 +201,28 @@ class QAttention:
         return {n: lay.init_np(rng) for n, lay in self._sub().items()}
 
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
-                    scope: str = "", *, rep: Rep = Rep.FP) -> torch.Tensor:
+                    scope: str = "", *, rep: Rep = Rep.FP,
+                    cache: Optional[dict] = None, pos=None) -> torch.Tensor:
         """FullPrecision (or, with ``rep=Rep.FQ``, FakeQuantized)
-        forward, x (B, S, d) float at positions 0..S-1 (the reference's
-        `apply_float` with no cache) -> the wo output (B, S, d) in x's
+        forward, x (B, S, d) float -> the wo output (B, S, d) in x's
         dtype.  The scores are float32 whatever x's dtype (the
         reference's einsum asks for a float32 result: bfloat16 products
         are exact in float32), the softmax is float32 and the
         probabilities go back to x's dtype for the P.V product
-        (`float_matmul`)."""
+        (`float_matmul`).
+
+        Without a cache the S rows sit at positions 0..S-1 under the
+        causal mask.  With one (the reference's float cache branch) the
+        rows sit at `pos` (None or an int: shared; a (B,) tensor: per
+        row) and their K / V are written into it IN PLACE, cast to its
+        dtype (bfloat16 from `init_cache`): a contiguous {"k", "v"} (B,
+        K, T, hd) (`_cache_write`), or pools {"k", "v": (n_pages + 1, K,
+        ps, hd), "table": (B, pps)} through the table at a (B,) `pos`
+        (`_paged_write`, then the view through the table, T = pps *
+        ps); then the rows
+        attend over the T cached positions, cast back to x's dtype,
+        under the length mask (key j visible where j <= the row's
+        position)."""
         subs = self._sub()
         B, S, _ = x.shape
         H, K, hd = self.n_heads, self.n_kv_heads, self.head_dim
@@ -221,19 +238,33 @@ class QAttention:
         v = v.reshape(B, S, K, hd).permute(0, 2, 1, 3)
         rot, cos, sin = _rope_fp_cached(hd, self.max_seq, self.rope_base,
                                         self.rope_fraction, str(x.device))
-        positions = torch.arange(S, device=x.device)
+        positions = _positions(S, pos, x.device)
         q = apply_rope_fp(q, cos, sin, positions, rot)
         k = apply_rope_fp(k, cos, sin, positions, rot)
         if calib is not None:
             for h in range(K):
                 calib.observe(f"{scope}{self.name}.k.h{h}", k[:, h])
                 calib.observe(f"{scope}{self.name}.v.h{h}", v[:, h])
+        if cache is None:
+            mask = _causal_mask(S, x.device)
+        else:
+            if "table" in cache:
+                _paged_write(cache, k, v, pos)
+                k_all = gathered_view(cache["k"], cache["table"], 1)
+                v_all = gathered_view(cache["v"], cache["table"], 1)
+            else:
+                _cache_write(cache["k"], k, pos)
+                _cache_write(cache["v"], v, pos)
+                k_all, v_all = cache["k"], cache["v"]
+            k, v = k_all.to(x.dtype), v_all.to(x.dtype)
+            mask = torch.where(_float_keep(S, k.shape[2], positions),
+                               0.0, NEG_INF).to(torch.float32)
         kh = k.repeat_interleave(self.group, dim=1)
         vh = v.repeat_interleave(self.group, dim=1)
         f32 = torch.float32
         scores = torch.matmul(q.to(f32), kh.to(f32).transpose(-1, -2))
         scores = scores / float(np.sqrt(hd))
-        scores = scores + _causal_mask(S, x.device)
+        scores = scores + mask
         probs = torch.softmax(scores, dim=-1)
         if calib is not None:
             calib.observe(f"{scope}{self.name}.probs", probs)
@@ -242,6 +273,15 @@ class QAttention:
         if calib is not None:
             calib.observe(f"{scope}{self.name}.ctx", ctx_)
         return subs["wo"].apply(p["wo"], ctx_, rep)
+
+    def init_cache(self, B: int, max_len: int, dtype=torch.bfloat16,
+                   device="cuda") -> dict:
+        """The float forward's zeroed contiguous cache {"k", "v": (B, K,
+        max_len, hd)} in `dtype` (the reference's `init_cache` at FP /
+        FQ; the ID cache is the model's int8 pools)."""
+        shape = (B, self.n_kv_heads, max_len, self.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
 
     def _qkv_acts(self):
         rt2 = float(np.sqrt(2.0))  # RoPE rotation headroom
@@ -477,6 +517,58 @@ def _bool_mask(S: int, T: int, pos: torch.Tensor) -> torch.Tensor:
     i = pos.to(torch.int64)[:, None] + torch.arange(S, device=pos.device)
     j = torch.arange(T, device=pos.device)
     return (j[None, None, :] <= i[:, :, None])[:, None]
+
+
+def _positions(S: int, pos, device) -> torch.Tensor:
+    """The float forward's query positions: (S,) from 0 (pos None) or
+    from an int, (B, S) from a (B,) tensor (a 0-d tensor is an int)."""
+    r = torch.arange(S, device=device)
+    if pos is None:
+        return r
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() == 1:
+            return pos.to(device=device, dtype=torch.int64)[:, None] + r
+        pos = int(pos)
+    return pos + r
+
+
+def _float_keep(S: int, T: int, positions: torch.Tensor) -> torch.Tensor:
+    """The length keep-mask of the float cache branch: key j visible to
+    a row at position i where j <= i; (S, T) for shared positions, (B,
+    1, S, T) for per-row ones."""
+    j = torch.arange(T, device=positions.device)
+    if positions.dim() == 2:
+        return (j[None, None, :] <= positions[:, :, None])[:, None]
+    return j[None, :] <= positions[:, None]
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write `new` (B, K, S, hd) into the contiguous float cache (B, K,
+    T, hd) IN PLACE, cast to its dtype (the reference's `_cache_write`).
+
+    A per-row `pos` (B,) writes row b at [pos[b], pos[b] + S),
+    positions past T dropped (rows parked at INACTIVE_POS write
+    nothing).  A shared `pos` writes [pos, pos + S) with the start
+    clamped to [0, T - S], as `dynamic_update_slice` clamps it (S == T
+    replaces the whole cache).  The reference's single-token write is
+    the one-hot rewrite cache * (1 - oh) + new * oh: every kept cell is
+    cache * 1 + new * 0, the written one cache * 0 + new * 1, both exact
+    in floating point, so plain indexing gives its values (only a
+    written -0.0 over a cell of +0.0 keeps its sign here, where the
+    rewrite's sum gives +0.0; the two compare equal)."""
+    B, _, S, _ = new.shape
+    T = cache.shape[2]
+    new = new.to(cache.dtype)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        t = pos.to(device=cache.device, dtype=torch.int64)[:, None] + \
+            torch.arange(S, device=cache.device)           # (B, S)
+        ok = t < T
+        b = torch.arange(B, device=cache.device)[:, None].expand(B, S)
+        cache[b[ok], :, t[ok], :] = new.permute(0, 2, 1, 3)[ok]
+        return
+    start = 0 if pos is None else int(pos)
+    start = min(max(start, 0), T - S)
+    cache[:, :, start:start + S, :] = new
 
 
 def _write_plan(pos: torch.Tensor, table: torch.Tensor, S: int,

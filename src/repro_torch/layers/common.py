@@ -13,9 +13,11 @@ into a static bias.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import enum
 import os
+import threading
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -159,11 +161,29 @@ def run_blocks(fn: Callable, items: List[tuple]) -> List:
         return list(pool.map(lambda it: fn(*it), items))
 
 
+_SHAPES = threading.local()
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Inside, `normal_np` draws nothing and returns a read-only
+    zero-stride view of one float32 zero: an `init_np` then gives its
+    tree's shapes without allocating its weights (`launch.specs`)."""
+    prev = getattr(_SHAPES, "on", False)
+    _SHAPES.on = True
+    try:
+        yield
+    finally:
+        _SHAPES.on = prev
+
+
 def normal_np(rng: np.random.Generator, shape, scale: float) -> np.ndarray:
     """float32 standard normals times `scale`, each block of rows
     (`row_spans`) drawn from its own generator seeded from `rng`: the
     same array for the same `rng` state on any host, the blocks of a
     large matrix drawn in parallel."""
+    if getattr(_SHAPES, "on", False):
+        return np.broadcast_to(np.float32(0.0), tuple(shape))
     out = np.empty(shape, np.float32)
     spans = row_spans(shape[0], int(np.prod(shape[1:])))
     seeds = rng.integers(0, 2 ** 63 - 1, size=len(spans), dtype=np.int64)

@@ -46,10 +46,13 @@ def rope_tables_fp(head_dim: int, max_pos: int, base: float = 10000.0,
 
 
 def apply_rope_fp(x, cos, sin, positions, rot: int):
-    """x (..., S, head_dim) float, positions (S,) int -> x rotated (the
-    leading `rot` channels, in (even, odd) pairs; the rest pass)."""
+    """x (..., S, head_dim) float, positions (S,) int, or (B, S) per
+    row of x (B, H, S, head_dim) -> x rotated (the leading `rot`
+    channels, in (even, odd) pairs; the rest pass)."""
     c = cos[positions].to(x.dtype)
     s = sin[positions].to(x.dtype)
+    if positions.dim() == 2:
+        c, s = c[:, None], s[:, None]
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
     y1 = x1 * c - x2 * s

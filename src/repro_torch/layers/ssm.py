@@ -45,7 +45,12 @@ float32.
 Caches (serving): Mamba-1 {"conv": (B, conv_k - 1, d_inner) int8, the
 last conv inputs; "h": (B, d_inner, d_state) float32}; Mamba-2 {"conv":
 (B, conv_k - 1, d_conv_in) int8 over the x, B, C channels; "h": (B, H,
-P, d_state) float32}: the one float leaf of an ID cache tree.
+P, d_state) float32}: the one float leaf of an ID cache tree.  The
+float forward's cache (`init_cache(B, rep=Rep.FP)`) holds the conv
+window in bfloat16 and h in float32; `apply_float(cache=)` carries both
+across calls and returns new ones, the conv window in the dtype the
+concatenation promotes to (float32 after a float32 input), as the
+reference's `jnp.concatenate` does.
 """
 from __future__ import annotations
 
@@ -352,7 +357,7 @@ class QMamba1:
         xz = subs["in_proj"].apply(p["in_proj"], x, rep)
         x1, z = torch.chunk(xz, 2, dim=-1)
         if cache is not None:
-            conv_in = torch.cat([cache["conv"].to(x1.dtype), x1], dim=1)
+            conv_in = torch.cat([cache["conv"], x1], dim=1)
             x1c = _causal_conv1d_fp(conv_in, p["conv_w"],
                                     p["conv_b"])[:, -x1.shape[1]:]
             new_conv = conv_in[:, -(self.conv_k - 1):]
@@ -509,12 +514,15 @@ class QMamba1:
                      if cache is not None else None)
         return out, new_cache
 
-    def init_cache(self, B: int, device="cuda") -> dict:
-        """A zeroed ID cache of B rows: the int8 conv window and the
-        float32 scan state."""
+    def init_cache(self, B: int, device="cuda", rep: Rep = Rep.ID,
+                   dtype=None) -> dict:
+        """A zeroed cache of B rows: the conv window (int8 at Rep.ID,
+        else `dtype`, bfloat16 by default) and the float32 scan state
+        at every rep."""
         return {
             "conv": torch.zeros((B, self.conv_k - 1, self.d_inner),
-                                dtype=torch.int8, device=device),
+                                dtype=_conv_dtype(rep, dtype),
+                                device=device),
             "h": torch.zeros((B, self.d_inner, self.d_state),
                              dtype=torch.float32, device=device),
         }
@@ -618,7 +626,7 @@ class QMamba2:
         zxbcdt = subs["in_proj"].apply(p["in_proj"], x, rep)
         z, xbc, dt_r = self._split_proj(zxbcdt)
         if cache is not None:
-            conv_in = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
+            conv_in = torch.cat([cache["conv"], xbc], dim=1)
             xbcc = _causal_conv1d_fp(conv_in, p["conv_w"],
                                      p["conv_b"])[:, -xbc.shape[1]:]
             new_conv = conv_in[:, -(self.conv_k - 1):]
@@ -738,15 +746,26 @@ class QMamba2:
                      if cache is not None else None)
         return out, new_cache
 
-    def init_cache(self, B: int, device="cuda") -> dict:
-        """A zeroed ID cache of B rows: the int8 conv window over x, B,
-        C and the float32 scan state."""
+    def init_cache(self, B: int, device="cuda", rep: Rep = Rep.ID,
+                   dtype=None) -> dict:
+        """A zeroed cache of B rows: the conv window over x, B, C (int8
+        at Rep.ID, else `dtype`, bfloat16 by default) and the float32
+        scan state at every rep."""
         return {
             "conv": torch.zeros((B, self.conv_k - 1, self.d_conv_in),
-                                dtype=torch.int8, device=device),
+                                dtype=_conv_dtype(rep, dtype),
+                                device=device),
             "h": torch.zeros((B, self.n_heads, self.head_dim, self.d_state),
                              dtype=torch.float32, device=device),
         }
+
+
+def _conv_dtype(rep: Rep, dtype) -> torch.dtype:
+    """The conv window's dtype: int8 images at Rep.ID, the float
+    forward's `dtype` (bfloat16 by default) otherwise."""
+    if rep is Rep.ID:
+        return torch.int8
+    return dtype or torch.bfloat16
 
 
 def load_core(t: dict) -> dict:

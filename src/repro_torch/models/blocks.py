@@ -23,6 +23,11 @@ under the block's scope (the names `deploy` reads back).
 its cache is the layer's {"conv", "h"} state, which `apply_id` advances
 in place.
 
+Every block's float forward takes the reference's float cache
+(`cache=`, `pos=`; `init_cache` gives the zeroed one): the attention
+blocks write their K/V rows into it in place, the Mamba block replaces
+the dict's {"conv", "h"} with the new state.
+
 `SharedAttnBlock` is zamba2's shared attention: norm over concat(x,
 x0) (2 d wide) -> attention -> add, with no MLP.  Its float weights
 are one set for every application; `deploy` gives each application
@@ -127,14 +132,17 @@ class DenseBlock:
 
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
                     scope: str = "", *, rep: Rep = Rep.FP, qs=None,
-                    aux: Optional[list] = None) -> torch.Tensor:
+                    aux: Optional[list] = None, cache: Optional[dict] = None,
+                    pos=None) -> torch.Tensor:
         """FullPrecision (or, with ``rep=Rep.FQ`` and the block's clips
-        ``qs``, FakeQuantized) forward of one block (no cache); the
-        residual stream stays in x's dtype; the MoE's aux loss goes to
-        ``aux``."""
+        ``qs``, FakeQuantized) forward of one block; the residual stream
+        stays in x's dtype; the MoE's aux loss goes to ``aux``; with a
+        float `cache` the attention writes it in place at `pos`
+        (`QAttention.apply_float`)."""
         subs = self._subs()
         h = subs["norm1"].apply_fp(p["norm1"], x, calib, scope + "n1.")
-        a = subs["attn"].apply_float(p["attn"], h, calib, scope, rep=rep)
+        a = subs["attn"].apply_float(p["attn"], h, calib, scope, rep=rep,
+                                     cache=cache, pos=pos)
         x = subs["add1"].apply_fp(x, a, calib, scope)
         h = subs["norm2"].apply_fp(p["norm2"], x, calib, scope + "n2.")
         m = self._ffn_float(subs[self.ffn], p[self.ffn], h, calib, scope,
@@ -177,6 +185,12 @@ class DenseBlock:
             m_acc = subs["mlp"].apply_id(t["mlp"], h)
         return subs["add2"].apply_id(t["add2"], s_r, m_acc)
 
+    def init_cache(self, B: int, max_len: int, dtype=torch.bfloat16,
+                   device="cuda") -> dict:
+        """The float forward's cache, the attention's (the ID cache is
+        the model's pools)."""
+        return self._subs()["attn"].init_cache(B, max_len, dtype, device)
+
 
 @dataclasses.dataclass(frozen=True)
 class MambaBlock:
@@ -218,12 +232,18 @@ class MambaBlock:
 
     def apply_float(self, p: dict, x: torch.Tensor, calib=None,
                     scope: str = "", *, rep: Rep = Rep.FP, qs=None,
-                    aux: Optional[list] = None) -> torch.Tensor:
-        """FullPrecision (or FakeQuantized) forward of one block (no
-        cache); no aux loss."""
+                    aux: Optional[list] = None, cache: Optional[dict] = None,
+                    pos=None) -> torch.Tensor:
+        """FullPrecision (or FakeQuantized) forward of one block; no aux
+        loss.  With a float `cache` ({"conv", "h"}) the core starts from
+        it and the dict's entries are replaced by the new state (new
+        tensors: the conv window may change dtype); `pos` is not read."""
         subs = self._subs()
         h = subs["norm"].apply_fp(p["norm"], x, calib, scope + "n.")
-        y, _ = subs["core"].apply_float(p["core"], h, calib, scope, rep=rep)
+        y, new = subs["core"].apply_float(p["core"], h, calib, scope,
+                                          cache, rep=rep)
+        if cache is not None:
+            cache.update(new)
         return subs["add"].apply_fp(x, y, calib, scope)
 
     def deploy(self, ctx: DeployCtx, scope: str, p_np: dict,
@@ -249,8 +269,11 @@ class MambaBlock:
         cache["h"].copy_(new["h"])
         return subs["add"].apply_id(t["add"], s_x, acc)
 
-    def init_cache(self, B: int, device="cuda") -> dict:
-        return self._subs()["core"].init_cache(B, device)
+    def init_cache(self, B: int, device="cuda", rep: Rep = Rep.ID,
+                   dtype=None) -> dict:
+        """The core's zeroed {"conv", "h"} of B rows (`rep` and `dtype`
+        pick the conv window's dtype)."""
+        return self._subs()["core"].init_cache(B, device, rep, dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,14 +308,17 @@ class SharedAttnBlock:
 
     def apply_float(self, p: dict, x: torch.Tensor, x0: torch.Tensor,
                     calib=None, scope: str = "", *, rep: Rep = Rep.FP,
-                    qs=None, aux: Optional[list] = None) -> torch.Tensor:
+                    qs=None, aux: Optional[list] = None,
+                    cache: Optional[dict] = None, pos=None) -> torch.Tensor:
         """FullPrecision (or FakeQuantized: `QAttention`'s FQ path)
-        forward of one application (no cache) over norm(concat(x,
-        x0)); no aux loss."""
+        forward of one application over norm(concat(x, x0)); no aux
+        loss; a float `cache` is the application's own K/V, written in
+        place at `pos`."""
         subs = self._subs()
         cat = torch.cat([x, x0], dim=-1)
         h = subs["norm"].apply_fp(p["norm"], cat, calib, scope + "n.")
-        a = subs["attn"].apply_float(p["attn"], h, calib, scope, rep=rep)
+        a = subs["attn"].apply_float(p["attn"], h, calib, scope, rep=rep,
+                                     cache=cache, pos=pos)
         return subs["add"].apply_fp(x, a, calib, scope)
 
     def deploy(self, ctx: DeployCtx, scope: str, p_np: dict, eps_in: float,
@@ -325,3 +351,8 @@ class SharedAttnBlock:
         h = subs["norm"].apply_id(t["norm"], torch.cat([a_, b_], dim=-1))
         acc = subs["attn"].apply_id(t["attn"], h, cache, pos)
         return subs["add"].apply_id(t["add"], s_x, acc)
+
+    def init_cache(self, B: int, max_len: int, dtype=torch.bfloat16,
+                   device="cuda") -> dict:
+        """One application's float K/V cache."""
+        return self._subs()["attn"].init_cache(B, max_len, dtype, device)

@@ -17,8 +17,11 @@ leaf for leaf, the integer softmax's `sm_tabs` included;
 Python loop over the layers where the reference runs `lax.scan`).
 The float forward (`apply`) is the reference's per-layer walk (scopes
 `S0.L{i}.`; the hybrid's `S0.L{g}.m{j}.`, `S0.L{g}.sh.` and
-`S1.L{i}.`, the shared block reading x0, the embedding's output); it
-has no cache branch.  It runs FullPrecision and FakeQuantized
+`S1.L{i}.`, the shared block reading x0, the embedding's output);
+with float caches (`init_caches(B, T, Rep.FP)`, the reference's bf16
+layout) it threads them through the segments (`apply_cached`, the
+reference's `_seg_scan` with caches).  It runs FullPrecision and
+FakeQuantized
 (`rep=Rep.FQ` with the PACT clips of `init_qstate`) for every family,
 under autograd with the reference's rematerialisation (each layer of a
 dense, MoE or ssm segment of more than one layer; each group of the
@@ -162,6 +165,22 @@ def _unbind(tree) -> list:
         n = len(next(iter(per.values())))
         return [{k: v[i] for k, v in per.items()} for i in range(n)]
     return list(torch.unbind(tree))
+
+
+def _restack(stacked: dict, per: list) -> dict:
+    """A segment's cache after its layers ran: the K/V leaves (and a
+    page table) are the stacked tensors, written in place through the
+    layers' views; every other entry (the Mamba state, new tensors a
+    layer) is stacked anew from the layers' dicts."""
+    out = {}
+    for k, v in stacked.items():
+        if isinstance(v, dict):
+            out[k] = _restack(v, [c[k] for c in per])
+        elif k in ("k", "v", "table"):
+            out[k] = v
+        else:
+            out[k] = torch.stack([c[k] for c in per])
+    return out
 
 
 def _run(fn, remat: bool, *args):
@@ -523,19 +542,23 @@ class DecoderLM:
 
     def apply_layer(self, p_layer: dict, i: int, x: torch.Tensor,
                     calib=None, *, rep: Rep = Rep.FP, qs=None,
-                    aux: Optional[list] = None) -> torch.Tensor:
+                    aux: Optional[list] = None, cache: Optional[dict] = None,
+                    pos=None) -> torch.Tensor:
         """Block i's float forward under its scope (its clips ``qs`` at
-        FQ; a MoE block appends its aux loss to ``aux``)."""
+        FQ; a MoE block appends its aux loss to ``aux``; its float
+        `cache` at `pos`)."""
         return self.block().apply_float(p_layer, x, calib,
                                         self.layer_scope(i), rep=rep, qs=qs,
-                                        aux=aux)
+                                        aux=aux, cache=cache, pos=pos)
 
     def apply_shared(self, p_shared: dict, g: int, x: torch.Tensor,
-                     x0: torch.Tensor, calib=None, *,
-                     rep: Rep = Rep.FP) -> torch.Tensor:
+                     x0: torch.Tensor, calib=None, *, rep: Rep = Rep.FP,
+                     cache: Optional[dict] = None,
+                     pos=None) -> torch.Tensor:
         """Shared application g's float forward over concat(x, x0)."""
         return self.shared_block().apply_float(p_shared, x, x0, calib,
-                                               self.shared_scope(g), rep=rep)
+                                               self.shared_scope(g), rep=rep,
+                                               cache=cache, pos=pos)
 
     def init_qstate(self, device="cuda") -> dict:
         """The FQ clips (PACT's learnable alpha / beta) in the
@@ -557,11 +580,71 @@ class DecoderLM:
             for kind, tpl, n in self.plan()]}
 
     def apply(self, p: dict, x: torch.Tensor, rep: Rep = Rep.FP, *,
-              qstate=None, calib=None) -> torch.Tensor:
+              qstate=None, calib=None, caches=None, pos=None):
         """(B, S, d) float -> the last layer's output (`apply_with_aux`
-        without the aux loss)."""
+        without the aux loss); with float `caches` (`init_caches(B, T,
+        Rep.FP)`) -> (the output, the new caches), the rows at `pos`
+        (`apply_cached`)."""
+        if caches is not None:
+            return self.apply_cached(p, x, rep, caches, pos, qstate=qstate,
+                                     calib=calib)
         return self.apply_with_aux(p, x, rep, qstate=qstate,
                                    calib=calib)[0]
+
+    def apply_cached(self, p: dict, x: torch.Tensor, rep: Rep, caches: list,
+                     pos, *, qstate=None, calib=None):
+        """The float forward through the reference's float caches (its
+        `_seg_scan` with caches): each segment's stacked cache handed to
+        its blocks layer by layer, the hybrid's group g's Mamba-2 blocks
+        and its shared application their own rows.  The attention caches
+        are written in place (the returned tree holds the same K/V
+        tensors); the Mamba state comes back as new stacked tensors.
+        -> (output, new caches), a list a segment.
+
+        With a calibrator the reference walks the segments eagerly and
+        gives no cache for the hybrid's segment (its eager walk reads
+        the group's cache under the wrong keys and raises); the port
+        runs the same walk with each block's own cache, observing, and
+        returns None for that segment, as the reference means to."""
+        if rep is Rep.ID:
+            raise ValueError("the integer forward is prefill_chunk's")
+        segs_qs = qstate["segments"] if qstate else None
+        x0, i0, out = x, 0, []
+        for si, (kind, _, n) in enumerate(self.plan()):
+            seg, sc = p["segments"][si], caches[si]
+            if kind == "hybrid":
+                k = self.cfg.shared_attn_every
+                groups = []
+                for g in range(n):
+                    p_g = _index(seg["m"], g)
+                    m_g = _index(sc["m"], g)
+                    per = []
+                    for j in range(k):
+                        c_j = _index(m_g, j)
+                        x = self.apply_layer(_index(p_g, j), g * k + j, x,
+                                             calib, rep=rep, cache=c_j,
+                                             pos=pos)
+                        per.append(c_j)
+                    groups.append(_restack(m_g, per))
+                    x = self.apply_shared(p["shared_attn"], g, x, x0, calib,
+                                          rep=rep, cache=_index(sc["sh"], g),
+                                          pos=pos)
+                out.append(None if calib is not None else
+                           {"m": _restack(sc["m"], groups), "sh": sc["sh"]})
+                i0 += n * k
+                continue
+            seg_qs = segs_qs[si] if segs_qs else None
+            per = []
+            for j in range(n):
+                c_j = _index(sc, j)
+                x = self.apply_layer(
+                    _index(seg, j), i0 + j, x, calib, rep=rep,
+                    qs=_index(seg_qs, j) if seg_qs else None, cache=c_j,
+                    pos=pos)
+                per.append(c_j)
+            out.append(_restack(sc, per))
+            i0 += n
+        return x, out
 
     def apply_with_aux(self, p: dict, x: torch.Tensor, rep: Rep = Rep.FP,
                        *, qstate=None, calib=None):
@@ -724,14 +807,23 @@ class DecoderLM:
             logits = logits.masked_fill(pad, LOGIT_PAD)
         return logits
 
-    def init_caches(self, B: int, max_len: int, device="cuda",
-                    kv_heads: Optional[int] = None) -> dict:
-        """The reference's contiguous ID cache of `B` slots of `max_len`
-        positions, zeroed: KV pools of B pages of max_len positions plus
-        the trash page (of `kv_heads` kv heads, `init_pools`), with the
-        fixed table slot b -> page b + 1 and ``"contiguous": True``; the
-        recurrent families' state of B rows (`init_state`); the hybrid
-        both."""
+    def init_caches(self, B: int, max_len: int, rep: Rep = Rep.ID,
+                    dtype=None, *, device="cuda",
+                    kv_heads: Optional[int] = None):
+        """The zeroed cache of `B` slots of `max_len` positions.
+
+        At Rep.ID the port's contiguous ID cache: KV pools of B pages of
+        max_len positions plus the trash page (of `kv_heads` kv heads,
+        `init_pools`), with the fixed table slot b -> page b + 1 and
+        ``"contiguous": True``; the recurrent families' state of B rows
+        (`init_state`); the hybrid both.
+
+        At FP / FQ the reference's float layout (`_float_caches`), a
+        list of one tree a segment, the K/V and conv windows in `dtype`
+        (bfloat16 by default), every SSM state h float32."""
+        if rep is not Rep.ID:
+            return self._float_caches(B, max_len, dtype or torch.bfloat16,
+                                      device)
         caches = self.init_state(B, device) if self.recurrent else {}
         if self.has_kv:
             caches.update(self.init_pools(B, max_len, device=device,
@@ -740,6 +832,33 @@ class DecoderLM:
                                            device=device)[:, None]
             caches["contiguous"] = True
         return caches
+
+    def _float_caches(self, B: int, max_len: int, dtype, device) -> list:
+        """The reference's `init_caches` at FP / FQ: a dense segment's
+        {"k", "v": (n, B, K, max_len, hd)}, a mamba segment's {"conv":
+        (n, B, conv_k - 1, channels), "h": (n, B, ...) float32}, the
+        hybrid's {"m": the Mamba-2 state (G, k, B, ...), "sh": the
+        shared applications' K/V (G, B, K, max_len, hd)}."""
+        def stack(tree, n):
+            return {k: (stack(v, n) if isinstance(v, dict) else
+                        v[None].repeat(n, *([1] * v.dim())))
+                    for k, v in tree.items()}
+
+        rep = Rep.FP
+        out = []
+        for kind, tpl, n in self.plan():
+            if kind == "dense":
+                out.append(stack(tpl.init_cache(B, max_len, dtype, device),
+                                 n))
+            elif kind == "mamba":
+                out.append(stack(tpl.init_cache(B, device, rep, dtype), n))
+            else:
+                mam, sha = tpl
+                k = self.cfg.shared_attn_every
+                one = {"m": stack(mam.init_cache(B, device, rep, dtype), k),
+                       "sh": sha.init_cache(B, max_len, dtype, device)}
+                out.append(stack(one, n))
+        return out
 
     def prefill(self, t: dict, batch: torch.Tensor, caches: dict,
                 last_index=None) -> torch.Tensor:

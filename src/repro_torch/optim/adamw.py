@@ -33,17 +33,27 @@ def adamw_init(params, *, dtype=torch.float32) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def global_norm(grads) -> torch.Tensor:
+    """The float32 L2 norm of every gradient leaf, summed leaf by leaf
+    in the reference's (jax's) leaf order."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in tree_leaves(grads)))
+
+
 def adamw_update(params, grads, state: dict, *, lr: torch.Tensor,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1,
-                 clip_norm: Optional[float] = 1.0):
-    """-> (new params, new state); every trainable leaf decays."""
+                 clip_norm: Optional[float] = 1.0,
+                 gnorm: Optional[torch.Tensor] = None):
+    """-> (new params, new state); every trainable leaf decays.
+    `gnorm` is the clip's gradient norm where the caller has it (a
+    sharded step updates its shards with the norm of the whole
+    gradients); by default `global_norm(grads)`."""
     f32 = torch.float32
     step = state["step"] + 1
     if clip_norm is not None:
-        # summed leaf by leaf in the reference's (jax's) leaf order
-        gnorm = torch.sqrt(sum(
-            torch.sum(torch.square(g.to(f32))) for g in tree_leaves(grads)))
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = torch.minimum(
             _c(1.0, gnorm),
             _c(clip_norm, gnorm) / torch.maximum(gnorm, _c(1e-9, gnorm)))

@@ -1990,3 +1990,44 @@ def test_bf16_island_engine_card_equals_cpu(arch):
     assert torch.equal(card["pools"]["h"].view(torch.int32),
                        cpu["pools"]["h"].view(torch.int32))
     assert not torch.equal(cpu["pools"]["h"], out["cpu", "f32"]["pools"]["h"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite_3_2b", "zamba2_1_2b"])
+def test_float_cache_decode_equals_no_cache_forward_on_card(arch):
+    """The float forward through `init_caches(rep=FP)` on the card: a
+    24-token prefill and 4 decodes of a reduced model; each step's
+    logits within 5e-2 of their span of the no-cache forward over the
+    whole sequence so far (the cache holds K / V in bfloat16), and
+    within 1e-3 of the CPU's."""
+    _need_card()
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.rep import Rep
+    from repro_torch.models.lm import DecoderLM
+
+    P, D = 24, 4
+    lm = DecoderLM(get_config(arch).reduced(), max_seq=P + D)
+    p = lm.init_np(0)
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, lm.cfg.vocab, size=(2, P + D)).astype(np.int32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pt, tk = params_to_torch(p, dev), tok.to(dev)
+        with torch.no_grad():
+            caches = lm.init_caches(2, P + D, Rep.FP, device=dev)
+            x, caches = lm.apply(pt, lm.embed_in(pt, tk[:, :P]),
+                                 caches=caches, pos=0)
+            steps = [lm.logits(pt, x)[:, -1]]
+            for d in range(D):
+                x, caches = lm.apply(pt, lm.embed_in(pt, tk[:, P + d:P + d + 1]),
+                                     caches=caches, pos=P + d)
+                steps.append(lm.logits(pt, x)[:, -1])
+            for d, got in enumerate(steps):
+                full = lm.logits(pt, lm.apply(pt, lm.embed_in(
+                    pt, tk[:, :P + d])))[:, -1]
+                span = float(full.max() - full.min())
+                assert float((got - full).abs().max()) <= 5e-2 * span, d
+        out[dev] = [s.cpu() for s in steps]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.max() - b.min())
