@@ -11,12 +11,15 @@ Phases (any failure raises and the script exits non-zero):
   kernels   each kernel against its plain PyTorch version on the card,
             at its path's shapes: the int8 GEMM (both modes) exactly,
             at granite_3_2b's sites and at every site of llama3_2_3b and
-            chatglm3_6b, musicgen_medium and nemotron_4_340b (M 8 and
-            256), with the plan `gemm_plan` took; the requant's four forms
+            chatglm3_6b, musicgen_medium, nemotron_4_340b and the dense
+            half and shared expert of llama4_maverick_400b_a17b (M 8 and
+            256; its head N 202048), with the plan `gemm_plan` took; the
+            requant's four forms
             (apply_rqt, heads-to-rows for ctx_rqt; the whole QAdd; the
             gated MLP's LUT, gate product and h_rqt; the ungated MLP's
             GELU LUT or squared ReLU) exactly at the chunk and decode
-            shapes, per-channel, scalar-path and wrapping tables; the
+            shapes, per-channel, scalar-path and wrapping tables, and
+            llama4's sh_rqt (int32 out within +-2^24, d 5120); the
             paged attention in both
             pool modes
             (int8, and int4-packed with per-head unpack operands) at S
@@ -24,8 +27,9 @@ Phases (any failure raises and the script exits non-zero):
             the launch `paged_plan` took and its registers and spills),
             and at the new configs' heads (hd 128; group 3 with 8 kv
             heads, group 16 with 2; musicgen_medium's group 1 with 24
-            at hd 64; nemotron_4_340b's group 12 with 8 at hd 192; S 32
-            and 1 at T 512), equal to its
+            at hd 64; nemotron_4_340b's group 12 with 8 at hd 192;
+            llama4_maverick's group 5 with 8 at hd 128; S 32 and 1 at T
+            512), equal to its
             plain version: 0 quanta moved and max |diff| 0; the
             quantized flash
             attention at full granite geometry (S 8192 x 8192 with bkv
@@ -38,8 +42,11 @@ Phases (any failure raises and the script exits non-zero):
             the grouped int8 GEMM (the MoE's expert GEMMs, one launch
             over 64 experts) at olmoe_1b_7b's gate/up (K 2048, N 1024)
             and down (K 1024, N 2048) sites at C 4, 40 and 80 with
-            per-(expert, channel) tables, exactly, with its plan, and
-            at the write-then-gather attention's two products at
+            per-(expert, channel) tables, exactly, with its plan, at
+            llama4_maverick's 128 experts (C 4 and 8; gate/up K 5120 N
+            8192 int8 out, down K 8192 N 5120 int32 out; 5.37 GB of
+            weights a site), and at the write-then-gather attention's
+            two products at
             granite's geometry (64 groups, C 128 and 4, scores K 64 N
             512, P.V K 512 N 64, int32 out)
             the int8 GEMM at falcon_mamba_7b's five sites (in_proj K
@@ -79,7 +86,9 @@ Phases (any failure raises and the script exits non-zero):
             int32 logits and every block's and pool's int8 activations
             equal byte for byte; the FP-vs-ID logit correlation; images
             per second of apply_id on 4096 images by CUDA events, peak
-            device memory
+            device memory; then `QConv2d` at stride 2 at its widths (16
+            -> 32 channels, kernel 3 SAME and kernel 2 VALID, 256
+            images) through the GEMM kernel, card == CPU
   calibrate granite_3_2b at full width cut to 2 layers: the
             FullPrecision forward of the entry point's calibration
             sample (`DecoderLM.calibrate`) on the card and on the CPU
@@ -215,6 +224,21 @@ Phases (any failure raises and the script exits non-zero):
             site; run 2 warmed with telemetry on: tok/s, TTFT, ITL, the
             host's ms per step phase) and over the paged arena (tokens
             equal)
+  llama4    llama4_maverick_400b_a17b (pairs of a dense block and a MoE
+            block with a shared expert; 128 experts top-1, d 5120, 40/8
+            heads at hd 128, d_ff 8192): the dense half of a pair at
+            full width (its float weights calibrated on the card,
+            deployed, then a chunk and a decode dispatch card vs CPU at
+            kv_bits 8 and 4, outputs and pools byte for byte; the MoE
+            half at full width waits: ROADMAP §3); the reduced model
+            calibrated on the card and the CPU on 4 x 32 tokens (ranges
+            within 1e-4 of the span), deployed from the card's, the
+            8-request cell over `SlotArena` and the paged arena (counts
+            set to 0 just before and read just after: the path's
+            kernels, sh_rqt on the requant's rqt form), tokens card ==
+            CPU; its pair over int4-packed pools (one prefill_chunk and
+            a decode, card == CPU; the engine refuses kv_bits 4 for the
+            MoE family, as the reference does); its FQ step card vs CPU
   ssm       falcon_mamba_7b (the ssm family: Mamba-1 blocks, the integer
             causal conv1d, the softplus / exp(dt A) scan island as fixed
             float32 sequences, exact-length whole-prompt prefill): 2
@@ -264,7 +288,10 @@ Phases (any failure raises and the script exits non-zero):
             counted: launches by kernel, GEMM by site, requant by form;
             tok/s, TTFT, ITL, deploy s, resident and peak memory; one
             decode dispatch's aten ops with the island's share) and over
-            the paged arena (tokens equal)
+            the paged arena (tokens equal); then `QMamba2` at n_groups 2
+            (reduced zamba2's block width) calibrated on the card,
+            `apply_id` card vs CPU in the float32 and bf16 islands
+            (accumulator, conv window, h bit for bit)
   nemotron  one nemotron_4_340b decoder layer at full width (d 18432,
             96/8 heads at hd 192, ungated squared-ReLU MLP at d_ff
             73728, about 3.45 B parameters; the whole model fits no
@@ -378,6 +405,10 @@ PATH_KERNELS = {8: ("int8_matmul", "requant", "paged_attention"),
                 4: ("int8_matmul", "requant", "paged_attention_kv4"),
                 "moe": ("int8_matmul", "int8_matmul_grouped", "requant",
                         "paged_attention"),
+                # the MoE with a shared expert in pairs (llama4): the
+                # MoE's, sh_rqt on the requant kernel's int32-out rqt
+                "llama4": ("int8_matmul", "int8_matmul_grouped", "requant",
+                           "paged_attention"),
                 # the write-then-gather path (either pool width): both
                 # attention products on the grouped GEMM
                 "gather": ("int8_matmul", "int8_matmul_grouped", "requant"),
@@ -418,7 +449,8 @@ VARIANTS = ("musicgen_medium", "nemotron_4_340b")
 CONFIG_HEADS = {"llama3_2_3b": (24, 8, 128), "chatglm3_6b": (32, 2, 128),
                 "musicgen_medium": (24, 24, 64),
                 "nemotron_4_340b": (96, 8, 192),
-                "internvl2_76b": (64, 8, 128)}
+                "internvl2_76b": (64, 8, 128),
+                "llama4_maverick_400b_a17b": (40, 8, 128)}
 # the nemotron layer's dispatches: slots and chunk tokens (the CPU side's
 # float32 products, about 12 s a chunk and decode pair, bound them)
 NEMO_SLOTS, NEMO_CHUNK = 2, 16
@@ -461,8 +493,8 @@ SSM_PREFILL, SSM_PARITY_GEN = 128, 4
 # host, the CPU side most of it)
 BF16_CHECK_CHUNK = 32
 # torch.exp card vs CPU over every EXP_STRIDE-th float32 in [-104, 0]
-# (every one before: 10.7 s)
-EXP_STRIDE = 4
+# (every one before PR 33: 10.7 s; every 4th before PR 34: 2.6 s)
+EXP_STRIDE = 8
 # blockwise phase: granite_3_2b's served depth (the first layer of the
 # calibrate phase's 2-layer tables since the embeds and train phases:
 # the CPU side's prefills bound the phase), the contiguous cache's
@@ -482,6 +514,26 @@ BLOCKWISE_TOKENS = 4
 HYBRID_ARCH, HYBRID_PARITY_LAYERS, HYBRID_LAYERS = "zamba2_1_2b", 6, 7
 HYBRID_PARITY_SLOTS, HYBRID_PARITY_GEN = 3, 2
 HYBRID_PROMPTS = (254, 172, 256, 31, 149, 255, 121, 257)
+# llama4 phase: llama4_maverick_400b_a17b (pairs of a dense block and a
+# MoE block with a shared expert; 128 experts top-1, d 5120, 40/8 heads
+# at hd 128, d_ff 8192, vocab 202048).  The dense half of a pair at full
+# width card vs CPU (its MoE half: 16.1 G expert parameters, a 64.4 GB
+# float32 draw, and the reference has no table set at that width,
+# ROADMAP §3); the reduced model calibrated on the LLAMA4_SAMPLE tokens
+# it deploys from, served as an 8-request cell (MoE exact-length
+# prompts: at most one group of 64 or a whole number of groups, 6 new
+# tokens) over both arenas; its FQ step card vs CPU on one MoE group
+LLAMA4_ARCH, LLAMA4_MAX_LEN, LLAMA4_SAMPLE = ("llama4_maverick_400b_a17b",
+                                              128, (4, 32))
+LLAMA4_PROMPTS, LLAMA4_GEN = (5, 17, 64, 17, 5, 64, 17, 5), 6
+LLAMA4_TRAIN = (2, 32)  # the FQ step's batch x sequence: 64 tokens
+# the grouped GEMM at llama4's expert sites, one launch over 128
+# experts: (C, K, N, output), capacity C 4 (a decode group of 8 slots;
+# any group up to 409 tokens) and 8 (a group of 512), gate/up int8 out
+# per (expert, channel), down int32 out
+LLAMA4_EXPERTS = 128
+LLAMA4_GROUPED = ((4, 5120, 8192, "int8"), (4, 8192, 5120, "int32"),
+                  (8, 5120, 8192, "int8"), (8, 8192, 5120, "int32"))
 # the write-then-gather attention's two products on the grouped GEMM at
 # granite's attention (8 slots x 8 kv heads, group 4, hd 64, T 512): S,
 # a chunk and a decode row
@@ -563,9 +615,10 @@ TRAIN_STEPS, TRAIN_CKPT = 12, 6
 TRAIN_FAMILIES = (("olmoe_1b_7b", 1, 1, 512, 2, 4, 512),
                   ("falcon_mamba_7b", 1, 1, 64, 1, 8, 256),
                   ("zamba2_1_2b", 6, 1, 64, 7, 2, 256))
-# (1 warm-up and 3 timed steps since the train_sharded phase, 2 and 5
-# since the bf16 island's train cell, 2 and 10 before: time)
-TRAIN_FAMILY_WARM, TRAIN_FAMILY_TIMED = 1, 3
+# (1 warm-up and 2 timed steps since the llama4 phase, 3 since the
+# train_sharded phase, 2 and 5 since the bf16 island's train cell, 2 and
+# 10 before: time)
+TRAIN_FAMILY_WARM, TRAIN_FAMILY_TIMED = 1, 2
 # the bf16 island's card-vs-CPU batch: 64 tokens in two chunks of 32
 TRAIN_BF16_SEQ = 64
 # card-vs-CPU gradient tolerances of those families (relative L2; the
@@ -746,12 +799,15 @@ def check_int8_matmul(torch, np, timer, rng, report):
 
 def check_config_gemms(torch, np, timer, rng, report):
     """The GEMM at every QLinear site of the configs served beside
-    granite_3_2b, of VARIANTS and of EMBEDS_ARCH (`gemm_sites`; its
-    head N 128256, its down K 28672), decode (M 8) and chunk (M 256)."""
+    granite_3_2b, of VARIANTS, of EMBEDS_ARCH (`gemm_sites`; its head N
+    128256, its down K 28672) and of LLAMA4_ARCH's dense half and
+    shared expert (wq / wo K 5120 N 5120, wk / wv N 1024, gate / up N
+    8192, down K 8192, the head N 202048), decode (M 8) and chunk (M
+    256)."""
     from repro_torch.configs.base import get_config
 
     worst = 0
-    for arch in CONFIGS + VARIANTS + (EMBEDS_ARCH,):
+    for arch in CONFIGS + VARIANTS + (EMBEDS_ARCH, LLAMA4_ARCH):
         for (K, N, mode), site in gemm_sites(get_config(arch)).items():
             for M in (N_SLOTS, N_SLOTS * CHUNK):
                 worst = max(worst, gemm_case(torch, np, timer, rng, report,
@@ -937,6 +993,62 @@ def check_grouped_gemm(torch, np, timer, rng, report):
               f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), library "
               f"null, exact; {row['plan']}, one launch, "
               f"{n_bytes / ms / 1e6:.0f} GB/s{note}")
+    return worst
+
+
+def check_llama4_grouped(torch, np, timer, rng, report):
+    """The grouped form at llama4's expert sites (LLAMA4_GROUPED): one
+    launch over 128 experts, G 1; gate / up (K 5120, N 8192) with
+    per-(expert, channel) requant tables, int8 out, and down (K 8192, N
+    5120) int32 out, each 5.37 GB of int8 weights; exactly as the plain
+    version, its time beside its bytes bound (library null: no one
+    PyTorch call computes it).  -> max |diff| (0)."""
+    from repro_torch.core.requant import make_rqt
+    from repro_torch.kernels import (
+        int8_matmul_grouped, int8_matmul_grouped_plain,
+    )
+    from repro_torch.kernels.int8_matmul import gemm_plan
+
+    E, worst = LLAMA4_EXPERTS, 0
+    for C, K, N, mode in LLAMA4_GROUPED:
+        x = torch.randint(-128, 128, (1, E, C, K), dtype=torch.int8,
+                          device="cuda")
+        w = torch.randint(-128, 128, (E, N, K), dtype=torch.int8,
+                          device="cuda").transpose(1, 2)
+        rqt = None
+        if mode == "int8":
+            rqt = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                   for k, v in make_rqt(
+                       rng.uniform(1e-5, 4e-5, size=(E, N)), 0.05,
+                       acc_bound=K * 127.0 * 127.0).items()}
+        got = int8_matmul_grouped(x, w, rqt)
+        want = int8_matmul_grouped_plain(x, w, rqt)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if str(got.dtype) != f"torch.{mode}" or err != 0:
+            raise AssertionError(f"int8_matmul_grouped llama4 C={C} K={K} "
+                                 f"N={N}: max err {err}")
+        del want
+        worst = max(worst, err)
+        ms = timer(lambda: int8_matmul_grouped(x, w, rqt))
+        plain = timer(lambda: int8_matmul_grouped_plain(x, w, rqt), 3)
+        n_bytes = (E * C * K + E * K * N + E * C * N * (1 if rqt else 4)
+                   + (4 * 4 * E * N + 8 if rqt else 0))
+        bms, by = bound_ms(n_bytes, 2.0 * E * C * N * K, INT8_OPS_S)
+        p = gemm_plan(C, N, K, E)
+        site = "gate/up" if mode == "int8" else "down"
+        row = dict(shape=f"llama4 G=1 E={E} C={C} K={K} N={N} {mode}-out "
+                   f"({site})", ms=ms, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, library_ms=None, max_abs_err=err,
+                   plan=f"{p.path} {p.bm}x{p.bn}, {p.splits} split(s), "
+                   f"{p.blocks} blocks")
+        report.setdefault("int8_matmul_grouped", []).append(row)
+        print(f"  int8_matmul_grouped {row['shape']}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), library "
+              f"null, exact; {row['plan']}, one launch, "
+              f"{n_bytes / ms / 1e6:.0f} GB/s")
+        del x, w, got
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -1183,6 +1295,11 @@ def requant_cases(torch, np, rng):
         gate("internvl2 gate decode", (2, 28672), "scalar"),
         add("internvl2 QAdd prefill", (2, 1024, 8192), "scalar", "channel"),
         add("internvl2 QAdd decode", (2, 1, 8192), "scalar", "channel"),
+        # llama4's sh_rqt: the shared expert's int32 accumulator into
+        # the MoE's combine space, per channel at d 5120, int32 out
+        # within +-2^24, at a chunk and a decode dispatch
+        rqt("llama4 sh_rqt chunk", (B, CHUNK, 5120), "channel", out32=True),
+        rqt("llama4 sh_rqt decode", (B, 1, 5120), "channel", out32=True),
         # the NemoCNN's intbn requant at B 256, one per block
         rqt("nemo_cnn b0", (256, 32, 32, 16), "channel"),
         rqt("nemo_cnn b1", (256, 16, 16, 32), "channel"),
@@ -1253,8 +1370,8 @@ def paged_inputs(torch, np, S, T, seed, packed=False, heads=(32, 8, 64)):
 def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
     """Kernel vs plain version, int8 pools or int4-packed ones (per-head
     unpack operands from `staged_unpack_rq`), at `PAGED_SHAPES` and at
-    the heads of `CONFIGS`, `VARIANTS` and EMBEDS_ARCH (group 8 at hd
-    128; S 32 and 1 at T 512).
+    the heads of `CONFIGS`, `VARIANTS`, EMBEDS_ARCH (group 8 at hd 128)
+    and LLAMA4_ARCH (group 5 at hd 128), S 32 and 1 at T 512.
     Tolerance (`check_kernel`): the kernel's int8 probability image may
     differ from the plain one by one quantum at no more than max(8, 1e-5
     of) its entries, and none by more; the int32 output must equal the
@@ -1275,8 +1392,8 @@ def check_paged_attention(torch, np, timer, report, ptxas, packed=False):
              for i, (S, T) in enumerate(PAGED_SHAPES)]
     cases += [(arch + " ", S, MAX_LEN, CONFIG_HEADS[arch], SEED + 40 + i)
               for i, (arch, S) in enumerate(
-                  (a, S) for a in CONFIGS + VARIANTS + (EMBEDS_ARCH,)
-                  for S in (CHUNK, 1))]
+                  (a, S) for a in CONFIGS + VARIANTS
+                  + (EMBEDS_ARCH, LLAMA4_ARCH) for S in (CHUNK, 1))]
     worst = 0
     for label, S, T, heads, seed in cases:
         args, kw = paged_inputs(torch, np, S, T, seed, packed, heads)
@@ -1645,6 +1762,47 @@ def phase_cnn(torch, np, kernels):
               f"{ms:.3f} (idle share {1 - busy / ms:.3f}); by owner " +
               ", ".join(f"{k} {v[0]:.3f} ms in {v[1]}" for k, v in sorted(
                   split.items(), key=lambda kv: -kv[1][0])))
+
+
+def cnn_strided_conv(torch, np, kernels) -> None:
+    """`QConv2d` at stride 2 at the NemoCNN's widths (16 -> 32 channels
+    over its 256 images of 32 x 32): kernel 3 under SAME (XLA's rule:
+    one more pad on the high side) and kernel 2 under VALID, zp 0, the
+    int32 accumulator and the int8 image fused into the epilogue, each
+    through the GEMM kernel on the card (counts set to 0 just before and
+    read just after: 2 launches) and its plain version on the CPU, equal
+    byte for byte."""
+    from repro_torch.core.requant import make_rqt
+    from repro_torch.layers.conv import QConv2d
+
+    rng = np.random.default_rng(SEED + 27)
+    s = rng.integers(-128, 128, size=(CNN_IMAGES, 32, 32, 16)).astype(
+        np.int8)
+    for kernel, padding in ((3, "SAME"), (2, "VALID")):
+        conv = QConv2d(16, 32, kernel=kernel, stride=2, padding=padding)
+        ip, eps_acc = conv.deploy(conv.init_np(rng), 0.02, 0)
+        rqt = make_rqt(eps_acc, 0.05, acc_bound=conv.acc_bound())
+        out = {}
+        for dev in ("cuda", "cpu"):
+            d = conv.load(ip, dev)
+            r = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in rqt.items()}
+            x = torch.from_numpy(s).to(dev)
+            kernels.reset_launch_counts()
+            out[dev] = (conv.apply_id(d, x).cpu(), conv.apply_id(d, x, r)
+                        .cpu())
+            if dev == "cuda":
+                n = kernels.launch_counts()
+        for a, b in zip(out["cuda"], out["cpu"]):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"stride-2 conv k {kernel} {padding}: "
+                                     "card != CPU")
+        if n["int8_matmul"] != 2 or sum(n.values()) != 2:
+            raise AssertionError(f"stride-2 conv launches {n}: 2 GEMMs "
+                                 "expected")
+        print(f"  stride-2 conv, kernel {kernel} {padding}: "
+              f"{tuple(out['cuda'][0].shape)} int32 and int8 card == CPU "
+              f"byte for byte; card launches {n}")
 
 
 def cnn_profile(torch, fn) -> dict:
@@ -2880,28 +3038,37 @@ def phase_musicgen(torch, np, kernels):
 
 def phase_nemotron(torch, np):
     """One nemotron_4_340b decoder layer at full width, card against
-    CPU: its float weights (`init_layer_np`), calibrated on the card on
-    its own float input (CALIB_BATCH x 64 rows at the embedding's init
-    scale), deployed, then `DenseBlock.apply_id` on both devices over a
-    paged arena: a chunk dispatch (NEMO_SLOTS slots x NEMO_CHUNK tokens
-    of the input's int8 image, at positions 0 and 5) and a decode
-    dispatch after it (one more token each); outputs and both pools
-    equal byte for byte, at kv_bits 8 and 4."""
+    CPU (`layer_card_vs_cpu`)."""
     from repro_torch.configs.base import get_config
-    from repro_torch.core.calibrate import Calibrator
-    from repro_torch.layers.common import DeployCtx
-    from repro_torch.models.lm import (
-        DecoderLM, load_layer, params_to_torch, tree_to_torch,
-    )
+    from repro_torch.models.lm import DecoderLM
 
     print("  host memory (free -g):\n" + subprocess.run(
         ["free", "-g"], capture_output=True, text=True,
         timeout=60).stdout.rstrip())
     cfg = dataclasses.replace(get_config("nemotron_4_340b"), n_layers=1)
-    lm = DecoderLM(cfg, max_seq=MAX_LEN)
-    blk = lm.block()
+    layer_card_vs_cpu(torch, np, DecoderLM(cfg, max_seq=MAX_LEN), 0,
+                      "nemotron layer")
+
+
+def layer_card_vs_cpu(torch, np, lm, i: int, what: str) -> None:
+    """Block i of `lm` at its width, card against CPU: its float weights
+    (`init_layer_np`), calibrated on the card on its own float input
+    (CALIB_BATCH x 64 rows at the embedding's init scale), deployed,
+    then `DenseBlock.apply_id` on both devices over a paged arena: a
+    chunk dispatch (NEMO_SLOTS slots x NEMO_CHUNK tokens of the input's
+    int8 image, at positions 0 and 5) and a decode dispatch after it
+    (one more token each); outputs and both pools equal byte for byte,
+    at kv_bits 8 and 4."""
+    from repro_torch.core.calibrate import Calibrator
+    from repro_torch.layers.common import DeployCtx
+    from repro_torch.models.lm import (
+        load_layer, params_to_torch, tree_to_torch,
+    )
+
+    cfg = lm.cfg
+    blk = lm.block(i)
     t0 = time.perf_counter()
-    p = lm.init_layer_np(SEED, 0)
+    p = lm.init_layer_np(SEED, i)
     n_par = sum(v.size for sub in p.values() for leaf in sub.values()
                 for v in (leaf.values() if isinstance(leaf, dict)
                           else [leaf]))
@@ -2911,16 +3078,17 @@ def phase_nemotron(torch, np):
     x *= np.float32(0.02)  # the embedding's init scale
     eps_in = 2.0 * max(float(np.max(np.abs(x))), 1e-8) / 255.0
     calib = Calibrator()
+    scope = lm.layer_scope(i)
     p_card = params_to_torch(p, "cuda")
-    blk.apply_float(p_card, torch.from_numpy(x).cuda(), calib, "S0.L0.")
+    blk.apply_float(p_card, torch.from_numpy(x).cuda(), calib, scope)
     torch.cuda.synchronize()
     del p_card
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    t_np, _ = blk.deploy(DeployCtx(calib=calib), "S0.L0.", p, eps_in)
+    t_np, _ = blk.deploy(DeployCtx(calib=calib), scope, p, eps_in)
     del p
     t3 = time.perf_counter()
-    print(f"  one layer: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+    print(f"  {what}: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
           f"heads at hd {cfg.hd}, d_ff {cfg.d_ff} ({cfg.act}, gated "
           f"{cfg.gated}, norm {cfg.norm}), {n_par} parameters; float draw "
           f"{t1 - t0:.1f} s, params to the card and calibration there "
@@ -2961,7 +3129,7 @@ def phase_nemotron(torch, np):
         for name, a, b in zip(("chunk output", "decode output", "K pool",
                                "V pool"), out["cuda"], out["cpu"]):
             if a.dtype != b.dtype or not torch.equal(a, b):
-                raise AssertionError(f"nemotron layer kv_bits {kv_bits} "
+                raise AssertionError(f"{what} kv_bits {kv_bits} "
                                      f"{name}: card != CPU")
         y1 = out["cuda"][0]
         print(f"  kv_bits {kv_bits}: chunk and decode outputs "
@@ -2969,6 +3137,138 @@ def phase_nemotron(torch, np):
               f"{int(y1.min())}..{int(y1.max())}) and both pools "
               f"{tuple(out['cuda'][2].shape)} equal byte for byte")
     del tabs
+
+
+def _llama4_sample(vocab: int):
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticStream
+
+    B, S = LLAMA4_SAMPLE
+    return SyntheticStream(SyntheticConfig(
+        vocab=vocab, seq_len=S, global_batch=B)).batch(0)[:, :S]
+
+
+def llama4_packed_dispatch(torch, np, lm, tables) -> None:
+    """The reduced llama4's pair over int4-packed pools (kv_bits 4; the
+    engine refuses the MoE family's exact-length prefill there, as the
+    reference does): one `prefill_chunk` of 3 slots x 8 tokens (a
+    parked row) and a decode dispatch after it through a permuted page
+    table, card vs CPU: int32 logits and both pools byte for byte."""
+    from repro_torch.layers.attention import INACTIVE_POS
+
+    cfg = lm.cfg
+    rng = np.random.default_rng(SEED + 34)
+    B, C, pps = 3, 8, LLAMA4_MAX_LEN // PAGE
+    n_pages = B * pps
+    pools = lm.init_pools(n_pages, PAGE, device="cpu", kv_bits=4)
+    stale = {k: torch.from_numpy(rng.integers(
+        -128, 128, size=tuple(v.shape)).astype(np.int8))
+        for k, v in pools.items()}
+    table = torch.from_numpy(rng.permutation(np.arange(1, n_pages + 1))
+                             .reshape(B, pps).astype(np.int32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, C))
+                            .astype(np.int32))
+    pos = torch.tensor([0, 9, INACTIVE_POS], dtype=torch.int32)
+    last = torch.tensor([C - 1, 3, 0], dtype=torch.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        caches = {k: v.clone().to(dev) for k, v in stale.items()}
+        caches["table"] = table.to(dev)
+        t = tables[dev]
+        l1 = lm.prefill_chunk(t, toks.to(dev), caches, pos.to(dev),
+                              last.to(dev))
+        tok = torch.argmax(l1[:, 0], dim=-1).to(torch.int32)[:, None]
+        l2 = lm.decode_step(t, tok, caches, (pos + C).to(dev))
+        out[dev] = [l1.cpu(), l2.cpu(), caches["k"].cpu(), caches["v"].cpu()]
+    for name, a, b in zip(("chunk logits", "decode logits", "K pools",
+                           "V pools"), out["cuda"], out["cpu"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"llama4 kv_bits 4 {name}: card != CPU")
+    print(f"  reduced kv_bits 4 (prefill_chunk over packed pools "
+          f"{tuple(out['cuda'][2].shape)}): a {B} x {C} chunk and a decode "
+          "dispatch, logits and both pools card == CPU byte for byte")
+
+
+def phase_llama4(torch, np, kernels) -> dict:
+    """LLAMA4_ARCH: (i) the dense half of a pair at full width, card vs
+    CPU (`layer_card_vs_cpu`, kv_bits 8 and 4); (ii) the reduced model
+    calibrated on the card and the CPU on the LLAMA4_SAMPLE tokens
+    (ranges within CALIB_TOL of the span), deployed once from the card's
+    ranges and served as the 8-request cell over `SlotArena` and the
+    paged arena on the card (counts set to 0 just before and read just
+    after: every kernel of PATH_KERNELS["llama4"], sh_rqt on the
+    requant's rqt form once a MoE block and dispatch) and on the CPU,
+    tokens and finish reasons equal; its pair over int4-packed pools
+    (`llama4_packed_dispatch`); (iii) its FQ loss and gradients card vs
+    CPU on LLAMA4_TRAIN tokens.  -> the card runs' launches by kernel."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve_scenario
+    from repro_torch.models.lm import DecoderLM, tables_from_numpy
+
+    t0 = time.perf_counter()
+    full = DecoderLM(dataclasses.replace(get_config(LLAMA4_ARCH),
+                                         n_layers=2), max_seq=MAX_LEN)
+    layer_card_vs_cpu(torch, np, full, 0, "llama4 dense half of a pair")
+    t0 = phase_done("llama4 (i) dense half", t0)
+    lm = DecoderLM(get_config(LLAMA4_ARCH).reduced(), max_seq=LLAMA4_MAX_LEN)
+    p = lm.init_np(SEED)
+    sample = _llama4_sample(lm.cfg.vocab)
+    cal = {dev: lm.calibrate(p, sample, device=dev)
+           for dev in ("cuda", "cpu")}
+    worst = max(abs(getattr(cal["cuda"], e)[n] - getattr(cal["cpu"], e)[n])
+                / max(cal["cpu"].hi[n] - cal["cpu"].lo[n], 1e-6)
+                for n in cal["cpu"].hi for e in ("hi", "lo"))
+    if worst > CALIB_TOL:
+        raise AssertionError(f"llama4 calibration card vs CPU {worst:.3e} "
+                             "of the span")
+    t_np = lm.deploy(p, cal["cuda"])
+    tables = {dev: tables_from_numpy(t_np, dev) for dev in ("cuda", "cpu")}
+    print(f"  reduced {lm.cfg.name}: {lm.cfg.n_layers} layers as "
+          f"{lm.plan()[0][2]} pair, {lm.cfg.n_experts} experts top-"
+          f"{lm.cfg.top_k} and the shared MLP, calibrated on "
+          f"{LLAMA4_SAMPLE[0]} x {LLAMA4_SAMPLE[1]} tokens on the card and "
+          f"the CPU ({len(cal['cpu'].hi)} ranges, worst {worst:.2e} of the "
+          "span), deployed from the card's")
+    rng = np.random.default_rng(SEED + 35)
+    reqs = [(rng.integers(0, lm.cfg.vocab, size=(n,)), LLAMA4_GEN)
+            for n in LLAMA4_PROMPTS]
+    launches = {}
+    for paged in (False, True):
+        arena = "the paged arena" if paged else "SlotArena"
+        sc = {"config": dict(n_slots=N_SLOTS, max_len=LLAMA4_MAX_LEN,
+                             paged=paged, page_size=PAGE),
+              "requests": reqs, "count_launches": True}
+        res = {dev: serve_scenario(lm, tables[dev], sc, device=dev)
+               for dev in ("cuda", "cpu")}
+        card, cpu = res["cuda"], res["cpu"]
+        if (card["tokens"], card["finish"]) != (cpu["tokens"],
+                                                cpu["finish"]):
+            raise AssertionError(f"llama4 over {arena}: card tokens "
+                                 f"{card['tokens']} != CPU {cpu['tokens']}")
+        got = card["launches"]
+        steps = card["stats"]["steps"]
+        missing = [k for k in PATH_KERNELS["llama4"] if not got.get(k)]
+        if missing:
+            raise AssertionError(f"llama4 over {arena}: {missing} never "
+                                 f"launched ({got})")
+        rqt = card["requant_by_form"].get("rqt", 0)
+        if rqt < steps:
+            raise AssertionError(f"llama4 over {arena}: {rqt} rqt launches "
+                                 f"(sh_rqt) for {steps} steps")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"  reduced over {arena}, {len(reqs)} requests (prompts "
+              f"{LLAMA4_PROMPTS}, {LLAMA4_GEN} new tokens): card == CPU "
+              f"tokens and finish reasons in {steps} steps; card launches "
+              f"{got}, requant by form {card['requant_by_form']}; "
+              f"{card['stats']['throughput_tok_s']:.2f} tok/s on the card")
+    llama4_packed_dispatch(torch, np, lm, tables)
+    print(f"  tokens {card['tokens']}")
+    del tables
+    t0 = phase_done("llama4 (ii) reduced served", t0)
+    train_family_card_vs_cpu(torch, np, LLAMA4_ARCH, None, *LLAMA4_TRAIN,
+                             reduced=True)
+    phase_done("llama4 (iii) FQ step", t0)
+    return launches
 
 
 def gemm_sites(cfg) -> dict:
@@ -3831,6 +4131,51 @@ def phase_hybrid(torch, np, kernels):
           f"found; tokens {tok1}")
 
 
+def mamba2_groups_parity(torch, np) -> None:
+    """`QMamba2` at n_groups 2, the reduced zamba2 block's width (d 128,
+    8 heads of 32, state 16; each group's B / C over 4 heads): seeded
+    init_np weights calibrated on the card on 2 x 128 float rows,
+    deployed, then `apply_id` of 2 x 128 int8 rows from a seeded state on
+    the card and the CPU, in the float32 and the bf16 island: out_proj's
+    accumulator, the conv window and h bit for bit."""
+    from repro_torch.core.calibrate import Calibrator
+    from repro_torch.launch import variants
+    from repro_torch.layers.common import DeployCtx
+    from repro_torch.layers.ssm import QMamba2
+    from repro_torch.models.lm import params_to_torch, tree_to_torch
+
+    m = QMamba2(128, d_state=16, expand=2, head_dim=32, n_groups=2)
+    rng = np.random.default_rng(SEED + 36)
+    p = m.init_np(rng)
+    x = rng.standard_normal((2, 128, 128)).astype(np.float32)
+    calib = Calibrator()
+    m.apply_float(params_to_torch(p, "cuda"), torch.from_numpy(x).cuda(),
+                  calib, "s.")
+    t_np, _ = m.deploy(DeployCtx(calib=calib), "s.", p, 0.05, 0)
+    s_x = rng.integers(-128, 128, (2, 128, 128)).astype(np.int8)
+    conv = rng.integers(-128, 128, (2, 3, m.d_conv_in)).astype(np.int8)
+    h0 = (rng.standard_normal((2, 8, 32, 16)) * 0.1).astype(np.float32)
+    for island in ("float32", "bf16"):
+        var = {"ssm_island_dtype": "bf16"} if island == "bf16" else {}
+        out = {}
+        for dev in ("cuda", "cpu"):
+            cache = {"conv": torch.from_numpy(conv).to(dev),
+                     "h": torch.from_numpy(h0).to(dev)}
+            with variants.use_variants(**var):
+                acc, new = m.apply_id(tree_to_torch(t_np, dev),
+                                      torch.from_numpy(s_x).to(dev), cache)
+            out[dev] = (acc.cpu(), new["conv"].cpu(),
+                        new["h"].cpu().view(torch.int32))
+        for name, a, b in zip(("out_proj acc", "conv", "h"), out["cuda"],
+                              out["cpu"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"QMamba2 n_groups 2 {island} {name}: "
+                                     "card != CPU")
+        print(f"  QMamba2 n_groups 2 ({island} island, L 128 from a state): "
+              "out_proj's accumulator, the conv window and h card == CPU "
+              "bit for bit")
+
+
 def bit_length_host_cost(torch, calls: int = 1000) -> None:
     """Host time of one `core.intmath.bit_length` call on the card (the
     integer shift-and-compare version) beside the float64 `frexp` one
@@ -4182,12 +4527,14 @@ def _record_routes(cls):
     return seen, lambda: setattr(cls, "_route", orig)
 
 
-def train_family_card_vs_cpu(torch, np, arch, layers, batch, seq):
-    """`arch` at full width over `layers` layers: the FQ loss (with the
-    MoE's 0.01 aux) and every gradient leaf of one batch on the card
-    and the CPU from the same init_np params and init_qstate clips; for
-    the MoE, the (token, expert) choices of a forward on each, counted
-    where they differ."""
+def train_family_card_vs_cpu(torch, np, arch, layers, batch, seq, *,
+                             reduced=False):
+    """`arch` at full width over `layers` layers (or its reduced config,
+    all its layers): the FQ loss (with the MoE's 0.01 aux) and every
+    gradient leaf of one batch on the card and the CPU from the same
+    init_np params and init_qstate clips; for the MoE, the (token,
+    expert) choices of a forward on each, counted where they
+    differ."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.rep import Rep
     from repro_torch.core.tree import tree_leaves
@@ -4196,14 +4543,16 @@ def train_family_card_vs_cpu(torch, np, arch, layers, batch, seq):
     from repro_torch.layers.moe import QMoE
     from repro_torch.models.lm import DecoderLM, params_to_torch
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    cfg = (get_config(arch).reduced() if reduced else
+           dataclasses.replace(get_config(arch), n_layers=layers))
     lm = DecoderLM(cfg, max_seq=seq + 1)
     t0 = time.perf_counter()
     p = lm.init_np(SEED)
     tok = SyntheticStream(SyntheticConfig(
         vocab=cfg.vocab, seq_len=seq, global_batch=batch)).batch(0)
-    print(f"  {arch} at full width, {layers} layer(s), batch {batch} x "
-          f"{seq}: params drawn in {time.perf_counter() - t0:.1f} s")
+    print(f"  {arch} {'reduced' if reduced else 'at full width'}, "
+          f"{cfg.n_layers} layer(s), batch {batch} x {seq}: params drawn "
+          f"in {time.perf_counter() - t0:.1f} s")
     res = {}
     for dev in ("cuda", "cpu"):
         tr = {"params": params_to_torch(p, dev),
@@ -4591,8 +4940,8 @@ def phase_done(name: str, t0: float) -> float:
 
 SKIPPABLE = ("entry", "cnn", "calibrate", "parity", "open-loop", "prefix",
              "preempt", "async", "whole_prompt", "int_softmax", "sharded",
-             "configs", "musicgen", "olmoe", "ssm", "nemotron", "blockwise",
-             "hybrid", "embeds", "train", "train_sharded")
+             "configs", "musicgen", "olmoe", "llama4", "ssm", "nemotron",
+             "blockwise", "hybrid", "embeds", "train", "train_sharded")
 
 
 def main() -> int:
@@ -4642,6 +4991,7 @@ def main() -> int:
         check_cnn_gemms(torch, np, timer, rng, report))
     errs["int8_matmul_grouped"] = max(
         check_grouped_gemm(torch, np, timer, rng, report),
+        check_llama4_grouped(torch, np, timer, rng, report),
         check_grouped_attention(torch, np, timer, report),
         check_blockwise_products(torch, np, timer, report))
     errs["requant"] = check_requant(torch, np, timer, rng, report)
@@ -4666,6 +5016,7 @@ def main() -> int:
         print("[cnn] NemoCNN at full width: calibrate on the card and the "
               "CPU, the ID forward in every BN mode, card vs CPU")
         phase_cnn(torch, np, kernels)
+        cnn_strided_conv(torch, np, kernels)
         t0 = phase_done("cnn", t0)
     lm2 = t2_np = None
     if "calibrate" not in skip:
@@ -4760,6 +5111,12 @@ def main() -> int:
         t0 = phase_done("olmoe", t0)
     else:  # the grouped GEMM's path launches are the olmoe phase's
         launches["int8_matmul_grouped"] = None
+    if "llama4" not in skip:
+        print(f"[llama4] {LLAMA4_ARCH}: the dense half of a pair at full "
+              "width, card vs CPU; the reduced model served over both "
+              "arenas and its FQ step, card vs CPU")
+        phase_llama4(torch, np, kernels)
+        t0 = phase_done("llama4", t0)
     if "ssm" not in skip:
         print(f"[ssm] {SSM_ARCH}: {SSM_PARITY_LAYERS}-layer parity, then "
               "full width on the "
@@ -4770,6 +5127,7 @@ def main() -> int:
         print(f"[hybrid] {HYBRID_ARCH}: {HYBRID_PARITY_LAYERS}-layer parity, "
               f"then full width on the card, {HYBRID_LAYERS} of 38 layers")
         phase_hybrid(torch, np, kernels)
+        mamba2_groups_parity(torch, np)
         t0 = phase_done("hybrid", t0)
     if "nemotron" not in skip:
         print("[nemotron] one nemotron_4_340b layer at full width, card vs "

@@ -7,8 +7,10 @@ one file each with its values: `granite_3_2b`, `llama3_2_3b` and
 `chatglm3_6b` (RMSNorm, gated SiLU MLP), `musicgen_medium` (LayerNorm
 with bias, ungated GELU MLP, MHA), `nemotron_4_340b` (LayerNorm with
 bias, ungated squared-ReLU MLP, head_dim 192), `olmoe_1b_7b` (the
-MoE family: 64 experts, top-8, an expert layer in every block) and
-`falcon_mamba_7b` (the ssm family: 64 Mamba-1 blocks, no attention),
+MoE family: 64 experts, top-8, an expert layer in every block),
+`llama4_maverick_400b_a17b` (128 experts, top-1, an expert layer in
+every other block with a shared expert beside it), `falcon_mamba_7b`
+(the ssm family: 64 Mamba-1 blocks, no attention),
 `zamba2_1_2b` (the hybrid family: Mamba-2 blocks and one shared
 attention block over concat(x, x0) applied every 6 of them),
 `internvl2_76b` (a dense backbone fed int8 embedding rows, input_mode
@@ -27,8 +29,8 @@ from typing import Dict
 _REGISTRY: Dict[str, "ArchConfig"] = {}
 
 ARCH_IDS = ["granite_3_2b", "llama3_2_3b", "chatglm3_6b", "musicgen_medium",
-            "nemotron_4_340b", "olmoe_1b_7b", "falcon_mamba_7b", "zamba2_1_2b",
-            "internvl2_76b", "nemo_cnn"]
+            "nemotron_4_340b", "olmoe_1b_7b", "llama4_maverick_400b_a17b",
+            "falcon_mamba_7b", "zamba2_1_2b", "internvl2_76b", "nemo_cnn"]
 # the configs `DecoderLM` runs
 LM_ARCH_IDS = [a for a in ARCH_IDS if a != "nemo_cnn"]
 # the token LMs the serving engine takes (the serving CLI's --arch)

@@ -17,9 +17,7 @@ carry a shape and a dtype and allocate nothing.
 
 Materializing 340 B int8 weights is impossible on a host; the tests
 hold every tree against the real deploy, init and caches at reduced
-size (paths, shapes, dtypes) and against the reference's specs.  The
-llama4 family is not ported (ROADMAP item 10b): `DecoderLM` raises for
-it, so these do.
+size (paths, shapes, dtypes) and against the reference's specs.
 """
 from __future__ import annotations
 
@@ -160,8 +158,7 @@ def _mamba2(c: ArchConfig) -> dict:
     }
 
 
-def _dense_block(c: ArchConfig) -> dict:
-    moe = c.n_experts > 0
+def _dense_block(c: ArchConfig, moe: bool) -> dict:
     t = {
         "norm1": _norm(c.d_model, c.norm_bias),
         "attn": _attn(c),
@@ -169,7 +166,13 @@ def _dense_block(c: ArchConfig) -> dict:
         "norm2": _norm(c.d_model, c.norm_bias),
         "add2": _add(b_vec=None if moe else c.d_model),
     }
-    t["moe" if moe else "mlp"] = _moe(c) if moe else _mlp(c)
+    if moe:
+        t["moe"] = _moe(c)
+        if c.shared_expert:
+            t["mlp"] = _mlp(c)
+            t["sh_rqt"] = _rqt(c.d_model)
+    else:
+        t["mlp"] = _mlp(c)
     return t
 
 
@@ -202,7 +205,9 @@ def deploy_specs(lm: DecoderLM) -> Dict[str, Any]:
     segs = []
     for kind, _, n in lm.plan():
         if kind == "dense":
-            one = _dense_block(c)
+            one = _dense_block(c, moe=c.n_experts > 0)
+        elif kind == "pair":
+            one = {"a": _dense_block(c, False), "b": _dense_block(c, True)}
         elif kind == "mamba":
             one = _mamba_block(c)
         else:  # hybrid
@@ -221,11 +226,13 @@ def _meta_of(tree, dtype):
 
 def float_param_specs(lm: DecoderLM, dtype=torch.float32) -> Dict[str, Any]:
     """Meta mirror of `lm.init_np(seed)` cast to `dtype`: one block's
-    tree (every block of the config has its shapes) stacked as
-    `init_np` stacks the layers."""
+    tree (every block of the config has its shapes, but a pair's two)
+    stacked as `init_np` stacks the layers."""
     c = lm.cfg
     with shapes_only():
         one = _meta_of(lm.init_layer_np(0, 0), dtype)
+        if lm.pair:
+            one = {"a": one, "b": _meta_of(lm.init_layer_np(0, 1), dtype)}
         p: Dict[str, Any] = {}
         if c.input_mode == "tokens":
             p["embed"] = _meta_of(lm.init_embed_np(0), dtype)

@@ -19,10 +19,16 @@ reshaped to (-1, c_out), as the reference's `deploy` reshapes them.
     rows, and the columns with as many zero columns; the products are
     unchanged.  The deployed `w_q` stays the reference's HWIO leaf.
 
-SAME padding fills the ring with the input's zero point, so that the
-ring decodes to real 0 and the deploy's bias correction holds; with zp
-0 that is the reference's plain SAME padding.  The port takes stride 1
-and an odd kernel (the NemoCNN's), and raises otherwise.
+Any stride.  SAME padding is XLA's rule, as the reference's
+`conv_general_dilated` pads: Ho = ceil(H / stride), a total pad of
+max((Ho - 1) stride + k - H, 0) a spatial dim, its half (rounded down)
+before and the rest after, so an even kernel or a stride > 1 may pad
+one more on the high side.  The ID path fills the ring with the input's
+zero point, so that the ring decodes to real 0 and the deploy's bias
+correction holds; with zp 0 that is the reference's plain SAME padding.
+Like the reference, it takes a nonzero zero point under SAME only at
+stride 1 with an odd kernel (a symmetric ring) and raises
+NotImplementedError otherwise.
 
 BN handling offers the paper's full menu (models/cnn.py picks one):
 fold (Eq. 18), integer BN (Eq. 22), thresholds (Eq. 19-20).
@@ -87,31 +93,29 @@ class QConv2d:
         """K of the device layout: k_cols rounded up to K_ALIGN."""
         return -(-self.k_cols // K_ALIGN) * K_ALIGN
 
-    def _ring(self) -> int:
-        if self.stride != 1:
-            raise NotImplementedError(
-                f"stride {self.stride}: the port's convolution takes stride "
-                "1 (the NemoCNN's)")
+    def _pads(self, n: int) -> Tuple[int, int]:
+        """(low, high) pad of a spatial dim of n under the padding."""
         if self.padding == "VALID":
-            return 0
-        if self.padding != "SAME" or self.kernel % 2 != 1:
-            raise NotImplementedError(
-                f"padding {self.padding!r} with kernel {self.kernel}: the "
-                "port takes VALID, or SAME with an odd kernel")
-        return (self.kernel - 1) // 2
+            return 0, 0
+        if self.padding != "SAME":
+            raise ValueError(f"padding {self.padding!r}: SAME or VALID")
+        total = max((-(-n // self.stride) - 1) * self.stride + self.kernel
+                    - n, 0)
+        return total // 2, total - total // 2
 
     def im2col(self, x: torch.Tensor, pad_value, k_pad: int
                ) -> Tuple[torch.Tensor, tuple]:
         """x (B, H, W, c_in) -> ((B*Ho*Wo, k_pad) columns, (B, Ho, Wo)):
-        the ring filled with ``pad_value``, K in (kh, kw, cin) order,
-        then zero columns up to k_pad."""
-        pd = self._ring()
-        if pd:
-            x = F.pad(x, (0, 0, pd, pd, pd, pd), value=pad_value)
+        the ring filled with ``pad_value``, the windows `stride` apart,
+        K in (kh, kw, cin) order, then zero columns up to k_pad."""
+        (h0, h1), (w0, w1) = self._pads(x.shape[1]), self._pads(x.shape[2])
+        if h0 or h1 or w0 or w1:
+            x = F.pad(x, (0, 0, w0, w1, h0, h1), value=pad_value)
         B, Hp, Wp, _ = x.shape
-        k = self.kernel
-        Ho, Wo = Hp - k + 1, Wp - k + 1
-        parts = [x[:, dy:dy + Ho, dx:dx + Wo, :]
+        k, st = self.kernel, self.stride
+        Ho, Wo = (Hp - k) // st + 1, (Wp - k) // st + 1
+        parts = [x[:, dy:dy + (Ho - 1) * st + 1:st,
+                   dx:dx + (Wo - 1) * st + 1:st, :]
                  for dy in range(k) for dx in range(k)]
         if k_pad > self.k_cols:
             parts.append(x.new_zeros((B, Ho, Wo, k_pad - self.k_cols)))
@@ -188,7 +192,11 @@ class QConv2d:
                  rqt: Optional[dict] = None) -> torch.Tensor:
         """s_x (B, H, W, c_in) int8 -> (B, Ho, Wo, c_out) int32
         accumulator (conv + b_q), or its int8 image under ``rqt``;
-        ``ip`` from `load`."""
+        ``ip`` from `load`.  SAME with a nonzero zero point needs stride
+        1 and an odd kernel, as in the reference."""
+        if self.padding == "SAME" and ip["zp_in"] != 0 and (
+                self.stride != 1 or self.kernel % 2 != 1):
+            raise NotImplementedError("zp-pad needs stride 1, odd k")
         cols, (B, Ho, Wo) = self.im2col(s_x, ip["zp_in"],
                                         ip["w_q"].shape[0])
         out = int8_matmul(cols, ip["w_q"], ip["b_q"], rqt)

@@ -247,19 +247,22 @@ def ssm2_core(xh: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
               cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
               h0: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The Mamba-2 scan core (the reference's `QMamba2._core_fp`, one
-    group): xh (B, L, H, P), dt (B, L, H), bm, cm (B, L, ds) float32, A,
-    D (H,), h0 (B, H, P, ds) or None.  a = exp(dt A) per head, u = dt x
-    B in that order, y = h . C (`lane8_dot`) + D x fused.  -> (y (B, L,
-    H, P), h_last (B, H, P, ds))."""
+    """The Mamba-2 scan core (the reference's `QMamba2._core_fp`): xh (B,
+    L, H, P), dt (B, L, H), bm, cm (B, L, H or 1, ds) float32 (each
+    group's B / C repeated over its heads, or one group for all; (B, L,
+    ds) is one group), A, D (H,), h0 (B, H, P, ds) or None.  a = exp(dt
+    A) per head, u = dt x B in that order, y = h . C (`lane8_dot`) + D x
+    fused.  -> (y (B, L, H, P), h_last (B, H, P, ds))."""
+    if bm.dim() == 3:
+        bm, cm = bm[:, :, None], cm[:, :, None]
 
     def block(s: slice, h_prev, dtype):
         dts, xs = dt[:, s], xh[:, s]
         a = exp_f32(dts * A)[..., None, None]
         u = ftz(ftz(dts[..., None, None] * xs[..., None])
-                * bm[:, s, None, None, :])
+                * bm[:, s, :, None, :])
         h = _f(scan_h(a, u, h_prev, dtype))
-        y = fma(D[:, None], xs, lane8_dot(h, cm[:, s, None, None, :]))
+        y = fma(D[:, None], xs, lane8_dot(h, cm[:, s, :, None, :]))
         return y, h[:, -1]
 
     B, _, H, P = xh.shape
@@ -544,10 +547,9 @@ class QMamba2:
     name: str = "mamba2"
 
     def __post_init__(self):
-        if self.n_groups != 1:
-            raise NotImplementedError(
-                f"n_groups {self.n_groups}: the reference's configs use one "
-                "B / C group")
+        if self.n_heads % self.n_groups:
+            raise ValueError(f"n_groups {self.n_groups} must divide the "
+                             f"{self.n_heads} heads")
 
     @property
     def d_inner(self) -> int:
@@ -593,11 +595,21 @@ class QMamba2:
                 zxbcdt[..., di + self.d_conv_in:])
 
     def _xbc(self, xbc: torch.Tensor):
-        """(B, L, d_conv_in) -> x (B, L, H, P), B, C (B, L, ds)."""
-        di, ds = self.d_inner, self.d_state
+        """(B, L, d_conv_in) -> x (B, L, H, P), B, C (B, L, H, ds): the
+        G groups' B and C, each group's repeated over its H / G heads
+        (copies: the scan reads the same values); one group stays (B,
+        L, 1, ds) and broadcasts over the heads."""
+        di, ds, G = self.d_inner, self.d_state, self.n_groups
         B, L = xbc.shape[:2]
-        return (xbc[..., :di].reshape(B, L, self.n_heads, self.head_dim),
-                xbc[..., di:di + ds], xbc[..., di + ds:di + 2 * ds])
+        H = self.n_heads
+
+        def groups(v):
+            v = v.reshape(B, L, G, ds)
+            return v if G == 1 else v.repeat_interleave(H // G, dim=2)
+
+        return (xbc[..., :di].reshape(B, L, H, self.head_dim),
+                groups(xbc[..., di:di + G * ds]),
+                groups(xbc[..., di + G * ds:di + 2 * G * ds]))
 
     @staticmethod
     def _gated_norm(y: torch.Tensor, gate: torch.Tensor,

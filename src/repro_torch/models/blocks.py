@@ -12,9 +12,14 @@ the reference's return None).
 norm1 -> attention -> add1 -> norm2 -> MLP (or MoE) -> add2.  With
 `n_experts > 0` a `QMoE` replaces the MLP over the block's B * S
 tokens, and its int32 combine accumulator goes into the second `QAdd`.
-The reference's shared-expert branch (an MLP beside the MoE,
-llama4_maverick) is not ported: asking for it raises.  The block's FQ
-clips are its MLP's, or its MoE's gate clips.  In the ID path
+With `shared_expert` (llama4_maverick) a gated `QMLP` named
+"shared_mlp" runs beside the MoE on the same normed input (scope
+``sh.``, params and tables under "mlp"); the float forward adds its
+output to the MoE's, and the integer path requantizes its int32
+accumulator into the MoE's combine space (`sh_rqt`, int32 out within
++-2^24) and adds it to the combine accumulator.  The block's FQ
+clips are its MLP's, or its MoE's gate clips (and the shared MLP's
+beside them).  In the ID path
 the residual stream is a symmetric int8 image between blocks; in the
 float forward it is float32, and each sublayer observes its output
 under the block's scope (the names `deploy` reads back).
@@ -54,6 +59,8 @@ from repro_torch.layers.ssm import QMamba1, QMamba2
 from repro_torch.core.requant import make_rqt
 from repro_torch.kernels.requant_kernel import requant
 
+SHARED_RANGE = 1 << 24  # the shared expert's requantized int32 range
+
 
 @dataclasses.dataclass(frozen=True)
 class DenseBlock:
@@ -75,23 +82,29 @@ class DenseBlock:
     moe_group: int = 512
     shared_expert: bool = False
 
-    def __post_init__(self):
-        if self.shared_expert:
-            raise NotImplementedError(
-                "the shared-expert branch (an MLP beside the MoE, "
-                "llama4_maverick) is not ported yet (ROADMAP item 10b)")
+    @property
+    def shared(self) -> bool:
+        """Whether a shared expert runs beside the MoE (the reference
+        reads `shared_expert` only in a block with experts)."""
+        return self.shared_expert and self.n_experts > 0
 
     @property
     def ffn(self) -> str:
         """The sublayer after norm2: "moe" or "mlp"."""
         return "moe" if self.n_experts > 0 else "mlp"
 
+    @property
+    def ffns(self) -> Tuple[str, ...]:
+        """The sublayers after norm2 that own params and clips: ("mlp",),
+        ("moe",) or, with the shared expert, ("moe", "mlp")."""
+        return (self.ffn, "mlp") if self.shared else (self.ffn,)
+
     def _subs(self):
         ffn = (QMoE(self.d_model, self.d_ff, self.n_experts, self.top_k,
                     group_size=self.moe_group, act=self.act)
                if self.n_experts > 0 else
                QMLP(self.d_model, self.d_ff, act=self.act, gated=self.gated))
-        return {
+        s = {
             "norm1": QNorm(self.d_model, kind=self.norm,
                            use_bias=self.norm_bias, name="norm1"),
             "attn": QAttention(
@@ -104,20 +117,27 @@ class DenseBlock:
             self.ffn: ffn,
             "add2": QAdd(name="add2"),
         }
+        if self.shared:
+            s["mlp"] = QMLP(self.d_model, self.d_ff, act=self.act,
+                            gated=self.gated, name="shared_mlp")
+        return s
 
     def init_np(self, rng: np.random.Generator) -> dict:
         subs = self._subs()
-        return {
+        p = {
             "norm1": subs["norm1"].init_np(),
             "attn": subs["attn"].init_np(rng),
             "norm2": subs["norm2"].init_np(),
-            self.ffn: subs[self.ffn].init_np(rng),
         }
+        for n in self.ffns:
+            p[n] = subs[n].init_np(rng)
+        return p
 
     def init_qstate(self, device="cuda") -> dict:
         """The block's FQ clips: {"mlp": `QMLP.init_qstate`} or {"moe":
-        `QMoE.init_qstate`}."""
-        return {self.ffn: self._subs()[self.ffn].init_qstate(device)}
+        `QMoE.init_qstate`}, and the shared MLP's beside the MoE's."""
+        subs = self._subs()
+        return {n: subs[n].init_qstate(device) for n in self.ffns}
 
     def _ffn_float(self, sub, p, h, calib, scope, rep, qs, aux):
         qs = (qs or {}).get(self.ffn)
@@ -147,6 +167,10 @@ class DenseBlock:
         h = subs["norm2"].apply_fp(p["norm2"], x, calib, scope + "n2.")
         m = self._ffn_float(subs[self.ffn], p[self.ffn], h, calib, scope,
                             rep, qs, aux)
+        if self.shared:
+            m = m + subs["mlp"].apply_float(
+                p["mlp"], h, calib, scope + "sh.", rep=rep,
+                qs=(qs or {}).get("mlp"))
         return subs["add2"].apply_fp(x, m, calib, scope)
 
     def deploy(
@@ -164,6 +188,16 @@ class DenseBlock:
             ctx, scope + "n2.", p_np["norm2"], eps_r1)
         t[self.ffn], eps_m_acc = subs[self.ffn].deploy(
             ctx, scope, p_np[self.ffn], eps_n2, 0)
+        if self.shared:
+            t["mlp"], eps_sh_acc = subs["mlp"].deploy(
+                ctx, scope + "sh.", p_np["mlp"], eps_n2, 0)
+            # the shared accumulator requantized into the MoE's combine
+            # space, int32 within +-2^24 (raises where unschedulable)
+            t["sh_rqt"] = make_rqt(
+                eps_sh_acc, float(eps_m_acc[0]), zp_out=0,
+                qmin=-SHARED_RANGE, qmax=SHARED_RANGE,
+                requant_factor=ctx.factor,
+                acc_bound=subs["mlp"].d_ff * 127.0 * 127.0)
         t["add2"], eps_r2, _ = subs["add2"].deploy(
             ctx, scope, eps_r1, 0, eps_m_acc, 0)
         return t, eps_r2
@@ -181,6 +215,11 @@ class DenseBlock:
             B, S, D = h.shape
             m_acc = subs["moe"].apply_id(t["moe"], h.reshape(B * S, D))
             m_acc = m_acc.reshape(B, S, D)
+            if self.shared:
+                sh_acc = subs["mlp"].apply_id(t["mlp"], h)
+                m_acc = m_acc + requant(
+                    sh_acc, t["sh_rqt"], qmin=-SHARED_RANGE,
+                    qmax=SHARED_RANGE, out_dtype=torch.int32)
         else:
             m_acc = subs["mlp"].apply_id(t["mlp"], h)
         return subs["add2"].apply_id(t["add2"], s_r, m_acc)

@@ -1,6 +1,9 @@
 """The decoder LM (port of `repro.models.lm.DecoderLM`, the dense, MoE,
 ssm and hybrid families: `plan()` is one segment of `DenseBlock`s, with
 a `QMoE` in every block for MoE at `moe_every` 1, one segment of
+"pair"s for MoE at `moe_every` 2 (llama4_maverick: a dense block, then
+a MoE block with its shared expert; block i is the pair's "a" for even
+i, its "b" for odd i, scopes `S0.L{i // 2}.a.` / `.b.`), one segment of
 `MambaBlock`s for ssm, and for the hybrid (zamba2) a segment of groups
 of `shared_attn_every` Mamba-2 blocks each followed by one application
 of the `SharedAttnBlock`, then a segment of the remaining Mamba-2
@@ -45,9 +48,11 @@ Port state layout (what `tables_from_numpy` returns):
 
 i.e. the reference tree with its layer-stacked `segments[0]` split into
 a per-layer list (views into the stacked tensors when converted from a
-stacked tree).  The hybrid's "layers" are its Mamba-2 blocks in the
-order they run (group g's block j at g * shared_attn_every + j, then
-the tail), and "shared" holds one table set per application of the
+stacked tree; a pair segment's {"a", "b"} interleaved, a0 b0 a1 b1 ...,
+so KV pool i is block i's).  The hybrid's "layers" are its Mamba-2
+blocks in the order they run (group g's block j at g *
+shared_attn_every + j, then the tail), and "shared" holds one table set
+per application of the
 shared block (the reference's `segments[0]["sh"]`); `steps()` gives
 the walk.  Every dtype is the reference's; every QLinear weight
 `w_q` keeps its (K, N) shape and values but is stored transposed (N,
@@ -247,7 +252,8 @@ def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
     `device`.  int32 stays int32 (every requant table, the per-head
     `kv4` pack/unpack tables included), int8 stays int8 and the f32
     score_scale stays f32; the stacked segments become the per-layer
-    list (the hybrid's group blocks in order, then its tail) and, for
+    list (the hybrid's group blocks in order, then its tail; a pair
+    segment's blocks interleaved) and, for
     the hybrid, the per-application "shared" list, each entry through
     `load_layer`."""
     segs = [tree_to_torch(seg, device) for seg in tables_np["segments"]]
@@ -259,10 +265,14 @@ def tables_from_numpy(tables_np: dict, device="cuda") -> dict:
             layers += [_index(m, j) for j in range(_n_stacked(m))]
             shared.append(load_layer(_index(hyb["sh"], g)))
     elif len(segs) != 1:
-        raise ValueError("the dense, MoE (moe_every 1) and ssm families "
-                         "have exactly one segment")
+        raise ValueError("the dense, MoE and ssm families have exactly one "
+                         "segment")
     for seg in segs:
-        layers += [_index(seg, i) for i in range(_n_stacked(seg))]
+        if set(seg) == {"a", "b"}:  # pairs, interleaved in walk order
+            for i in range(_n_stacked(seg["a"])):
+                layers += [_index(seg["a"], i), _index(seg["b"], i)]
+        else:
+            layers += [_index(seg, i) for i in range(_n_stacked(seg))]
     out = {
         "meta": {k: float(np.asarray(v)) for k, v in
                  tables_np.get("meta", {}).items()},
@@ -300,16 +310,20 @@ class DecoderLM:
                 "repro_torch.models.cnn.NemoCNN")
         if c.family not in ("dense", "moe", "ssm", "hybrid"):
             raise ValueError(f"unknown family {c.family!r}")
-        if c.family == "moe" and c.moe_every != 1:
-            raise NotImplementedError(
-                f"moe_every {c.moe_every} (the reference's pair segments, "
-                "llama4_maverick) is not ported yet (ROADMAP item 10b)")
-        if c.family == "moe" and c.shared_expert:
-            raise NotImplementedError(
-                "the shared expert (llama4_maverick) is not ported yet "
-                "(ROADMAP item 10b)")
+        if c.family == "moe" and c.moe_every not in (1, 2):
+            raise ValueError(f"moe_every {c.moe_every}: the reference plans "
+                             "MoE segments at moe_every 1 or 2")
+        if self.pair and c.n_layers % 2:
+            raise ValueError(f"moe_every 2 pairs the blocks: n_layers "
+                             f"{c.n_layers} must be even")
 
     # -- structure -------------------------------------------------------
+    @property
+    def pair(self) -> bool:
+        """Whether the blocks run in pairs, dense then MoE (moe_every
+        2)."""
+        return self.cfg.family == "moe" and self.cfg.moe_every == 2
+
     @property
     def recurrent(self) -> bool:
         """Whether the cache holds per-slot recurrent state (ssm,
@@ -335,22 +349,23 @@ class DecoderLM:
         return self.groups if self.cfg.family == "hybrid" else (
             self.cfg.n_layers if self.has_kv else 0)
 
-    def block(self):
-        """The template of the config's blocks (the hybrid's Mamba-2
-        block)."""
+    def block(self, i: int = 0):
+        """The template of block i (every block's but in pairs, where
+        even i is the dense block and odd i the MoE block with its
+        shared expert; the hybrid's Mamba-2 block)."""
         c = self.cfg
         if self.recurrent:
             return MambaBlock(d_model=c.d_model, ssm_kind=c.ssm_kind,
                               d_state=c.ssm_state, expand=c.ssm_expand,
                               head_dim=c.ssm_head_dim, norm=c.norm)
-        moe = c.family == "moe"
+        moe = c.family == "moe" and not (self.pair and i % 2 == 0)
         return DenseBlock(
             d_model=c.d_model, n_heads=c.n_heads, n_kv_heads=c.n_kv_heads,
             head_dim=c.hd, d_ff=c.d_ff, act=ACT_MAP[c.act], gated=c.gated,
             norm=c.norm, norm_bias=c.norm_bias, rope_base=c.rope_base,
             rope_fraction=c.rope_fraction, max_seq=self.max_seq,
             n_experts=c.n_experts if moe else 0, top_k=c.top_k,
-            moe_group=c.moe_group,
+            moe_group=c.moe_group, shared_expert=c.shared_expert and moe,
         )
 
     def shared_block(self) -> SharedAttnBlock:
@@ -362,9 +377,13 @@ class DecoderLM:
     def plan(self):
         """-> the segments (kind, template, n_steps), the reference's
         `plan()`: one segment of blocks for dense and MoE at moe_every
-        1, of Mamba blocks for ssm; for the hybrid the groups, then the
-        tail of Mamba blocks if any."""
+        1, of (dense, MoE) pairs at moe_every 2, of Mamba blocks for
+        ssm; for the hybrid the groups, then the tail of Mamba blocks if
+        any."""
         c = self.cfg
+        if self.pair:
+            return [("pair", (self.block(0), self.block(1)),
+                     c.n_layers // 2)]
         if c.family == "hybrid":
             k = c.shared_attn_every
             groups, tail = divmod(c.n_layers, k)
@@ -391,6 +410,8 @@ class DecoderLM:
     def layer_scope(self, i: int) -> str:
         """Block i's calibration scope, the reference's."""
         c = self.cfg
+        if self.pair:
+            return f"S0.L{i // 2}.{'ab'[i % 2]}."
         if c.family != "hybrid":
             return f"S0.L{i}."
         g, j = divmod(i, c.shared_attn_every)
@@ -406,6 +427,9 @@ class DecoderLM:
         """Per-block trees (and the hybrid's per-application shared
         trees) -> the reference's stacked `segments`."""
         c = self.cfg
+        if self.pair:
+            return [{"a": stack_trees(layers[0::2]),
+                     "b": stack_trees(layers[1::2])}]
         if c.family != "hybrid":
             return [stack_trees(layers)]
         k, G = c.shared_attn_every, self.groups
@@ -423,6 +447,8 @@ class DecoderLM:
     def layer_params(self, p: dict, i: int) -> dict:
         """Block i's float params out of the reference's layout."""
         c = self.cfg
+        if self.pair:
+            return _index(p["segments"][0]["ab"[i % 2]], i // 2)
         if c.family != "hybrid":
             return _index(p["segments"][0], i)
         g, j = divmod(i, c.shared_attn_every)
@@ -451,7 +477,7 @@ class DecoderLM:
         return self.embed_layer().init_np(np.random.default_rng([seed, 0]))
 
     def init_layer_np(self, seed: int, i: int) -> dict:
-        return self.block().init_np(np.random.default_rng([seed, 1, i]))
+        return self.block(i).init_np(np.random.default_rng([seed, 1, i]))
 
     def init_head_np(self, seed: int) -> Tuple[dict, dict]:
         """-> (final norm params, head params)."""
@@ -484,7 +510,8 @@ class DecoderLM:
 
     def deploy_layer(self, ctx: DeployCtx, i: int, p_layer: dict,
                      eps_x: float) -> Tuple[dict, float]:
-        return self.block().deploy(ctx, self.layer_scope(i), p_layer, eps_x)
+        return self.block(i).deploy(ctx, self.layer_scope(i), p_layer,
+                                    eps_x)
 
     def deploy_shared(self, ctx: DeployCtx, g: int, p_shared: dict,
                       eps_x: float, eps_in: float) -> Tuple[dict, float]:
@@ -547,9 +574,10 @@ class DecoderLM:
         """Block i's float forward under its scope (its clips ``qs`` at
         FQ; a MoE block appends its aux loss to ``aux``; its float
         `cache` at `pos`)."""
-        return self.block().apply_float(p_layer, x, calib,
-                                        self.layer_scope(i), rep=rep, qs=qs,
-                                        aux=aux, cache=cache, pos=pos)
+        return self.block(i).apply_float(p_layer, x, calib,
+                                         self.layer_scope(i), rep=rep,
+                                         qs=qs, aux=aux, cache=cache,
+                                         pos=pos)
 
     def apply_shared(self, p_shared: dict, g: int, x: torch.Tensor,
                      x0: torch.Tensor, calib=None, *, rep: Rep = Rep.FP,
@@ -563,11 +591,13 @@ class DecoderLM:
     def init_qstate(self, device="cuda") -> dict:
         """The FQ clips (PACT's learnable alpha / beta) in the
         reference's layout (its `plan()`): a dense or MoE segment's
-        {"mlp" | "moe": {"alpha": (L,), "beta": (L,)}}, stacked over
-        the layers as the params are, and {} for each mamba and hybrid
-        segment, so a train state, its moments and its checkpoints are
-        the reference's leaf for leaf; block i's are `_index(qs, i)` of
-        the segment.  A reference qstate carries across through
+        {"mlp" | "moe": {"alpha": (L,), "beta": (L,)}} (a MoE block
+        with a shared expert has both), stacked over the layers as the
+        params are, a pair segment's {"a": .., "b": ..} of n pairs, and
+        {} for each mamba and hybrid segment, so a train state, its
+        moments and its checkpoints are the reference's leaf for leaf;
+        block i's are `_index(qs, i)` of the segment (of its half for a
+        pair).  A reference qstate carries across through
         `params_to_torch`."""
 
         def stack(v, n):
@@ -575,9 +605,15 @@ class DecoderLM:
                 return {k: stack(u, n) for k, u in v.items()}
             return v.expand(n).clone()
 
-        return {"segments": [
-            stack(tpl.init_qstate(device), n) if kind == "dense" else {}
-            for kind, tpl, n in self.plan()]}
+        def seg(kind, tpl, n):
+            if kind == "dense":
+                return stack(tpl.init_qstate(device), n)
+            if kind == "pair":
+                return {h: stack(t.init_qstate(device), n)
+                        for h, t in zip("ab", tpl)}
+            return {}
+
+        return {"segments": [seg(*s) for s in self.plan()]}
 
     def apply(self, p: dict, x: torch.Tensor, rep: Rep = Rep.FP, *,
               qstate=None, calib=None, caches=None, pos=None):
@@ -634,6 +670,18 @@ class DecoderLM:
                 i0 += n * k
                 continue
             seg_qs = segs_qs[si] if segs_qs else None
+            if kind == "pair":
+                # (n, 2, B, ...): pair j's dense block on row 0, MoE on 1
+                for j in range(n):
+                    c_j = _index(sc, j)
+                    for h, half in enumerate("ab"):
+                        x = self.apply_layer(
+                            _index(seg[half], j), 2 * j + h, x, calib,
+                            rep=rep, cache=_index(c_j, h), pos=pos,
+                            qs=_index(seg_qs[half], j) if seg_qs else None)
+                out.append(sc)
+                i0 += 2 * n
+                continue
             per = []
             for j in range(n):
                 c_j = _index(sc, j)
@@ -661,7 +709,8 @@ class DecoderLM:
         blocks and shared application) always.  The stacked layer
         params (and clips) are split with `unbind`, whose backward is
         one stack a leaf; the shared weights' gradient sums over their
-        applications."""
+        applications.  A pair (its dense and MoE block) is one
+        rematerialised unit, as the reference's pair scan body is."""
         if rep is Rep.ID:
             raise ValueError("the integer forward is prefill_chunk's")
         remat = calib is None and torch.is_grad_enabled()
@@ -681,11 +730,14 @@ class DecoderLM:
             seg_qs = segs_qs[si] if segs_qs else None
             qs = _unbind(seg_qs) if seg_qs else [None] * n
             for j, (p_j, qs_j) in enumerate(zip(_unbind(seg), qs)):
-                x, a = _run(self._layer_fn(i0 + j, rep, calib),
-                            remat and deep, p_j, qs_j, x)
+                if kind == "pair":
+                    fn, rm = self._pair_fn(j, rep, calib), remat
+                else:
+                    fn, rm = self._layer_fn(i0 + j, rep, calib), remat and deep
+                x, a = _run(fn, rm, p_j, qs_j, x)
                 if a is not None:
                     aux = a if aux is None else aux + a
-            i0 += n
+            i0 += 2 * n if kind == "pair" else n
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux
@@ -695,6 +747,16 @@ class DecoderLM:
             acc: list = []
             x = self.apply_layer(p_i, i, x, calib, rep=rep, qs=qs_i,
                                  aux=acc)
+            return x, (acc[0] if acc else None)
+        return run
+
+    def _pair_fn(self, j: int, rep: Rep, calib):
+        def run(p_j, qs_j, x):
+            acc: list = []
+            for h, half in enumerate("ab"):
+                x = self.apply_layer(p_j[half], 2 * j + h, x, calib,
+                                     rep=rep, aux=acc,
+                                     qs=qs_j[half] if qs_j else None)
             return x, (acc[0] if acc else None)
         return run
 
@@ -835,7 +897,8 @@ class DecoderLM:
 
     def _float_caches(self, B: int, max_len: int, dtype, device) -> list:
         """The reference's `init_caches` at FP / FQ: a dense segment's
-        {"k", "v": (n, B, K, max_len, hd)}, a mamba segment's {"conv":
+        {"k", "v": (n, B, K, max_len, hd)} (a pair segment's (n, 2, B,
+        ...), its dense block's on row 0), a mamba segment's {"conv":
         (n, B, conv_k - 1, channels), "h": (n, B, ...) float32}, the
         hybrid's {"m": the Mamba-2 state (G, k, B, ...), "sh": the
         shared applications' K/V (G, B, K, max_len, hd)}."""
@@ -850,6 +913,9 @@ class DecoderLM:
             if kind == "dense":
                 out.append(stack(tpl.init_cache(B, max_len, dtype, device),
                                  n))
+            elif kind == "pair":
+                one = stack(tpl[0].init_cache(B, max_len, dtype, device), 2)
+                out.append(stack(one, n))
             elif kind == "mamba":
                 out.append(stack(tpl.init_cache(B, device, rep, dtype), n))
             else:
@@ -899,7 +965,8 @@ class DecoderLM:
         own KV pools.  x0, the shared block's side input, is the
         embedding's int8 image."""
         x0 = x = self.embed_in_id(t, batch)
-        blk = self.block()
+        blks = (self.block(0), self.block(1)) if self.pair else (
+            self.block(),)
         kv = ({"table": caches["table"],
                "contiguous": bool(caches.get("contiguous", False))}
               if self.has_kv else None)
@@ -910,13 +977,14 @@ class DecoderLM:
                     {"k": caches["k"][i], "v": caches["v"][i], **kv},
                     start_pos)
             elif self.recurrent:
-                x = blk.apply_id(t["layers"][i], x,
-                                 {"conv": caches["conv"][i],
-                                  "h": caches["h"][i]})
+                x = blks[0].apply_id(t["layers"][i], x,
+                                     {"conv": caches["conv"][i],
+                                      "h": caches["h"][i]})
             else:
-                x = blk.apply_id(t["layers"][i], x,
-                                 {"k": caches["k"][i], "v": caches["v"][i],
-                                  **kv}, start_pos)
+                x = blks[i % len(blks)].apply_id(
+                    t["layers"][i], x,
+                    {"k": caches["k"][i], "v": caches["v"][i], **kv},
+                    start_pos)
         return self._last_logits(t, x, last_index)
 
     def _last_logits(self, t: dict, x: torch.Tensor,

@@ -19,7 +19,9 @@ reference FullPrecision forward.  Held at tolerance 0 unless stated:
     apply_thresholds (the binary search) and the reference's comparison
     count with repeated thresholds,
     int_avgpool_combine on negative sums, QConv2d.apply_id at zp -128
-    and 0 (K 27 padded to 32 and K 72 to 80), the PACT forwards;
+    and 0 (K 27 padded to 32 and K 72 to 80), QConv2d at stride 2 and 3
+    and even kernels (FP / FQ within 1e-5, ID at zp 0, and VALID at
+    zp -128), the zp-pad refusal the reference keeps, the PACT forwards;
   - FP and FQ logits within 1e-5 of max |ref|, the calibrator's ranges
     within 1e-5 of their span; QD logits within 1e-5, its activation
     quanta differing in at most 1 of 10^4 (a float32 on a floor
@@ -365,9 +367,20 @@ def test_conv_float_forwards_and_refusals():
     conv, pt = QConv2d(5, 7, use_bias=True), params_to_torch(p, "cpu")
     _close(jc.apply_fp(p, jnp.asarray(x)), conv.apply_fp(pt, _t(x)))
     _close(jc.apply_fq(p, jnp.asarray(x)), conv.apply_fq(pt, _t(x)))
-    for bad in (QConv2d(5, 7, stride=2), QConv2d(5, 7, kernel=2)):
-        with pytest.raises(NotImplementedError):
-            bad.apply_fp(pt, _t(x))
+    # what the reference still refuses: a zero point in an asymmetric
+    # SAME ring (stride 2, or an even kernel), the same error in both
+    s = rng.integers(-128, 128, size=(2, 6, 5, 5))
+    for kw in (dict(stride=2), dict(kernel=2)):
+        jb, bad = JQConv2d(5, 7, **kw), QConv2d(5, 7, **kw)
+        pb = _np(jb.init(jax.random.PRNGKey(2)))
+        ip, _ = jb.deploy(pb, 0.02, -128)
+        with pytest.raises(NotImplementedError) as want:
+            jb.apply_id(jax.tree.map(jnp.asarray, ip),
+                        jnp.asarray(s, jnp.int8))
+        with pytest.raises(NotImplementedError) as got:
+            bad.apply_id(bad.load(bad.deploy(pb, 0.02, -128)[0], "cpu"),
+                         _t(s, np.int8))
+        assert str(got.value) == str(want.value)
     old = torch.get_float32_matmul_precision()
     try:
         torch.set_float32_matmul_precision("high")
@@ -375,6 +388,39 @@ def test_conv_float_forwards_and_refusals():
             conv.apply_fp(pt, _t(x))
     finally:
         torch.set_float32_matmul_precision(old)
+
+
+@pytest.mark.parametrize("stride,kernel,padding", [
+    (2, 3, "SAME"), (2, 2, "SAME"), (1, 2, "SAME"), (2, 3, "VALID"),
+    (2, 2, "VALID"), (3, 4, "SAME")])
+def test_strided_and_even_kernel_conv_equals_reference(stride, kernel,
+                                                       padding):
+    """Any stride and kernel, XLA's SAME rule (an odd input pads one more
+    on the high side): FP and FQ within 1e-5 of max |ref|; the ID path
+    at tolerance 0 with zp 0 (and, under VALID, zp -128, which no ring
+    reads)."""
+    rng = np.random.default_rng(stride * 10 + kernel)
+    kw = dict(kernel=kernel, stride=stride, padding=padding)
+    jc, conv = JQConv2d(8, 12, use_bias=True, **kw), QConv2d(
+        8, 12, use_bias=True, **kw)
+    p = _np(jc.init(jax.random.PRNGKey(kernel)))
+    p["b"] = rng.normal(size=12).astype(np.float32)
+    x = rng.normal(size=(2, 9, 7, 8)).astype(np.float32)
+    pt = params_to_torch(p, "cpu")
+    want = jc.apply_fp(p, jnp.asarray(x))
+    got = conv.apply_fp(pt, _t(x))
+    assert tuple(got.shape) == want.shape
+    _close(want, got)
+    _close(jc.apply_fq(p, jnp.asarray(x)), conv.apply_fq(pt, _t(x)))
+    s = rng.integers(-128, 128, size=(2, 9, 7, 8))
+    for zp in ((0, -128) if padding == "VALID" else (0,)):
+        ip, _ = jc.deploy(p, 0.02, zp)
+        ip_p, _ = conv.deploy(p, 0.02, zp)
+        _leaves_equal(ip, ip_p)
+        want = np.asarray(jc.apply_id(jax.tree.map(jnp.asarray, ip),
+                                      jnp.asarray(s, jnp.int8)))
+        got = conv.apply_id(conv.load(ip_p, "cpu"), _t(s, np.int8))
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 # -- core.pact forwards, QLinear ---------------------------------------------

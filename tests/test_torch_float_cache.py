@@ -3,7 +3,8 @@ reference.
 
 Reduced granite_3_2b (dense), falcon_mamba_7b (ssm), zamba2_1_2b
 (hybrid: one group of two Mamba-2 blocks and the shared attention, then
-one tail block) and musicgen_medium (LayerNorm, MHA, GELU), at
+one tail block), musicgen_medium (LayerNorm, MHA, GELU) and
+llama4_maverick_400b_a17b (a pair: its caches (n, 2, B, ...)), at
 FullPrecision and FakeQuantized (the reference's clips carried across),
 with the reference's params: a prefill of P tokens at position 0 into
 `init_caches(B, T, Rep.FP)`, then D single-token decodes, each step's
@@ -29,7 +30,8 @@ eager walk raises there, which the last test records).
 MEASURED (on the CPU, this file's cases; max over archs, modes and
 steps, fractions of the span): FP logits 1.1e-4, float32 leaves 2.0e-4,
 bfloat16 leaves 2.2e-3 with 0.87% of their cells differing; FQ 2.0e-4,
-7.6e-4, 2.2e-3 and 3.0%.
+7.6e-4, 2.2e-3 and 3.0%.  llama4 alone: logits 1.5e-6 (FP) and 3.1e-6
+(FQ), bfloat16 leaves 8.8e-6 / 7.1e-5 with 0.04% of cells differing.
 """
 import jax
 import jax.numpy as jnp
@@ -48,7 +50,7 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.models.lm import DecoderLM, params_to_torch
 
 ARCHS = ("granite_3_2b", "falcon_mamba_7b", "zamba2_1_2b",
-         "musicgen_medium")
+         "musicgen_medium", "llama4_maverick_400b_a17b")
 B, P, D, T = 2, 12, 4, 20
 TOL = 1e-5
 # the limits of each rep (fractions of the reference's span, and the
@@ -82,9 +84,11 @@ def _tn(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-# (arch, mode): the ssm family keeps no K/V to page
+# (arch, mode): the ssm family keeps no K/V to page; llama4's pairs
+# stack their blocks' K/V (n, 2, B, ...), which `_paged` does not page
 CASES = [(a, m) for a in ARCHS for m in ("int", "vec", "paged")
-         if not (a == "falcon_mamba_7b" and m == "paged")]
+         if not (a in ("falcon_mamba_7b", "llama4_maverick_400b_a17b")
+                 and m == "paged")]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -251,6 +255,13 @@ def test_float_cache_matches_reference(pair, mode, rep):
         _check_caches(r, g, mode == "paged", rep)
 
 
+# the no-cache forward routes all B x (P + d) tokens as one MoE group,
+# a decode its B tokens: capacity keeps other (token, expert) choices,
+# so llama4's decodes are held to the reference's only (above)
+DECODE_ARCHS = [a for a in ARCHS if a != "llama4_maverick_400b_a17b"]
+
+
+@pytest.mark.parametrize("pair", DECODE_ARCHS, indirect=True)
 def test_decode_equals_no_cache_forward(pair):
     """Each decode's logits against the no-cache forward over the whole
     sequence so far (the K/V rounded to bfloat16 in the cache are the

@@ -854,6 +854,57 @@ def test_paged_attention_mma_config_groups_on_card(group, K, S, T, packed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("T", [512, 4096])
+@pytest.mark.parametrize("S", [1, 4, 32])
+def test_paged_attention_mma_group5_on_card(S, T, packed):
+    """The tensor-core kernel at llama4_maverick's heads, hd 128: GQA
+    group 5 over 8 kv heads (40/8), both pool modes: 0 quanta moved, the
+    plain output, one launch on the pool mode's counter."""
+    _need_card()
+    args, kw = _mma_inputs(7500 + S + T, 128, 5, S, T, K=8, packed=packed)
+    scale = torch.tensor(1.0 / 2048.0, device="cuda")
+    _mma_launch(args, scale, 5, kw,
+                f"hd=128 group=5 K=8 S={S} T={T} packed={packed}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,K,N", [(4, 5120, 8192), (4, 8192, 5120),
+                                   (8, 5120, 8192)])
+def test_int8_matmul_grouped_llama4_experts_on_card(C, K, N):
+    """The grouped GEMM at llama4_maverick's 128 experts, one launch:
+    gate / up (K 5120, N 8192) and down (K 8192, N 5120), C 4 and 8,
+    int32 out and with per-(expert, channel) tables, exactly as the plain
+    version."""
+    _need_card()
+    from repro_torch.core.requant import make_rqt
+    from repro_torch.kernels import (
+        int8_matmul_grouped, int8_matmul_grouped_plain,
+    )
+
+    E = 128
+    rng = np.random.default_rng(C * 10 + K)
+    g = torch.Generator(device="cuda").manual_seed(C + K)
+    x = torch.randint(-128, 128, (1, E, C, K), dtype=torch.int8,
+                      device="cuda", generator=g)
+    w = torch.randint(-128, 128, (E, N, K), dtype=torch.int8, device="cuda",
+                      generator=g).transpose(1, 2)
+    per = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+           for k, v in make_rqt(rng.uniform(1e-5, 4e-5, size=(E, N)), 0.05,
+                                acc_bound=K * 127.0 * 127.0).items()}
+    for rqt in (None, per):
+        n = int8_matmul_grouped.launches
+        got = int8_matmul_grouped(x, w, rqt)
+        assert int8_matmul_grouped.launches == n + 1
+        want = int8_matmul_grouped_plain(x, w, rqt)
+        assert got.dtype == want.dtype and torch.equal(got, want), (
+            C, K, N, rqt is None)
+        del got, want
+    del x, w
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(8, 24, 32, 128), (8, 24, 1, 128),
                                    (8, 32, 32, 128), (8, 32, 1, 128)])
 def test_requant_ctx_rqt_config_heads_on_card(shape):

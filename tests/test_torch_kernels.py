@@ -530,9 +530,11 @@ def test_horizon_stop_planted_case_just_outside_the_guard():
 # (B, K, group, S, hd, ps, pps): the engine's and chip_smoke.py's
 # shapes (full granite: 8 slots, 8 kv heads, group 4, hd 64, pages of
 # 16; T 512 and 4096), the card tests' (every hd, group, S and T of
-# test_paged_attention_mma_on_card) and the small recycled-table ones
+# test_paged_attention_mma_on_card), llama4_maverick's group 5 over 8 kv
+# heads at hd 128 and the small recycled-table ones
 PLAN_SHAPES = (
     [(8, 8, 4, S, 64, 16, pps) for S in (1, 32) for pps in (32, 256)]
+    + [(8, 8, 5, S, 128, 16, pps) for S in (1, 4, 32) for pps in (32, 256)]
     + [(3, 2, grp, S, hd, 16, pps) for hd in (32, 64, 128)
        for grp in (1, 2, 4, 8) for S in (1, 4, 32) for pps in (32, 256)]
     + [(4, 2, 4, S, hd, 4, 4) for S in (1, 4) for hd in (32, 64, 128)])

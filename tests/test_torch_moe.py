@@ -28,8 +28,8 @@ Held at tolerance 0 unless stated:
     does not divide the tokens (the entry point's 4 x 63-token
     calibration sample at max_seq 64; an exact-mode prompt longer than
     `moe_group` and not a multiple of it);
-  - the guards for what is not ported (moe_every 2, the shared expert,
-    the hybrid family, the embeds input) and `param_count` (falcon_mamba_7b's
+  - what the reference still refuses of the MoE plans (moe_every 2 at
+    an odd n_layers, moe_every 3) and `param_count` (falcon_mamba_7b's
     too).
 """
 import copy
@@ -528,13 +528,25 @@ def test_exact_prompt_over_the_group_raises_as_the_reference(served):
 
 # -- guards and counts ---------------------------------------------------
 def test_unported_moe_variants_and_families_raise():
+    """What the reference still refuses of the MoE plans: moe_every 2 at
+    an odd n_layers (its plan asserts; the port raises ValueError at
+    construction) and moe_every 3 (ValueError in both).  The shared
+    expert is ported: a block with experts carries it, a block without
+    ignores it, as the reference's `_subs` does."""
     base = get_config(ARCH).reduced()
-    for kw, match in ((dict(moe_every=2), "moe_every 2"),
-                      (dict(shared_expert=True), "shared expert")):
-        with pytest.raises(NotImplementedError, match=match):
+    jbase = j_get_config(ARCH).reduced()
+    for kw, match in ((dict(moe_every=2, n_layers=3), "must be even"),
+                      (dict(moe_every=3), "moe_every 3")):
+        with pytest.raises((AssertionError, ValueError)):
+            JLM(dataclasses.replace(jbase, **kw)).plan()
+        with pytest.raises(ValueError, match=match):
             DecoderLM(dataclasses.replace(base, **kw))
-    with pytest.raises(NotImplementedError, match="shared-expert"):
-        DenseBlock(128, 4, 2, 32, 256, n_experts=4, shared_expert=True)
+    assert DecoderLM(dataclasses.replace(base, moe_every=2)).pair
+    blk = DenseBlock(128, 4, 2, 32, 256, n_experts=4, shared_expert=True)
+    assert blk.ffns == ("moe", "mlp") and blk._subs()["mlp"].name == (
+        "shared_mlp")
+    dense = DenseBlock(128, 4, 2, 32, 256, shared_expert=True)
+    assert dense.ffns == ("mlp",) and dense._subs()["mlp"].name == "mlp"
 
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "granite_3_2b",

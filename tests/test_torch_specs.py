@@ -5,8 +5,8 @@ reference.
   - `deploy_specs` equals the port's real deploy ("meta" stripped) and
     the reference's `deploy_specs`, paths, shapes and dtypes, on every
     reduced family `tests/test_dryrun_specs.py` lists (internvl2_76b's
-    embeds model too); llama4_maverick is not ported (ROADMAP item
-    10b): `DecoderLM` raises for it, so no spec is built;
+    embeds model and llama4_maverick's pairs too), and full-width
+    llama4_maverick's specs the reference's;
   - `float_param_specs` equals `init_np` and the reference's
     `float_param_specs`; `qstate_specs` and `cache_specs` (ID and FP)
     equal `init_qstate` and `init_caches`;
@@ -47,7 +47,8 @@ from repro_torch.models.lm import DecoderLM
 from repro_torch.sharding.rules import tree_map_with_path
 
 FAMILIES = ["granite_3_2b", "olmoe_1b_7b", "falcon_mamba_7b", "zamba2_1_2b",
-            "nemotron_4_340b", "musicgen_medium", "internvl2_76b"]
+            "nemotron_4_340b", "musicgen_medium", "internvl2_76b",
+            "llama4_maverick_400b_a17b"]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -99,11 +100,24 @@ def test_deploy_specs_match_real_deploy_and_reference(arch):
 
 
 def test_llama4_is_not_ported():
-    jcfg = j_get_config("llama4_maverick_400b_a17b").reduced()
-    cfg = ArchConfig(**{f.name: getattr(jcfg, f.name)
-                        for f in dataclasses.fields(ArchConfig)})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-        specs.deploy_specs(DecoderLM(cfg, max_seq=32))
+    """llama4_maverick is ported: at full width its deploy specs (the
+    pair's dense "a" and MoE "b" blocks, 24 of each, the shared MLP and
+    `sh_rqt` in "b"), float params and qstate equal the reference's,
+    paths, shapes and dtypes, and allocate nothing."""
+    arch = "llama4_maverick_400b_a17b"
+    lm = DecoderLM(get_config(arch), max_seq=4096)
+    jlm = JLM(j_get_config(arch), max_seq=4096)
+    spec = specs.deploy_specs(lm)
+    assert _all_meta(spec)
+    assert _port_map(spec) == _ref_map(j_specs.deploy_specs(jlm))
+    seg = spec["segments"][0]
+    assert set(seg) == {"a", "b"} and "moe" not in seg["a"]
+    assert tuple(seg["b"]["sh_rqt"]["m"].shape) == (24, 5120)
+    assert tuple(seg["b"]["moe"]["wg_q"].shape) == (24, 128, 5120, 8192)
+    assert _port_map(specs.float_param_specs(lm)) == _ref_map(
+        j_specs.float_param_specs(jlm))
+    assert _port_map(specs.qstate_specs(lm)) == _ref_map(
+        jax.eval_shape(jlm.init_qstate))
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

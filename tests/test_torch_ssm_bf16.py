@@ -19,7 +19,13 @@ as numpy tables):
     reference's (`SlotArena` for falcon_mamba_7b, the paged arena with
     `paged_kernel=False` for zamba2_1_2b) on prompts of 256, 128 and 9
     tokens: tokens, finish reasons, steps and the arena's h state bit
-    for bit after the drain.
+    for bit after the drain;
+  - `QMamba2` at n_groups 2 (8 heads, each group's B / C over 4 of
+    them; the reference's params and calibrator): the float forward
+    within 1e-5 of max |ref| and its ranges within 1e-5 of the span, the
+    deploy leaf for leaf, and `apply_id` at L 128 from a state in the
+    float32 and the bf16 island at tolerance 0 (accumulator, conv
+    window, h bit for bit).
 """
 import copy
 
@@ -191,3 +197,86 @@ def test_engine_tokens_and_state_equal_reference(arch, paged):
     np.testing.assert_array_equal(t.arena.caches["conv"].numpy(),
                                   want["conv"])
     assert _bits_differ(t.arena.caches["h"].numpy(), want["h"]) == 0
+
+
+# -- QMamba2 at n_groups 2 ----------------------------------------------------
+_GROUPS = {}
+
+
+def _two_groups():
+    """The reference's QMamba2 at n_groups 2 (8 heads, 4 a group):
+    params from PRNGKey(5), its calibrator on a 2 x 64 input, its
+    deploy; the port's layer and tables from the same."""
+    if not _GROUPS:
+        from repro.core.calibrate import Calibrator as JCalibrator
+        from repro.core.rep import Rep as JRep
+        from repro.layers.common import DeployCtx as JDeployCtx
+
+        kw = dict(d_state=16, expand=2, head_dim=32, n_groups=2)
+        jm, tm = JQMamba2(128, **kw), QMamba2(128, **kw)
+        p = _np(jm.init(jax.random.PRNGKey(5)))
+        x = np.random.default_rng(5).standard_normal((2, 64, 128)).astype(F32)
+        jc = JCalibrator()
+        y, _ = jm.apply_float(p, jnp.asarray(x), JRep.FP, calib=jc,
+                              scope="s.")
+        t_np, _ = jm.deploy(JDeployCtx(calib=jc), "s.", p, 0.05, 0)
+        _GROUPS.update(jm=jm, tm=tm, p=p, x=x, jc=jc, y=np.asarray(y),
+                       t_np=_np(t_np))
+    return _GROUPS
+
+
+def test_mamba2_two_groups_float_and_deploy_equal_reference():
+    """The float forward within 1e-5 of max |ref| (its observed ranges
+    within 1e-5 of the span), the deploy from the reference's ranges
+    leaf for leaf: d_conv_in 256 + 2 * 2 * 16."""
+    from repro_torch.core.calibrate import Calibrator
+    from repro_torch.layers.common import DeployCtx
+    from repro_torch.models.lm import params_to_torch
+
+    g = _two_groups()
+    tm = g["tm"]
+    assert tm.d_conv_in == 256 + 64 and g["p"]["conv_w"].shape == (4, 320)
+    tc = Calibrator()
+    y, _ = tm.apply_float(params_to_torch(g["p"], "cpu"),
+                          torch.from_numpy(g["x"]), tc, "s.")
+    assert float(np.abs(y.numpy() - g["y"]).max()) <= 1e-5 * float(
+        np.abs(g["y"]).max())
+    for n in g["jc"].hi:
+        span = max(g["jc"].hi[n] - g["jc"].lo[n], 1e-6)
+        assert abs(tc.hi[n] - g["jc"].hi[n]) <= 1e-5 * span, n
+        assert abs(tc.lo[n] - g["jc"].lo[n]) <= 1e-5 * span, n
+    t, _ = tm.deploy(DeployCtx(calib=g["jc"]), "s.", g["p"], 0.05, 0)
+    flat_j = jax.tree_util.tree_flatten_with_path(g["t_np"])[0]
+    assert len(flat_j) == len(jax.tree.leaves(t))
+    for path, a in flat_j:
+        b = t
+        for k in path:
+            b = b[k.key]
+        assert np.asarray(b).dtype == a.dtype, path
+        np.testing.assert_array_equal(np.asarray(b), a, err_msg=str(path))
+
+
+@pytest.mark.parametrize("island", ["f32", "bf16"])
+def test_mamba2_two_groups_apply_id_equals_reference(island):
+    """`apply_id` at L 128 (one chunk) from a state, each group's B / C
+    repeated over its four heads in the float32 and the bf16 island:
+    out_proj's accumulator and the conv window equal, h bit for bit."""
+    g = _two_groups()
+    jm, tm = g["jm"], g["tm"]
+    var = BF16 if island == "bf16" else {}
+    rng = np.random.default_rng(17)
+    s_x = rng.integers(-128, 128, (2, 128, 128)).astype(np.int8)
+    cache = {"conv": rng.integers(-128, 128, (2, 3, tm.d_conv_in)
+                                  ).astype(np.int8),
+             "h": (rng.standard_normal((2, 8, 32, 16)) * 0.1).astype(F32)}
+    with j_variants.use_variants(**var):
+        jo, jc = jax.jit(lambda t, s, c: jm.apply_id(t, s, cache=c))(
+            g["t_np"], s_x, cache)
+    with variants.use_variants(**var):
+        to, tc = tm.apply_id(tree_to_torch(g["t_np"], "cpu"),
+                             torch.from_numpy(s_x),
+                             {k: torch.from_numpy(v) for k, v in
+                              cache.items()})
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(tc["conv"].numpy(), np.asarray(jc["conv"]))
+    assert _bits_differ(tc["h"].numpy(), jc["h"]) == 0

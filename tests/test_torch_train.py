@@ -498,10 +498,11 @@ def test_fq_loss_embeds_and_gradients_equal_reference():
 
 
 def test_other_families_raise_on_training():
-    """What the port still does not train: llama4_maverick's pair
-    segments and shared expert (ROADMAP item 10b; the model is refused
-    at construction) and `build` of an embeds model (its stream feeds
-    token ids).  Every other family trains
+    """What the port still does not train: llama4_maverick cut to an odd
+    depth (its pairs need an even n_layers; the reference's plan asserts,
+    the port refuses at construction), a llama4 batch that does not
+    divide into MoE groups (the reference asserts) and `build` of an
+    embeds model (its stream feeds token ids).  Every other family trains
     (`tests/test_torch_train_moe.py`, `tests/test_torch_train_ssm.py`),
     the bf16 scan island (10c) too: under ``ssm_island_dtype="bf16"``
     the first train step's FQ loss of reduced falcon_mamba_7b and
@@ -510,10 +511,21 @@ def test_other_families_raise_on_training():
     jcfg = j_get_config("llama4_maverick_400b_a17b").reduced()
     cfg = ArchConfig(**{f.name: getattr(jcfg, f.name)
                         for f in dataclasses.fields(ArchConfig)})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-        DecoderLM(cfg, max_seq=SEQ)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10b"):
-        DecoderLM(dataclasses.replace(cfg, moe_every=1), max_seq=SEQ)
+    with pytest.raises(AssertionError):
+        JLM(dataclasses.replace(jcfg, n_layers=3), max_seq=SEQ).plan()
+    with pytest.raises(ValueError, match="must be even"):
+        DecoderLM(dataclasses.replace(cfg, n_layers=3), max_seq=SEQ)
+    lm, tr, _, _, _ = build("llama4_maverick_400b_a17b", reduced=True,
+                            seq=48, batch=2, device="cpu")
+    assert lm.pair and set(tr["qstate"]["segments"][0]) == {"a", "b"}
+    with pytest.raises(ValueError, match="MoE groups"):
+        lm.loss_fn(tr["params"], tr["qstate"],
+                   torch.zeros((2, 49), dtype=torch.int32), Rep.FQ)
+    jlm4, jtr4, _, _, _ = j_build("llama4_maverick_400b_a17b", reduced=True,
+                                  seq=48, batch=2)
+    with pytest.raises(AssertionError):
+        jlm4.loss_fn(jtr4["params"], jtr4["qstate"],
+                     jnp.zeros((2, 49), jnp.int32), JRep.FQ)
     for arch in ("falcon_mamba_7b", "zamba2_1_2b"):
         with variants.use_variants(ssm_island_dtype="bf16"), \
                 j_variants.use_variants(ssm_island_dtype="bf16"):

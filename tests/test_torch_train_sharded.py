@@ -69,8 +69,7 @@ LOSS_TOL = 1e-3
 GRAD_TOL = 2e-2
 # meshes that split the batch, each leaf's max |diff| over its max |value|
 SHARD_TOL = {"loss": 1e-6, "trainable": 1e-6, "moments": 2e-2}
-LM_ARCHS = [a for a in ARCH_IDS
-            if a not in ("nemo_cnn", "llama4_maverick_400b_a17b")]
+LM_ARCHS = [a for a in ARCH_IDS if a != "nemo_cnn"]
 
 
 @pytest.fixture(scope="module", autouse=True)
